@@ -1,0 +1,461 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+Phases, one line each (every failure exits non-zero):
+
+1. card   — ``nvidia-smi`` name and power limit;
+2. build  — compiles every ``src/repro_torch/csrc/*.cu`` with nvcc for
+            sm_90a into ``build/`` (one nvcc per source, in parallel);
+3. kernels — each hand-written kernel against its plain PyTorch version
+            on the card at the main path's shapes, with the tolerance
+            stated, its time, the plain version's time, one library
+            call's time (a yardstick only: the port never calls it) and
+            the least time the card could take for the same work;
+4. serve  — ``repro_torch.launch.serve`` at the full width of
+            qwen3-0.6b (q8_0 weights, paged KV, seeded random weights made
+            on the card), asserting that every q8_0 product and every
+            paged attention of the run went through the kernels
+            (197 and 28 launches per step), and one full-width decode step
+            (depth cut to 2 layers) against the plain CPU path;
+5. the ``kernels`` JSON line, then the device JSON line, last.
+
+It imports nothing of JAX and nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
+# bf16 tensor-core flop/s. The least time for a piece of work is the
+# larger of its bytes over the first and its flops over the second.
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+
+SERVE_ARGS = ["--arch", "qwen3-0.6b", "--quant", "q8_0", "--slots", "8",
+              "--chunk-size", "8", "--block-size", "16", "--num-blocks",
+              "256", "--requests", "16", "--prompt-len", "128", "--gen", "32",
+              "--arrival", "back2back"]
+# (name, N, K, launches per unified step) of matmul_q8_0 on the main path.
+MATMUL_SHAPES = [("q", 2048, 1024, 28), ("k", 1024, 1024, 28),
+                 ("v", 1024, 1024, 28), ("o", 1024, 2048, 28),
+                 ("gate", 3072, 1024, 28), ("up", 3072, 1024, 28),
+                 ("down", 1024, 3072, 28), ("lm_head", 151936, 1024, 1)]
+M_STEP = 64                                     # slots x chunk
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def bound(nbytes: float, flops: float):
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / BF16_FLOPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_ms(torch, fns, iters: int) -> float:
+    """Device ms per call: ``iters`` calls, cycling through ``fns``
+    (distinct operand copies, so weights stream from HBM and not from the
+    50 MB L2), captured in one CUDA graph and replayed, so the host's
+    launch overhead does not enter the figure."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for f in fns[:2]:
+            f()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fns[i % len(fns)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (3 * iters)
+
+
+def check_matmul(torch, dev):
+    from repro_torch.core.quant import dequant, pack
+    from repro_torch.kernels.q8_0_matmul import matmul_q8_0
+    from repro_torch.kernels.ref import matmul_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
+    worst = 0.0
+    shapes = MATMUL_SHAPES + [("ragged", 1000, 96, 0)]
+    for name, n, k, per_step in shapes:
+        m = 3 if name == "ragged" else M_STEP
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        w = torch.randn((n, k), generator=gen, device=dev) * 0.02
+        planes = pack.quantize(w, "q8_0")
+        y = matmul_q8_0(x, planes["qs"], planes["d"])
+        ref = matmul_ref(x, planes, "q8_0")
+        # The serving layers ask for bf16: the kernel's own f32 result,
+        # rounded once.
+        y16 = matmul_q8_0(x, planes["qs"], planes["d"],
+                          out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        # Same products, another summation order: the repo's 2e-5
+        # (tests/test_kernels.py) relative to the output's scale.
+        tol = 2e-5 * max(1.0, float(ref.abs().max()))
+        if not bool(torch.isfinite(y).all()) or err > tol \
+                or not torch.equal(y16, y.to(torch.bfloat16)):
+            fail(f"matmul_q8_0 {name} ({m}x{n}x{k}): max_abs_err {err:.3e} "
+                 f"> {tol:.3e}, or the bf16 output is not the f32 result "
+                 "rounded")
+        worst = max(worst, err)
+        wbytes = planes["qs"].numel() + 2 * planes["d"].numel()
+        copies = max(1, min(48, math.ceil(150e6 / wbytes)))
+        cps = [planes] + [{k2: v.clone() for k2, v in planes.items()}
+                          for _ in range(copies - 1)]
+        wf = [dequant.dequantize_q8_0(p) for p in cps]
+        xf = x.float()
+        iters = 20 if n * k > 1e8 else 100
+        launches0 = matmul_q8_0.launches
+        bf16 = torch.bfloat16               # the serving layers' form
+        t_k = time_ms(torch, [lambda p=p: matmul_q8_0(
+            x, p["qs"], p["d"], out_dtype=bf16) for p in cps], iters)
+        matmul_q8_0.launches = launches0     # timing launches do not count
+        t_p = time_ms(torch, [lambda p=p: matmul_ref(x, p, "q8_0").to(bf16)
+                              for p in cps], iters)
+        t_l = time_ms(torch, [lambda wq=wq: torch.matmul(xf, wq.T)
+                              for wq in wf], iters)
+        nbytes = wbytes + x.numel() * 2 + m * n * 2
+        flops = 2.0 * m * n * k
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"kernel matmul_q8_0 {name} M={m} N={n} K={k}: max_abs_err "
+              f"{err:.3e} (tol {tol:.3e}), bf16 out = f32 out rounded | "
+              f"bf16-out kernel {t_k:.4f} ms | plain "
+              f"{t_p:.4f} ms | library(torch.matmul f32, pre-dequantized) "
+              f"{t_l:.4f} ms | bound {b_ms:.4f} ms ({b_by})", flush=True)
+        for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                       ("bytes", nbytes), ("flops", flops)):
+            totals[key] += per_step * v
+        del cps, wf
+    b_ms, b_by = bound(totals["bytes"], totals["flops"])
+    print(f"kernel matmul_q8_0 per unified step (197 launches at M=64): "
+          f"kernel {totals['ms']:.4f} ms | plain {totals['plain_ms']:.4f} ms "
+          f"| library {totals['library_ms']:.4f} ms | bound {b_ms:.4f} ms "
+          f"({b_by})", flush=True)
+    return dict(name="matmul_q8_0", route="cuda",
+                source="src/repro_torch/csrc/q8_0_matmul.cu",
+                replaces="src/repro/kernels/q8_0_matmul.py:36",
+                max_abs_err=worst, ms=totals["ms"],
+                plain_ms=totals["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+                library_ms=totals["library_ms"])
+
+
+def _paged_case(torch, np, dev, dtype):
+    """Full-width paged attention operands: fragmented, permuted and
+    partly null tables, mixed lengths, every slot active."""
+    B, C, H, Hkv, D, bs, MB, nb = 8, 8, 16, 8, 128, 16, 16, 256
+    rng = np.random.RandomState(1)
+    perm = rng.permutation(nb)
+    owned = rng.randint(1, MB + 1, size=B)
+    owned[0] = MB
+    tables = np.full((B, MB), nb, np.int32)
+    pos = np.zeros(B, np.int32)
+    lens = rng.randint(1, C + 1, size=B).astype(np.int32)
+    for b in range(B):
+        tables[b, :owned[b]] = perm[b * MB:b * MB + owned[b]]
+        pos[b] = rng.randint(0, owned[b] * bs - lens[b] + 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    kp = torch.randn((nb + 1, bs, Hkv, D), generator=gen, device=dev)
+    vp = torch.randn((nb + 1, bs, Hkv, D), generator=gen, device=dev)
+    q = torch.randn((B, C, H, D), generator=gen, device=dev)
+    t = lambda a: torch.from_numpy(a).to(dev)     # noqa: E731
+    return dict(q=q.to(dtype), kp=kp.to(dtype), vp=vp.to(dtype),
+                tables=t(tables), pos=t(pos), lens=t(lens), np_tables=tables,
+                np_pos=pos, np_lens=lens, sm=D ** -0.5, bs=bs, MB=MB, nb=nb)
+
+
+def check_paged_attention(torch, np, dev):
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.ref import paged_attention_ref
+    worst = 0.0
+    # (dtype, rtol, atol): f32 is the blocked-online vs dense softmax
+    # reorder (tests/test_paged_attention_kernel.py FP32_TOL); bf16
+    # outputs round an f32 result, so they may differ by one bf16 ulp.
+    for dtype, rtol, atol in ((torch.float32, 2e-5, 2e-6),
+                              (torch.bfloat16, 2 ** -7, 1e-3)):
+        c = _paged_case(torch, np, dev, dtype)
+        args = (c["q"], c["kp"], c["vp"], c["tables"], c["pos"])
+        out = paged_decode_attention(*args, sm_scale=c["sm"],
+                                     lengths=c["lens"])
+        ref = paged_attention_ref(*args, sm_scale=c["sm"])
+        torch.cuda.synchronize()
+        err = 0.0
+        for b in range(out.shape[0]):
+            n = int(c["np_lens"][b])
+            o, r = out[b, :n].float(), ref[b, :n].float()
+            if not bool(torch.isfinite(o).all()) or \
+                    not torch.allclose(o, r, rtol=rtol, atol=atol):
+                fail(f"paged_decode_attention {dtype} slot {b}: max_abs_err "
+                     f"{float((o - r).abs().max()):.3e}")
+            err = max(err, float((o - r).abs().max()))
+        worst = max(worst, err)
+        # Every page a slot's walk never reaches (and the null page) full
+        # of NaN: the output must not change by one bit.
+        live = set()
+        for b in range(out.shape[0]):
+            last = (int(c["np_pos"][b]) + max(int(c["np_lens"][b]), 1) - 1) \
+                // c["bs"]
+            live.update(int(p) for p in c["np_tables"][b, :last + 1])
+        dead = torch.tensor([p for p in range(c["nb"] + 1) if p not in live],
+                            device=dev)
+        kp2, vp2 = c["kp"].clone(), c["vp"].clone()
+        kp2[dead] = float("nan")
+        vp2[dead] = float("nan")
+        out2 = paged_decode_attention(c["q"], kp2, vp2, c["tables"],
+                                      c["pos"], sm_scale=c["sm"],
+                                      lengths=c["lens"])
+        torch.cuda.synchronize()
+        if not torch.equal(out, out2):
+            fail(f"paged_decode_attention {dtype}: NaN in {len(dead)} dead "
+                 "pages changed the output")
+        print(f"kernel paged_decode_attention {dtype}: max_abs_err {err:.3e} "
+              f"(rtol {rtol:g} atol {atol:g}, valid rows) | {len(dead)} dead "
+              "pages NaN-filled: output bit-identical", flush=True)
+    # Timing at the serving dtype (bf16), the case above.
+    B, C, H, D = c["q"].shape
+    Hkv = c["kp"].shape[2]
+    G, bs = H // Hkv, c["bs"]
+    launches0 = paged_decode_attention.launches
+    t_k = time_ms(torch, [lambda: paged_decode_attention(
+        *args, sm_scale=c["sm"], lengths=c["lens"])], 200)
+    paged_decode_attention.launches = launches0
+    t_p = time_ms(torch, [lambda: paged_attention_ref(
+        *args, sm_scale=c["sm"])], 50)
+    # Library yardstick: SDPA over the gathered (B, H, S, D) view with the
+    # causal-depth mask, gathered outside the timed call.
+    kv = [x[c["tables"].long()].flatten(1, 2).repeat_interleave(G, dim=2)
+          .transpose(1, 2).contiguous() for x in (c["kp"], c["vp"])]
+    s = kv[0].shape[2]
+    depth = c["pos"].long()[:, None] + torch.arange(C, device=dev) + 1
+    mask = (torch.arange(s, device=dev)[None, None, :]
+            < depth[:, :, None])[:, None]             # (B, 1, C, S)
+    qh = c["q"].transpose(1, 2).contiguous()
+    t_l = time_ms(torch, [lambda: F.scaled_dot_product_attention(
+        qh, kv[0], kv[1], attn_mask=mask, scale=c["sm"])], 200)
+    keys = nbytes = flops = 0
+    for b in range(B):
+        last = (int(c["np_pos"][b]) + max(int(c["np_lens"][b]), 1) - 1) // bs
+        keys += (last + 1) * bs
+    nbytes = keys * Hkv * D * 2 * 2 + 2 * c["q"].numel() * 2 \
+        + c["tables"].numel() * 4 + 2 * B * 4
+    flops = keys * Hkv * (C * G) * 4 * D
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"kernel paged_decode_attention bf16 B={B} C={C} H={H} Hkv={Hkv} "
+          f"D={D} bs={bs}: kernel {t_k:.4f} ms | plain {t_p:.4f} ms | "
+          f"library(SDPA on gathered view) {t_l:.4f} ms | bound {b_ms:.5f} ms "
+          f"({b_by}) | per step x28: kernel {28 * t_k:.4f} ms", flush=True)
+    return dict(name="paged_decode_attention", route="cuda",
+                source="src/repro_torch/csrc/paged_attention.cu",
+                replaces="src/repro/kernels/paged_attention.py:156",
+                max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
+                bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l)
+
+
+def check_step_vs_cpu(torch, dev, params, cfg):
+    """One full-width decode step with depth cut to 2 layers: the kernels
+    on the card against the plain path on the CPU, same weights."""
+    import dataclasses
+    from repro_torch.models.api import build_model
+    small = dataclasses.replace(cfg, num_layers=2)
+    model = build_model(small)
+    cut = {k: (v[:2] if k == "layers0" else v) for k, v in params.items()}
+
+    def to(tree, d):
+        if isinstance(tree, dict):
+            return {k: to(v, d) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to(v, d) for v in tree]
+        return tree.to(d)
+
+    rng = torch.Generator().manual_seed(3)
+    B, C, bs, MB = 2, 8, 16, 4
+    tokens = torch.randint(0, cfg.vocab_size, (B, C), generator=rng,
+                           dtype=torch.int32)
+    pos = torch.tensor([0, 5], dtype=torch.int32)
+    lens = torch.tensor([8, 3], dtype=torch.int32)
+    tables = torch.tensor([[3, 1, 8, 8], [0, 2, 8, 8]], dtype=torch.int32)
+    shapes = model.paged_cache_shapes(B, 9, bs)
+    out = {}
+    for d in ("cpu", dev):
+        cache = {n: {k: torch.zeros(s, dtype=torch.bfloat16, device=d)
+                     for k, s in leaves.items()}
+                 for n, leaves in shapes.items()}
+        logits, _ = model.decode_step(
+            to(cut, d), tokens.to(d), pos.to(d), cache, quant="q8_0",
+            block_tables=tables.to(d), lengths=lens.to(d))
+        out[str(d)] = logits.float().cpu()
+    a, r = out[str(dev)], out["cpu"]
+    worst = 0.0
+    for b in range(B):
+        n = int(lens[b])
+        worst = max(worst, float((a[b, :n] - r[b, :n]).abs().max()))
+    scale = float(r.abs().max())
+    # Both sides round the activations to bf16 after every op, in another
+    # summation order; with these weights that has come to ~2e-2 against
+    # a max |logit| of ~3, so 1e-2 x max|logit| is ~1.5x the readings and
+    # tight enough that one layer's attention going wrong shows.
+    rel = 1e-2
+    if a.shape != (B, C, cfg.vocab_size) or not bool(torch.isfinite(a).all()) \
+            or worst > rel * scale:
+        fail(f"full-width step (2 layers) card vs CPU: max_abs_err {worst:.3e}"
+             f" vs max|logit| {scale:.3e}")
+    print(f"step check: full-width qwen3-0.6b q8_0, 2 layers, card kernels "
+          f"vs CPU plain: logits {tuple(a.shape)} finite, max_abs_err "
+          f"{worst:.3e} (bound {rel:g} x max|logit| = {rel * scale:.3e})",
+          flush=True)
+
+
+def profile_serve(torch, serve, cfg, model, params, dev) -> None:
+    """Where a serve step's time goes: a shorter stream of the same shape
+    under torch.profiler, device time by kernel against the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    ap = serve.build_parser()
+    args = ap.parse_args(SERVE_ARGS[:-8] + ["--requests", "8", "--prompt-len",
+                                            "128", "--gen", "8", "--arrival",
+                                            "back2back"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, rep, _ = serve.run_stream(cfg, model, params, args, dev)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    # Device-side events only: a CPU op's device time repeats the time of
+    # the kernels it launched, which appear as events of their own.
+    events = [e for e in prof.key_averages()
+              if e.device_type != torch.autograd.DeviceType.CPU
+              and dev_us(e) > 0]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    wall_ms = sum(rep.stats.step_s) * 1e3
+    steps = rep.stats.steps
+    if not events:
+        print("profile: the profiler recorded no device time (not measured)",
+              flush=True)
+        return
+    print(f"profile: {steps} steps of a {args.requests}-request stream: "
+          f"step wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}% of step wall, idle "
+          f"{100 - 100 * busy_ms / wall_ms:.1f}%)", flush=True)
+    for e in sorted(events, key=dev_us, reverse=True)[:8]:
+        print(f"profile:   device {dev_us(e) / 1e3 / steps:8.3f} ms/step "
+              f"{e.count / steps:7.1f} calls/step  {e.key[:90]}", flush=True)
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    for e in host[:8]:
+        print(f"profile:   host {e.self_cpu_time_total / 1e3 / steps:8.3f} "
+              f"ms/step {e.count / steps:7.1f} calls/step  {e.key[:90]}",
+              flush=True)
+
+
+def main() -> None:
+    try:
+        import numpy as np
+        import torch
+    except ImportError as e:
+        fail(f"missing dependency: {e}")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: chip_smoke needs a CUDA "
+             "device")
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        fail("src/repro_torch not found next to chip_smoke.py: run it from "
+             "a checkout of the repository")
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=False)
+    if smi.returncode != 0 or not smi.stdout.strip():
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}"
+          f" | {torch.cuda.get_device_name(0)}", flush=True)
+
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    try:
+        libs = _build.build_all()
+    except Exception as e:                              # noqa: BLE001
+        fail(f"kernel build: {e}")
+    print(f"build: {len(libs)} kernel libraries ready in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc, one process per source)"
+          f" -> {', '.join(p.name for p in libs.values())}", flush=True)
+
+    kernels = [check_matmul(torch, dev), check_paged_attention(torch, np, dev)]
+
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.q8_0_matmul import matmul_q8_0
+    from repro_torch.launch import serve
+    ap = serve.build_parser()
+    args = ap.parse_args(SERVE_ARGS)
+    serve.validate_args(ap, args)
+    cfg = serve.get_config(args.arch)
+    model = serve.build_model(cfg)
+    t0 = time.perf_counter()
+    params = serve.build_params(model, args, dev)
+    torch.cuda.synchronize()
+    print(f"serve setup: full-width {cfg.name} ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}) q8_0 weights made "
+          f"on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    matmul_q8_0.launches = 0
+    paged_decode_attention.launches = 0
+    engine, report, reqs = serve.run_stream(cfg, model, params, args, dev)
+    launches = {"matmul_q8_0": matmul_q8_0.launches,
+                "paged_decode_attention": paged_decode_attention.launches}
+    for line in serve.report_lines(engine, report, args.requests):
+        print(f"serve: {line}", flush=True)
+    steps = report.stats.steps
+    if len(report.sequences) != len(reqs) or any(
+            len(s.generated) != args.gen
+            or not all(0 <= t < cfg.vocab_size for t in s.generated)
+            for s in report.sequences):
+        fail("serve: not every request completed with in-vocab tokens")
+    want = {"matmul_q8_0": 197 * steps, "paged_decode_attention": 28 * steps}
+    if launches != want:
+        fail(f"serve: launches {launches} != {want} for {steps} steps")
+    print(f"serve: kernels launched {launches} over {steps} steps "
+          "(197 and 28 per step)", flush=True)
+    check_step_vs_cpu(torch, dev, params, cfg)
+    profile_serve(torch, serve, cfg, model, params, dev)
+
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,43 @@
+"""Architecture registry for the port: ``--arch <id>`` resolution.
+
+Only the dense qwen3 family is ported so far (the paper's own
+evaluation models). Every other architecture of ``repro`` waits for the
+ROADMAP item that ports its layers; asking for one names that item.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.qwen3_0_6b import CONFIG as _qwen3_0_6b
+from repro_torch.configs.qwen3_1_7b import CONFIG as _qwen3_1_7b
+from repro_torch.configs.qwen3_8b import CONFIG as _qwen3_8b
+
+ARCHS: Dict[str, ModelConfig] = {
+    c.name: c for c in [_qwen3_0_6b, _qwen3_1_7b, _qwen3_8b]
+}
+
+# Architectures of the JAX package not ported yet -> the ROADMAP item
+# that ports them.
+PENDING: Dict[str, str] = {
+    "llama3.2-3b": "ROADMAP A20 (remaining dense configs)",
+    "qwen2-72b": "ROADMAP A20 (remaining dense configs: qkv bias)",
+    "llama3-405b": "ROADMAP A20 (remaining dense configs)",
+    "qwen2-vl-2b": "ROADMAP A16 (vlm M-RoPE path)",
+    "jamba-v0.1-52b": "ROADMAP A16 (ssm/hybrid)",
+    "deepseek-v3-671b": "ROADMAP A15 (MLA + MoE)",
+    "granite-moe-3b-a800m": "ROADMAP A15 (MoE)",
+    "whisper-small": "ROADMAP A16 (encdec)",
+    "mamba2-1.3b": "ROADMAP A16 (ssm)",
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    """The ported config called ``name``; raises for any other name."""
+    if name in ARCHS:
+        return ARCHS[name]
+    if name in PENDING:
+        raise NotImplementedError(
+            f"arch {name!r} is not ported to repro_torch yet: "
+            f"{PENDING[name]}")
+    raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")

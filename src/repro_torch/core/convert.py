@@ -1,0 +1,99 @@
+"""Parameter conversion: quantize dense parameters into a recipe, and carry
+the JAX package's parameters into the port's layout.
+
+``quantize_params`` is the llama.cpp "model quantization" stage, after
+``repro.core.convert.quantize_params``: every linear/embedding weight is
+quantized per the recipe, norms stay high precision (paper §III.B).
+
+``params_from_jax`` takes the JAX package's parameter tree *as numpy
+arrays* (the caller does the ``np.asarray``; this module never imports
+JAX) and returns the port's tree on ``device``: each ``jax.vmap``-stacked
+layer group (``repro.models.lm.lm_init``) becomes a list of per-layer
+dicts. bf16 leaves travel as their uint16 bit pattern, because
+``torch.from_numpy`` rejects ``ml_dtypes.bfloat16``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.quant import pack
+from repro_torch.core.quant.formats import RECIPES
+from repro_torch.models.lm import layer_groups
+
+_NORM_KEYS = {"mixer_norm", "ffn_norm", "final_norm", "q_norm", "k_norm"}
+_EMBED_KEYS = {"embed", "lm_head"}
+
+
+def _is_linear_node(node: Any) -> bool:
+    return (isinstance(node, dict) and isinstance(node.get("w"), torch.Tensor)
+            and node["w"].ndim >= 2)
+
+
+def _quantize_leaf_dict(node: Dict, fmt: str) -> Dict:
+    w = node["w"]
+    if fmt == "none":
+        out = {"w": w.to(torch.bfloat16)}
+    else:
+        out = dict(pack.quantize(w.to(torch.float32), fmt))
+    if "b" in node:
+        out["b"] = node["b"]
+    return out
+
+
+def quantize_params(params: Dict, quant: str) -> Dict:
+    """Dense params tree -> quantized tree (recipe ``quant``)."""
+    recipe = RECIPES[quant] if quant != "none" else None
+
+    def walk(node, path):
+        if _is_linear_node(node):
+            key = path[-1] if path else ""
+            if recipe is None:
+                fmt = "none"
+            elif key in _EMBED_KEYS:
+                fmt = recipe["embed"]
+            else:
+                fmt = recipe["linear"]
+            return _quantize_leaf_dict(node, fmt)
+        if isinstance(node, dict):
+            return {k: v if k in _NORM_KEYS else walk(v, path + (k,))
+                    for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, path) for v in node]
+        return node
+
+    return walk(params, ())
+
+
+def _to_torch(a: np.ndarray, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.array(a.view(np.uint16))).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))
+    return t.to(device)
+
+
+def _map(node, fn):
+    if isinstance(node, dict):
+        return {k: _map(v, fn) for k, v in node.items()}
+    return fn(node)
+
+
+def params_from_jax(np_tree: Dict, cfg: ModelConfig, *,
+                    device="cuda") -> Dict:
+    """The JAX package's parameter tree (numpy leaves) as the port's tree
+    on ``device``: layer groups unstacked into lists of per-layer dicts,
+    every other leaf converted as is."""
+    groups = {name: count for name, count, _ in layer_groups(cfg)}
+    out = {}
+    for key, node in np_tree.items():
+        if key in groups:
+            out[key] = [_map(node, lambda a, i=i: _to_torch(a[i], device))
+                        for i in range(groups[key])]
+        else:
+            out[key] = _map(node, lambda a: _to_torch(a, device))
+    return out

@@ -1,0 +1,222 @@
+"""Serving launcher for the port — continuous-batching request-stream driver.
+
+The stream mode of ``repro.launch.serve`` with the same flags, plus
+``--device``: it replays a stream of requests (Poisson or back-to-back
+arrivals) through the paged-arena engine and reports completions, step
+time, throughput and the transfer ledger. ``build_stream`` is the JAX
+launcher's, so with the same ``--seed`` both serves see the same
+requests. Weights are random, made from ``--seed`` on the device.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+      --quant q8_0 --slots 8 --chunk-size 8 --block-size 16 \
+      --num-blocks 256 --requests 16 --prompt-len 128 --gen 32 \
+      --arrival back2back
+
+The card is the default device. Without one the launcher exits with an
+error unless ``--device cpu`` asks for the plain CPU path explicitly.
+Flags whose feature is not ported yet are refused with the ROADMAP item
+that ports them.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import get_config
+from repro_torch.core import convert
+from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.kernels.q8_0_matmul import matmul_q8_0
+from repro_torch.models.api import build_model
+from repro_torch.runtime.engine import ServingEngine
+from repro_torch.runtime.request import Request, SamplingParams
+
+
+def make_extras(cfg, batch: int):
+    """Per-request frontend stubs: dense models take none (vlm/encdec
+    stubs come with ROADMAP A16)."""
+    return {}
+
+
+def build_stream(cfg, args, rng: np.random.RandomState):
+    """Request stream with randomized lengths + Poisson/back-to-back
+    arrival offsets."""
+    lo = max(args.prompt_len // 2, 2)
+    samp = SamplingParams(temperature=args.temperature)
+    shared = rng.randint(0, cfg.vocab_size, args.shared_prefix) \
+        if args.shared_prefix else None
+    t = 0.0
+    reqs = []
+    for i in range(args.requests):
+        L = int(rng.randint(lo, args.prompt_len + 1))
+        if args.arrival == "poisson" and args.rate > 0:
+            t += float(rng.exponential(1.0 / args.rate))
+        extras = make_extras(cfg, 1)
+        tokens = rng.randint(0, cfg.vocab_size, L)
+        if shared is not None:
+            # system-prompt workload: every request opens with the same
+            # token prefix (what --prefix-cache deduplicates)
+            tokens = np.concatenate([shared, tokens])
+        reqs.append(Request(
+            rid=i, tokens=tokens,
+            max_new_tokens=args.gen, sampling=samp,
+            arrival_s=t if args.arrival == "poisson" else 0.0,
+            extras=extras or None))
+    return reqs
+
+
+def build_params(model, args, device):
+    """Seeded random weights at the config's widths, made on ``device``
+    as the JAX launcher does (bf16 init, then the quantization stage)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    params = model.init(gen)
+    if args.quant != "none":
+        params = convert.quantize_params(params, args.quant)
+    return params
+
+
+def run_stream(cfg, model, params, args, device):
+    """Serve the stream; returns (engine, report, requests)."""
+    rng = np.random.RandomState(args.seed)
+    reqs = build_stream(cfg, args, rng)
+    max_seq = args.max_seq or (args.shared_prefix + args.prompt_len
+                               + args.gen)
+    engine = ServingEngine(
+        model, params, quant=args.quant, num_slots=args.slots,
+        max_seq=max_seq, chunk_size=args.chunk_size,
+        block_size=args.block_size or None,
+        num_blocks=args.num_blocks or None,
+        paged_attn=args.paged_attn or "fused",
+        host_sampling=args.host_sampling, device=device)
+    report = engine.serve(reqs, seed=args.seed)
+    return engine, report, reqs
+
+
+def report_lines(engine, report, total_requests: int):
+    """The serve report: completions, steps, throughput, step time,
+    latency percentiles, the ledger and the kernels' launch counts."""
+    st = report.stats
+    lat = report.latency_percentiles()
+    lines = [
+        f"completed {len(report.sequences)}/{total_requests} requests | "
+        f"steps {st.steps} | preemptions {report.sched.preemptions} | "
+        f"mean occupancy {report.sched.mean_occupancy:.2f}",
+        f"tokens: prompt {st.prefill_tokens} generated {st.decode_tokens} | "
+        f"throughput {report.throughput_tok_s:.1f} tok/s | "
+        f"p50 step {report.step_ms_percentile(50):.2f} ms "
+        f"p90 step {report.step_ms_percentile(90):.2f} ms",
+        f"latency p50 {lat[50]*1e3:.1f} ms p90 {lat[90]*1e3:.1f} ms "
+        f"p99 {lat[99]*1e3:.1f} ms | arena {st.cache_bytes/1e6:.1f} MB "
+        f"peak resident {st.peak_resident_bytes/1e6:.1f} MB | "
+        f"paged KV reads {st.paged_kv_read_bytes/1e6:.1f} MB",
+    ]
+    lines += report.ledger.summary_lines(
+        {"prefill": st.prefill_s, "decode": st.decode_s})
+    lines.append(f"kernels: matmul_q8_0 launches {matmul_q8_0.launches} | "
+                 f"paged_decode_attention launches "
+                 f"{paged_decode_attention.launches}")
+    return lines
+
+
+def validate_args(ap, args) -> None:
+    """Fail fast on flags whose feature is not ported, or that do not
+    combine — never silently measure a different configuration."""
+    refused = [
+        (args.mode != "stream", "--mode batch (lockstep Engine) is "
+                                "ROADMAP A10"),
+        (args.spec != "off" or args.spec_k is not None
+         or args.spec_draft_model, "--spec is ROADMAP A12"),
+        (args.prefix_cache or args.shared_prefix, "--prefix-cache and "
+                                                  "--shared-prefix are "
+                                                  "ROADMAP A13"),
+        (args.kv_quant != "none", "--kv-quant is ROADMAP A14"),
+        (args.dp * args.tp != 1, "--dp/--tp are ROADMAP A17"),
+        (args.metrics_out or args.trace, "--metrics-out/--trace "
+                                         "(telemetry) are ROADMAP A11"),
+        (args.offload_policy, "--offload-policy needs the IMAX model, "
+                              "ROADMAP A15"),
+        (not args.block_size, "the contiguous arena (no --block-size) is "
+                              "ROADMAP A9"),
+    ]
+    for bad, why in refused:
+        if bad:
+            ap.error(f"not ported to repro_torch: {why}")
+    if args.num_blocks and not args.block_size:
+        ap.error("--num-blocks requires --block-size (paged arena)")
+
+
+def resolve_device(ap, args) -> torch.device:
+    """``cuda`` unless ``--device cpu``; no card and no explicit CPU
+    request is an error, never a silent CPU run."""
+    if args.device == "cuda" and not torch.cuda.is_available():
+        ap.error("--device cuda (the default) but no CUDA device is "
+                 "available; pass --device cpu to run the plain CPU path")
+    return torch.device(args.device)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--quant", default="none",
+                    choices=["none", "fp16", "q8_0", "q3_k_s", "q6_k"])
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--mode", default="stream", choices=["stream", "batch"])
+    ap.add_argument("--chunk-size", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--block-size", type=int, default=0)
+    ap.add_argument("--num-blocks", type=int, default=0)
+    ap.add_argument("--paged-attn", default=None, choices=["fused", "ref"])
+    ap.add_argument("--spec", default="off",
+                    choices=["off", "ngram", "draft"])
+    ap.add_argument("--spec-k", type=int, default=None)
+    ap.add_argument("--spec-draft-model", default=None)
+    ap.add_argument("--kv-quant", default="none", choices=["none", "int8"])
+    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--shared-prefix", type=int, default=0)
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--arrival", default="poisson",
+                    choices=["poisson", "back2back"])
+    ap.add_argument("--rate", type=float, default=8.0)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--max-seq", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--offload-policy", action="store_true")
+    ap.add_argument("--host-sampling", action="store_true")
+    ap.add_argument("--metrics-out", default=None)
+    ap.add_argument("--trace", default=None)
+    return ap
+
+
+def main(argv=None) -> None:
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    validate_args(ap, args)
+    device = resolve_device(ap, args)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build_model(cfg)
+    params = build_params(model, args, device)
+    engine, report, _ = run_stream(cfg, model, params, args, device)
+    arena = engine.arena
+    print(f"arch={cfg.name} quant={args.quant} device={device} "
+          f"stream={args.requests} reqs ({args.arrival}) slots={args.slots} "
+          f"paged[{arena.num_blocks}x{arena.block_size} "
+          f"attn={engine.paged_attn}] prefill=chunked[{engine.chunk_size}] "
+          f"gen={args.gen}")
+    for line in report_lines(engine, report, args.requests):
+        print(f"  {line}")
+    print(f"  first request tokens: {report.sequences[0].generated[:8]}")
+    sys.stdout.flush()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,165 @@
+"""Shared model layers (plain functions on tensors), ported from
+``repro.models.layers``.
+
+Per the paper's task partitioning (Fig. 4), RMSNorm / RoPE / embedding /
+softmax are "host-side" ops: plain torch, never quantized (norm weights
+stay high precision, §III.B). Linear projections route through
+``linear_apply``, which speaks the quantized plane formats via
+``kernels.ops.quantized_matmul``. Randomness comes from an explicit
+``torch.Generator``.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.quant import dequant, pack
+from repro_torch.core.quant.formats import RECIPES
+from repro_torch.kernels import ops as kops
+
+Params = Dict[str, torch.Tensor]
+
+
+# ----------------------------------------------------------------------
+# Linear (quantization-aware)
+# ----------------------------------------------------------------------
+def linear_init(gen: torch.Generator, d_in: int, d_out: int,
+                fmt: str = "none", bias: bool = False,
+                scale: Optional[float] = None,
+                dtype=torch.bfloat16) -> Params:
+    scale = scale if scale is not None else d_in ** -0.5
+    w = torch.randn((d_out, d_in), generator=gen, device=gen.device,
+                    dtype=torch.float32) * scale
+    p = quantize_linear_weight(w, fmt, dtype)
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=gen.device)
+    return p
+
+
+def quantize_linear_weight(w: torch.Tensor, fmt: str,
+                           dtype=torch.bfloat16) -> Params:
+    if fmt == "none":
+        return {"w": w.to(dtype)}
+    return dict(pack.quantize(w, fmt))
+
+
+def linear_apply(p: Params, x: torch.Tensor, fmt: str = "none") -> torch.Tensor:
+    if fmt == "none":
+        y = x @ p["w"].to(x.dtype).T
+    else:
+        y = kops.quantized_matmul(x, {k: v for k, v in p.items() if k != "b"},
+                                  fmt, out_dtype=x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+# ----------------------------------------------------------------------
+# Norms ("host-side": always high precision)
+# ----------------------------------------------------------------------
+def rmsnorm_init(d: int, device) -> Params:
+    return {"g": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * g in f32, cast back to x's dtype."""
+    y = F.rms_norm(x.to(torch.float32), (x.shape[-1],), p["g"], eps)
+    return y.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# Embedding (quantizable table; lookup is host-side gather + dequant)
+# ----------------------------------------------------------------------
+def embedding_init(gen: torch.Generator, vocab: int, d: int,
+                   fmt: str = "none", dtype=torch.bfloat16) -> Params:
+    w = torch.randn((vocab, d), generator=gen, device=gen.device,
+                    dtype=torch.float32) * 0.02
+    if fmt == "none":
+        return {"w": w.to(dtype)}
+    return dict(pack.quantize(w, fmt))
+
+
+def embedding_lookup(p: Params, tokens: torch.Tensor, fmt: str = "none",
+                     dtype=torch.bfloat16, width: int = 0) -> torch.Tensor:
+    """Gather rows, dequantizing just the gathered rows for quant formats.
+    ``width``: original embedding width (dequant may return K-quant padded
+    rows; sliced back here)."""
+    if fmt == "none" or fmt == "fp16":
+        return p["w"].to(dtype)[tokens]
+    flat_ids = tokens.reshape(-1).long()
+    gathered = {k: v[flat_ids] for k, v in p.items()}
+    flat = dequant.DEQUANTIZERS[fmt](gathered)
+    if width:
+        flat = flat[..., :width]
+    d = flat.shape[-1]
+    return flat.reshape(*tokens.shape, d).to(dtype)
+
+
+def embedding_logits(p: Params, x: torch.Tensor,
+                     fmt: str = "none") -> torch.Tensor:
+    """Tied lm_head: logits = x @ E^T (offloadable dot product)."""
+    if fmt == "none" or fmt == "fp16":
+        return x @ p["w"].to(x.dtype).T
+    return kops.quantized_matmul(x, p, fmt, out_dtype=x.dtype)
+
+
+# ----------------------------------------------------------------------
+# RoPE (host-side)
+# ----------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
+    """(cos, sin) tables for ``rope_rotate``, each (B, S, 1, D) f32, for
+    positions (B, S) int: cos repeated over both halves, sin negated on
+    the first half."""
+    freqs = rope_freqs(head_dim, theta, positions.device)   # (D/2,)
+    ang = positions[..., None].to(torch.float32) * freqs     # (B, S, D/2)
+    cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
+    return torch.cat([cos, cos], dim=-1), torch.cat([-sin, sin], dim=-1)
+
+
+def rope_rotate(x: torch.Tensor, cos: torch.Tensor,
+                sin: torch.Tensor) -> torch.Tensor:
+    """Rotate x (B, S, H, D) by ``rope_cos_sin`` tables: halves (x1, x2)
+    become (x1*cos - x2*sin, x2*cos + x1*sin), the same products and sums
+    as the JAX package's, in fewer launches."""
+    xf = x.to(torch.float32)
+    x1, x2 = xf.chunk(2, dim=-1)
+    out = xf * cos + torch.cat([x2, x1], dim=-1) * sin
+    return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, D); positions: (B, S) int."""
+    return rope_rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
+
+
+# ----------------------------------------------------------------------
+# SwiGLU MLP (gate/up/down are offloadable dot products)
+# ----------------------------------------------------------------------
+def swiglu_init(gen: torch.Generator, d: int, d_ff: int,
+                fmt: str = "none") -> Params:
+    return {
+        "gate": linear_init(gen, d, d_ff, fmt),
+        "up": linear_init(gen, d, d_ff, fmt),
+        "down": linear_init(gen, d_ff, d, fmt),
+    }
+
+
+def swiglu_apply(p: Params, x: torch.Tensor, fmt: str = "none") -> torch.Tensor:
+    g = linear_apply(p["gate"], x, fmt)
+    u = linear_apply(p["up"], x, fmt)
+    h = F.silu(g.to(torch.float32)).to(x.dtype) * u
+    return linear_apply(p["down"], h, fmt)
+
+
+def recipe_for(quant: str) -> Dict[str, str]:
+    return RECIPES.get(quant, RECIPES["fp16"]) if quant != "none" else {
+        "linear": "none", "embed": "none", "norm": "fp16"}

@@ -1,0 +1,162 @@
+"""Decoder-only LM assembly, dense family, ported from ``repro.models.lm``.
+
+Parameters are plain dicts of tensors. The JAX package stacks each layer
+group along a leading axis and scans over it (``jax.lax.scan``); here a
+group is a Python list of per-layer dicts and the step is a Python loop
+over the layer index. The paged KV cache keeps the stacked layout
+``{group: {"k": (layers, NP, bs, Hkv, D), "v": ...}}``, and layer ``i``
+writes its pages in place through the view ``cache[group]["k"][i]``.
+
+Only the dense family (GQA mixer + SwiGLU FFN) is ported; MoE, MLA, SSM,
+hybrid, enc-dec and vlm wait for ROADMAP A15/A16.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers
+from repro_torch.models.layers import Params
+
+
+def _mixer_kind(cfg: ModelConfig, li: int) -> str:
+    if cfg.family == "ssm":
+        return "ssm"
+    if cfg.family == "hybrid":
+        return "gqa" if (li % cfg.attn_period) == cfg.attn_offset else "ssm"
+    if cfg.mla is not None:
+        return "mla"
+    return "gqa"
+
+
+def _ffn_kind(cfg: ModelConfig, li: int) -> str:
+    if cfg.family == "ssm":
+        return "none"
+    if cfg.family == "hybrid":
+        return "moe" if (cfg.moe_period and li % cfg.moe_period == 1) \
+            else "dense"
+    if cfg.moe is not None:
+        return "moe" if li >= cfg.moe.first_dense_layers else "dense"
+    return "dense"
+
+
+def layer_groups(cfg: ModelConfig):
+    """Returns list of (group_name, count, [(mixer, ffn), ...per sub-layer])
+    — the same groups (and names) as the JAX package."""
+    if cfg.family == "hybrid":
+        period = cfg.attn_period
+        assert cfg.num_layers % period == 0
+        subs = [(_mixer_kind(cfg, i), _ffn_kind(cfg, i))
+                for i in range(period)]
+        return [("blocks", cfg.num_layers // period, subs)]
+    sigs = [(_mixer_kind(cfg, i), _ffn_kind(cfg, i))
+            for i in range(cfg.num_layers)]
+    groups = []
+    start = 0
+    for i in range(1, cfg.num_layers + 1):
+        if i == cfg.num_layers or sigs[i] != sigs[start]:
+            groups.append((f"layers{len(groups)}", i - start, [sigs[start]]))
+            start = i
+    return groups
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    for _, _, subs in layer_groups(cfg):
+        if subs != [("gqa", "dense")]:
+            raise NotImplementedError(
+                f"{cfg.name}: only dense GQA layers are ported (got {subs}); "
+                "MoE/MLA are ROADMAP A15, SSM/hybrid/encdec/vlm A16")
+
+
+def layer_init(gen: torch.Generator, cfg: ModelConfig, fmt: str) -> Params:
+    return {
+        "mixer_norm": layers.rmsnorm_init(cfg.d_model, gen.device),
+        "attn": attn.gqa_init(gen, cfg, fmt),
+        "ffn_norm": layers.rmsnorm_init(cfg.d_model, gen.device),
+        "ffn": layers.swiglu_init(gen, cfg.d_model, cfg.d_ff, fmt),
+    }
+
+
+def lm_init(gen: torch.Generator, cfg: ModelConfig,
+            quant: str = "none") -> Params:
+    """Random parameters on ``gen.device`` from the generator's stream."""
+    _check_dense(cfg)
+    recipe = layers.recipe_for(quant)
+    fmt_lin, fmt_emb = recipe["linear"], recipe["embed"]
+    params: Params = {
+        "embed": layers.embedding_init(gen, cfg.vocab_size, cfg.d_model,
+                                       fmt_emb),
+        "final_norm": layers.rmsnorm_init(cfg.d_model, gen.device),
+    }
+    for name, count, _ in layer_groups(cfg):
+        params[name] = [layer_init(gen, cfg, fmt_lin) for _ in range(count)]
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.linear_init(
+            gen, cfg.d_model, cfg.vocab_size, fmt_emb)
+    return params
+
+
+def layer_decode(p: Params, cfg: ModelConfig, h: torch.Tensor,
+                 position: torch.Tensor, cache: Dict, *, fmt: str,
+                 block_tables: torch.Tensor, lengths=None,
+                 paged_impl: str = "fused",
+                 step: Optional[attn.PagedStep] = None) -> torch.Tensor:
+    """Decode layer step over a chunk of C tokens; writes this layer's
+    pages in ``cache`` in place. Returns h."""
+    hn = layers.rmsnorm_apply(p["mixer_norm"], h, cfg.norm_eps)
+    mix, _ = attn.gqa_decode(p["attn"], cfg, hn, position, cache, fmt=fmt,
+                             block_tables=block_tables, lengths=lengths,
+                             paged_impl=paged_impl, step=step)
+    h = h + mix
+    hn = layers.rmsnorm_apply(p["ffn_norm"], h, cfg.norm_eps)
+    return h + layers.swiglu_apply(p["ffn"], hn, fmt)
+
+
+def _lm_head(params, cfg: ModelConfig, h, quant: str):
+    recipe = layers.recipe_for(quant)
+    if cfg.tie_embeddings:
+        return layers.embedding_logits(params["embed"], h, recipe["embed"])
+    return layers.linear_apply(params["lm_head"], h, recipe["embed"])
+
+
+def lm_decode_step(params, cfg: ModelConfig, token: torch.Tensor,
+                   position: torch.Tensor, cache: Dict, *, quant="none",
+                   block_tables: torch.Tensor, lengths=None,
+                   paged_impl="fused"):
+    """token: (B, C) int — a chunk of consecutive tokens per slot;
+    position: (B,) int base positions (chunk entry i sits at base + i);
+    cache: the paged arena's buffers (written in place). Returns
+    (logits (B, C, V) in the activation dtype bf16, cache).
+
+    ``lengths``: (B,) valid chunk entries per row — cache writes past a
+    row's length are dropped, and its tail logits are garbage by contract
+    (the engine samples at index ``lengths - 1``)."""
+    recipe = layers.recipe_for(quant)
+    fmt = recipe["linear"]
+    h = layers.embedding_lookup(params["embed"], token, recipe["embed"],
+                                torch.bfloat16, width=cfg.d_model)
+    step = None
+    for name, count, _ in layer_groups(cfg):
+        group = cache[name]
+        for i, lp in enumerate(params[name]):
+            layer_cache = {"k": group["k"][i], "v": group["v"][i]}
+            if step is None:        # one routing/RoPE plan for all layers
+                step = attn.paged_step(cfg, position, block_tables, lengths,
+                                       layer_cache["k"], token.shape[1])
+            h = layer_decode(lp, cfg, h, position, layer_cache, fmt=fmt,
+                             block_tables=block_tables, lengths=lengths,
+                             paged_impl=paged_impl, step=step)
+    h = layers.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
+    return _lm_head(params, cfg, h, quant), cache
+
+
+def lm_cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> Dict:
+    """Cache shapes per layer group (leading layer axis)."""
+    out = {}
+    for name, count, subs in layer_groups(cfg):
+        shape = attn.gqa_cache_shape(cfg, batch, seq)
+        out[name] = {k: (count,) + v for k, v in shape.items()}
+    return out

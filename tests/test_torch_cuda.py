@@ -1,0 +1,100 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These tests need an NVIDIA GPU with the CUDA toolkit (the first one
+builds the kernels into ``build/``); without a card each one skips. On
+the card:
+
+    PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
+
+Tolerances: the q8_0 matmul does the plain version's f32 products in
+another summation order (the repo's 2e-5 of tests/test_kernels.py,
+relative to the output's scale); paged attention in f32 is the blocked
+online vs dense softmax reorder (FP32_TOL of
+tests/test_paged_attention_kernel.py).
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.quant import pack  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    paged_decode_attention)
+from repro_torch.kernels.q8_0_matmul import matmul_q8_0  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    matmul_ref, paged_attention_ref)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mnk", [(1, 64, 32), (3, 1000, 96), (64, 1024, 1024),
+                                 (70, 300, 2048)])
+def test_matmul_q8_0_matches_plain(cuda, mnk, dtype):
+    m, n, k = mnk
+    gen = torch.Generator(device=cuda).manual_seed(m + n)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(getattr(torch,
+                                                                     dtype))
+    planes = pack.quantize(torch.randn((n, k), generator=gen, device=cuda)
+                           * 0.05, "q8_0")
+    before = matmul_q8_0.launches
+    y = matmul_q8_0(x, planes["qs"], planes["d"])
+    y16 = matmul_q8_0(x, planes["qs"], planes["d"], out_dtype=torch.bfloat16)
+    assert matmul_q8_0.launches == before + 2
+    ref = matmul_ref(x, planes, "q8_0")
+    torch.cuda.synchronize()
+    tol = 2e-5 * max(1.0, float(ref.abs().max()))
+    assert float((y - ref).abs().max()) <= tol
+    assert torch.equal(y16, y.to(torch.bfloat16))     # rounded once
+
+
+def _check_paged(cuda, chunk, dtype, h, hkv, d, bs, launches=1):
+    """Fragmented, permuted and partly null tables, mixed lengths; the
+    kernel against the plain version on the valid rows."""
+    b, mb = 3, 6
+    nb = b * mb
+    rng = np.random.RandomState(chunk)
+    perm = rng.permutation(nb)
+    owned = [mb, 3, 2]
+    tables = np.full((b, mb), nb, np.int32)
+    for i in range(b):
+        tables[i, :owned[i]] = perm[i * mb:i * mb + owned[i]]
+    lens = np.array([chunk, max(chunk - 2, 1), 1], np.int32)
+    pos = np.array([max(o * bs - chunk, 0) for o in owned], np.int32)
+    dt = getattr(torch, dtype)
+    t = lambda a: torch.from_numpy(a).to(cuda)     # noqa: E731
+    q = t(rng.randn(b, chunk, h, d).astype(np.float32)).to(dt)
+    kp = t(rng.randn(nb + 1, bs, hkv, d).astype(np.float32)).to(dt)
+    vp = t(rng.randn(nb + 1, bs, hkv, d).astype(np.float32)).to(dt)
+    args = (q, kp, vp, t(tables), t(pos))
+    outs = [paged_decode_attention(*args, sm_scale=d ** -0.5, lengths=t(lens))
+            for _ in range(launches)]
+    ref = paged_attention_ref(*args, sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    tol = dict(rtol=2e-5, atol=2e-6) if dtype == "float32" else \
+        dict(rtol=2 ** -7, atol=1e-3)          # one bf16 ulp of the output
+    for out in outs:
+        for i, n in enumerate(lens):
+            torch.testing.assert_close(out[i, :n].float(), ref[i, :n].float(),
+                                       **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("chunk", [1, 4, 5])
+def test_paged_attention_matches_plain(cuda, chunk, dtype):
+    _check_paged(cuda, chunk, dtype, h=8, hkv=2, d=64, bs=4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_qwen3_8b_widths(cuda, dtype):
+    """qwen3-8b's G = 4, D = 128 at chunk 8 and block 16 needs more than
+    48 KB of shared memory per block: the kernel's opt-in path, launched
+    twice (the opt-in is set once per instantiation)."""
+    from repro_torch.kernels.paged_attention import _lib
+    assert _lib().paged_attention_gqa_smem(8, 32, 8, 128, 16) > 48 * 1024
+    _check_paged(cuda, 8, dtype, h=32, hkv=8, d=128, bs=16, launches=2)

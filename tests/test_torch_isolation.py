@@ -1,0 +1,115 @@
+"""The port stands alone: no JAX, no ``repro`` package, no hidden CPU
+fallback, no kernel build on the CPU path.
+
+* Every module of ``repro_torch`` imports in a fresh interpreter in which
+  ``import jax`` and ``import repro`` fail.
+* A source scan finds no JAX import and no import of the ``repro``
+  package in ``src/repro_torch`` or ``chip_smoke.py``.
+* The CPU path (a reduced model's decode step, both kernel wrappers)
+  never calls the kernel builder.
+* Without a card and without ``--device cpu``, the serve launcher exits
+  with an error instead of running on the CPU.
+"""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models.api import build_model  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)|"
+    r"from\s+repro(\.|\s)|import\s+ml_dtypes|from\s+ml_dtypes)", re.M)
+
+
+def test_every_module_imports_with_jax_and_repro_blocked():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "repro_torch.__path__, 'repro_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert 'jax' not in [k for k, v in sys.modules.items() if v]\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20      # the whole package
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p.relative_to(ROOT).as_posix() for p in PKG.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_source_imports_no_jax_and_no_repro(path):
+    text = (ROOT / path).read_text()
+    hits = [m.group(0).strip() for m in FORBIDDEN.finditer(text)]
+    assert not hits, f"{path}: {hits}"
+
+
+def test_cpu_path_never_builds_kernels(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("kernel builder called on the CPU path")
+    monkeypatch.setattr(_build, "build_all", refuse)
+    monkeypatch.setattr(_build, "load", refuse)
+    cfg = get_config("qwen3-0.6b").reduced()
+    model = build_model(cfg)
+    gen = torch.Generator().manual_seed(0)
+    from repro_torch.core.convert import quantize_params
+    params = quantize_params(model.init(gen), "q8_0")
+    shapes = model.paged_cache_shapes(2, 5, 4)
+    cache = {n: {k: torch.zeros(s, dtype=torch.bfloat16)
+                 for k, s in leaves.items()} for n, leaves in shapes.items()}
+    logits, _ = model.decode_step(
+        params, torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32),
+        torch.tensor([0, 4], dtype=torch.int32), cache, quant="q8_0",
+        block_tables=torch.tensor([[0, 1], [2, 3]], dtype=torch.int32),
+        lengths=torch.tensor([3, 1], dtype=torch.int32))
+    assert logits.shape == (2, 3, cfg.vocab_size)
+    assert bool(torch.isfinite(logits.float()).all())
+
+
+def test_serve_refuses_to_fall_back_to_cpu(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--reduced", "--quant", "q8_0", "--block-size", "4"])
+    assert e.value.code != 0
+    assert "--device cpu" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--spec", "ngram"], ["--prefix-cache"], ["--kv-quant", "int8"],
+    ["--dp", "2"], ["--mode", "batch"], ["--trace", "t.json"]])
+def test_serve_refuses_unported_features(argv, capsys):
+    with pytest.raises(SystemExit):
+        serve.main(["--reduced", "--device", "cpu", "--block-size", "4"]
+                   + argv)
+    assert "ROADMAP" in capsys.readouterr().err
+
+
+def test_engine_and_registry_refusals_name_the_roadmap():
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        get_config("deepseek-v3-671b")
+    model = build_model(get_config("qwen3-0.6b").reduced())
+    from repro_torch.runtime.engine import ServingEngine
+    for kw, item in ((dict(block_size=None), "A9"),
+                     (dict(block_size=4, spec="ngram"), "A12"),
+                     (dict(block_size=4, prefix_cache=True), "A13"),
+                     (dict(block_size=4, kv_quant="int8"), "A14"),
+                     (dict(block_size=4, mesh=object()), "A17")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            ServingEngine(model, {}, device="cpu", **kw)
