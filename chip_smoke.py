@@ -10,18 +10,23 @@ Phases, one line each (every failure exits non-zero):
 1. card   — ``nvidia-smi`` name and power limit;
 2. build  — compiles every ``src/repro_torch/csrc/*.cu`` with nvcc for
             sm_90a into ``build/`` (one nvcc per source, in parallel);
-3. kernels — each hand-written kernel against its plain PyTorch version
-            on the card at the main path's shapes, with the tolerance
+3. kernels — each hand-written kernel (matmul_q8_0, matmul_fp16,
+            matmul_q6_k, matmul_q3_k, paged_decode_attention) against its
+            plain PyTorch version on the card at the main path's shapes
+            (and a ragged one, and qwen3-8b's K), with the tolerance
             stated, its time, the plain version's time, one library
             call's time (a yardstick only: the port never calls it) and
             the least time the card could take for the same work;
 4. serve  — ``repro_torch.launch.serve`` at the full width of
-            qwen3-0.6b (q8_0 weights, paged KV, seeded random weights made
-            on the card), asserting that every q8_0 product and every
-            paged attention of the run went through the kernels
-            (197 and 28 launches per step), and one full-width decode step
-            (depth cut to 2 layers) against the plain CPU path;
-5. the ``kernels`` JSON line, then the device JSON line, last.
+            qwen3-0.6b (paged KV, seeded random weights made on the card)
+            once for each of the paper's weight recipes (q8_0, fp16, q6_k,
+            q3_k_s), asserting that every quantized product and every
+            paged attention of each run went through the kernels (exact
+            launches per step);
+5. checks — per recipe, one full-width decode step (depth cut to 2
+            layers) against the plain CPU path, and a shorter serve under
+            torch.profiler;
+6. the ``kernels`` JSON line, then the device JSON line, last.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -35,6 +40,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T0 = time.perf_counter()
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and
 # bf16 tensor-core flop/s. The least time for a piece of work is the
@@ -42,15 +48,39 @@ ROOT = Path(__file__).resolve().parent
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 
-SERVE_ARGS = ["--arch", "qwen3-0.6b", "--quant", "q8_0", "--slots", "8",
-              "--chunk-size", "8", "--block-size", "16", "--num-blocks",
-              "256", "--requests", "16", "--prompt-len", "128", "--gen", "32",
-              "--arrival", "back2back"]
-# (name, N, K, launches per unified step) of matmul_q8_0 on the main path.
-MATMUL_SHAPES = [("q", 2048, 1024, 28), ("k", 1024, 1024, 28),
-                 ("v", 1024, 1024, 28), ("o", 1024, 2048, 28),
-                 ("gate", 3072, 1024, 28), ("up", 3072, 1024, 28),
-                 ("down", 1024, 3072, 28), ("lm_head", 151936, 1024, 1)]
+SERVE_ARGS = ["--arch", "qwen3-0.6b", "--slots", "8", "--chunk-size", "8",
+              "--block-size", "16", "--num-blocks", "256", "--requests",
+              "16", "--prompt-len", "128", "--gen", "32", "--arrival",
+              "back2back"]
+# (name, N, K) of the linear layers of qwen3-0.6b, each launched once per
+# layer (28 per unified step), and its tied lm_head (once per step).
+LINEARS = [("q", 2048, 1024), ("k", 1024, 1024), ("v", 1024, 1024),
+           ("o", 1024, 2048), ("gate", 3072, 1024), ("up", 3072, 1024),
+           ("down", 1024, 3072)]
+LM_HEAD = ("lm_head", 151936, 1024)
+# kernel -> (format, its TPU kernel, whether its own recipe runs the
+# lm_head through it, ragged K). The per-step figures are those of the
+# recipe named after the format (q3_k: q3_k_s); q6_k also carries the
+# q3_k_s lm_head.
+MATMULS = {
+    "matmul_q8_0": ("q8_0", "src/repro/kernels/q8_0_matmul.py:36", True, 96),
+    "matmul_fp16": ("fp16", "src/repro/kernels/fp16_matmul.py:33", False,
+                    100),
+    "matmul_q6_k": ("q6_k", "src/repro/kernels/q6_k_matmul.py:43", True,
+                    256),
+    "matmul_q3_k": ("q3_k", "src/repro/kernels/q3_k_matmul.py:47", False,
+                    256),
+}
+# qwen3-8b's K (d_model, d_ff) at its d_model N: checked, not timed.
+WIDE = [("qwen3-8b q/o", 4096, 4096), ("qwen3-8b down", 4096, 12288)]
+# recipe -> {kernel: launches per unified step}
+RECIPE_LAUNCHES = {
+    "q8_0": {"matmul_q8_0": 197, "paged_decode_attention": 28},
+    "fp16": {"matmul_fp16": 196, "paged_decode_attention": 28},
+    "q6_k": {"matmul_q6_k": 197, "paged_decode_attention": 28},
+    "q3_k_s": {"matmul_q3_k": 196, "matmul_q6_k": 1,
+               "paged_decode_attention": 28},
+}
 M_STEP = 64                                     # slots x chunk
 
 
@@ -92,26 +122,35 @@ def time_ms(torch, fns, iters: int) -> float:
     return start.elapsed_time(end) / (3 * iters)
 
 
-def check_matmul(torch, dev):
+def check_matmul(torch, dev, name):
+    """One matmul kernel against its plain version at the serving shapes,
+    a ragged shape and qwen3-8b's K; timed at the serving shapes."""
     from repro_torch.core.quant import dequant, pack
-    from repro_torch.kernels.q8_0_matmul import matmul_q8_0
+    from repro_torch.kernels.ops import MATMUL_KERNELS
     from repro_torch.kernels.ref import matmul_ref
+    fmt, replaces, lm_head, ragged_k = MATMULS[name]
+    wrapper, layout = MATMUL_KERNELS[fmt]
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
     worst = 0.0
-    shapes = MATMUL_SHAPES + [("ragged", 1000, 96, 0)]
-    for name, n, k, per_step in shapes:
-        m = 3 if name == "ragged" else M_STEP
+    shapes = [(s, M_STEP, n, k, 28) for s, n, k in LINEARS]
+    if lm_head:
+        shapes.append((LM_HEAD[0], M_STEP, LM_HEAD[1], LM_HEAD[2], 1))
+    shapes += [("ragged", 3, 1000, ragged_k, 0)] + [
+        (s, M_STEP, n, k, 0) for s, n, k in WIDE]
+    per_step = 0
+    for shape, m, n, k, count in shapes:
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         w = torch.randn((n, k), generator=gen, device=dev) * 0.02
-        planes = pack.quantize(w, "q8_0")
-        y = matmul_q8_0(x, planes["qs"], planes["d"])
-        ref = matmul_ref(x, planes, "q8_0")
+        planes = pack.quantize(w, fmt)
+        del w
+        args = [planes[p] for p in layout]
+        y = wrapper(x, *args)
+        ref = matmul_ref(x, planes, fmt)
         # The serving layers ask for bf16: the kernel's own f32 result,
         # rounded once.
-        y16 = matmul_q8_0(x, planes["qs"], planes["d"],
-                          out_dtype=torch.bfloat16)
+        y16 = wrapper(x, *args, out_dtype=torch.bfloat16)
         torch.cuda.synchronize()
         err = float((y - ref).abs().max())
         # Same products, another summation order: the repo's 2e-5
@@ -119,47 +158,53 @@ def check_matmul(torch, dev):
         tol = 2e-5 * max(1.0, float(ref.abs().max()))
         if not bool(torch.isfinite(y).all()) or err > tol \
                 or not torch.equal(y16, y.to(torch.bfloat16)):
-            fail(f"matmul_q8_0 {name} ({m}x{n}x{k}): max_abs_err {err:.3e} "
+            fail(f"{name} {shape} ({m}x{n}x{k}): max_abs_err {err:.3e} "
                  f"> {tol:.3e}, or the bf16 output is not the f32 result "
                  "rounded")
         worst = max(worst, err)
-        wbytes = planes["qs"].numel() + 2 * planes["d"].numel()
+        del y, y16, ref
+        if not count:
+            print(f"kernel {name} {shape} M={m} N={n} K={k}: max_abs_err "
+                  f"{err:.3e} (tol {tol:.3e}), bf16 out = f32 out rounded",
+                  flush=True)
+            continue
+        wbytes = sum(p.numel() * p.element_size() for p in planes.values())
         copies = max(1, min(48, math.ceil(150e6 / wbytes)))
         cps = [planes] + [{k2: v.clone() for k2, v in planes.items()}
                           for _ in range(copies - 1)]
-        wf = [dequant.dequantize_q8_0(p) for p in cps]
+        wf = [dequant.DEQUANTIZERS[fmt](p) for p in cps]
         xf = x.float()
         iters = 20 if n * k > 1e8 else 100
-        launches0 = matmul_q8_0.launches
+        launches0 = wrapper.launches
         bf16 = torch.bfloat16               # the serving layers' form
-        t_k = time_ms(torch, [lambda p=p: matmul_q8_0(
-            x, p["qs"], p["d"], out_dtype=bf16) for p in cps], iters)
-        matmul_q8_0.launches = launches0     # timing launches do not count
-        t_p = time_ms(torch, [lambda p=p: matmul_ref(x, p, "q8_0").to(bf16)
+        t_k = time_ms(torch, [lambda p=p: wrapper(
+            x, *[p[q] for q in layout], out_dtype=bf16) for p in cps], iters)
+        wrapper.launches = launches0         # timing launches do not count
+        t_p = time_ms(torch, [lambda p=p: matmul_ref(x, p, fmt).to(bf16)
                               for p in cps], iters)
         t_l = time_ms(torch, [lambda wq=wq: torch.matmul(xf, wq.T)
                               for wq in wf], iters)
         nbytes = wbytes + x.numel() * 2 + m * n * 2
         flops = 2.0 * m * n * k
         b_ms, b_by = bound(nbytes, flops)
-        print(f"kernel matmul_q8_0 {name} M={m} N={n} K={k}: max_abs_err "
+        print(f"kernel {name} {shape} M={m} N={n} K={k}: max_abs_err "
               f"{err:.3e} (tol {tol:.3e}), bf16 out = f32 out rounded | "
               f"bf16-out kernel {t_k:.4f} ms | plain "
               f"{t_p:.4f} ms | library(torch.matmul f32, pre-dequantized) "
               f"{t_l:.4f} ms | bound {b_ms:.4f} ms ({b_by})", flush=True)
         for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
                        ("bytes", nbytes), ("flops", flops)):
-            totals[key] += per_step * v
+            totals[key] += count * v
+        per_step += count
         del cps, wf
     b_ms, b_by = bound(totals["bytes"], totals["flops"])
-    print(f"kernel matmul_q8_0 per unified step (197 launches at M=64): "
-          f"kernel {totals['ms']:.4f} ms | plain {totals['plain_ms']:.4f} ms "
-          f"| library {totals['library_ms']:.4f} ms | bound {b_ms:.4f} ms "
-          f"({b_by})", flush=True)
-    return dict(name="matmul_q8_0", route="cuda",
-                source="src/repro_torch/csrc/q8_0_matmul.cu",
-                replaces="src/repro/kernels/q8_0_matmul.py:36",
-                max_abs_err=worst, ms=totals["ms"],
+    print(f"kernel {name} per unified step of the {fmt} recipe ({per_step} "
+          f"launches at M={M_STEP}): kernel {totals['ms']:.4f} ms | plain "
+          f"{totals['plain_ms']:.4f} ms | library {totals['library_ms']:.4f} "
+          f"ms | bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return dict(name=name, route="cuda",
+                source=f"src/repro_torch/csrc/{fmt}_matmul.cu",
+                replaces=replaces, max_abs_err=worst, ms=totals["ms"],
                 plain_ms=totals["plain_ms"], bound_ms=b_ms, bound_by=b_by,
                 library_ms=totals["library_ms"])
 
@@ -277,9 +322,10 @@ def check_paged_attention(torch, np, dev):
                 bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l)
 
 
-def check_step_vs_cpu(torch, dev, params, cfg):
-    """One full-width decode step with depth cut to 2 layers: the kernels
-    on the card against the plain path on the CPU, same weights."""
+def check_step_vs_cpu(torch, dev, params, cfg, quant):
+    """One full-width decode step with depth cut to 2 layers under recipe
+    ``quant``: the kernels on the card against the plain path on the CPU,
+    same weights."""
     import dataclasses
     from repro_torch.models.api import build_model
     small = dataclasses.replace(cfg, num_layers=2)
@@ -307,7 +353,7 @@ def check_step_vs_cpu(torch, dev, params, cfg):
                      for k, s in leaves.items()}
                  for n, leaves in shapes.items()}
         logits, _ = model.decode_step(
-            to(cut, d), tokens.to(d), pos.to(d), cache, quant="q8_0",
+            to(cut, d), tokens.to(d), pos.to(d), cache, quant=quant,
             block_tables=tables.to(d), lengths=lens.to(d))
         out[str(d)] = logits.float().cpu()
     a, r = out[str(dev)], out["cpu"]
@@ -317,28 +363,30 @@ def check_step_vs_cpu(torch, dev, params, cfg):
         worst = max(worst, float((a[b, :n] - r[b, :n]).abs().max()))
     scale = float(r.abs().max())
     # Both sides round the activations to bf16 after every op, in another
-    # summation order; with these weights that has come to ~2e-2 against
-    # a max |logit| of ~3, so 1e-2 x max|logit| is ~1.5x the readings and
-    # tight enough that one layer's attention going wrong shows.
+    # summation order; with these weights that has come to 1.8e-2 (q8_0)
+    # to 2.7e-2 (q3_k_s) against a max |logit| of ~3, so 1e-2 x max|logit|
+    # is 1.2-1.7x the readings and tight enough that one layer's attention
+    # going wrong shows.
     rel = 1e-2
     if a.shape != (B, C, cfg.vocab_size) or not bool(torch.isfinite(a).all()) \
             or worst > rel * scale:
-        fail(f"full-width step (2 layers) card vs CPU: max_abs_err {worst:.3e}"
-             f" vs max|logit| {scale:.3e}")
-    print(f"step check: full-width qwen3-0.6b q8_0, 2 layers, card kernels "
+        fail(f"full-width {quant} step (2 layers) card vs CPU: max_abs_err "
+             f"{worst:.3e} vs max|logit| {scale:.3e}")
+    print(f"step check: full-width qwen3-0.6b {quant}, 2 layers, card kernels "
           f"vs CPU plain: logits {tuple(a.shape)} finite, max_abs_err "
           f"{worst:.3e} (bound {rel:g} x max|logit| = {rel * scale:.3e})",
           flush=True)
 
 
-def profile_serve(torch, serve, cfg, model, params, dev) -> None:
+def profile_serve(torch, serve, cfg, model, params, dev, quant) -> None:
     """Where a serve step's time goes: a shorter stream of the same shape
-    under torch.profiler, device time by kernel against the wall time."""
+    under torch.profiler, device time by kernel against the wall time,
+    and the host's kernel launches per step and cost per launch."""
     from torch.profiler import ProfilerActivity, profile
     ap = serve.build_parser()
-    args = ap.parse_args(SERVE_ARGS[:-8] + ["--requests", "8", "--prompt-len",
-                                            "128", "--gen", "8", "--arrival",
-                                            "back2back"])
+    args = ap.parse_args(SERVE_ARGS[:-8] + [
+        "--quant", quant, "--requests", "8", "--prompt-len", "32", "--gen",
+        "8", "--arrival", "back2back"])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, rep, _ = serve.run_stream(cfg, model, params, args, dev)
@@ -355,24 +403,89 @@ def profile_serve(torch, serve, cfg, model, params, dev) -> None:
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     wall_ms = sum(rep.stats.step_s) * 1e3
     steps = rep.stats.steps
+    tag = f"profile {quant}:"
     if not events:
-        print("profile: the profiler recorded no device time (not measured)",
+        print(f"{tag} the profiler recorded no device time (not measured)",
               flush=True)
         return
-    print(f"profile: {steps} steps of a {args.requests}-request stream: "
-          f"step wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}% of step wall, idle "
-          f"{100 - 100 * busy_ms / wall_ms:.1f}%)", flush=True)
-    for e in sorted(events, key=dev_us, reverse=True)[:8]:
-        print(f"profile:   device {dev_us(e) / 1e3 / steps:8.3f} ms/step "
-              f"{e.count / steps:7.1f} calls/step  {e.key[:90]}", flush=True)
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
-    for e in host[:8]:
-        print(f"profile:   host {e.self_cpu_time_total / 1e3 / steps:8.3f} "
+    launch = [e for e in host if e.key == "cudaLaunchKernel"]
+    per_launch = (f"{launch[0].count / steps:.1f} kernel launches/step at "
+                  f"{launch[0].self_cpu_time_total / launch[0].count:.1f} "
+                  "us each") if launch else "launches not recorded"
+    print(f"{tag} {steps} steps of a {args.requests}-request stream: "
+          f"step wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}% of step wall, idle "
+          f"{100 - 100 * busy_ms / wall_ms:.1f}%), {per_launch}", flush=True)
+    for e in sorted(events, key=dev_us, reverse=True)[:6]:
+        print(f"{tag}   device {dev_us(e) / 1e3 / steps:8.3f} ms/step "
+              f"{e.count / steps:7.1f} calls/step  {e.key[:90]}", flush=True)
+    for e in host[:6]:
+        print(f"{tag}   host {e.self_cpu_time_total / 1e3 / steps:8.3f} "
               f"ms/step {e.count / steps:7.1f} calls/step  {e.key[:90]}",
               flush=True)
+
+
+def recipe_setup(torch, dev, serve, quant):
+    """(args, cfg, model, params) of the full-width serve under recipe
+    ``quant``, with its seeded weights made on the card."""
+    ap = serve.build_parser()
+    args = ap.parse_args(SERVE_ARGS + ["--quant", quant])
+    serve.validate_args(ap, args)
+    cfg = serve.get_config(args.arch)
+    model = serve.build_model(cfg)
+    t0 = time.perf_counter()
+    params = serve.build_params(model, args, dev)
+    torch.cuda.synchronize()
+    print(f"serve {quant} setup: full-width {cfg.name} ({cfg.num_layers} "
+          f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}) weights "
+          f"made on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return args, cfg, model, params
+
+
+def serve_recipe(torch, dev, serve, quant):
+    """Serve the stream at full width under recipe ``quant`` and assert
+    the exact kernel launches per step and every request complete.
+    Returns {kernel: launches in the serve}."""
+    args, cfg, model, params = recipe_setup(torch, dev, serve, quant)
+    for k in serve.KERNELS:
+        k.launches = 0
+    engine, report, reqs = serve.run_stream(cfg, model, params, args, dev)
+    launches = {k.__name__: k.launches for k in serve.KERNELS}
+    for line in serve.report_lines(engine, report, args.requests):
+        print(f"serve {quant}: {line}", flush=True)
+    steps = report.stats.steps
+    if len(report.sequences) != len(reqs) or any(
+            len(s.generated) != args.gen
+            or not all(0 <= t < cfg.vocab_size for t in s.generated)
+            for s in report.sequences):
+        fail(f"serve {quant}: not every request completed with in-vocab "
+             "tokens")
+    per_step = RECIPE_LAUNCHES[quant]
+    want = {k.__name__: per_step.get(k.__name__, 0) * steps
+            for k in serve.KERNELS}
+    if launches != want:
+        fail(f"serve {quant}: launches {launches} != {want} for {steps} "
+             "steps")
+    print(f"serve {quant}: kernels launched {launches} over {steps} steps "
+          f"({per_step} per step)", flush=True)
+    del params, engine
+    torch.cuda.empty_cache()
+    return {name: n for name, n in launches.items() if n}
+
+
+def check_recipe(torch, dev, serve, quant) -> None:
+    """Recipe ``quant``'s 2-layer step against the CPU path, and a shorter
+    serve of it under the profiler (after every timed serve: a profiler
+    session slows the launches of the process that ran it)."""
+    _, cfg, model, params = recipe_setup(torch, dev, serve, quant)
+    check_step_vs_cpu(torch, dev, params, cfg, quant)
+    profile_serve(torch, serve, cfg, model, params, dev, quant)
+    del params
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -412,45 +525,27 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s (nvcc, one process per source)"
           f" -> {', '.join(p.name for p in libs.values())}", flush=True)
 
-    kernels = [check_matmul(torch, dev), check_paged_attention(torch, np, dev)]
+    kernels = [check_matmul(torch, dev, name) for name in MATMULS]
+    kernels.append(check_paged_attention(torch, np, dev))
+    print(f"chip_smoke: kernel phase done at {time.perf_counter() - T0:.1f} "
+          "s", flush=True)
 
-    from repro_torch.kernels.paged_attention import paged_decode_attention
-    from repro_torch.kernels.q8_0_matmul import matmul_q8_0
     from repro_torch.launch import serve
-    ap = serve.build_parser()
-    args = ap.parse_args(SERVE_ARGS)
-    serve.validate_args(ap, args)
-    cfg = serve.get_config(args.arch)
-    model = serve.build_model(cfg)
-    t0 = time.perf_counter()
-    params = serve.build_params(model, args, dev)
-    torch.cuda.synchronize()
-    print(f"serve setup: full-width {cfg.name} ({cfg.num_layers} layers, "
-          f"d_model {cfg.d_model}, vocab {cfg.vocab_size}) q8_0 weights made "
-          f"on the card in {time.perf_counter() - t0:.1f} s", flush=True)
-    matmul_q8_0.launches = 0
-    paged_decode_attention.launches = 0
-    engine, report, reqs = serve.run_stream(cfg, model, params, args, dev)
-    launches = {"matmul_q8_0": matmul_q8_0.launches,
-                "paged_decode_attention": paged_decode_attention.launches}
-    for line in serve.report_lines(engine, report, args.requests):
-        print(f"serve: {line}", flush=True)
-    steps = report.stats.steps
-    if len(report.sequences) != len(reqs) or any(
-            len(s.generated) != args.gen
-            or not all(0 <= t < cfg.vocab_size for t in s.generated)
-            for s in report.sequences):
-        fail("serve: not every request completed with in-vocab tokens")
-    want = {"matmul_q8_0": 197 * steps, "paged_decode_attention": 28 * steps}
-    if launches != want:
-        fail(f"serve: launches {launches} != {want} for {steps} steps")
-    print(f"serve: kernels launched {launches} over {steps} steps "
-          "(197 and 28 per step)", flush=True)
-    check_step_vs_cpu(torch, dev, params, cfg)
-    profile_serve(torch, serve, cfg, model, params, dev)
+    by_serve = {}
+    for quant in RECIPE_LAUNCHES:
+        by_serve[quant] = serve_recipe(torch, dev, serve, quant)
+    print(f"chip_smoke: serves done at {time.perf_counter() - T0:.1f} s",
+          flush=True)
+    for quant in RECIPE_LAUNCHES:
+        check_recipe(torch, dev, serve, quant)
 
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = sum(c.get(k["name"], 0) for c in by_serve.values())
+        k["launches_by_serve"] = {q: c[k["name"]] for q, c in by_serve.items()
+                                  if c.get(k["name"])}
+        if not k["launches"]:
+            fail(f"{k['name']} was launched no time in the serves")
+    print(f"chip_smoke: {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

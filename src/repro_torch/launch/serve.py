@@ -27,11 +27,15 @@ import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.core import convert
+from repro_torch.kernels.ops import MATMUL_KERNELS
 from repro_torch.kernels.paged_attention import paged_decode_attention
-from repro_torch.kernels.q8_0_matmul import matmul_q8_0
 from repro_torch.models.api import build_model
 from repro_torch.runtime.engine import ServingEngine
 from repro_torch.runtime.request import Request, SamplingParams
+
+# Every hand-written kernel's wrapper, each with its ``launches`` count.
+KERNELS = tuple(w for w, _ in MATMUL_KERNELS.values()) + (
+    paged_decode_attention,)
 
 
 def make_extras(cfg, batch: int):
@@ -115,9 +119,8 @@ def report_lines(engine, report, total_requests: int):
     ]
     lines += report.ledger.summary_lines(
         {"prefill": st.prefill_s, "decode": st.decode_s})
-    lines.append(f"kernels: matmul_q8_0 launches {matmul_q8_0.launches} | "
-                 f"paged_decode_attention launches "
-                 f"{paged_decode_attention.launches}")
+    lines.append("kernels: " + " | ".join(
+        f"{k.__name__} launches {k.launches}" for k in KERNELS))
     return lines
 
 

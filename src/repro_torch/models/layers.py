@@ -87,7 +87,9 @@ def embedding_lookup(p: Params, tokens: torch.Tensor, fmt: str = "none",
     ``width``: original embedding width (dequant may return K-quant padded
     rows; sliced back here)."""
     if fmt == "none" or fmt == "fp16":
-        return p["w"].to(dtype)[tokens]
+        # Gather, then cast: the same values as casting the whole table
+        # first, without converting every row of it on every step.
+        return p["w"][tokens].to(dtype)
     flat_ids = tokens.reshape(-1).long()
     gathered = {k: v[flat_ids] for k, v in p.items()}
     flat = dequant.DEQUANTIZERS[fmt](gathered)

@@ -6,10 +6,10 @@ the card:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py
 
-Tolerances: the q8_0 matmul does the plain version's f32 products in
-another summation order (the repo's 2e-5 of tests/test_kernels.py,
-relative to the output's scale); paged attention in f32 is the blocked
-online vs dense softmax reorder (FP32_TOL of
+Tolerances: the matmuls (fp16, q8_0, q6_k, q3_k) do the plain version's
+f32 products in another summation order (the repo's 2e-5 of
+tests/test_kernels.py, relative to the output's scale); paged attention
+in f32 is the blocked online vs dense softmax reorder (FP32_TOL of
 tests/test_paged_attention_kernel.py).
 """
 import numpy as np
@@ -20,7 +20,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.quant import pack  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention)
-from repro_torch.kernels.q8_0_matmul import matmul_q8_0  # noqa: E402
+from repro_torch.kernels.ops import MATMUL_KERNELS  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     matmul_ref, paged_attention_ref)
 
@@ -32,25 +32,56 @@ def cuda():
     return torch.device("cuda")
 
 
+def _check_matmul(cuda, fmt, m, n, k, dtype):
+    """One wrapper against the plain version: NaN-free, within 2e-5 of the
+    output's scale, bf16 output the f32 output rounded once, and exactly
+    one launch counted per call."""
+    wrapper, layout = MATMUL_KERNELS[fmt]
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(getattr(torch,
+                                                                     dtype))
+    planes = pack.quantize(torch.randn((n, k), generator=gen, device=cuda)
+                           * 0.05, fmt)
+    args = [planes[name] for name in layout]
+    before = wrapper.launches
+    y = wrapper(x, *args)
+    y16 = wrapper(x, *args, out_dtype=torch.bfloat16)
+    assert wrapper.launches == before + 2
+    ref = matmul_ref(x, planes, fmt)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(y).all())
+    tol = 2e-5 * max(1.0, float(ref.abs().max()))
+    assert float((y - ref).abs().max()) <= tol
+    assert torch.equal(y16, y.to(torch.bfloat16))     # rounded once
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mnk", [(1, 64, 32), (3, 1000, 96), (64, 1024, 1024),
                                  (70, 300, 2048)])
 def test_matmul_q8_0_matches_plain(cuda, mnk, dtype):
-    m, n, k = mnk
-    gen = torch.Generator(device=cuda).manual_seed(m + n)
-    x = torch.randn((m, k), generator=gen, device=cuda).to(getattr(torch,
-                                                                     dtype))
-    planes = pack.quantize(torch.randn((n, k), generator=gen, device=cuda)
-                           * 0.05, "q8_0")
-    before = matmul_q8_0.launches
-    y = matmul_q8_0(x, planes["qs"], planes["d"])
-    y16 = matmul_q8_0(x, planes["qs"], planes["d"], out_dtype=torch.bfloat16)
-    assert matmul_q8_0.launches == before + 2
-    ref = matmul_ref(x, planes, "q8_0")
-    torch.cuda.synchronize()
-    tol = 2e-5 * max(1.0, float(ref.abs().max()))
-    assert float((y - ref).abs().max()) <= tol
-    assert torch.equal(y16, y.to(torch.bfloat16))     # rounded once
+    _check_matmul(cuda, "q8_0", *mnk, dtype)
+
+
+# (M, N, K): one sub-block row, a ragged M and N, the serving shape, a
+# ragged M with qwen3-0.6b's d_ff, and qwen3-8b's d_ff.
+KQUANT_SHAPES = [(1, 64, 256), (3, 1000, 512), (64, 1024, 1024),
+                 (70, 300, 3072), (64, 1024, 12288)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mnk", KQUANT_SHAPES)
+@pytest.mark.parametrize("fmt", ["q6_k", "q3_k"])
+def test_matmul_kquant_matches_plain(cuda, fmt, mnk, dtype):
+    _check_matmul(cuda, fmt, *mnk, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mnk", KQUANT_SHAPES + [(5, 200, 104),
+                                                 (3, 1000, 100)])
+def test_matmul_fp16_matches_plain(cuda, mnk, dtype):
+    """Also K % 32 != 0 (a masked K tail), with rows 16-byte aligned
+    (K = 104) and not (K = 100, element-wise loads)."""
+    _check_matmul(cuda, "fp16", *mnk, dtype)
 
 
 def _check_paged(cuda, chunk, dtype, h, hkv, d, bs, launches=1):

@@ -5,8 +5,8 @@ fallback, no kernel build on the CPU path.
   ``import jax`` and ``import repro`` fail.
 * A source scan finds no JAX import and no import of the ``repro``
   package in ``src/repro_torch`` or ``chip_smoke.py``.
-* The CPU path (a reduced model's decode step, both kernel wrappers)
-  never calls the kernel builder.
+* The CPU path (a reduced model's decode step under every recipe, so
+  every kernel wrapper) never calls the kernel builder.
 * Without a card and without ``--device cpu``, the serve launcher exits
   with an error instead of running on the CPU.
 """
@@ -60,7 +60,7 @@ def test_source_imports_no_jax_and_no_repro(path):
     assert not hits, f"{path}: {hits}"
 
 
-def test_cpu_path_never_builds_kernels(monkeypatch):
+def _cpu_step_without_builds(monkeypatch, quant):
     def refuse(*a, **kw):
         raise AssertionError("kernel builder called on the CPU path")
     monkeypatch.setattr(_build, "build_all", refuse)
@@ -69,17 +69,26 @@ def test_cpu_path_never_builds_kernels(monkeypatch):
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(0)
     from repro_torch.core.convert import quantize_params
-    params = quantize_params(model.init(gen), "q8_0")
+    params = quantize_params(model.init(gen), quant)
     shapes = model.paged_cache_shapes(2, 5, 4)
     cache = {n: {k: torch.zeros(s, dtype=torch.bfloat16)
                  for k, s in leaves.items()} for n, leaves in shapes.items()}
     logits, _ = model.decode_step(
         params, torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32),
-        torch.tensor([0, 4], dtype=torch.int32), cache, quant="q8_0",
+        torch.tensor([0, 4], dtype=torch.int32), cache, quant=quant,
         block_tables=torch.tensor([[0, 1], [2, 3]], dtype=torch.int32),
         lengths=torch.tensor([3, 1], dtype=torch.int32))
     assert logits.shape == (2, 3, cfg.vocab_size)
     assert bool(torch.isfinite(logits.float()).all())
+
+
+def test_cpu_path_never_builds_kernels(monkeypatch):
+    _cpu_step_without_builds(monkeypatch, "q8_0")
+
+
+@pytest.mark.parametrize("quant", ["fp16", "q6_k", "q3_k_s"])
+def test_cpu_recipes_never_build_kernels(monkeypatch, quant):
+    _cpu_step_without_builds(monkeypatch, quant)
 
 
 def test_serve_refuses_to_fall_back_to_cpu(capsys):

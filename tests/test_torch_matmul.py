@@ -17,7 +17,7 @@ jnp = jax.numpy
 from repro.core.quant import pack as jpack  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
-from repro_torch.kernels.q8_0_matmul import matmul_q8_0  # noqa: E402
+from repro_torch.kernels.ref import matmul_ref  # noqa: E402
 
 # One XLA compilation per (shape, format) instead of one per eager op.
 _jquantize = jax.jit(jpack.quantize, static_argnums=1)
@@ -76,30 +76,47 @@ def test_bf16_activations_match_jax_ref():
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **TOL)
 
 
-@pytest.mark.parametrize("fmt", ["fp16", "q6_k", "q3_k"])
+@pytest.mark.parametrize("fmt", ["fp16", "q8_0", "q6_k", "q3_k"])
 def test_unported_formats_raise_off_cpu(fmt):
-    """Off the CPU a format without a CUDA kernel raises (naming its
-    ROADMAP item) instead of dropping to the plain version."""
+    """Every format's wrapper, reached through ``quantized_matmul``,
+    refuses a device that is neither the CPU (plain version) nor CUDA
+    (its kernel) instead of dropping to the plain version."""
     _, _, tp = _case(2, 256, 8, fmt)
     x = torch.empty((2, 256), device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP B"):
+    with pytest.raises(ValueError, match="CUDA"):
         tops.quantized_matmul(x, {n: v.to("meta") for n, v in tp.items()},
                               fmt)
 
 
-def test_q8_0_wrapper_checks():
-    _, _, tp = _case(2, 256, 8, "q8_0")
+def _wrapper_checks(fmt):
+    """Shape, dtype and device checks of one wrapper; on the CPU it is the
+    plain version, its bf16 output is the f32 output rounded once, and no
+    launch is counted."""
+    wrapper, layout = tops.MATMUL_KERNELS[fmt]
+    _, _, tp = _case(2, 256, 8, fmt)
+    planes = [tp[n] for n in layout]
     x = torch.zeros((2, 256))
+    x[0, :3] = torch.tensor([1.0, -2.0, 0.5])
     with pytest.raises(ValueError):
-        matmul_q8_0(torch.zeros((2, 96)), tp["qs"], tp["d"])   # K mismatch
+        wrapper(torch.zeros((2, 96)), *planes)             # K mismatch
     with pytest.raises(TypeError):
-        matmul_q8_0(x.to(torch.float16), tp["qs"], tp["d"])
+        wrapper(x.to(torch.float16), *planes)
     with pytest.raises(ValueError, match="CUDA"):
-        matmul_q8_0(x.to("meta"), tp["qs"].to("meta"), tp["d"].to("meta"))
+        wrapper(x.to("meta"), *[p.to("meta") for p in planes])
     with pytest.raises(TypeError):
-        matmul_q8_0(x, tp["qs"], tp["d"], out_dtype=torch.float16)
-    before = matmul_q8_0.launches
-    y = matmul_q8_0(x, tp["qs"], tp["d"])              # CPU: plain version
-    y16 = matmul_q8_0(x, tp["qs"], tp["d"], out_dtype=torch.bfloat16)
-    assert matmul_q8_0.launches == before
+        wrapper(x, *planes, out_dtype=torch.float16)
+    before = wrapper.launches
+    y = wrapper(x, *planes)                                # CPU: plain version
+    y16 = wrapper(x, *planes, out_dtype=torch.bfloat16)
+    assert wrapper.launches == before
+    assert torch.equal(y, matmul_ref(x, tp, fmt))
     assert torch.equal(y16, y.to(torch.bfloat16))
+
+
+def test_q8_0_wrapper_checks():
+    _wrapper_checks("q8_0")
+
+
+@pytest.mark.parametrize("fmt", ["fp16", "q6_k", "q3_k"])
+def test_wrapper_checks(fmt):
+    _wrapper_checks(fmt)

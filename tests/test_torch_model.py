@@ -1,4 +1,5 @@
-"""Port vs JAX package: the dense qwen3 model (reduced widths, q8_0).
+"""Port vs JAX package: the dense qwen3 model (reduced widths; q8_0, and
+the decode step under every recipe).
 
 The JAX package's parameters are carried into the port through
 ``params_from_jax`` (numpy in between), the same random cache pages and
@@ -41,14 +42,27 @@ B, C, BS, MB = 3, 4, 4, 4
 
 
 @pytest.fixture(scope="module")
-def both():
-    cfg = ASSIGNED["qwen3-0.6b"].reduced()
-    jparams = jax.jit(lambda key: jconvert.quantize_params(
-        jbuild(cfg).init(key), "q8_0"))(jax.random.PRNGKey(0))
-    tcfg = get_config("qwen3-0.6b").reduced()
-    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
-                              device="cpu")
-    return cfg, jparams, tcfg, tparams
+def recipes():
+    """recipe -> (cfg, JAX params, port cfg, the same params in the port),
+    built once per recipe."""
+    made = {}
+
+    def get(quant):
+        if quant not in made:
+            cfg = ASSIGNED["qwen3-0.6b"].reduced()
+            jparams = jax.jit(lambda key: jconvert.quantize_params(
+                jbuild(cfg).init(key), quant))(jax.random.PRNGKey(0))
+            tcfg = get_config("qwen3-0.6b").reduced()
+            tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
+                                      tcfg, device="cpu")
+            made[quant] = (cfg, jparams, tcfg, tparams)
+        return made[quant]
+    return get
+
+
+@pytest.fixture(scope="module")
+def both(recipes):
+    return recipes("q8_0")
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -87,10 +101,15 @@ def test_paged_cache_shapes_match_jax(both):
     assert all(jax.tree.leaves(paged))
 
 
+@pytest.mark.parametrize("quant", ["q8_0", "fp16", "q6_k", "q3_k_s"])
 @pytest.mark.parametrize("paged_impl", ["fused", "ref"])
 @pytest.mark.parametrize("cache_dtype", ["bfloat16", "float32"])
-def test_decode_step_logits_match_jax(both, paged_impl, cache_dtype):
-    cfg, jparams, tcfg, tparams = both
+def test_decode_step_logits_match_jax(recipes, quant, paged_impl,
+                                      cache_dtype):
+    """Each of the paper's recipes: q8_0, fp16 (fp16 linears and a plain
+    tied lm_head), q6_k (q6_k linears and lm_head) and q3_k_s (q3_k
+    linears, q6_k embedding and lm_head)."""
+    cfg, jparams, tcfg, tparams = recipes(quant)
     rng = np.random.RandomState(1)
     nb = B * MB
     tables = rng.permutation(nb).reshape(B, MB).astype(np.int32)
@@ -105,10 +124,10 @@ def test_decode_step_logits_match_jax(both, paged_impl, cache_dtype):
     lens = np.array([4, 2, 1], np.int32)           # prefill chunk .. decode
     lj, cj = jlm.lm_decode_step(
         jparams, cfg, jnp.asarray(tok), jnp.asarray(pos), jcache,
-        quant="q8_0", block_tables=jnp.asarray(tables),
+        quant=quant, block_tables=jnp.asarray(tables),
         lengths=jnp.asarray(lens), paged_impl=paged_impl)
     lt, ct = build_model(tcfg).decode_step(
-        tparams, _t(tok), _t(pos), tcache, quant="q8_0",
+        tparams, _t(tok), _t(pos), tcache, quant=quant,
         block_tables=_t(tables), lengths=_t(lens), paged_impl=paged_impl)
     assert lt.dtype == torch.bfloat16 and tuple(lt.shape) == \
         (B, C, cfg.vocab_size)
@@ -190,3 +209,17 @@ def test_host_side_layers_match_jax(both):
                              "q8_0").numpy(),
         np.asarray(jlayers.swiglu_apply(jf, jnp.asarray(x), "q8_0")),
         **F32_TOL)
+
+
+def test_fp16_embedding_lookup_matches_jax(recipes):
+    """The fp16 recipe's lookup gathers the rows, then casts them: the
+    same bits as the JAX package's cast-then-gather."""
+    cfg, jparams, _, tparams = recipes("fp16")
+    tok = np.random.RandomState(6).randint(0, cfg.vocab_size, (2, 3))
+    got = tlayers.embedding_lookup(tparams["embed"], _t(tok.astype(np.int32)),
+                                   "fp16", torch.bfloat16)
+    want = jlayers.embedding_lookup(jparams["embed"], jnp.asarray(tok),
+                                    "fp16", jnp.bfloat16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.view(torch.uint16).numpy(),
+                                  np.asarray(want).view(np.uint16))

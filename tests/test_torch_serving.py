@@ -1,6 +1,8 @@
 """Port vs JAX package: the serving engine end to end (CPU, reduced widths).
 
-Reduced qwen3-0.6b with q8_0 weights, a paged arena with an fp32 cache,
+Reduced qwen3-0.6b with q8_0 weights, and again with the q3_k_s recipe
+(q3_k linears, q6_k embedding and lm_head: both K-quant paths and the
+ledger's recipe bytes), a paged arena with an fp32 cache,
 and a back-to-back stream from ``build_stream`` (the JAX launcher's and
 the port's copy, which must produce the same requests) go through the
 port's ``ServingEngine`` on the CPU and the JAX ``ServingEngine`` (its
@@ -11,7 +13,8 @@ small enough that block reservation preempts. Three things must hold:
    position where the two disagree *and* the JAX run's top-2 logit gap
    there is below the logit tolerance (activations are bf16 in both
    packages, so a near-tie may flip; see tests/test_torch_model.py for the
-   tolerance). Such exemptions must be rare.
+   tolerance), onto a token the JAX run scored within the tolerance of its
+   best. Such exemptions must be rare.
 2. The allocator and block-table traces (before every step) are equal.
 3. ``TransferLedger.breakdown()`` is equal as an exact dict.
 """
@@ -40,7 +43,7 @@ LOGIT_TOL = 2.5e-2           # of max |logit|, as in test_torch_model.py
 ARGS = types.SimpleNamespace(prompt_len=16, gen=8, requests=6,
                              temperature=0.0, shared_prefix=0,
                              arrival="back2back", rate=8.0)
-ENGINE = dict(quant="q8_0", num_slots=4, max_seq=ARGS.prompt_len + ARGS.gen,
+ENGINE = dict(num_slots=4, max_seq=ARGS.prompt_len + ARGS.gen,
               chunk_size=4, block_size=4, num_blocks=14)
 
 
@@ -58,12 +61,13 @@ def _trace(eng, log):
     return step
 
 
-@pytest.fixture(scope="module")
-def runs():
+@pytest.fixture(scope="module", params=["q8_0", "q3_k_s"])
+def runs(request):
+    quant = request.param
     cfg = ASSIGNED["qwen3-0.6b"].reduced()
     jmodel = jbuild(cfg)
     jparams = jax.jit(lambda key: jconvert.quantize_params(
-        jmodel.init(key), "q8_0"))(jax.random.PRNGKey(0))
+        jmodel.init(key), quant))(jax.random.PRNGKey(0))
     tcfg = get_config("qwen3-0.6b").reduced()
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
                               device="cpu")
@@ -71,23 +75,23 @@ def runs():
     jreqs = jserve.build_stream(cfg, ARGS, np.random.RandomState(0))
     treqs = tserve.build_stream(tcfg, ARGS, np.random.RandomState(0))
 
-    # JAX run, spying on the sampled rows' top-2 gaps per step.
-    gaps, scale = [], [0.0]
+    # JAX run, spying on the sampled rows' logits per step.
+    rows, scale = [], [0.0]
 
     def spy(logits, key, temperature, active, **kw):
         def record(lg):
             lf = np.asarray(lg, np.float32)
-            top2 = np.sort(lf, axis=-1)[:, -2:]
-            gaps.append(top2[:, 1] - top2[:, 0])
+            rows.append(lf)
             scale[0] = max(scale[0], float(np.abs(lf).max()))
         jax.debug.callback(record, logits)
         return orig_sample(logits, key, temperature, active, **kw)
 
     orig_sample = jsampling.sample_slots
-    jtrace, ttrace, jgap = [], [], {}
+    jtrace, ttrace, jrow = [], [], {}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jsampling, "sample_slots", spy)
-        jeng = JaxEngine(jmodel, jparams, cache_dtype=jnp.float32, **ENGINE)
+        jeng = JaxEngine(jmodel, jparams, quant=quant,
+                         cache_dtype=jnp.float32, **ENGINE)
         inner = _trace(jeng, jtrace)
 
         def step_with_gaps(*a, **kw):
@@ -97,16 +101,16 @@ def runs():
             jax.effects_barrier()
             for s, (q, n0) in before.items():
                 if q.tokens_out > n0:
-                    jgap[(q.rid, n0)] = float(gaps[-1][s])
+                    jrow[(q.rid, n0)] = rows[-1][s]
         jeng._step_once = step_with_gaps
         jrep = jeng.serve(jreqs, seed=0, realtime=False)
 
-    teng = ServingEngine(build_model(tcfg), tparams, cache_dtype=torch.float32,
-                         device="cpu", **ENGINE)
+    teng = ServingEngine(build_model(tcfg), tparams, quant=quant,
+                         cache_dtype=torch.float32, device="cpu", **ENGINE)
     _trace(teng, ttrace)
     trep = teng.serve(treqs, seed=0, realtime=False)
     return dict(jreqs=jreqs, treqs=treqs, jrep=jrep, trep=trep,
-                jtrace=jtrace, ttrace=ttrace, jgap=jgap, scale=scale[0])
+                jtrace=jtrace, ttrace=ttrace, jrow=jrow, scale=scale[0])
 
 
 def test_build_stream_is_the_jax_launchers(runs):
@@ -118,10 +122,18 @@ def test_build_stream_is_the_jax_launchers(runs):
 
 
 def test_greedy_tokens_identical_up_to_near_ties(runs):
+    """A request may diverge only where the JAX run's top-2 gap is below
+    the logit tolerance, and only onto a token the JAX run also scored
+    within the tolerance of its best. Exemptions must be rare: at most
+    one request in four, or one in eight of the stream's near-tie
+    positions (the chances to flip) where those are more."""
     jrep, trep = runs["jrep"], runs["trep"]
     assert [s.rid for s in jrep.sequences] == [s.rid for s in trep.sequences]
-    assert len(runs["jgap"]) == ARGS.requests * ARGS.gen   # gaps recorded
+    assert len(runs["jrow"]) == ARGS.requests * ARGS.gen   # rows recorded
     tol = LOGIT_TOL * runs["scale"]
+    gaps = {key: float(np.diff(np.sort(row)[-2:])[0])
+            for key, row in runs["jrow"].items()}
+    near_ties = sum(g < tol for g in gaps.values())
     exempt = 0
     for a, b in zip(jrep.sequences, trep.sequences):
         assert len(a.generated) == len(b.generated) == ARGS.gen
@@ -130,12 +142,18 @@ def test_greedy_tokens_identical_up_to_near_ties(runs):
         if not diff:
             continue
         k = diff[0]
-        gap = runs["jgap"][(a.rid, k)]
+        gap = gaps[(a.rid, k)]
         assert gap < tol, (f"request {a.rid} diverged at token {k} where the "
                            f"JAX top-2 gap {gap:.4g} >= tolerance {tol:.4g}: "
                            f"{a.generated} vs {b.generated}")
+        row = runs["jrow"][(a.rid, k)]
+        assert row[b.generated[k]] >= row.max() - tol, (
+            f"request {a.rid} token {k}: the port chose {b.generated[k]}, "
+            "which the JAX run scored below its best by more than the "
+            "tolerance")
         exempt += 1
-    assert exempt <= ARGS.requests // 4, f"{exempt} near-tie exemptions"
+    assert exempt <= max(ARGS.requests // 4, near_ties // 8), (
+        f"{exempt} near-tie exemptions ({near_ties} near-tie positions)")
 
 
 def test_allocator_and_table_traces_equal(runs):
