@@ -11,21 +11,26 @@ Phases, one line each (every failure exits non-zero):
 2. build  — compiles every ``src/repro_torch/csrc/*.cu`` with nvcc for
             sm_90a into ``build/`` (one nvcc per source, in parallel);
 3. kernels — each hand-written kernel (matmul_q8_0, matmul_fp16,
-            matmul_q6_k, matmul_q3_k, paged_decode_attention) against its
-            plain PyTorch version on the card at the main path's shapes
-            (and a ragged one, and qwen3-8b's K), with the tolerance
-            stated, its time, the plain version's time, one library
-            call's time (a yardstick only: the port never calls it) and
-            the least time the card could take for the same work;
+            matmul_q6_k, matmul_q3_k, paged_decode_attention in its bf16
+            and its int8 form, flash_attention) against its plain PyTorch
+            version on the card at the main path's shapes (and ragged
+            ones, and qwen3-8b's widths), with the tolerance stated, its
+            time, the plain version's time, one library call's time (a
+            yardstick only: the port never calls it) and the least time
+            the card could take for the same work;
 4. serve  — ``repro_torch.launch.serve`` at the full width of
-            qwen3-0.6b (paged KV, seeded random weights made on the card)
-            once for each of the paper's weight recipes (q8_0, fp16, q6_k,
-            q3_k_s), asserting that every quantized product and every
-            paged attention of each run went through the kernels (exact
-            launches per step);
+            qwen3-0.6b (seeded random weights made on the card): the
+            paged stream once for each of the paper's weight recipes
+            (q8_0, fp16, q6_k, q3_k_s) and once on int8 KV pages
+            (``--kv-quant int8``), the lockstep batch (``--mode batch``,
+            contiguous arena), and ``model.prefill`` of 8 x 512 tokens,
+            asserting that every quantized product and every attention
+            of each run went through the kernels (exact launches per step
+            and per prefill);
 5. checks — per recipe, one full-width decode step (depth cut to 2
             layers) against the plain CPU path, and a shorter serve under
-            torch.profiler;
+            torch.profiler; for q8_0 also a 2-layer prefill and a 2-layer
+            decode step on int8 pages against the CPU path;
 6. the ``kernels`` JSON line, then the device JSON line, last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -73,7 +78,19 @@ MATMULS = {
 }
 # qwen3-8b's K (d_model, d_ff) at its d_model N: checked, not timed.
 WIDE = [("qwen3-8b q/o", 4096, 4096), ("qwen3-8b down", 4096, 12288)]
-# recipe -> {kernel: launches per unified step}
+# Full-width attention shapes of the flash kernel's checks: (label, B, Sq,
+# Skv, H, Hkv, D, causal, q_offset, dtype name). The first is the timed
+# one: qwen3-0.6b's prefill of 8 x 512 tokens.
+FLASH_CASES = [
+    ("qwen3-0.6b prefill", 8, 512, 512, 16, 8, 128, True, 0, "bfloat16"),
+    ("ragged S=500", 8, 500, 500, 16, 8, 128, True, 0, "bfloat16"),
+    ("non-causal", 8, 512, 512, 16, 8, 128, False, 0, "bfloat16"),
+    ("q_offset 384", 8, 128, 512, 16, 8, 128, True, 384, "bfloat16"),
+    ("f32", 8, 512, 512, 16, 8, 128, True, 0, "float32"),
+    ("qwen3-8b", 1, 2048, 2048, 32, 8, 128, True, 0, "bfloat16"),
+]
+PREFILL_SHAPE = (8, 512)                        # batch x tokens
+# run -> {kernel: launches per unified step}
 RECIPE_LAUNCHES = {
     "q8_0": {"matmul_q8_0": 197, "paged_decode_attention": 28},
     "fp16": {"matmul_fp16": 196, "paged_decode_attention": 28},
@@ -81,7 +98,22 @@ RECIPE_LAUNCHES = {
     "q3_k_s": {"matmul_q3_k": 196, "matmul_q6_k": 1,
                "paged_decode_attention": 28},
 }
+INT8_LAUNCHES = {"matmul_q8_0": 197, "paged_decode_attention_int8": 28}
+BATCH_LAUNCHES = {"matmul_q8_0": 197}           # contiguous arena
+PREFILL_LAUNCHES = {"matmul_q8_0": 197, "flash_attention": 28}
 M_STEP = 64                                     # slots x chunk
+
+
+def within_one_ulp(torch, out, ref32, rtol: float, atol: float) -> bool:
+    """bf16 ``out`` is an f32 result rounded once: within one bf16 ulp
+    (of the element's own magnitude) of a value that lies within the f32
+    tolerance (``rtol``, ``atol``: the kernel's summation order) of the
+    plain version's f32 result ``ref32``."""
+    r = ref32.float()
+    ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+    ulp = torch.where(r == 0, torch.zeros_like(r), ulp)
+    return bool(((out.float() - r).abs()
+                 <= ulp + atol + rtol * r.abs()).all())
 
 
 def fail(msg: str) -> None:
@@ -322,22 +354,240 @@ def check_paged_attention(torch, np, dev):
                 bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l)
 
 
-def check_step_vs_cpu(torch, dev, params, cfg, quant):
+def _live_pages(c):
+    """Page ids some slot's walk reaches in ``_paged_case`` ``c``, and the
+    number of keys the walks read."""
+    live, keys = set(), 0
+    for b in range(len(c["np_pos"])):
+        last = (int(c["np_pos"][b]) + max(int(c["np_lens"][b]), 1) - 1) \
+            // c["bs"]
+        live.update(int(p) for p in c["np_tables"][b, :last + 1])
+        keys += (last + 1) * c["bs"]
+    return live, keys
+
+
+def check_paged_int8(torch, np, dev):
+    """The int8 form of paged_decode_attention (int8 code pages, fp16
+    scale pages) at the main path's decode shapes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.ref import paged_attention_ref
+    from repro_torch.models.attention import quantize_kv
+    c = _paged_case(torch, np, dev, torch.float32)
+    kq, ks = quantize_kv(c["kp"])
+    vq, vs = quantize_kv(c["vp"])
+    live, keys = _live_pages(c)
+    dead = torch.tensor([p for p in range(c["nb"] + 1) if p not in live],
+                        dtype=torch.long, device=dev)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        q = c["q"].to(dtype)
+        args = (q, kq, vq, c["tables"], c["pos"])
+        kw = dict(sm_scale=c["sm"], k_scales=ks, v_scales=vs)
+        out = paged_decode_attention(*args, lengths=c["lens"], **kw)
+        ref = paged_attention_ref(q.float(), *args[1:], **kw)   # f32
+        torch.cuda.synchronize()
+        err = 0.0
+        for b in range(out.shape[0]):
+            n = int(c["np_lens"][b])
+            o, r = out[b, :n], ref[b, :n]
+            # FP32_TOL of tests/test_paged_attention_kernel.py; a bf16
+            # output is that f32 result rounded once (one bf16 ulp more).
+            ok = torch.allclose(o, r, rtol=2e-5, atol=2e-6) \
+                if dtype == torch.float32 else \
+                within_one_ulp(torch, o, r, 2e-5, 2e-6)
+            if not bool(torch.isfinite(o.float()).all()) or not ok:
+                fail(f"paged_decode_attention int8 {dtype} slot {b}: "
+                     f"max_abs_err {float((o - r).float().abs().max()):.3e}")
+            err = max(err, float((o.float() - r.float()).abs().max()))
+        if dtype == torch.float32:      # the JSON's error: f32 vs f32
+            worst = err
+        # Dead pages: garbage codes and NaN scales must not change a bit.
+        kq2, vq2, ks2, vs2 = kq.clone(), vq.clone(), ks.clone(), vs.clone()
+        kq2[dead], vq2[dead] = 127, -127
+        ks2[dead], vs2[dead] = float("nan"), float("nan")
+        out2 = paged_decode_attention(q, kq2, vq2, c["tables"], c["pos"],
+                                      sm_scale=c["sm"], lengths=c["lens"],
+                                      k_scales=ks2, v_scales=vs2)
+        # Zeroed pages (codes 0, scales 0) read as exactly 0.
+        zq, zs = torch.zeros_like(kq), torch.zeros_like(ks)
+        out0 = paged_decode_attention(q, zq, zq, c["tables"], c["pos"],
+                                      sm_scale=c["sm"], lengths=c["lens"],
+                                      k_scales=zs, v_scales=zs)
+        torch.cuda.synchronize()
+        if not torch.equal(out, out2):
+            fail(f"paged_decode_attention int8 {dtype}: NaN scales in "
+                 f"{len(dead)} dead pages changed the output")
+        if bool(out0.any()):
+            fail(f"paged_decode_attention int8 {dtype}: zeroed pages did "
+                 "not read as 0")
+        print(f"kernel paged_decode_attention int8 q {dtype}: max_abs_err "
+              f"{err:.3e} (rtol 2e-5 atol 2e-6 of the f32 plain version"
+              f"{'' if dtype == torch.float32 else ', + one bf16 ulp'}"
+              f", valid rows) | {len(dead)} dead pages with NaN scales: "
+              "output bit-identical | zeroed pages read as 0", flush=True)
+    # Timing at the serving dtype (bf16 q), the case above.
+    B, C, H, D = c["q"].shape
+    Hkv = kq.shape[2]
+    args = (q, kq, vq, c["tables"], c["pos"])
+    launches0 = paged_decode_attention.int8_launches
+    t_k = time_ms(torch, [lambda: paged_decode_attention(
+        *args, sm_scale=c["sm"], lengths=c["lens"], k_scales=ks,
+        v_scales=vs)], 200)
+    paged_decode_attention.int8_launches = launches0
+    t_p = time_ms(torch, [lambda: paged_attention_ref(
+        *args, sm_scale=c["sm"], k_scales=ks, v_scales=vs)], 50)
+    # Library yardstick: SDPA over the dequantized gathered (B, H, S, D)
+    # view with the causal-depth mask, built outside the timed call.
+    G = H // Hkv
+    tb = c["tables"].long()
+    kv = [(x[tb].float() * sc[tb].float()[..., None]).flatten(1, 2)
+          .to(torch.bfloat16).repeat_interleave(G, dim=2).transpose(1, 2)
+          .contiguous() for x, sc in ((kq, ks), (vq, vs))]
+    s = kv[0].shape[2]
+    depth = c["pos"].long()[:, None] + torch.arange(C, device=dev) + 1
+    mask = (torch.arange(s, device=dev)[None, None, :]
+            < depth[:, :, None])[:, None]
+    qh = q.transpose(1, 2).contiguous()
+    t_l = time_ms(torch, [lambda: F.scaled_dot_product_attention(
+        qh, kv[0], kv[1], attn_mask=mask, scale=c["sm"])], 200)
+    nbytes = keys * Hkv * (D + 2) * 2 + 2 * q.numel() * 2 \
+        + c["tables"].numel() * 4 + 2 * B * 4
+    flops = keys * Hkv * (C * G) * 4 * D
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"kernel paged_decode_attention int8 B={B} C={C} H={H} Hkv={Hkv} "
+          f"D={D} bs={c['bs']}: kernel {t_k:.4f} ms | plain {t_p:.4f} ms | "
+          f"library(SDPA on dequantized gathered view) {t_l:.4f} ms | bound "
+          f"{b_ms:.5f} ms ({b_by}) | per step x28: kernel {28 * t_k:.4f} ms",
+          flush=True)
+    return dict(name="paged_decode_attention_int8", route="cuda",
+                source="src/repro_torch/csrc/paged_attention.cu",
+                replaces="src/repro/kernels/paged_attention.py:156",
+                max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
+                bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l)
+
+
+def check_flash(torch, dev):
+    """flash_attention against attention_ref at full width (FLASH_CASES),
+    timed at qwen3-0.6b's prefill of 8 x 512 tokens, per prefill (28
+    calls)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    worst = 0.0
+    timed = None
+    for label, b, sq, skv, h, hkv, d, causal, off, dt in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q, k, v = (torch.randn((b, n_s, n_h, d), generator=gen,
+                               device=dev).to(dtype)
+                   for n_s, n_h in ((sq, h), (skv, hkv), (skv, hkv)))
+        out = flash_attention(q, k, v, causal=causal, q_offset=off)
+        ref = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                            q_offset=off)                       # f32
+        torch.cuda.synchronize()
+        err = float((out.float() - ref).abs().max())
+        # tests/test_kernels.py's 1e-4 (blocked online vs dense softmax);
+        # a bf16 output is that f32 result rounded once (one ulp more).
+        ok = torch.allclose(out, ref, rtol=1e-4, atol=1e-4) \
+            if dtype == torch.float32 else \
+            within_one_ulp(torch, out, ref, 1e-4, 1e-4)
+        if not bool(torch.isfinite(out.float()).all()) or not ok:
+            fail(f"flash_attention {label}: max_abs_err {err:.3e}")
+        if dtype == torch.float32:      # the JSON's error: f32 vs f32
+            worst = max(worst, err)
+        print(f"kernel flash_attention {label} B={b} Sq={sq} Skv={skv} "
+              f"H={h} Hkv={hkv} D={d} causal={causal} q_offset={off} {dt}: "
+              f"max_abs_err {err:.3e} (rtol/atol 1e-4 of the f32 plain "
+              f"version{'' if dtype == torch.float32 else ', + one bf16 ulp'})",
+              flush=True)
+        if timed is None:
+            timed = (q, k, v, causal, b, sq, h, hkv, d)
+        del out, ref
+    q, k, v, causal, b, sq, h, hkv, d = timed
+    launches0 = flash_attention.launches
+    t_k = time_ms(torch, [lambda: flash_attention(q, k, v, causal=causal)],
+                  50)
+    flash_attention.launches = launches0
+    t_p = time_ms(torch, [lambda: attention_ref(q, k, v, causal=causal)], 20)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    t_l = time_ms(torch, [lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True)], 50)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+    pairs = sq * (sq + 1) // 2 if causal else sq * sq   # visible (i, j)
+    flops = 4.0 * b * h * d * pairs
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"kernel flash_attention bf16 B={b} S={sq} H={h} Hkv={hkv} D={d} "
+          f"causal: kernel {t_k:.4f} ms | plain {t_p:.4f} ms | "
+          f"library(SDPA is_causal, enable_gqa) {t_l:.4f} ms | bound "
+          f"{b_ms:.5f} ms ({b_by}) | per prefill x28: kernel "
+          f"{28 * t_k:.4f} ms", flush=True)
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:73",
+                max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
+                bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l)
+
+
+def _to(tree, d):
+    if isinstance(tree, dict):
+        return {k: _to(v, d) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, d) for v in tree]
+    return tree.to(d)
+
+
+def check_prefill_vs_cpu(torch, dev, params, cfg, quant):
+    """A full-width prefill with depth cut to 2 layers: the card (matmul
+    and flash kernels) against the plain path on the CPU, same weights,
+    a ragged 100-token sequence."""
+    import dataclasses
+    from repro_torch.models.api import build_model
+    model = build_model(dataclasses.replace(cfg, num_layers=2))
+    cut = {k: (v[:2] if k == "layers0" else v) for k, v in params.items()}
+    rng = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=rng,
+                           dtype=torch.int32)
+    out = {}
+    for d in ("cpu", dev):
+        logits, cache = model.prefill(_to(cut, d), {"tokens": tokens.to(d)},
+                                      quant=quant)
+        out[str(d)] = (logits.float().cpu(), _to(cache, "cpu"))
+    (a, ca), (r, cr) = out[str(dev)], out["cpu"]
+    scale = float(r.abs().max())
+    worst = float((a - r).abs().max())
+    if a.shape != (2, 1, cfg.vocab_size) or not bool(torch.isfinite(a).all()) \
+            or worst > 1e-2 * scale:
+        fail(f"full-width {quant} prefill (2 layers) card vs CPU: "
+             f"max_abs_err {worst:.3e} vs max|logit| {scale:.3e}")
+    # Caches: within one bf16 ulp of their scale (2^(e - 8) for the
+    # largest magnitude m * 2^e of the leaf, m in [0.5, 1)).
+    parts = []
+    for leaf in ("k", "v"):
+        x, y = ca["layers0"][leaf].float(), cr["layers0"][leaf].float()
+        ulp = 2.0 ** (int(torch.frexp(y.abs().max()).exponent) - 8)
+        e = float((x - y).abs().max())
+        if e > ulp:
+            fail(f"full-width {quant} prefill: cache {leaf} max_abs_err "
+                 f"{e:.3e} > one bf16 ulp of its scale {ulp:.3e}")
+        parts.append(f"{leaf} {e:.3e} (ulp {ulp:.3e})")
+    print(f"step check: full-width qwen3-0.6b {quant} prefill, 2 layers, "
+          f"2 x 100 tokens, card kernels vs CPU plain: last-token logits "
+          f"max_abs_err {worst:.3e} (bound 1e-2 x max|logit| = "
+          f"{1e-2 * scale:.3e}); caches {', '.join(parts)}", flush=True)
+
+
+def check_step_vs_cpu(torch, dev, params, cfg, quant, kv_quant="none"):
     """One full-width decode step with depth cut to 2 layers under recipe
-    ``quant``: the kernels on the card against the plain path on the CPU,
-    same weights."""
+    ``quant`` (on int8 KV pages with ``kv_quant="int8"``): the kernels on
+    the card against the plain path on the CPU, same weights."""
     import dataclasses
     from repro_torch.models.api import build_model
     small = dataclasses.replace(cfg, num_layers=2)
     model = build_model(small)
     cut = {k: (v[:2] if k == "layers0" else v) for k, v in params.items()}
-
-    def to(tree, d):
-        if isinstance(tree, dict):
-            return {k: to(v, d) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, d) for v in tree]
-        return tree.to(d)
+    dtypes = {"q": torch.int8, "s": torch.float16}
 
     rng = torch.Generator().manual_seed(3)
     B, C, bs, MB = 2, 8, 16, 4
@@ -346,14 +596,16 @@ def check_step_vs_cpu(torch, dev, params, cfg, quant):
     pos = torch.tensor([0, 5], dtype=torch.int32)
     lens = torch.tensor([8, 3], dtype=torch.int32)
     tables = torch.tensor([[3, 1, 8, 8], [0, 2, 8, 8]], dtype=torch.int32)
-    shapes = model.paged_cache_shapes(B, 9, bs)
+    shapes = model.paged_cache_shapes(B, 9, bs, kv_quant=kv_quant)
     out = {}
     for d in ("cpu", dev):
-        cache = {n: {k: torch.zeros(s, dtype=torch.bfloat16, device=d)
+        cache = {n: {k: {p: torch.zeros(sp, dtype=dtypes[p], device=d)
+                         for p, sp in s.items()} if kv_quant == "int8"
+                     else torch.zeros(s, dtype=torch.bfloat16, device=d)
                      for k, s in leaves.items()}
                  for n, leaves in shapes.items()}
         logits, _ = model.decode_step(
-            to(cut, d), tokens.to(d), pos.to(d), cache, quant=quant,
+            _to(cut, d), tokens.to(d), pos.to(d), cache, quant=quant,
             block_tables=tables.to(d), lengths=lens.to(d))
         out[str(d)] = logits.float().cpu()
     a, r = out[str(dev)], out["cpu"]
@@ -366,25 +618,33 @@ def check_step_vs_cpu(torch, dev, params, cfg, quant):
     # summation order; with these weights that has come to 1.8e-2 (q8_0)
     # to 2.7e-2 (q3_k_s) against a max |logit| of ~3, so 1e-2 x max|logit|
     # is 1.2-1.7x the readings and tight enough that one layer's attention
-    # going wrong shows.
-    rel = 1e-2
+    # going wrong shows. On int8 pages the same one-ulp difference of a
+    # new K/V element can move its code by a whole step (1/127 of the
+    # row's absmax, ~2.5x a bf16 ulp): the first reading was 3.1e-2
+    # (q8_0), so that step is held to tests/test_torch_model.py's
+    # LOGIT_TOL, 2.5e-2 x max|logit|, the port's bound for two bf16
+    # paths in another order; a wrong attention moves logits by O(1).
+    rel = 1e-2 if kv_quant == "none" else 2.5e-2
     if a.shape != (B, C, cfg.vocab_size) or not bool(torch.isfinite(a).all()) \
             or worst > rel * scale:
-        fail(f"full-width {quant} step (2 layers) card vs CPU: max_abs_err "
-             f"{worst:.3e} vs max|logit| {scale:.3e}")
-    print(f"step check: full-width qwen3-0.6b {quant}, 2 layers, card kernels "
+        fail(f"full-width {quant} kv={kv_quant} step (2 layers) card vs "
+             f"CPU: max_abs_err {worst:.3e} vs max|logit| {scale:.3e}")
+    print(f"step check: full-width qwen3-0.6b {quant} kv={kv_quant}, 2 "
+          f"layers, card kernels "
           f"vs CPU plain: logits {tuple(a.shape)} finite, max_abs_err "
           f"{worst:.3e} (bound {rel:g} x max|logit| = {rel * scale:.3e})",
           flush=True)
 
 
-def profile_serve(torch, serve, cfg, model, params, dev, quant) -> None:
+def profile_serve(torch, serve, cfg, model, params, dev, quant,
+                  arena=SERVE_ARGS[:-8], label=None) -> None:
     """Where a serve step's time goes: a shorter stream of the same shape
-    under torch.profiler, device time by kernel against the wall time,
-    and the host's kernel launches per step and cost per launch."""
+    (slots, chunk and the ``arena`` flags) under torch.profiler, device
+    time by kernel against the wall time, and the host's kernel launches
+    per step and cost per launch."""
     from torch.profiler import ProfilerActivity, profile
     ap = serve.build_parser()
-    args = ap.parse_args(SERVE_ARGS[:-8] + [
+    args = ap.parse_args(list(arena) + [
         "--quant", quant, "--requests", "8", "--prompt-len", "32", "--gen",
         "8", "--arrival", "back2back"])
     with profile(activities=[ProfilerActivity.CPU,
@@ -403,7 +663,7 @@ def profile_serve(torch, serve, cfg, model, params, dev, quant) -> None:
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     wall_ms = sum(rep.stats.step_s) * 1e3
     steps = rep.stats.steps
-    tag = f"profile {quant}:"
+    tag = f"profile {label or quant}:"
     if not events:
         print(f"{tag} the profiler recorded no device time (not measured)",
               flush=True)
@@ -428,16 +688,18 @@ def profile_serve(torch, serve, cfg, model, params, dev, quant) -> None:
               flush=True)
 
 
-def recipe_setup(torch, dev, serve, quant):
-    """(args, cfg, model, params) of the full-width serve under recipe
-    ``quant``, with its seeded weights made on the card."""
+def recipe_setup(torch, dev, serve, quant, argv=SERVE_ARGS,
+                 quantize=True):
+    """(args, cfg, model, params) of the full-width serve ``argv`` under
+    recipe ``quant``, with its seeded weights made on the card (left
+    dense with ``quantize=False``)."""
     ap = serve.build_parser()
-    args = ap.parse_args(SERVE_ARGS + ["--quant", quant])
+    args = ap.parse_args(list(argv) + ["--quant", quant])
     serve.validate_args(ap, args)
     cfg = serve.get_config(args.arch)
     model = serve.build_model(cfg)
     t0 = time.perf_counter()
-    params = serve.build_params(model, args, dev)
+    params = serve.build_params(model, args, dev, quantize=quantize)
     torch.cuda.synchronize()
     print(f"serve {quant} setup: full-width {cfg.name} ({cfg.num_layers} "
           f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}) weights "
@@ -446,35 +708,108 @@ def recipe_setup(torch, dev, serve, quant):
     return args, cfg, model, params
 
 
-def serve_recipe(torch, dev, serve, quant):
-    """Serve the stream at full width under recipe ``quant`` and assert
-    the exact kernel launches per step and every request complete.
-    Returns {kernel: launches in the serve}."""
-    args, cfg, model, params = recipe_setup(torch, dev, serve, quant)
-    for k in serve.KERNELS:
-        k.launches = 0
+def check_launches(tag, launches, per_step, steps):
+    """Fail unless ``launches`` is exactly ``per_step`` x ``steps`` for
+    every kernel (0 for a kernel ``per_step`` does not name)."""
+    want = {name: per_step.get(name, 0) * steps for name in launches}
+    if launches != want:
+        fail(f"{tag}: launches {launches} != {want} for {steps} steps")
+    print(f"{tag}: kernels launched {launches} over {steps} "
+          f"({per_step} per step)", flush=True)
+    return {name: n for name, n in launches.items() if n}
+
+
+def serve_recipe(torch, dev, serve, quant, extra=(), per_step=None,
+                 tag=None):
+    """Serve the stream at full width under recipe ``quant`` (plus the
+    flags ``extra``) and assert the exact kernel launches per step and
+    every request complete. Returns {kernel: launches in the serve}."""
+    tag = tag or f"serve {quant}"
+    args, cfg, model, params = recipe_setup(
+        torch, dev, serve, quant, argv=SERVE_ARGS + list(extra))
+    serve.reset_launches()
     engine, report, reqs = serve.run_stream(cfg, model, params, args, dev)
-    launches = {k.__name__: k.launches for k in serve.KERNELS}
+    launches = serve.launch_counts()
     for line in serve.report_lines(engine, report, args.requests):
-        print(f"serve {quant}: {line}", flush=True)
+        print(f"{tag}: {line}", flush=True)
     steps = report.stats.steps
     if len(report.sequences) != len(reqs) or any(
             len(s.generated) != args.gen
             or not all(0 <= t < cfg.vocab_size for t in s.generated)
             for s in report.sequences):
-        fail(f"serve {quant}: not every request completed with in-vocab "
-             "tokens")
-    per_step = RECIPE_LAUNCHES[quant]
-    want = {k.__name__: per_step.get(k.__name__, 0) * steps
-            for k in serve.KERNELS}
-    if launches != want:
-        fail(f"serve {quant}: launches {launches} != {want} for {steps} "
-             "steps")
-    print(f"serve {quant}: kernels launched {launches} over {steps} steps "
-          f"({per_step} per step)", flush=True)
+        fail(f"{tag}: not every request completed with in-vocab tokens")
+    out = check_launches(tag, launches, per_step or RECIPE_LAUNCHES[quant],
+                         steps)
     del params, engine
     torch.cuda.empty_cache()
-    return {name: n for name, n in launches.items() if n}
+    return out
+
+
+def serve_batch(torch, dev, serve):
+    """``serve --mode batch --prompt-len 128 --gen 32 --batch 8`` at full
+    width (q8_0; the lockstep Engine quantizes the dense weights): every
+    token in vocab, exact launches per step, no attention kernel (the
+    contiguous arena attends in plain PyTorch, as the JAX package's XLA
+    does)."""
+    argv = ["--mode", "batch", "--prompt-len", "128", "--gen", "32",
+            "--batch", "8"]
+    args, cfg, model, dense = recipe_setup(torch, dev, serve, "q8_0",
+                                           argv=argv, quantize=False)
+    serve.reset_launches()
+    t0 = time.perf_counter()
+    out, stats = serve.run_batch(cfg, model, dense, args, dev)
+    wall = time.perf_counter() - t0
+    launches = serve.launch_counts()
+    for line in serve.batch_lines(stats, args):
+        print(f"serve batch: {line}", flush=True)
+    print(f"serve batch: {stats.steps} steps in {wall:.2f} s (quantization "
+          f"stage included), p50 step {1e3 * sorted(stats.step_s)[len(stats.step_s) // 2]:.2f} ms",
+          flush=True)
+    if out.shape != (args.batch, args.gen) or not (
+            (out >= 0) & (out < cfg.vocab_size)).all():
+        fail(f"serve batch: tokens {out.shape} not all in vocab")
+    res = check_launches("serve batch", launches, BATCH_LAUNCHES,
+                         stats.steps)
+    del dense
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_prefill(torch, dev, serve, repeats: int = 3):
+    """``model.prefill`` of 8 x 512 seeded tokens at full width (q8_0),
+    ``repeats`` times: finite last-token logits and caches of the
+    expected shapes, exact launches per prefill, prefill tokens/s."""
+    _, cfg, model, params = recipe_setup(torch, dev, serve, "q8_0")
+    b, s = PREFILL_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                           device=dev, dtype=torch.int32)
+    serve.reset_launches()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": tokens},
+                                      quant="q8_0")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = serve.launch_counts()
+    kv = cache["layers0"]["k"]
+    if logits.shape != (b, 1, cfg.vocab_size) or not bool(
+            torch.isfinite(logits.float()).all()) or tuple(kv.shape) != (
+            cfg.num_layers, b, s, cfg.num_kv_heads, cfg.resolved_head_dim()):
+        fail(f"prefill: logits {tuple(logits.shape)} / cache "
+             f"{tuple(kv.shape)} wrong or not finite")
+    best = min(times)
+    print(f"prefill: full-width {cfg.name} q8_0, {b} x {s} tokens: "
+          f"{[round(t * 1e3, 2) for t in times]} ms per prefill, best "
+          f"{b * s / best:.0f} prefill tokens/s (first call included in "
+          "the list)", flush=True)
+    res = check_launches("prefill", launches, PREFILL_LAUNCHES, repeats)
+    del params, cache
+    torch.cuda.empty_cache()
+    return res
 
 
 def check_recipe(torch, dev, serve, quant) -> None:
@@ -483,7 +818,17 @@ def check_recipe(torch, dev, serve, quant) -> None:
     session slows the launches of the process that ran it)."""
     _, cfg, model, params = recipe_setup(torch, dev, serve, quant)
     check_step_vs_cpu(torch, dev, params, cfg, quant)
+    if quant == "q8_0":
+        check_prefill_vs_cpu(torch, dev, params, cfg, quant)
+        check_step_vs_cpu(torch, dev, params, cfg, quant, kv_quant="int8")
     profile_serve(torch, serve, cfg, model, params, dev, quant)
+    if quant == "q8_0":     # the int8 pages, and the batch mode's arena
+        profile_serve(torch, serve, cfg, model, params, dev, quant,
+                      arena=SERVE_ARGS[:-8] + ["--kv-quant", "int8"],
+                      label="q8_0 kv-int8")
+        profile_serve(torch, serve, cfg, model, params, dev, quant,
+                      arena=SERVE_ARGS[:4] + ["--chunk-size", "8"],
+                      label="q8_0 contiguous")
     del params
     torch.cuda.empty_cache()
 
@@ -527,6 +872,8 @@ def main() -> None:
 
     kernels = [check_matmul(torch, dev, name) for name in MATMULS]
     kernels.append(check_paged_attention(torch, np, dev))
+    kernels.append(check_paged_int8(torch, np, dev))
+    kernels.append(check_flash(torch, dev))
     print(f"chip_smoke: kernel phase done at {time.perf_counter() - T0:.1f} "
           "s", flush=True)
 
@@ -534,6 +881,11 @@ def main() -> None:
     by_serve = {}
     for quant in RECIPE_LAUNCHES:
         by_serve[quant] = serve_recipe(torch, dev, serve, quant)
+    by_serve["q8_0 kv-int8"] = serve_recipe(
+        torch, dev, serve, "q8_0", extra=["--kv-quant", "int8"],
+        per_step=INT8_LAUNCHES, tag="serve q8_0 kv-int8")
+    by_serve["batch"] = serve_batch(torch, dev, serve)
+    by_serve["prefill"] = run_prefill(torch, dev, serve)
     print(f"chip_smoke: serves done at {time.perf_counter() - T0:.1f} s",
           flush=True)
     for quant in RECIPE_LAUNCHES:
@@ -541,10 +893,10 @@ def main() -> None:
 
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in by_serve.values())
-        k["launches_by_serve"] = {q: c[k["name"]] for q, c in by_serve.items()
-                                  if c.get(k["name"])}
+        k["launches_by_run"] = {q: c[k["name"]] for q, c in by_serve.items()
+                                if c.get(k["name"])}
         if not k["launches"]:
-            fail(f"{k['name']} was launched no time in the serves")
+            fail(f"{k['name']} was launched no time on the main path")
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -32,6 +32,25 @@ PENDING: Dict[str, str] = {
 }
 
 
+# Families of the architectures not ported yet (for the launcher's flag
+# checks, which refuse some combinations by family).
+PENDING_FAMILY: Dict[str, str] = {
+    "llama3.2-3b": "dense", "qwen2-72b": "dense", "llama3-405b": "dense",
+    "qwen2-vl-2b": "vlm", "jamba-v0.1-52b": "hybrid",
+    "deepseek-v3-671b": "moe", "granite-moe-3b-a800m": "moe",
+    "whisper-small": "encdec", "mamba2-1.3b": "ssm",
+}
+
+
+def family_of(name: str) -> str:
+    """The model family of architecture ``name``, ported or not."""
+    if name in ARCHS:
+        return ARCHS[name].family
+    if name in PENDING_FAMILY:
+        return PENDING_FAMILY[name]
+    raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
+
+
 def get_config(name: str) -> ModelConfig:
     """The ported config called ``name``; raises for any other name."""
     if name in ARCHS:

@@ -21,6 +21,9 @@ __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_float(int8_t v) {
+  return static_cast<float>(v);
+}
 
 __device__ __forceinline__ void from_float(float v, float* dst) { *dst = v; }
 __device__ __forceinline__ void from_float(float v, __nv_bfloat16* dst) {

@@ -2,8 +2,10 @@
 //
 // Replaces the TPU kernel repro/kernels/paged_attention.py::
 // paged_decode_attention (Pallas body _kernel, head folding _fold_heads)
-// in its GQA form: bf16 or f32 pages, C >= 1 chunk queries per slot, no
-// int8 scale pages and no MLA RoPE side (those forms are later work).
+// in its GQA forms: bf16 or f32 pages, or int8 code pages with fp16
+// scale pages (one scale per (in-page position, kv-head)), C >= 1 chunk
+// queries per slot. The MLA RoPE side (q2/k2 and shared K/V) is later
+// work.
 //
 // Semantics, as in the Pallas kernel: for slot b, query i < C at
 // position positions[b] + i attends kv positions <= positions[b] + i,
@@ -13,6 +15,9 @@
 // running max and sum and an f32 accumulator; a row whose sum stays 0
 // divides by 1. Blocks past last_live = (pos + max(len, 1) - 1) / bs are
 // never read, so dead pages and the null page cannot reach the output.
+// int8 pages are dequantized right after the load, as the Pallas page()
+// does: each staged element is float(code) * float(scale) in f32 (never
+// rounded to bf16), and a dead page's scales are never loaded either.
 //
 // What bounds it on the card: the bytes of the live K/V pages (each read
 // once); the flops are ~C * G per byte, far below the ridge. So the
@@ -33,6 +38,7 @@
 //     atomics, so a result never varies from run to run).
 // cp.async/TMA page loads and tensor-core products are later work.
 #include <math.h>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -52,6 +58,8 @@ __global__ void __launch_bounds__(THREADS)
 paged_attention_gqa_kernel(const TQ* __restrict__ q,
                            const TKV* __restrict__ k_pages,
                            const TKV* __restrict__ v_pages,
+                           const __half* __restrict__ k_scales,
+                           const __half* __restrict__ v_scales,
                            const int* __restrict__ tables,
                            const int* __restrict__ positions,
                            const int* __restrict__ lengths,
@@ -99,9 +107,15 @@ paged_attention_gqa_kernel(const TQ* __restrict__ q,
     // K and V pages -> shared (coalesced along D, both loads in flight).
     for (int idx = tid; idx < bs * D; idx += THREADS) {
       const int t = idx / D, dd = idx % D;
-      const size_t g_off = ((page * bs + t) * s.Hkv + hkv) * D + dd;
-      k_sh[t * KS + dd] = to_float(k_pages[g_off]);
-      v_sh[t * KS + dd] = to_float(v_pages[g_off]);
+      const size_t row = (page * bs + t) * s.Hkv + hkv;
+      float kx = to_float(k_pages[row * D + dd]);
+      float vx = to_float(v_pages[row * D + dd]);
+      if constexpr (std::is_same<TKV, int8_t>::value) {
+        kx *= __half2float(k_scales[row]);
+        vx *= __half2float(v_scales[row]);
+      }
+      k_sh[t * KS + dd] = kx;
+      v_sh[t * KS + dd] = vx;
     }
     __syncthreads();
     // Scores: one thread per (row, key).
@@ -210,7 +224,8 @@ paged_attention_merge(const float* __restrict__ part_acc,
 }
 
 template <typename TQ, typename TKV>
-int launch(const void* q, const void* kp, const void* vp, const int* tables,
+int launch(const void* q, const void* kp, const void* vp, const __half* ks,
+           const __half* vs, const int* tables,
            const int* positions, const int* lengths, void* out,
            float* part_acc, float* part_ml, Shape sh, float sm_scale,
            size_t smem, cudaStream_t st) {
@@ -236,7 +251,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* tables,
   const dim3 grid(sh.B * sh.Hkv, sh.splits);
   kern<<<grid, THREADS, smem, st>>>(
       static_cast<const TQ*>(q), static_cast<const TKV*>(kp),
-      static_cast<const TKV*>(vp), tables, positions, lengths,
+      static_cast<const TKV*>(vp), ks, vs, tables, positions, lengths,
       static_cast<TQ*>(out), part_acc, part_ml, sh, sm_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || sh.splits == 1) return static_cast<int>(err);
@@ -255,13 +270,15 @@ extern "C" long long paged_attention_gqa_smem(int C, int H, int Hkv, int D,
   return 4LL * (2 * R * D + 2LL * bs * (D + 1) + R * bs + 3 * R);
 }
 
-// q_dtype / kv_dtype: 0 = float32, 1 = bfloat16; out has q's dtype and
-// q's (B, C, H, D) layout. With splits > 1, part_acc holds
-// B*Hkv*splits*R*D floats and part_ml B*Hkv*splits*2*R floats
-// (R = C * H / Hkv). Returns the cudaError_t of the launches.
+// q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: the same, or 2 = int8
+// codes, which need k_scales/v_scales fp16 (NP, bs, Hkv) scale pages
+// (null otherwise). out has q's dtype and q's (B, C, H, D) layout.
+// With splits > 1, part_acc holds B*Hkv*splits*R*D floats and part_ml
+// B*Hkv*splits*2*R floats (R = C * H / Hkv). Returns the cudaError_t of the launches.
 extern "C" int paged_attention_gqa(const void* q, int q_dtype,
                                    const void* k_pages, const void* v_pages,
-                                   int kv_dtype, const void* tables,
+                                   int kv_dtype, const void* k_scales,
+                                   const void* v_scales, const void* tables,
                                    const void* positions, const void* lengths,
                                    void* out, void* part_acc, void* part_ml,
                                    int B, int C, int H, int Hkv, int D,
@@ -275,16 +292,18 @@ extern "C" int paged_attention_gqa(const void* q, int q_dtype,
   const int* ln = static_cast<const int*>(lengths);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
-  if (q_dtype == 1 && kv_dtype == 1)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k_pages, v_pages, tb, ps,
-                                                 ln, out, pa, pm, sh,
-                                                 sm_scale, smem, st);
-  if (q_dtype == 1)
-    return launch<__nv_bfloat16, float>(q, k_pages, v_pages, tb, ps, ln, out,
-                                        pa, pm, sh, sm_scale, smem, st);
-  if (kv_dtype == 1)
-    return launch<float, __nv_bfloat16>(q, k_pages, v_pages, tb, ps, ln, out,
-                                        pa, pm, sh, sm_scale, smem, st);
-  return launch<float, float>(q, k_pages, v_pages, tb, ps, ln, out, pa, pm,
-                              sh, sm_scale, smem, st);
+  const __half* ks = static_cast<const __half*>(k_scales);
+  const __half* vs = static_cast<const __half*>(v_scales);
+#define REPRO_PAGED_LAUNCH(TQ, TKV)                                     \
+  return launch<TQ, TKV>(q, k_pages, v_pages, ks, vs, tb, ps, ln, out, pa, \
+                         pm, sh, sm_scale, smem, st)
+  if (q_dtype == 1) {
+    if (kv_dtype == 2) REPRO_PAGED_LAUNCH(__nv_bfloat16, int8_t);
+    if (kv_dtype == 1) REPRO_PAGED_LAUNCH(__nv_bfloat16, __nv_bfloat16);
+    REPRO_PAGED_LAUNCH(__nv_bfloat16, float);
+  }
+  if (kv_dtype == 2) REPRO_PAGED_LAUNCH(float, int8_t);
+  if (kv_dtype == 1) REPRO_PAGED_LAUNCH(float, __nv_bfloat16);
+  REPRO_PAGED_LAUNCH(float, float);
+#undef REPRO_PAGED_LAUNCH
 }

@@ -22,22 +22,58 @@ def matmul_ref(x: torch.Tensor, planes: Planes, fmt: str) -> torch.Tensor:
     return x.to(torch.float32) @ w.T
 
 
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, sm_scale=None,
+                  q_offset: int = 0) -> torch.Tensor:
+    """Softmax attention with GQA head grouping in f32, in the model's
+    layout: q (B, Sq, H, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, Dv);
+    returns (B, Sq, H, Dv) in q's dtype. Head h reads kv-head
+    h // (H / Hkv). Every key j < Skv exists (the JAX kernel pads K/V to
+    its block and masks the padding; here there is none), and when
+    ``causal`` key j is visible to query i iff j <= ``q_offset`` + i. A
+    row that sees no key is 0 (the kernel's l == 0 reads as 1)."""
+    b, sq, h, d = q.shape
+    hkv = k.shape[2]
+    g = h // hkv
+    if sm_scale is None:
+        sm_scale = d ** -0.5
+    qg = q.to(torch.float32).reshape(b, sq, hkv, g, d)
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32)) \
+        * sm_scale
+    ki = torch.arange(k.shape[1], device=q.device)[None, :]
+    qi = torch.arange(sq, device=q.device)[:, None]
+    vis = (ki <= q_offset + qi) if causal else (ki >= 0)
+    sc = torch.where(vis, sc, torch.full_like(sc, NEG_INF))
+    p = torch.softmax(sc, dim=-1) * vis.any(-1, keepdim=True)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+    return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, block_tables: torch.Tensor,
-                        positions: torch.Tensor, *,
-                        sm_scale: float) -> torch.Tensor:
+                        positions: torch.Tensor, *, sm_scale: float,
+                        k_scales=None, v_scales=None) -> torch.Tensor:
     """Paged decode attention by dense gather: each slot's logical view
     ``pages[block_tables]`` attended with the per-query causal depth
     ``positions + i + 1`` in f32 (``attention.paged_view`` followed by
     ``decode_attention``). q (B, C, H, D); pages (NP, bs, Hkv, D);
     returns (B, C, H, D) in q's dtype. Rows past a slot's valid length
-    are garbage by contract, as in the kernel."""
+    are garbage by contract, as in the kernel.
+
+    int8 pages come with fp16 scale pages (NP, bs, Hkv): each gathered
+    row is ``float(code) * float(scale)`` in f32, never rounded to q's
+    dtype (the kernel's dequantization)."""
     b, c, h, d = q.shape
     hkv = k_pages.shape[2]
     g = h // hkv
     tables = block_tables.long()
-    kc = k_pages[tables].flatten(1, 2).to(torch.float32)   # (B, S, Hkv, D)
-    vc = v_pages[tables].flatten(1, 2).to(torch.float32)
+
+    def view(pages, scales):                    # (B, S, Hkv, D) f32
+        x = pages[tables].flatten(1, 2).to(torch.float32)
+        if scales is not None:
+            x = x * scales[tables].flatten(1, 2).to(torch.float32)[..., None]
+        return x
+    kc, vc = view(k_pages, k_scales), view(v_pages, v_scales)
     s = kc.shape[1]
     qg = q.to(torch.float32).reshape(b, c, hkv, g, d)
     sc = torch.einsum("bqhgd,bshd->bhgqs", qg, kc) * sm_scale

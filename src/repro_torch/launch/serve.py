@@ -1,16 +1,24 @@
 """Serving launcher for the port — continuous-batching request-stream driver.
 
-The stream mode of ``repro.launch.serve`` with the same flags, plus
-``--device``: it replays a stream of requests (Poisson or back-to-back
-arrivals) through the paged-arena engine and reports completions, step
-time, throughput and the transfer ledger. ``build_stream`` is the JAX
-launcher's, so with the same ``--seed`` both serves see the same
-requests. Weights are random, made from ``--seed`` on the device.
+``repro.launch.serve`` with the same flags, plus ``--device``. Stream
+mode replays a stream of requests (Poisson or back-to-back arrivals)
+through the serving engine — on the paged arena with ``--block-size``
+(bf16 pages, or int8 pages with ``--kv-quant int8``), else on the
+contiguous slot arena — and reports completions, step time, throughput
+and the transfer ledger. ``build_stream`` is the JAX launcher's, so with
+the same ``--seed`` both serves see the same requests. Weights are
+random, made from ``--seed`` on the device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --quant q8_0 --slots 8 --chunk-size 8 --block-size 16 \
       --num-blocks 256 --requests 16 --prompt-len 128 --gen 32 \
-      --arrival back2back
+      --arrival back2back [--kv-quant int8]
+
+Batch mode (the lockstep ``Engine`` on the contiguous arena, kept for the
+paper's fixed [in:out] workload grid):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode batch \
+      --quant q8_0 --prompt-len 128 --gen 32 --batch 8
 
 The card is the default device. Without one the launcher exits with an
 error unless ``--device cpu`` asks for the plain CPU path explicitly.
@@ -25,17 +33,33 @@ import sys
 import numpy as np
 import torch
 
-from repro_torch.configs.registry import get_config
+from repro_torch.configs.registry import family_of, get_config
 from repro_torch.core import convert
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ops import MATMUL_KERNELS
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.models.api import build_model
-from repro_torch.runtime.engine import ServingEngine
+from repro_torch.runtime.engine import Engine, ServingEngine
 from repro_torch.runtime.request import Request, SamplingParams
 
 # Every hand-written kernel's wrapper, each with its ``launches`` count.
 KERNELS = tuple(w for w, _ in MATMUL_KERNELS.values()) + (
-    paged_decode_attention,)
+    paged_decode_attention, flash_attention)
+
+
+def launch_counts():
+    """{kernel: launches} of every hand-written kernel, the int8 form of
+    the paged attention as a kernel of its own."""
+    out = {k.__name__: k.launches for k in KERNELS}
+    out["paged_decode_attention_int8"] = paged_decode_attention.int8_launches
+    return out
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for k in KERNELS:
+        k.launches = 0
+    paged_decode_attention.int8_launches = 0
 
 
 def make_extras(cfg, batch: int):
@@ -71,13 +95,14 @@ def build_stream(cfg, args, rng: np.random.RandomState):
     return reqs
 
 
-def build_params(model, args, device):
+def build_params(model, args, device, quantize: bool = True):
     """Seeded random weights at the config's widths, made on ``device``
-    as the JAX launcher does (bf16 init, then the quantization stage)."""
+    as the JAX launcher does (bf16 init, then — unless ``quantize`` is
+    False — the quantization stage)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = model.init(gen)
-    if args.quant != "none":
+    if quantize and args.quant != "none":
         params = convert.quantize_params(params, args.quant)
     return params
 
@@ -93,10 +118,39 @@ def run_stream(cfg, model, params, args, device):
         max_seq=max_seq, chunk_size=args.chunk_size,
         block_size=args.block_size or None,
         num_blocks=args.num_blocks or None,
-        paged_attn=args.paged_attn or "fused",
+        paged_attn=args.paged_attn or "fused", kv_quant=args.kv_quant,
         host_sampling=args.host_sampling, device=device)
     report = engine.serve(reqs, seed=args.seed)
     return engine, report, reqs
+
+
+def run_batch(cfg, model, dense_params, args, device):
+    """Lockstep generation of ``--batch`` seeded random prompts of
+    ``--prompt-len`` tokens, ``--gen`` new tokens each, through
+    ``Engine.from_dense`` (the quantization stage runs here). Returns
+    (tokens (batch, gen), stats)."""
+    max_seq = args.max_seq or (args.prompt_len + args.gen)
+    engine = Engine.from_dense(model, dense_params, args.quant,
+                               max_seq=max_seq, chunk_size=args.chunk_size,
+                               device=device)
+    prompt = np.random.RandomState(args.seed + 1).randint(
+        0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
+    return engine.generate(prompt, args.gen, temperature=args.temperature,
+                           seed=args.seed)
+
+
+def batch_lines(stats, args):
+    """The batch report: phase times, per-sequence and total decode
+    throughput, arena bytes and the ledger's bytes per token."""
+    return [
+        f"prefill {stats.prefill_s * 1e3:.1f} ms | decode "
+        f"{stats.decode_s * 1e3:.1f} ms "
+        f"({stats.decode_tok_per_s / args.batch:.1f} tok/s/seq, "
+        f"{stats.decode_tok_per_s:.1f} tok/s total) | cache "
+        f"{stats.cache_bytes / 1e6:.1f} MB | bytes/token "
+        f"{stats.transfers.bytes_per_token / 1e6:.2f} MB",
+        "kernels: " + " | ".join(f"{name} launches {n}"
+                                 for name, n in launch_counts().items())]
 
 
 def report_lines(engine, report, total_requests: int):
@@ -120,35 +174,55 @@ def report_lines(engine, report, total_requests: int):
     lines += report.ledger.summary_lines(
         {"prefill": st.prefill_s, "decode": st.decode_s})
     lines.append("kernels: " + " | ".join(
-        f"{k.__name__} launches {k.launches}" for k in KERNELS))
+        f"{name} launches {n}" for name, n in launch_counts().items()))
     return lines
 
 
 def validate_args(ap, args) -> None:
     """Fail fast on flags whose feature is not ported, or that do not
-    combine — never silently measure a different configuration."""
+    combine — never silently measure a different configuration. The
+    combination checks are the JAX launcher's."""
     refused = [
-        (args.mode != "stream", "--mode batch (lockstep Engine) is "
-                                "ROADMAP A10"),
         (args.spec != "off" or args.spec_k is not None
          or args.spec_draft_model, "--spec is ROADMAP A12"),
         (args.prefix_cache or args.shared_prefix, "--prefix-cache and "
                                                   "--shared-prefix are "
                                                   "ROADMAP A13"),
-        (args.kv_quant != "none", "--kv-quant is ROADMAP A14"),
         (args.dp * args.tp != 1, "--dp/--tp are ROADMAP A17"),
-        (args.metrics_out or args.trace, "--metrics-out/--trace "
-                                         "(telemetry) are ROADMAP A11"),
-        (args.offload_policy, "--offload-policy needs the IMAX model, "
-                              "ROADMAP A15"),
-        (not args.block_size, "the contiguous arena (no --block-size) is "
-                              "ROADMAP A9"),
+        (getattr(args, "metrics_out", None) or getattr(args, "trace", None),
+         "--metrics-out/--trace (telemetry) are ROADMAP A11"),
+        (getattr(args, "offload_policy", False),
+         "--offload-policy needs the IMAX model, ROADMAP A15"),
     ]
     for bad, why in refused:
         if bad:
             ap.error(f"not ported to repro_torch: {why}")
     if args.num_blocks and not args.block_size:
         ap.error("--num-blocks requires --block-size (paged arena)")
+    if args.kv_quant != "none":
+        if not args.block_size:
+            ap.error("--kv-quant requires the paged arena (--block-size): "
+                     "quantize-on-insert and in-kernel dequant live on "
+                     "the paged block-table path; the contiguous slot "
+                     "arena has no quantized read path")
+        if args.mode != "stream":
+            ap.error("--kv-quant requires --mode stream (the lockstep "
+                     "batch path builds its own contiguous-arena engines)")
+        fam = family_of(args.arch)
+        if fam in ("ssm", "hybrid"):
+            ap.error(f"--kv-quant is unsupported for the {fam!r} family "
+                     f"({args.arch}): recurrent state is a running "
+                     "summary, not per-position KV pages — requantizing "
+                     "it every step would compound rounding error")
+        if fam == "encdec":
+            ap.error(f"--kv-quant is unsupported for the {fam!r} family "
+                     f"({args.arch}): cross-attention KV is written by "
+                     "the one-time encoder pass, which bypasses the "
+                     "quantize-on-insert path")
+    if args.paged_attn and not args.block_size:
+        ap.error(f"--paged-attn {args.paged_attn} requires a paged arena "
+                 "(--block-size); the contiguous slot arena has no block "
+                 "tables to attend through")
 
 
 def resolve_device(ap, args) -> torch.device:
@@ -171,6 +245,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--chunk-size", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=2,
+                    help="batch mode: lockstep batch size")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--block-size", type=int, default=0)
@@ -207,14 +283,26 @@ def main(argv=None) -> None:
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
+    if args.mode == "batch":
+        dense = build_params(model, args, device, quantize=False)
+        out, stats = run_batch(cfg, model, dense, args, device)
+        print(f"arch={cfg.name} quant={args.quant} device={device} "
+              f"[{args.prompt_len}:{args.gen}] batch={args.batch}")
+        for line in batch_lines(stats, args):
+            print(f"  {line}")
+        print(f"  first generated tokens: {out[0, :8].tolist()}")
+        sys.stdout.flush()
+        return
     params = build_params(model, args, device)
     engine, report, _ = run_stream(cfg, model, params, args, device)
     arena = engine.arena
+    where = (f"paged[{arena.num_blocks}x{arena.block_size} "
+             f"attn={engine.paged_attn} kv={arena.kv_quant}]"
+             if engine.paged else f"contiguous[{args.slots}x"
+             f"{arena.max_seq}]")
     print(f"arch={cfg.name} quant={args.quant} device={device} "
           f"stream={args.requests} reqs ({args.arrival}) slots={args.slots} "
-          f"paged[{arena.num_blocks}x{arena.block_size} "
-          f"attn={engine.paged_attn}] prefill=chunked[{engine.chunk_size}] "
-          f"gen={args.gen}")
+          f"{where} prefill=chunked[{engine.chunk_size}] gen={args.gen}")
     for line in report_lines(engine, report, args.requests):
         print(f"  {line}")
     print(f"  first request tokens: {report.sequences[0].generated[:8]}")

@@ -1,8 +1,8 @@
 """Unified model API subset: ``build_model(cfg) -> ModelAPI``, dense family.
 
-Ported from ``repro.models.api``: ``init`` / ``decode_step`` /
-``cache_shapes`` / ``paged_cache_shapes``. The train, forward and
-prefill entries wait for ROADMAP A18 and A10.
+Ported from ``repro.models.api``: ``init`` / ``forward`` / ``prefill`` /
+``decode_step`` / ``cache_shapes`` / ``paged_cache_shapes``. The train
+entry (``loss``) waits for ROADMAP A18.
 """
 from __future__ import annotations
 
@@ -20,19 +20,29 @@ from repro_torch.models import lm
 class ModelAPI:
     cfg: ModelConfig
     init: Callable                    # (gen, quant) -> params
+    forward: Callable                 # (params, batch, **o) -> (logits, aux)
+    prefill: Callable                 # (params, batch, **o) -> (logits, cache)
     decode_step: Callable             # (params, token, position, cache, **o)
     cache_shapes: Callable            # (batch, seq) -> shape tree
 
     def paged_cache_shapes(self, num_slots: int, num_physical: int,
-                           block_size: int):
+                           block_size: int, kv_quant: str = "none"):
         """Paged-arena storage layout: ``{group: {"k": (layers,
         num_physical, block_size, Hkv, D), "v": ...}}`` — every leaf of a
         dense model follows the sequence length, so every leaf is paged
-        (``num_physical`` includes the arena's trailing null page)."""
+        (``num_physical`` includes the arena's trailing null page).
+        ``kv_quant="int8"``: each leaf becomes ``{"q": page shape (int8
+        codes), "s": page shape minus the feature axis (fp16 scales)}``,
+        the JAX package's ``paged_decode_specs`` layout."""
+        if kv_quant not in ("none", "int8"):
+            raise ValueError(f"unknown kv_quant {kv_quant!r}")
         out = {}
         for name, shapes in self.cache_shapes(num_slots, 160).items():
-            out[name] = {k: (s[0], num_physical, block_size) + s[3:]
-                         for k, s in shapes.items()}
+            out[name] = {}
+            for k, s in shapes.items():
+                page = (s[0], num_physical, block_size) + s[3:]
+                out[name][k] = page if kv_quant == "none" else \
+                    {"q": page, "s": page[:-1]}
         return out
 
 
@@ -44,6 +54,8 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         init=functools.partial(_lm_init_kw, cfg),
+        forward=functools.partial(_lm_forward_kw, cfg),
+        prefill=functools.partial(_lm_prefill_kw, cfg),
         decode_step=functools.partial(_lm_decode_kw, cfg),
         cache_shapes=functools.partial(lm.lm_cache_shapes, cfg),
     )
@@ -51,6 +63,14 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
 
 def _lm_init_kw(cfg, gen: torch.Generator, quant="none"):
     return lm.lm_init(gen, cfg, quant)
+
+
+def _lm_forward_kw(cfg, params, batch, **kw):
+    return lm.lm_forward(params, cfg, batch, **kw)
+
+
+def _lm_prefill_kw(cfg, params, batch, **kw):
+    return lm.lm_prefill(params, cfg, batch, **kw)
 
 
 def _lm_decode_kw(cfg, params, token, position, cache, **kw):

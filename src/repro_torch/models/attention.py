@@ -1,23 +1,37 @@
-"""GQA attention for the paged decode path, ported from
-``repro.models.attention``.
+"""GQA attention, ported from ``repro.models.attention``.
+
+Full-sequence (prefill / forward) attention goes through
+``chunked_attention``: on the card the hand-written flash-attention
+kernel (``kernels.flash_attention``), on the CPU its plain version —
+the port of the JAX package's XLA twin of its Pallas flash kernel.
 
 A decode step attends a *chunk* of C consecutive queries per slot against
-the paged KV cache (C == 1 is the classic one-token step; C > 1 is the
-unified chunked-prefill step, in-chunk causality a per-query mask).
-Cache leaves are physical pages (NP, bs, Hkv, D) and ``block_tables``
-(B, max_blocks) int32 maps each slot's logical blocks to pages. The new
-K/V are written to their pages **in place** (the JAX engine donates the
-arena to its jitted step; here the page tensors are simply mutated),
-then attention reads K/V through the table one of two ways
-(``paged_impl``):
+the KV cache (C == 1 is the classic one-token step; C > 1 is the unified
+chunked-prefill step, in-chunk causality a per-query mask). Two caches:
 
-* ``"fused"`` (default): ``kernels.paged_attention`` — the hand-written
-  CUDA kernel on the card, its plain version on the CPU;
-* ``"ref"``: the dense gather (``paged_view``) followed by
+* the contiguous slot arena, leaves (B, S, Hkv, D): the chunk is
+  inserted at each slot's depth (``_insert_kv``) and attended by
+  ``decode_attention`` (plain PyTorch, as the JAX package leaves it to
+  XLA);
+* the paged arena: leaves are physical pages (NP, bs, Hkv, D) and
+  ``block_tables`` (B, max_blocks) int32 maps each slot's logical blocks
+  to pages. Attention reads K/V through the table one of two ways
+  (``paged_impl``): ``"fused"`` (default), ``kernels.paged_attention``
+  — the hand-written CUDA kernel on the card, its plain version on the
+  CPU; ``"ref"``, the dense gather (``paged_view``) followed by
   ``decode_attention``, the differential oracle.
 
-MLA, int8 KV pages, cross attention and the contiguous arena's insert
-path are not ported yet (ROADMAP A15, A14, A16, A9).
+The new K/V are written **in place** in both caches (the JAX engine
+donates the arena to its jitted step; here the tensors are mutated).
+
+Quantized paged cache (arena built with ``kv_quant="int8"``): each paged
+leaf is a dict ``{"q": int8 code pages, "s": float16 scale pages}`` (one
+scale per (position, kv-head), see ``quantize_kv``). The decode step
+quantizes on insert and hands codes and scales to the fused kernel,
+which dequantizes in its page walk, or dequantizes the gathered view on
+the ref path.
+
+MLA and cross attention are not ported yet (ROADMAP A15, A16).
 """
 from __future__ import annotations
 
@@ -27,11 +41,28 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.models import layers
 from repro_torch.models.layers import Params
 
 NEG_INF = -1e30
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, sm_scale: float,
+                      q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv).
+    Returns (B, Sq, H, Dv) in q's dtype. ``q_offset``: absolute position
+    of q[0] in the KV timeline (causal: key j is visible to query i iff
+    j <= q_offset + i).
+
+    The JAX package's online softmax over ``kv_chunk``-key blocks; here
+    the block walk is the flash-attention kernel's (the block size does
+    not change the function, so there is no ``kv_chunk``)."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, sm_scale=sm_scale,
+                           q_offset=q_offset)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -74,6 +105,15 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, fmt: str = "none") -> Param
     return p
 
 
+def rope_tables(cfg: ModelConfig, positions: torch.Tensor):
+    """(cos, sin) RoPE tables for (B, S) ``positions``, shared by every
+    layer of a pass; None for a model without RoPE."""
+    if cfg.rope_theta <= 0:
+        return None
+    return layers.rope_cos_sin(positions, cfg.resolved_head_dim(),
+                               cfg.rope_theta)
+
+
 def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, fmt: str,
                  rope):
     """q, k, v (B, S, heads, D); ``rope``: (cos, sin) tables for the
@@ -92,15 +132,91 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, fmt: str,
     return q, k, v
 
 
+def gqa_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, rope, *,
+              fmt: str = "none", causal: bool = True) -> torch.Tensor:
+    """Full-sequence (forward / prefill) GQA over x (B, S, d); ``rope``:
+    ``rope_tables`` of the sequence's positions."""
+    return gqa_prefill(p, cfg, x, rope, fmt=fmt, causal=causal)[0]
+
+
+def gqa_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor, rope, *,
+                fmt: str = "none", causal: bool = True):
+    """Prefill returning (out, {"k", "v"}): the sequence's K/V in the JAX
+    layout (B, S, Hkv, D)."""
+    b, s, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    q, k, v = _project_qkv(p, cfg, x, fmt, rope)
+    o = chunked_attention(q, k, v, causal=causal, sm_scale=hd ** -0.5)
+    o = o.reshape(b, s, cfg.num_heads * hd)
+    return layers.linear_apply(p["o"], o, fmt), {"k": k, "v": v}
+
+
 # ----------------------------------------------------------------------
-# Paged cache plumbing (block-table gather/scatter)
+# Cache plumbing: the contiguous insert, quantized KV, the paged
+# block-table gather/scatter
 # ----------------------------------------------------------------------
 def decode_positions(position: torch.Tensor, batch: int,
                      width: int) -> torch.Tensor:
-    """(B, C) absolute positions of a decode chunk: ``position`` is the (B,)
-    base; chunk entry i sits at base + i."""
-    base = position.to(torch.long).reshape(batch)
+    """(B, C) absolute positions of a decode chunk: ``position`` is a
+    scalar or (B,) base; chunk entry i sits at base + i."""
+    base = position.to(torch.long).reshape(-1).expand(batch)
     return base[:, None] + torch.arange(width, device=position.device)
+
+
+def _insert_kv(cache: torch.Tensor, new: torch.Tensor, position: torch.Tensor,
+               lengths=None) -> torch.Tensor:
+    """Write (B, C, ...) ``new`` into the (B, S, ...) ``cache`` **in
+    place**: row b's first ``lengths[b]`` entries (all C when ``lengths``
+    is None) land at ``position[b] + i``; ``position`` is a scalar or
+    (B,). Returns ``cache``.
+
+    The JAX version drops the invalid entries (past a row's length, or
+    past S) with a ``mode="drop"`` scatter. Torch has none, so each
+    invalid entry is aimed at ``(position[b] + i) % S`` and carries the
+    value already stored there: no slot changes for it, and no
+    device-to-host sync finds it. Those targets never meet a valid
+    entry's or each other, since a chunk is no wider than the cache
+    (C <= S)."""
+    b, c = new.shape[:2]
+    s = cache.shape[1]
+    pos = decode_positions(position, b, c)                   # (B, C)
+    rows = torch.arange(b, device=cache.device)[:, None].expand(b, c)
+    valid = pos < s
+    if lengths is not None:
+        valid = valid & (torch.arange(c, device=cache.device)[None, :]
+                         < lengths.to(torch.long)[:, None])
+    idx = torch.where(valid, pos, pos % s)
+    src = torch.where(valid.reshape(b, c, *([1] * (new.ndim - 2))),
+                      new.to(cache.dtype), cache[rows, idx])
+    cache.index_put_((rows, idx), src)
+    return cache
+
+
+# Scale storage dtype of quantized KV pages: fp16 (the JAX package's
+# KV_QUANT_SCALE_DTYPE), so the quantized stream is (D + 2) / (2 D) of
+# the bf16 stream.
+KV_QUANT_SCALE_DTYPE = torch.float16
+
+
+def quantize_kv(x: torch.Tensor):
+    """Symmetric int8 quantization over the trailing feature axis:
+    ``x`` (..., D) -> (codes int8 (..., D), scales float16 (...,)).
+    The scale is amax / 127 per row; codes are round(x / scale) with the
+    *f32* scale (half to even, as ``jnp.round``), clipped to +-127. Only
+    the stored scale is fp16. An all-zero row maps to (codes 0, scale 0),
+    which dequantizes to exactly zero."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=-1) / 127.0
+    q = torch.round(xf / torch.where(scale > 0, scale,
+                                     torch.ones_like(scale))[..., None])
+    q = torch.clamp(q, -127, 127).to(torch.int8)
+    return q, scale.to(KV_QUANT_SCALE_DTYPE)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``quantize_kv``: f32 ``codes * scale`` with the stored
+    fp16 scale widened to f32 — the fused kernel's arithmetic."""
+    return q.to(torch.float32) * scale.to(torch.float32)[..., None]
 
 
 def _routing(position, block_tables, lengths, num_pages: int,
@@ -163,12 +279,30 @@ def paged_view(pages: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
     return v.flatten(1, 2)
 
 
+def _paged_insert_quant(leaf: Dict, new: torch.Tensor, rows, offs,
+                        valid) -> None:
+    """Quantize-on-insert into a quantized paged leaf ``{"q": int8 pages,
+    "s": scale pages}``, in place. Codes and scales scatter through the
+    same routing, so the null-page trick covers both."""
+    q, s = quantize_kv(new)
+    _write(leaf["q"], q, rows, offs, valid)
+    _write(leaf["s"], s, rows, offs, valid)
+
+
+def _paged_view_dequant(leaf: Dict, block_tables: torch.Tensor):
+    """Dense-gather oracle over a quantized paged leaf: gather codes and
+    scales through the table, dequantize to the f32 logical view."""
+    return dequantize_kv(paged_view(leaf["q"], block_tables),
+                         paged_view(leaf["s"], block_tables))
+
+
 @dataclasses.dataclass(frozen=True)
 class PagedStep:
-    """What a paged decode step derives from (position, block_tables,
-    lengths) before any layer runs: the write routing and the RoPE tables.
-    Every layer shares them, so ``lm_decode_step`` builds one per step
-    (``paged_step``) instead of once per layer and leaf."""
+    """What a decode step derives from (position, block_tables, lengths)
+    before any layer runs: the write routing (paged arena only; None for
+    the contiguous arena) and the RoPE tables. Every layer shares them,
+    so ``lm_decode_step`` builds one per step (``paged_step``) instead of
+    once per layer and leaf."""
 
     pos_mat: torch.Tensor
     rows: torch.Tensor
@@ -178,47 +312,77 @@ class PagedStep:
 
 
 def paged_step(cfg: ModelConfig, position: torch.Tensor,
-               block_tables: torch.Tensor, lengths, pages: torch.Tensor,
+               block_tables: Optional[torch.Tensor], lengths, pages,
                width: int) -> PagedStep:
-    """The shared per-step routing and RoPE tables for (NP, bs, ...)
-    ``pages`` and a chunk of ``width`` entries per slot."""
+    """The shared per-step routing and RoPE tables for a chunk of
+    ``width`` entries per slot: ``pages`` is one layer's K leaf —
+    (NP, bs, ...) pages (or their ``{"q", "s"}`` dict), or the contiguous
+    (B, S, ...) cache when ``block_tables`` is None."""
+    if block_tables is None:
+        pos = decode_positions(position, pages.shape[0], width)
+        return PagedStep(pos, None, None, None, rope_tables(cfg, pos))
+    if isinstance(pages, dict):
+        pages = pages["q"]
     pos, rows, offs, valid = _routing(position, block_tables, lengths,
                                       pages.shape[0], pages.shape[1], width)
-    rope = layers.rope_cos_sin(pos, cfg.resolved_head_dim(),
-                               cfg.rope_theta) if cfg.rope_theta > 0 else None
-    return PagedStep(pos, rows, offs, valid, rope)
+    return PagedStep(pos, rows, offs, valid, rope_tables(cfg, pos))
 
 
 def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                position: torch.Tensor, cache: Dict, *, fmt: str = "none",
-               block_tables: torch.Tensor, lengths=None,
+               block_tables: Optional[torch.Tensor] = None, lengths=None,
                paged_impl: str = "fused",
                step: Optional[PagedStep] = None):
-    """Paged decode step over a chunk of C tokens. x: (B, C, d);
-    ``position``: (B,) base positions; cache {"k","v"}: physical pages
-    (NP, bs, Hkv, D), updated in place. ``lengths``: (B,) valid entries
-    per row — writes past a row's length are dropped and its tail outputs
-    are garbage the engine never reads. ``step``: the precomputed
+    """Decode step over a chunk of C tokens. x: (B, C, d); ``position``:
+    (B,) base positions (or a scalar, contiguous cache only); cache
+    {"k","v"}: the contiguous (B, S, Hkv, D) cache, or physical pages
+    (NP, bs, Hkv, D) — each a ``{"q", "s"}`` dict on an int8 arena — when
+    ``block_tables`` is given; updated in place. ``lengths``: (B,) valid
+    entries per row — writes past a row's length are dropped and its tail
+    outputs are garbage the engine never reads. ``step``: the precomputed
     ``paged_step`` for these (position, block_tables, lengths), if the
     caller shares one across layers. Returns (out, cache)."""
     if paged_impl not in ("fused", "ref"):
         raise ValueError(f"unknown paged_impl {paged_impl!r}")
     b, cw = x.shape[:2]
     hd = cfg.resolved_head_dim()
+    sm = hd ** -0.5
     if step is None:
         step = paged_step(cfg, position, block_tables, lengths, cache["k"],
                           cw)
     q, k, v = _project_qkv(p, cfg, x, fmt, step.rope)
-    _write(cache["k"], k, step.rows, step.offs, step.valid)
-    _write(cache["v"], v, step.rows, step.offs, step.valid)
-    if paged_impl == "fused":
-        o = paged_decode_attention(q.contiguous(), cache["k"], cache["v"],
-                                   block_tables, position,
-                                   sm_scale=hd ** -0.5, lengths=lengths)
+    kv_quant = isinstance(cache["k"], dict)      # {"q", "s"} int8 leaves
+    if block_tables is None:                     # contiguous slot arena
+        _insert_kv(cache["k"], k, position, lengths)
+        _insert_kv(cache["v"], v, position, lengths)
+        o = decode_attention(q, cache["k"], cache["v"], sm_scale=sm,
+                             kv_len=step.pos_mat + 1)
+    elif kv_quant:
+        _paged_insert_quant(cache["k"], k, step.rows, step.offs, step.valid)
+        _paged_insert_quant(cache["v"], v, step.rows, step.offs, step.valid)
+        if paged_impl == "fused":
+            o = paged_decode_attention(
+                q.contiguous(), cache["k"]["q"], cache["v"]["q"],
+                block_tables, position, sm_scale=sm, lengths=lengths,
+                k_scales=cache["k"]["s"], v_scales=cache["v"]["s"])
+        else:
+            # The JAX ref path rounds the dequantized view to q's dtype;
+            # the fused kernel does not.
+            o = decode_attention(
+                q, _paged_view_dequant(cache["k"], block_tables).to(q.dtype),
+                _paged_view_dequant(cache["v"], block_tables).to(q.dtype),
+                sm_scale=sm, kv_len=step.pos_mat + 1)
     else:
-        o = decode_attention(q, paged_view(cache["k"], block_tables),
-                             paged_view(cache["v"], block_tables),
-                             sm_scale=hd ** -0.5, kv_len=step.pos_mat + 1)
+        _write(cache["k"], k, step.rows, step.offs, step.valid)
+        _write(cache["v"], v, step.rows, step.offs, step.valid)
+        if paged_impl == "fused":
+            o = paged_decode_attention(q.contiguous(), cache["k"], cache["v"],
+                                       block_tables, position, sm_scale=sm,
+                                       lengths=lengths)
+        else:
+            o = decode_attention(q, paged_view(cache["k"], block_tables),
+                                 paged_view(cache["v"], block_tables),
+                                 sm_scale=sm, kv_len=step.pos_mat + 1)
     o = o.reshape(b, cw, cfg.num_heads * hd)
     return layers.linear_apply(p["o"], o, fmt), cache
 

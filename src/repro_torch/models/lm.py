@@ -2,10 +2,16 @@
 
 Parameters are plain dicts of tensors. The JAX package stacks each layer
 group along a leading axis and scans over it (``jax.lax.scan``); here a
-group is a Python list of per-layer dicts and the step is a Python loop
-over the layer index. The paged KV cache keeps the stacked layout
-``{group: {"k": (layers, NP, bs, Hkv, D), "v": ...}}``, and layer ``i``
-writes its pages in place through the view ``cache[group]["k"][i]``.
+group is a Python list of per-layer dicts and every pass is a Python
+loop over the layer index. The KV caches keep the stacked layout
+``{group: {"k": (layers, ...), "v": ...}}`` — paged (layers, NP, bs, Hkv,
+D), with ``{"q", "s"}`` dicts on an int8 arena, or contiguous (layers, B,
+S, Hkv, D) — and layer ``i`` writes in place through the view
+``cache[group]["k"][i]``. ``lm_prefill`` returns its caches in the same
+stacked layout.
+
+Embeddings come from plain tokens only: M-RoPE, vision and encoder
+inputs wait for ROADMAP A16.
 
 Only the dense family (GQA mixer + SwiGLU FFN) is ported; MoE, MLA, SSM,
 hybrid, enc-dec and vlm wait for ROADMAP A15/A16.
@@ -99,6 +105,23 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig,
     return params
 
 
+def layer_apply(p: Params, cfg: ModelConfig, h: torch.Tensor, rope, *,
+                fmt: str) -> torch.Tensor:
+    """Full-sequence layer (forward). ``rope``: the pass's shared
+    ``attention.rope_tables``. Returns h."""
+    return layer_prefill(p, cfg, h, rope, fmt=fmt)[0]
+
+
+def layer_prefill(p: Params, cfg: ModelConfig, h: torch.Tensor, rope, *,
+                  fmt: str):
+    """Full-sequence layer that also returns its {"k", "v"} cache."""
+    hn = layers.rmsnorm_apply(p["mixer_norm"], h, cfg.norm_eps)
+    mix, cache = attn.gqa_prefill(p["attn"], cfg, hn, rope, fmt=fmt)
+    h = h + mix
+    hn = layers.rmsnorm_apply(p["ffn_norm"], h, cfg.norm_eps)
+    return h + layers.swiglu_apply(p["ffn"], hn, fmt), cache
+
+
 def layer_decode(p: Params, cfg: ModelConfig, h: torch.Tensor,
                  position: torch.Tensor, cache: Dict, *, fmt: str,
                  block_tables: torch.Tensor, lengths=None,
@@ -122,14 +145,72 @@ def _lm_head(params, cfg: ModelConfig, h, quant: str):
     return layers.linear_apply(params["lm_head"], h, recipe["embed"])
 
 
+def _embed_tokens(params, cfg: ModelConfig, batch: Dict, quant: str):
+    """(h, rope): the batch's token embeddings in bf16 and the RoPE
+    tables of its (B, S) positions. Only ``batch["tokens"]`` is read; vision and
+    encoder inputs are ROADMAP A16."""
+    extra = set(batch) - {"tokens", "labels"}
+    if extra or cfg.mrope:
+        raise NotImplementedError(
+            f"inputs {sorted(extra)} / M-RoPE are ROADMAP A16; the port "
+            "embeds plain tokens only")
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    h = layers.embedding_lookup(params["embed"], tokens,
+                                layers.recipe_for(quant)["embed"],
+                                torch.bfloat16, width=cfg.d_model)
+    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    return h, attn.rope_tables(cfg, positions)
+
+
+def lm_forward(params, cfg: ModelConfig, batch: Dict, *, quant="none"):
+    """Full-sequence forward over ``batch["tokens"]`` (B, S). Returns
+    (logits (B, S, V), aux_loss); the dense family has no auxiliary loss,
+    so it is 0."""
+    fmt = layers.recipe_for(quant)["linear"]
+    h, rope = _embed_tokens(params, cfg, batch, quant)
+    for name, _, _ in layer_groups(cfg):
+        for lp in params[name]:
+            h = layer_apply(lp, cfg, h, rope, fmt=fmt)
+    h = layers.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
+    return _lm_head(params, cfg, h, quant), torch.zeros(
+        (), dtype=torch.float32, device=h.device)
+
+
+def lm_prefill(params, cfg: ModelConfig, batch: Dict, *, quant="none"):
+    """Prefill: returns (last-token logits (B, 1, V), caches) with caches
+    ``{group: {"k": (layers, B, S, Hkv, D), "v": ...}}`` (the JAX
+    package's stacked layout)."""
+    fmt = layers.recipe_for(quant)["linear"]
+    h, rope = _embed_tokens(params, cfg, batch, quant)
+    caches = {}
+    for name, _, _ in layer_groups(cfg):
+        ks, vs = [], []
+        for lp in params[name]:
+            h, c = layer_prefill(lp, cfg, h, rope, fmt=fmt)
+            ks.append(c["k"])
+            vs.append(c["v"])
+        caches[name] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    h = layers.rmsnorm_apply(params["final_norm"], h[:, -1:], cfg.norm_eps)
+    return _lm_head(params, cfg, h, quant), caches
+
+
+def _layer_leaf(leaf, i: int):
+    """Layer ``i``'s view of a stacked cache leaf (or {"q", "s"} dict)."""
+    if isinstance(leaf, dict):
+        return {k: v[i] for k, v in leaf.items()}
+    return leaf[i]
+
+
 def lm_decode_step(params, cfg: ModelConfig, token: torch.Tensor,
                    position: torch.Tensor, cache: Dict, *, quant="none",
-                   block_tables: torch.Tensor, lengths=None,
+                   block_tables: Optional[torch.Tensor] = None, lengths=None,
                    paged_impl="fused"):
     """token: (B, C) int — a chunk of consecutive tokens per slot;
     position: (B,) int base positions (chunk entry i sits at base + i);
-    cache: the paged arena's buffers (written in place). Returns
-    (logits (B, C, V) in the activation dtype bf16, cache).
+    cache: the arena's buffers (written in place) — pages read through
+    ``block_tables``, or the contiguous slot arena when that is None.
+    Returns (logits (B, C, V) in the activation dtype bf16, cache).
 
     ``lengths``: (B,) valid chunk entries per row — cache writes past a
     row's length are dropped, and its tail logits are garbage by contract
@@ -142,7 +223,7 @@ def lm_decode_step(params, cfg: ModelConfig, token: torch.Tensor,
     for name, count, _ in layer_groups(cfg):
         group = cache[name]
         for i, lp in enumerate(params[name]):
-            layer_cache = {"k": group["k"][i], "v": group["v"][i]}
+            layer_cache = {k: _layer_leaf(group[k], i) for k in ("k", "v")}
             if step is None:        # one routing/RoPE plan for all layers
                 step = attn.paged_step(cfg, position, block_tables, lengths,
                                        layer_cache["k"], token.shape[1])

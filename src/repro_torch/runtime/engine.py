@@ -1,9 +1,12 @@
-"""Serving engine: continuous batching over the paged KV arena, ported from
-``repro.runtime.engine.ServingEngine``.
+"""Serving engine: continuous batching over the KV arena, ported from
+``repro.runtime.engine`` (``ServingEngine``, and the lockstep ``Engine``
+over it).
 
 The layers are the JAX package's: ``runtime/request.py`` (sequence state
 machine), ``runtime/scheduler.py`` (FCFS admission + token-budget chunk
-planning), ``runtime/kvcache.py`` (paged arena), ``runtime/transfers.py``
+planning), ``runtime/kvcache.py`` (paged arena with bf16 or int8 pages,
+or the contiguous slot arena when ``block_size`` is None),
+``runtime/transfers.py``
 (host<->device byte ledger) and this file, the step executor: ONE
 unified ``(slots, chunk)`` step over (params, token batch, base
 positions, valid lengths, active mask, arena, block tables) with masked
@@ -17,8 +20,7 @@ stream, the arena's pages are written in place, and the sampled tokens
 are read to the host after every step — the engine's one sync point.
 
 Not ported yet, refused by the constructor with the ROADMAP item that
-ports them: speculative decoding (A12), the prefix cache (A13), int8 KV
-pages (A14), the contiguous arena (``block_size=None``, A9), serving
+ports them: speculative decoding (A12), the prefix cache (A13), serving
 meshes (A17) and non-dense families (A15/A16). Telemetry's StepTimeline
 is A11.
 """
@@ -31,10 +33,12 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import convert
 from repro_torch.models.api import ModelAPI
 from repro_torch.runtime import sampling
-from repro_torch.runtime.kvcache import PagedKVArena
-from repro_torch.runtime.request import Request, SeqState, Sequence
+from repro_torch.runtime.kvcache import KV_QUANT_MODES, KVArena, PagedKVArena
+from repro_torch.runtime.request import (Request, SamplingParams, SeqState,
+                                         Sequence)
 from repro_torch.runtime.scheduler import Scheduler, SchedulerStats
 from repro_torch.runtime.transfers import TransferLedger, TransferReport
 
@@ -54,6 +58,12 @@ class GenStats:
     paged_kv_read_bytes: float = 0.0    # fused-kernel KV page reads
     step_s: List[float] = dataclasses.field(default_factory=list)
     transfers: Optional[TransferReport] = None
+
+    @property
+    def decode_tok_per_s(self) -> float:
+        """Decode-phase throughput: decode-emitted tokens over the decode
+        share of the step wall time."""
+        return self.decode_tokens / self.decode_s if self.decode_s else 0.0
 
 
 @dataclasses.dataclass
@@ -84,8 +94,13 @@ class ServeReport:
         return self.stats.decode_tokens / self.wall_s if self.wall_s else 0.0
 
 
+# Families whose cache holds recurrent state rather than per-position KV.
+RECURRENT_FAMILIES = ("ssm", "hybrid")
+
+
 class ServingEngine:
-    """Continuous-batching executor over the paged KV arena."""
+    """Continuous-batching executor over the paged KV arena, or the
+    contiguous slot arena when ``block_size`` is None."""
 
     def __init__(self, model: ModelAPI, params, *, quant: str = "none",
                  num_slots: int = 4, max_seq: int = 2048,
@@ -104,15 +119,34 @@ class ServingEngine:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if paged_attn not in ("fused", "ref"):
             raise ValueError(f"unknown paged_attn {paged_attn!r}")
+        if kv_quant not in KV_QUANT_MODES:
+            raise ValueError(f"unknown kv_quant mode {kv_quant!r} "
+                             f"(choose from {KV_QUANT_MODES})")
+        if kv_quant != "none":
+            if block_size is None:
+                raise ValueError(
+                    "kv_quant requires the paged arena (set block_size): "
+                    "quantize-on-insert and in-kernel dequant live on the "
+                    "paged block-table path; the contiguous slot arena "
+                    "has no quantized read path")
+            if model.cfg.family in RECURRENT_FAMILIES:
+                raise ValueError(
+                    f"kv_quant is unsupported for the "
+                    f"{model.cfg.family!r} family: recurrent state is a "
+                    "running summary, not per-position KV pages — "
+                    "requantizing it every step would compound rounding "
+                    "error across the whole sequence")
+            if model.cfg.family == "encdec":
+                raise ValueError(
+                    "kv_quant is unsupported for the 'encdec' family: "
+                    "cross-attention KV is written by the one-time "
+                    "encoder pass (write_prefill), which bypasses the "
+                    "quantize-on-insert path")
         refusals = [
             (spec != "off", "speculative decoding is ROADMAP A12"),
             (prefix_cache, "the prefix cache and copy-on-write are "
                            "ROADMAP A13"),
-            (kv_quant != "none", "int8 KV pages are ROADMAP A14 (kernel "
-                                 "form B8)"),
             (mesh is not None, "serving meshes are ROADMAP A17"),
-            (block_size is None, "the contiguous slot arena is ROADMAP A9; "
-                                 "pass block_size for the paged arena"),
             (model.cfg.family != "dense",
              f"the {model.cfg.family!r} family is ROADMAP A15/A16"),
         ]
@@ -127,37 +161,62 @@ class ServingEngine:
         self.chunk_size = max(1, min(chunk_size, max_seq))
         self.step_token_budget = step_token_budget
         self.top_k, self.top_p = top_k, top_p
+        self.paged = block_size is not None
         self.paged_attn = paged_attn
+        self.kv_quant = kv_quant
+        self.cache_dtype = cache_dtype
         self.device = torch.device(device)
+        self._block_size, self._num_blocks = block_size, num_blocks
         self._ledger_kw = dict(decisions=offload_decisions,
-                               host_sampling=host_sampling)
-        self.arena = PagedKVArena(model, num_slots, max_seq,
-                                  block_size=block_size,
-                                  num_blocks=num_blocks, dtype=cache_dtype,
-                                  device=self.device)
-        self.sched = Scheduler(num_slots, max_seq)
+                               host_sampling=host_sampling,
+                               kv_quant=kv_quant)
+        self._fresh_arena_sched()
+
+    # ------------------------------------------------------------------
+    def _fresh_arena_sched(self) -> None:
+        if self.paged:
+            self.arena = PagedKVArena(self.model, self.num_slots,
+                                      self.max_seq,
+                                      block_size=self._block_size,
+                                      num_blocks=self._num_blocks,
+                                      dtype=self.cache_dtype,
+                                      kv_quant=self.kv_quant,
+                                      device=self.device)
+        else:
+            self.arena = KVArena(self.model, self.num_slots, self.max_seq,
+                                 dtype=self.cache_dtype, device=self.device)
+        self.sched = Scheduler(self.num_slots, self.max_seq)
+
+    def reset(self) -> None:
+        """Fresh arena and scheduler: serve() runs are independent."""
+        self._fresh_arena_sched()
 
     # ------------------------------------------------------------------
     def _try_admit(self, seq: Sequence) -> Optional[int]:
-        """Admission gate: a free slot AND the first chunk's block
-        reservation, all-or-nothing (reservation then follows chunk
-        progress)."""
+        """Admission gate. Contiguous arena: any free slot. Paged arena: a
+        free slot AND the first chunk's block reservation, all-or-nothing
+        (reservation then follows chunk progress)."""
+        if not self.paged:
+            return self.arena.alloc()
         first = min(seq.req.prompt_len, self.chunk_size)
         return self.arena.alloc_slot(self.arena.blocks_needed(first))
 
     def _admit_chunked(self, seq: Sequence, ledger: TransferLedger) -> None:
-        """Chunked admission: no prefill pass; the admission's blocks are
-        charged as cache growth (dense models have no per-slot state to
-        reset)."""
-        growth_blocks = len(self.arena.slot_blocks(seq.slot))
-        ledger.charge_cache_growth(
-            "prefill", growth_blocks * self.arena.block_bytes())
+        """Chunked admission: no prefill pass. Reset the slot's constant
+        state leaves; on the paged arena the admission's blocks are
+        charged as cache growth (the contiguous arena charges growth per
+        fed token instead)."""
+        self.arena.reset_slot(seq.slot)
+        if self.paged:
+            growth_blocks = len(self.arena.slot_blocks(seq.slot))
+            ledger.charge_cache_growth(
+                "prefill", growth_blocks * self.arena.block_bytes())
 
     def _preempt(self, seq: Sequence) -> None:
         """Recompute-preemption: reclaim the victim's slot and blocks and
         push it back to the queue head."""
         slot = self.sched.preempt(seq)
-        self.arena.free_slot(slot)
+        self.arena.free(slot)
 
     def _reserve_blocks(self, ledger: TransferLedger) -> None:
         """Grow each active sequence's block table to cover its next feed,
@@ -226,9 +285,11 @@ class ServingEngine:
         t_step = time.perf_counter()
         dev = self.device
         put = lambda a: torch.from_numpy(a).to(dev)     # noqa: E731
-        dev_tables, uploaded = self.arena.device_tables()
-        if uploaded:            # dirty tables only: admission/growth/preempt
-            ledger.charge("decode", "tables", "h2d", uploaded)
+        dev_tables = None
+        if self.paged:
+            dev_tables, uploaded = self.arena.device_tables()
+            if uploaded:        # dirty tables only: admission/growth/preempt
+                ledger.charge("decode", "tables", "h2d", uploaded)
         lens_t = put(lens)
         logits, _ = self.model.decode_step(
             self.params, put(tokens), put(pos0), self.arena.buffers,
@@ -256,6 +317,43 @@ class ServingEngine:
 
         stats.peak_resident_bytes = max(stats.peak_resident_bytes,
                                         self.arena.resident_bytes())
+        if self.paged:
+            stats.paged_kv_read_bytes += self._paged_reads(pos0, lens) \
+                * self.arena.block_bytes()
+        # The contiguous arena grows by token, the paged one by block (at
+        # reservation).
+        tok_bytes = 0.0 if self.paged else self.arena.token_bytes()
+        for slot, seq in list(self.sched.active.items()):
+            n = feeds[slot]
+            if seq.state is SeqState.PREFILL:
+                if n == 0:
+                    continue                  # budget-starved this step
+                stats.prefill_tokens += n
+                ledger.charge_chunk("prefill", n, seq.fed + n)
+                if tok_bytes:
+                    ledger.charge_cache_growth("prefill", n * tok_bytes)
+                if seq.feed_chunk(n):
+                    seq.start_decode()        # this chunk sampled token 0
+                    ledger.charge_sampled()
+                    seq.record_token(int(nxt_host[slot]), now)
+                    stats.decode_tokens += 1
+            else:
+                ledger.charge_chunk("decode", 1, int(pos0[slot]) + 1)
+                r = 0
+                if not seq.done:              # generation budget left
+                    seq.record_token(int(nxt_host[slot]), now)
+                    r = 1
+                if tok_bytes:
+                    ledger.charge_cache_growth("decode", r * tok_bytes)
+                ledger.charge_sampled(r, logit_rows=1)
+                stats.decode_tokens += r
+        stats.steps += 1
+        self.sched.record_step()
+        self.sched.retire(self.arena.free)
+
+    def _paged_reads(self, pos0: np.ndarray, lens: np.ndarray) -> int:
+        """Pages the step's attention reads, for the KV read counter."""
+        ns = self.num_slots
         bsz, mb = self.arena.block_size, self.arena.max_blocks
         if self.paged_attn == "fused":
             # The kernel's page reads: a slot row walks blocks
@@ -270,30 +368,7 @@ class ServingEngine:
                 reads += 1 + int(np.sum(walk[1:] != walk[:-1]))
         else:
             reads = ns * mb             # dense gather of every table row
-        stats.paged_kv_read_bytes += reads * self.arena.block_bytes()
-        for slot, seq in list(self.sched.active.items()):
-            n = feeds[slot]
-            if seq.state is SeqState.PREFILL:
-                if n == 0:
-                    continue                  # budget-starved this step
-                stats.prefill_tokens += n
-                ledger.charge_chunk("prefill", n, seq.fed + n)
-                if seq.feed_chunk(n):
-                    seq.start_decode()        # this chunk sampled token 0
-                    ledger.charge_sampled()
-                    seq.record_token(int(nxt_host[slot]), now)
-                    stats.decode_tokens += 1
-            else:
-                ledger.charge_chunk("decode", 1, int(pos0[slot]) + 1)
-                r = 0
-                if not seq.done:              # generation budget left
-                    seq.record_token(int(nxt_host[slot]), now)
-                    r = 1
-                ledger.charge_sampled(r, logit_rows=1)
-                stats.decode_tokens += r
-        stats.steps += 1
-        self.sched.record_step()
-        self.sched.retire(self.arena.free)
+        return reads
 
     # ------------------------------------------------------------------
     def serve(self, requests: List[Request], *, seed: int = 0,
@@ -305,7 +380,7 @@ class ServingEngine:
         reused (its tables are empty between runs)."""
         if self.sched.stats.steps or self.sched.finished:
             self.sched = Scheduler(self.num_slots, self.max_seq)
-        for r in requests:
+        for r in requests if self.paged else ():
             # Last cache write lands at position prompt+gen-2 (the final
             # sampled token is returned, never inserted), so peak demand
             # is prompt+gen-1 covered positions.
@@ -327,9 +402,10 @@ class ServingEngine:
 
         while self.sched.has_work:
             now = time.perf_counter() - t0
-            # Incumbents reserve their next-feed blocks BEFORE new
-            # admissions take them (may preempt-to-queue).
-            self._reserve_blocks(ledger)
+            if self.paged:
+                # Incumbents reserve their next-feed blocks BEFORE new
+                # admissions take them (may preempt-to-queue).
+                self._reserve_blocks(ledger)
             for seq in self.sched.admit(self._try_admit, now):
                 self._admit_chunked(seq, ledger)
             if not self.sched.active:
@@ -353,3 +429,66 @@ class ServingEngine:
         return ServeReport(stats=stats, sequences=seqs,
                            sched=self.sched.stats, wall_s=wall,
                            ledger=ledger)
+
+
+class Engine:
+    """Fixed-batch (lockstep) wrapper over ``ServingEngine``.
+
+    ``generate(tokens, n)`` submits one request per batch row (identical
+    lengths, simultaneous arrival) to a contiguous-arena engine and
+    reassembles a dense (B, n) output — the legacy lockstep interface,
+    kept for the paper's fixed [in:out] workload grid. Engines are kept
+    per batch size; each ``generate`` gets a fresh arena and drops it
+    afterwards."""
+
+    def __init__(self, model: ModelAPI, params, *, quant: str = "none",
+                 max_seq: int = 2048, chunk_size: int = 8, device="cuda"):
+        self.model = model
+        self.params = params
+        self.quant = quant
+        self.max_seq = max_seq
+        self.chunk_size = chunk_size
+        self.device = torch.device(device)
+        self._engines: Dict[int, ServingEngine] = {}    # batch -> engine
+
+    @classmethod
+    def from_dense(cls, model: ModelAPI, dense_params, quant: str,
+                   **kw) -> "Engine":
+        """llama.cpp-style model quantization stage + engine construction."""
+        qparams = convert.quantize_params(dense_params, quant) \
+            if quant != "none" else dense_params
+        return cls(model, qparams, quant=quant, **kw)
+
+    def _engine_for(self, batch: int) -> ServingEngine:
+        if batch not in self._engines:
+            self._engines[batch] = ServingEngine(
+                self.model, self.params, quant=self.quant,
+                num_slots=batch, max_seq=self.max_seq,
+                chunk_size=self.chunk_size, device=self.device)
+        else:
+            self._engines[batch].reset()
+        return self._engines[batch]
+
+    def generate(self, tokens, max_new_tokens: int, *,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, seed: int = 0):
+        """tokens: (B, S_prompt) int (numpy or tensor). Returns
+        (out_tokens (B, T) int32 numpy, stats)."""
+        toks = np.asarray(tokens.cpu() if isinstance(tokens, torch.Tensor)
+                          else tokens)
+        b, s_prompt = toks.shape
+        if s_prompt + max_new_tokens > self.max_seq:
+            raise ValueError(f"prompt {s_prompt} + {max_new_tokens} new "
+                             f"tokens exceed the arena's {self.max_seq}")
+        eng = self._engine_for(b)
+        samp = SamplingParams(temperature=temperature, top_k=top_k,
+                              top_p=top_p, seed=seed)
+        reqs = [Request(rid=i, tokens=toks[i], max_new_tokens=max_new_tokens,
+                        sampling=samp) for i in range(b)]
+        try:
+            report = eng.serve(reqs, seed=seed, realtime=False)
+        finally:
+            eng.arena = eng.sched = None    # a full-size arena is large
+        out = np.stack([np.asarray(q.generated, np.int32)
+                        for q in report.sequences])
+        return out, report.stats

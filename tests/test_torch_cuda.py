@@ -129,3 +129,120 @@ def test_paged_attention_qwen3_8b_widths(cuda, dtype):
     from repro_torch.kernels.paged_attention import _lib
     assert _lib().paged_attention_gqa_smem(8, 32, 8, 128, 16) > 48 * 1024
     _check_paged(cuda, 8, dtype, h=32, hkv=8, d=128, bs=16, launches=2)
+
+
+# (B, Sq, Skv, H, Hkv, D, causal, q_offset): qwen3-0.6b's prefill at
+# full width, a ragged tile, non-causal, a chunk at an offset, and
+# qwen3-8b's widths.
+FLASH_SHAPES = [(8, 512, 512, 16, 8, 128, True, 0),
+                (8, 500, 500, 16, 8, 128, True, 0),
+                (2, 200, 200, 16, 8, 128, False, 0),
+                (2, 64, 300, 16, 8, 128, True, 236),
+                (1, 2048, 2048, 32, 8, 128, True, 0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_attention_matches_plain(cuda, shape, dtype):
+    """f32: the blocked online vs dense softmax reorder (1e-4 of
+    tests/test_kernels.py); bf16: the f32 result rounded once, so one
+    bf16 ulp of the output."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    b, sq, skv, h, hkv, d, causal, off = shape
+    gen = torch.Generator(device=cuda).manual_seed(sq + skv)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((b, s, n, d), generator=gen, device=cuda).to(dt)
+               for s, n in ((sq, h), (skv, hkv), (skv, hkv)))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, q_offset=off)
+    assert flash_attention.launches == before + 1
+    ref = attention_ref(q, k, v, causal=causal, q_offset=off)
+    torch.cuda.synchronize()
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else \
+        dict(rtol=2 ** -7, atol=1e-3)
+    assert out.dtype == dt and bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+def test_flash_attention_value_width_and_unseen_keys(cuda):
+    """Dv != D, and keys past the causal horizon (q_offset + Sq - 1) full
+    of NaN are never loaded: the output equals attention over the K/V
+    cut at the horizon."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((2, 100, 8, 192), generator=gen, device=cuda)
+    k = torch.randn((2, 130, 2, 192), generator=gen, device=cuda)
+    v = torch.randn((2, 130, 2, 128), generator=gen, device=cuda)
+    k[:, 120:] = float("nan")
+    v[:, 120:] = float("nan")
+    out = flash_attention(q, k, v, causal=True, q_offset=20)
+    ref = attention_ref(q, k[:, :120], v[:, :120], causal=True, q_offset=20)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_attention_refuses_grad(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.randn((1, 8, 2, 16), device=cuda, requires_grad=True)
+    k = torch.randn((1, 8, 2, 16), device=cuda)
+    with pytest.raises(NotImplementedError, match="backward"):
+        flash_attention(q, k, k)
+
+
+def _int8_pages(cuda, b, chunk, h, hkv, d, bs):
+    """The paged case of _check_paged with int8 codes and fp16 scale
+    pages quantized from normal K/V."""
+    from repro_torch.models.attention import quantize_kv
+    mb = 6
+    nb = b * mb
+    rng = np.random.RandomState(chunk + h)
+    perm = rng.permutation(nb)
+    owned = [mb] + [int(x) for x in rng.randint(1, mb + 1, size=b - 1)]
+    tables = np.full((b, mb), nb, np.int32)
+    for i in range(b):
+        tables[i, :owned[i]] = perm[i * mb:i * mb + owned[i]]
+    lens = np.array([chunk] + [max(chunk - i, 1) for i in range(1, b)],
+                    np.int32)
+    pos = np.array([max(o * bs - chunk, 0) for o in owned], np.int32)
+    t = lambda a: torch.from_numpy(a).to(cuda)     # noqa: E731
+    kq, ks = quantize_kv(t(rng.randn(nb + 1, bs, hkv, d).astype(np.float32)))
+    vq, vs = quantize_kv(t(rng.randn(nb + 1, bs, hkv, d).astype(np.float32)))
+    q = t(rng.randn(b, chunk, h, d).astype(np.float32))
+    return dict(q=q, kq=kq, ks=ks, vq=vq, vs=vs, tables=t(tables),
+                pos=t(pos), lens=t(lens), np_lens=lens)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(3, 4, 8, 2, 64, 4),
+                                  (8, 8, 16, 8, 128, 16)])
+def test_paged_attention_int8_matches_plain(cuda, case, dtype):
+    """The int8 form at a small shape and at the serving decode shape
+    (B = 8, C = 8, H = 16, Hkv = 8, D = 128, bs = 16)."""
+    c = _int8_pages(cuda, *case)
+    q = c["q"].to(getattr(torch, dtype))
+    args = (q, c["kq"], c["vq"], c["tables"], c["pos"])
+    kw = dict(sm_scale=case[4] ** -0.5, k_scales=c["ks"], v_scales=c["vs"])
+    out = paged_decode_attention(*args, lengths=c["lens"], **kw)
+    ref = paged_attention_ref(*args, **kw)
+    torch.cuda.synchronize()
+    tol = dict(rtol=2e-5, atol=2e-6) if dtype == "float32" else \
+        dict(rtol=2 ** -7, atol=1e-3)
+    for i, n in enumerate(c["np_lens"]):
+        torch.testing.assert_close(out[i, :n].float(), ref[i, :n].float(),
+                                   **tol)
+
+
+def test_paged_attention_int8_refusals(cuda):
+    c = _int8_pages(cuda, 3, 4, 8, 2, 64, 4)
+    args = (c["q"], c["kq"], c["vq"], c["tables"], c["pos"])
+    with pytest.raises(ValueError, match="need k_scales"):
+        paged_decode_attention(*args, sm_scale=1.0)
+    with pytest.raises(TypeError, match="float16"):
+        paged_decode_attention(*args, sm_scale=1.0,
+                               k_scales=c["ks"].float(),
+                               v_scales=c["vs"].float())
+    with pytest.raises(NotImplementedError, match="B9"):
+        paged_decode_attention(c["q"], c["kq"], None, c["tables"], c["pos"],
+                               sm_scale=1.0, k_scales=c["ks"])

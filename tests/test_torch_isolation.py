@@ -5,14 +5,16 @@ fallback, no kernel build on the CPU path.
   ``import jax`` and ``import repro`` fail.
 * A source scan finds no JAX import and no import of the ``repro``
   package in ``src/repro_torch`` or ``chip_smoke.py``.
-* The CPU path (a reduced model's decode step under every recipe, so
-  every kernel wrapper) never calls the kernel builder.
+* The CPU path (a reduced model's decode step under every recipe and on
+  int8 pages, and its prefill, so every kernel wrapper) never calls the
+  kernel build step (``_build``); every wrapper's library has a source.
 * Without a card and without ``--device cpu``, the serve launcher exits
   with an error instead of running on the CPU.
 """
 import re
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -60,7 +62,7 @@ def test_source_imports_no_jax_and_no_repro(path):
     assert not hits, f"{path}: {hits}"
 
 
-def _cpu_step_without_builds(monkeypatch, quant):
+def _refuse_builds(monkeypatch):
     def refuse(*a, **kw):
         raise AssertionError("kernel builder called on the CPU path")
     monkeypatch.setattr(_build, "build_all", refuse)
@@ -68,10 +70,18 @@ def _cpu_step_without_builds(monkeypatch, quant):
     cfg = get_config("qwen3-0.6b").reduced()
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(0)
+    return cfg, model, model.init(gen)
+
+
+def _cpu_step_without_builds(monkeypatch, quant, kv_quant="none"):
+    cfg, model, params = _refuse_builds(monkeypatch)
     from repro_torch.core.convert import quantize_params
-    params = quantize_params(model.init(gen), quant)
-    shapes = model.paged_cache_shapes(2, 5, 4)
-    cache = {n: {k: torch.zeros(s, dtype=torch.bfloat16)
+    params = quantize_params(params, quant)
+    shapes = model.paged_cache_shapes(2, 5, 4, kv_quant=kv_quant)
+    dtypes = {"q": torch.int8, "s": torch.float16}
+    cache = {n: {k: {p: torch.zeros(sp, dtype=dtypes[p])
+                     for p, sp in s.items()} if isinstance(s, dict)
+                 else torch.zeros(s, dtype=torch.bfloat16)
                  for k, s in leaves.items()} for n, leaves in shapes.items()}
     logits, _ = model.decode_step(
         params, torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32),
@@ -91,6 +101,27 @@ def test_cpu_recipes_never_build_kernels(monkeypatch, quant):
     _cpu_step_without_builds(monkeypatch, quant)
 
 
+def test_cpu_int8_pages_never_build_kernels(monkeypatch):
+    _cpu_step_without_builds(monkeypatch, "q8_0", kv_quant="int8")
+
+
+def test_cpu_prefill_never_builds_kernels(monkeypatch):
+    cfg, model, params = _refuse_builds(monkeypatch)
+    logits, cache = model.prefill(
+        params, {"tokens": torch.tensor([[1, 2, 3, 4, 5]], dtype=torch.int32)})
+    assert logits.shape == (1, 1, cfg.vocab_size)
+    assert bool(torch.isfinite(logits.float()).all())
+
+
+def test_every_kernel_wrapper_has_a_source():
+    """Each wrapper loads a library built from ``csrc/<name>.cu``; the
+    build step compiles every source, flash_attention.cu included."""
+    names = set(_build.sources())
+    assert names == {"q8_0_matmul", "fp16_matmul", "q6_k_matmul",
+                     "q3_k_matmul", "paged_attention", "flash_attention"}
+    assert len(serve.KERNELS) == 6
+
+
 def test_serve_refuses_to_fall_back_to_cpu(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")
@@ -101,8 +132,8 @@ def test_serve_refuses_to_fall_back_to_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--spec", "ngram"], ["--prefix-cache"], ["--kv-quant", "int8"],
-    ["--dp", "2"], ["--mode", "batch"], ["--trace", "t.json"]])
+    ["--spec", "ngram"], ["--prefix-cache"], ["--shared-prefix", "4"],
+    ["--dp", "2"], ["--offload-policy"], ["--trace", "t.json"]])
 def test_serve_refuses_unported_features(argv, capsys):
     with pytest.raises(SystemExit):
         serve.main(["--reduced", "--device", "cpu", "--block-size", "4"]
@@ -115,10 +146,11 @@ def test_engine_and_registry_refusals_name_the_roadmap():
         get_config("deepseek-v3-671b")
     model = build_model(get_config("qwen3-0.6b").reduced())
     from repro_torch.runtime.engine import ServingEngine
-    for kw, item in ((dict(block_size=None), "A9"),
-                     (dict(block_size=4, spec="ngram"), "A12"),
-                     (dict(block_size=4, prefix_cache=True), "A13"),
-                     (dict(block_size=4, kv_quant="int8"), "A14"),
-                     (dict(block_size=4, mesh=object()), "A17")):
+    moe = types.SimpleNamespace(cfg=types.SimpleNamespace(family="moe"))
+    for m, kw, item in ((model, dict(block_size=None, spec="ngram"), "A12"),
+                        (model, dict(block_size=4, spec="ngram"), "A12"),
+                        (model, dict(block_size=4, prefix_cache=True), "A13"),
+                        (moe, dict(block_size=4), "A15"),
+                        (model, dict(block_size=4, mesh=object()), "A17")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            ServingEngine(model, {}, device="cpu", **kw)
+            ServingEngine(m, {}, device="cpu", **kw)
