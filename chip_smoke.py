@@ -11,10 +11,11 @@ Phases, one line each (every failure exits non-zero):
 2. build  — compiles every ``src/repro_torch/csrc/*.cu`` with nvcc for
             sm_90a into ``build/`` (one nvcc per source, in parallel);
 3. kernels — each hand-written kernel (matmul_q8_0, matmul_fp16,
-            matmul_q6_k, matmul_q3_k, paged_decode_attention in its bf16
-            and its int8 form, flash_attention) against its plain PyTorch
-            version on the card at the main path's shapes (and ragged
-            ones, and qwen3-8b's widths), with the tolerance stated, its
+            matmul_q6_k, matmul_q3_k, paged_decode_attention in its bf16,
+            int8, MLA and MLA-int8 forms, flash_attention) against its
+            plain PyTorch version on the card at the main path's shapes
+            (and ragged ones, qwen3-8b's widths, and deepseek-v3's MLA
+            decode and prefill widths), with the tolerance stated, its
             time, the plain version's time, one library call's time (a
             yardstick only: the port never calls it) and the least time
             the card could take for the same work;
@@ -26,11 +27,19 @@ Phases, one line each (every failure exits non-zero):
             contiguous arena), and ``model.prefill`` of 8 x 512 tokens,
             asserting that every quantized product and every attention
             of each run went through the kernels (exact launches per step
-            and per prefill);
+            and per prefill); then the MoE models at full width (q8_0):
+            deepseek-v3 cut to 4 layers (3 dense MLA layers and one MLA +
+            MoE layer) on bf16 and int8 pages and its ``model.prefill``
+            of 8 x 512 tokens, and granite-moe at its full 32 layers, with
+            the same stream and exact launches;
 5. checks — per recipe, one full-width decode step (depth cut to 2
             layers) against the plain CPU path, and a shorter serve under
             torch.profiler; for q8_0 also a 2-layer prefill and a 2-layer
-            decode step on int8 pages against the CPU path;
+            decode step on int8 pages against the CPU path; deepseek-v3
+            cut to its 2 dense MLA layers (bf16 and int8 pages) and
+            granite-moe cut to 2 MoE layers against the CPU path, the
+            deepseek-v3 MoE layer's device time and transient memory,
+            and a profiled serve of each;
 6. the ``kernels`` JSON line, then the device JSON line, last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -52,6 +61,9 @@ T0 = time.perf_counter()
 # larger of its bytes over the first and its flops over the second.
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+# f32 outside the tensor cores (the data sheet's 67 TFLOP/s): the peak
+# for work whose operands are f32, as the MLA form's q_eff and output.
+F32_FLOPS = 67e12
 
 SERVE_ARGS = ["--arch", "qwen3-0.6b", "--slots", "8", "--chunk-size", "8",
               "--block-size", "16", "--num-blocks", "256", "--requests",
@@ -102,6 +114,27 @@ INT8_LAUNCHES = {"matmul_q8_0": 197, "paged_decode_attention_int8": 28}
 BATCH_LAUNCHES = {"matmul_q8_0": 197}           # contiguous arena
 PREFILL_LAUNCHES = {"matmul_q8_0": 197, "flash_attention": 28}
 M_STEP = 64                                     # slots x chunk
+# The MoE models: the same stream at full width (q8_0). deepseek-v3 is cut
+# to 4 layers (its 3 dense MLA layers and one MLA + MoE layer; 61 do not
+# fit one card), granite-moe runs all 32.
+DEEPSEEK_LAYERS = 4
+DEEPSEEK_ARGS = ["--arch", "deepseek-v3-671b"] + SERVE_ARGS[2:]
+GRANITE_ARGS = ["--arch", "granite-moe-3b-a800m"] + SERVE_ARGS[2:]
+# Per step: 4 MLA layers x 4 linears (q_a, q_b, kv_a, o; kv_b is folded
+# into the attention), 3 dense SwiGLUs x 3, the shared expert's 3, the
+# lm_head; the prefill adds kv_b per layer.
+DEEPSEEK_LAUNCHES = {"matmul_q8_0": 29, "paged_decode_attention_mla": 4}
+DEEPSEEK_INT8_LAUNCHES = {"matmul_q8_0": 29,
+                          "paged_decode_attention_mla_int8": 4}
+DEEPSEEK_PREFILL_LAUNCHES = {"matmul_q8_0": 33, "flash_attention": 4}
+GRANITE_LAUNCHES = {"matmul_q8_0": 129, "paged_decode_attention": 32}
+# B9 at the deepseek serve's decode shape: (B, C, H, rank, rope, bs, MB,
+# physical blocks), and a ragged one (rows not a multiple of the 32-row
+# tile, chunk 5, block 64).
+MLA_CASE = (8, 8, 128, 512, 64, 16, 10, 256)
+MLA_RAGGED = (3, 5, 20, 512, 64, 64, 3, 12)
+# deepseek-v3's MLA prefill attention: (B, S, H, D, Dv) bf16, causal.
+FLASH_MLA = (8, 512, 128, 192, 128)
 
 
 def within_one_ulp(torch, out, ref32, rtol: float, atol: float) -> bool:
@@ -121,8 +154,8 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BPS, flops / BF16_FLOPS
+def bound(nbytes: float, flops: float, peak: float = BF16_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / peak
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -467,6 +500,225 @@ def check_paged_int8(torch, np, dev):
                 bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l)
 
 
+def _mla_case(torch, np, dev, shape, seed, entries=None, deep=False):
+    """MLA operands (Hkv = 1) at full width: fragmented, permuted and
+    partly null tables, mixed lengths (or ``entries`` valid chunk entries
+    in every slot) and depths (or, ``deep``, every slot's chunk ending at
+    its last position), f32 q_eff and q2, f32 ckv/krope the caller casts
+    or quantizes."""
+    B, C, H, rank, rope, bs, MB, nb = shape
+    rng = np.random.RandomState(seed)
+    perm = rng.permutation(nb)
+    owned = rng.randint(1, MB + 1, size=B)
+    owned[0] = MB
+    if deep:
+        owned[:] = MB
+    tables = np.full((B, MB), nb, np.int32)
+    lens = rng.randint(1, C + 1, size=B).astype(np.int32)
+    if entries is not None:
+        lens[:] = entries
+    pos = np.zeros(B, np.int32)
+    for b in range(B):
+        tables[b, :owned[b]] = perm[b * MB:b * MB + owned[b]]
+        pos[b] = rng.randint(0, owned[b] * bs - lens[b] + 1)
+        if deep:
+            pos[b] = owned[b] * bs - lens[b]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t = lambda a: torch.from_numpy(a).to(dev)     # noqa: E731
+    return dict(
+        q=torch.randn((B, C, H, rank), generator=gen, device=dev),
+        q2=torch.randn((B, C, H, rope), generator=gen, device=dev),
+        ckv=torch.randn((nb + 1, bs, 1, rank), generator=gen, device=dev),
+        kr=torch.randn((nb + 1, bs, 1, rope), generator=gen, device=dev),
+        tables=t(tables), pos=t(pos), lens=t(lens), np_tables=tables,
+        np_pos=pos, np_lens=lens, bs=bs, nb=nb,
+        sm=(128 + rope) ** -0.5)           # deepseek-v3: (nope + rope)^-1/2
+
+
+def _mla_pages(torch, c, form):
+    """(k, k2, scales) of the case's pages: bf16, or int8 codes with fp16
+    scale pages."""
+    from repro_torch.models.attention import quantize_kv
+    if form == "bf16":
+        return c["ckv"].to(torch.bfloat16), c["kr"].to(torch.bfloat16), {}
+    kq, ks = quantize_kv(c["ckv"][:, :, 0])
+    k2q, k2s = quantize_kv(c["kr"][:, :, 0])
+    return kq[:, :, None], k2q[:, :, None], dict(
+        k_scales=ks[:, :, None], k2_scales=k2s[:, :, None])
+
+
+def _time_mla(torch, c, k, k2, sc, run, form, counter, label):
+    """B9 on case ``c`` (length pattern ``label``) timed per call: the
+    kernel, its plain version, the library yardstick and the bound,
+    printed and returned."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.ref import paged_attention_ref
+    dev = c["q"].device
+    B, C, H, rank = c["q"].shape
+    rope = c["q2"].shape[-1]
+    launches0 = getattr(paged_decode_attention, counter)
+    t_k = time_ms(torch, [run], 200)
+    setattr(paged_decode_attention, counter, launches0)
+    t_p = time_ms(torch, [lambda: paged_attention_ref(
+        c["q"], k, None, c["tables"], c["pos"], sm_scale=c["sm"],
+        q2=c["q2"], k2_pages=k2, **sc)], 20)
+    # Library yardstick: SDPA (f32, as q_eff) over the gathered,
+    # dequantized view, K = [ckv | krope], V = ckv, one kv-head shared by
+    # the 128 heads, with the causal-depth mask; built outside the timed
+    # call.
+    tb = c["tables"].long()
+
+    def view(x, s):
+        v = x[tb].float()
+        if s is not None:
+            v = v * s[tb].float()[..., None]
+        return v.flatten(1, 2).transpose(1, 2)     # (B, 1, S, D)
+    kv = view(k, sc.get("k_scales"))
+    kk = torch.cat([kv, view(k2, sc.get("k2_scales"))], -1).contiguous()
+    vv = kv.contiguous()
+    qh = torch.cat([c["q"], c["q2"]], -1).transpose(1, 2).contiguous()
+    s = kk.shape[2]
+    depth = c["pos"].long()[:, None] + torch.arange(C, device=dev) + 1
+    mask = (torch.arange(s, device=dev)[None, None, :]
+            < depth[:, :, None])[:, None]          # (B, 1, C, S)
+    t_l = time_ms(torch, [lambda: F.scaled_dot_product_attention(
+        qh, kk, vv, attn_mask=mask, scale=c["sm"], enable_gqa=True)], 50)
+    # The bytes the function must move: the valid rows' f32 q_eff and q2
+    # in and f32 output out (rows past a slot's length are garbage by
+    # contract, so it needs none of them), each live page once, the
+    # tables, positions and lengths.
+    _, keys = _live_pages(c)
+    rows = H * sum(int(n) for n in c["np_lens"])
+    per_key = (rank + rope) * (2 if form == "bf16" else 1) + \
+        (0 if form == "bf16" else 4)
+    nbytes = 4 * rows * (2 * rank + rope) + keys * per_key + \
+        c["tables"].numel() * 4 + 2 * B * 4
+    # The causal work of the valid rows: H rows per chunk entry, each over
+    # its depth pos + i + 1, 2 flops per multiply-add over the score
+    # (rank + rope) and the P.V (rank) features.
+    depths = sum(int(c["np_pos"][b]) * int(c["np_lens"][b])
+                 + int(c["np_lens"][b]) * (int(c["np_lens"][b]) + 1) // 2
+                 for b in range(B))
+    flops = 2.0 * H * depths * (2 * rank + rope)
+    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    print(f"kernel paged_decode_attention mla {form} B={B} C={C} H={H} "
+          f"rank={rank} rope={rope} bs={c['bs']} lengths {label}: kernel "
+          f"{t_k:.4f} ms | plain {t_p:.4f} ms | library(SDPA f32 on the "
+          f"gathered view, K=[ckv|krope], V=ckv) {t_l:.4f} ms | bound "
+          f"{b_ms:.5f} ms ({b_by}; {nbytes / 1e6:.2f} MB, "
+          f"{flops / 1e9:.3f} GFLOP at the f32 peak)", flush=True)
+    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def check_paged_mla(torch, np, dev):
+    """The MLA form of paged_decode_attention (bf16 pages, then int8 codes
+    with fp16 scales) against its plain version at a ragged shape and at
+    the deepseek serve's decode shape with four length patterns: every
+    slot with one valid chunk entry (steady decode: the page walk split
+    finely), with full chunks (an all-prefill step: fewer splits), with
+    full chunks at the deepest position (depth 160: one split) and mixed
+    lengths. Each serve-shape pattern is timed per call; the rows'
+    numbers are the mixed pattern's per step (4 MLA layers). Returns the
+    two forms' kernel rows."""
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.ref import paged_attention_ref
+    rows = []
+    full = MLA_CASE[1]
+    cases = ((None, MLA_RAGGED, 8, None, False),
+             ("decode", MLA_CASE, 7, 1, False),
+             ("full chunk", MLA_CASE, 7, full, False),
+             ("full chunk at depth 160", MLA_CASE, 7, full, True),
+             ("mixed", MLA_CASE, 7, None, False))
+    for form, counter in (("bf16", "mla_launches"),
+                          ("int8", "mla_int8_launches")):
+        worst = 0.0
+        serve_cases = {}
+        for label, shape, seed, entries, deep in cases:
+            c = _mla_case(torch, np, dev, shape, seed, entries=entries,
+                          deep=deep)
+            k, k2, sc = _mla_pages(torch, c, form)
+
+            def run(k=k, k2=k2, sc=sc, c=c):
+                return paged_decode_attention(
+                    c["q"], k, None, c["tables"], c["pos"],
+                    sm_scale=c["sm"], lengths=c["lens"], q2=c["q2"],
+                    k2_pages=k2, **sc)
+            out = run()
+            ref = paged_attention_ref(c["q"], k, None, c["tables"],
+                                      c["pos"], sm_scale=c["sm"],
+                                      q2=c["q2"], k2_pages=k2, **sc)
+            torch.cuda.synchronize()
+            err = 0.0
+            for b in range(out.shape[0]):
+                n = int(c["np_lens"][b])
+                o, r = out[b, :n], ref[b, :n]
+                # f32 q_eff and output: the reorder of 576-feature scores
+                # and of up to 160 keys' weighted values up to ~4 in
+                # magnitude, merged across page splits (tests/
+                # test_torch_cuda.py's MLA tolerance).
+                if not bool(torch.isfinite(o).all()) or \
+                        not torch.allclose(o, r, rtol=2e-5, atol=1e-5):
+                    fail(f"paged_decode_attention mla {form} {shape} slot "
+                         f"{b}: max_abs_err "
+                         f"{float((o - r).abs().max()):.3e}")
+                err = max(err, float((o - r).abs().max()))
+                # The kernel writes a 32-row tile of garbage rows as 0:
+                # with H a multiple of 32, every row past the length (the
+                # plain version computes them).
+                if out.is_cuda and shape[2] % 32 == 0 and \
+                        bool(out[b, n:].any()):
+                    fail(f"paged_decode_attention mla {form}: rows past "
+                         f"slot {b}'s length are not 0")
+            worst = max(worst, err)
+            live, keys = _live_pages(c)
+            dead = torch.tensor([p for p in range(c["nb"] + 1)
+                                 if p not in live], dtype=torch.long,
+                                device=dev)
+            k_d, k2_d = k.clone(), k2.clone()
+            sc_d = {n: v.clone() for n, v in sc.items()}
+            if form == "int8":          # codes cannot hold NaN
+                k_d[dead], k2_d[dead] = 127, -127
+                for v in sc_d.values():
+                    v[dead] = float("nan")
+            else:
+                k_d[dead], k2_d[dead] = float("nan"), float("nan")
+            out2 = run(k=k_d, k2=k2_d, sc=sc_d)
+            torch.cuda.synchronize()
+            if not torch.equal(out, out2):
+                fail(f"paged_decode_attention mla {form} {shape}: garbage "
+                     f"in {len(dead)} dead pages changed the output")
+            zero = " rows past each length 0 |" if shape[2] % 32 == 0 \
+                else ""
+            if label is not None:
+                serve_cases[label] = (c, k, k2, sc, run)
+            print(f"kernel paged_decode_attention mla {form} B,C,H,rank,"
+                  f"rope,bs,MB={shape[:7]} lengths "
+                  f"{label or 'mixed'}: max_abs_err {err:.3e} (rtol "
+                  f"2e-5 atol 1e-5, valid rows) |{zero}"
+                  f" {len(dead)} dead pages "
+                  f"{'NaN scales, +-127 codes' if form == 'int8' else 'NaN'}"
+                  ": output bit-identical", flush=True)
+        timed = {label: _time_mla(torch, *case, form, counter, label)
+                 for label, case in serve_cases.items()}
+        del serve_cases
+        name = "paged_decode_attention_mla" + \
+            ("" if form == "bf16" else "_int8")
+        n = DEEPSEEK_LAYERS
+        t = timed["mixed"]
+        rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/csrc/paged_attention.cu",
+            replaces="src/repro/kernels/paged_attention.py:156",
+            max_abs_err=worst, ms=n * t["ms"], plain_ms=n * t["plain_ms"],
+            bound_ms=n * t["bound_ms"], bound_by=t["bound_by"],
+            library_ms=n * t["library_ms"],
+            per_call=timed))
+    return rows
+
+
 def check_flash(torch, dev):
     """flash_attention against attention_ref at full width (FLASH_CASES),
     timed at qwen3-0.6b's prefill of 8 x 512 tokens, per prefill (28
@@ -523,11 +775,65 @@ def check_flash(torch, dev):
           f"library(SDPA is_causal, enable_gqa) {t_l:.4f} ms | bound "
           f"{b_ms:.5f} ms ({b_by}) | per prefill x28: kernel "
           f"{28 * t_k:.4f} ms", flush=True)
+    del q, k, v, qh, kh, vh
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:73",
                 max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
-                bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l)
+                bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l,
+                deepseek_prefill=check_flash_mla(torch, dev))
+
+
+def check_flash_mla(torch, dev):
+    """flash_attention at deepseek-v3's MLA prefill widths (FLASH_MLA:
+    D = nope + rope = 192, Dv = 128, H = Hkv = 128, bf16, causal) against
+    attention_ref, timed per call and per prefill (4 MLA layers).
+    Returns those numbers (an extra key of the flash row)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    b, s, h, d, dv = FLASH_MLA
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    q, k = (torch.randn((b, s, h, d), generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((b, s, h, dv), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    sm = d ** -0.5
+    out = flash_attention(q, k, v, causal=True, sm_scale=sm)
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=True,
+                        sm_scale=sm)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref).abs().max())
+    if not bool(torch.isfinite(out.float()).all()) or \
+            not within_one_ulp(torch, out, ref, 1e-4, 1e-4):
+        fail(f"flash_attention deepseek-v3 prefill widths: max_abs_err "
+             f"{err:.3e}")
+    del ref
+    launches0 = flash_attention.launches
+    t_k = time_ms(torch, [lambda: flash_attention(
+        q, k, v, causal=True, sm_scale=sm)], 10)
+    flash_attention.launches = launches0
+    t_p = time_ms(torch, [lambda: attention_ref(
+        q, k, v, causal=True, sm_scale=sm)], 3)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    t_l = time_ms(torch, [lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, scale=sm)], 10)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + b * s * h * dv)
+    flops = 2.0 * b * h * (s * (s + 1) // 2) * (d + dv)
+    b_ms, b_by = bound(nbytes, flops)
+    n = DEEPSEEK_LAYERS
+    print(f"kernel flash_attention deepseek-v3 prefill bf16 B={b} S={s} "
+          f"H={h} D={d} Dv={dv} causal: max_abs_err {err:.3e} (rtol/atol "
+          f"1e-4 of the f32 plain version + one bf16 ulp) | kernel "
+          f"{t_k:.4f} ms | plain {t_p:.4f} ms | library(SDPA is_causal) "
+          f"{t_l:.4f} ms | bound {b_ms:.5f} ms ({b_by}) | per prefill x{n}:"
+          f" kernel {n * t_k:.4f} ms", flush=True)
+    del q, k, v, qh, kh, vh, out
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=n * t_k, plain_ms=n * t_p,
+                bound_ms=n * b_ms, bound_by=b_by, library_ms=n * t_l,
+                ms_per_call=t_k)
 
 
 def _to(tree, d):
@@ -538,6 +844,17 @@ def _to(tree, d):
     return tree.to(d)
 
 
+def _cut_to_two(params, model):
+    """The weights of ``model`` (a 2-layer cut whose layers all sit in
+    group layers0) taken from the full model's ``params``: the first two
+    layers of layers0, no other layer group."""
+    from repro_torch.models.lm import layer_groups
+    assert [(n, c) for n, c, _ in layer_groups(model.cfg)] == \
+        [("layers0", 2)]
+    return {k: (v[:2] if k == "layers0" else v) for k, v in params.items()
+            if not k.startswith("layers") or k == "layers0"}
+
+
 def check_prefill_vs_cpu(torch, dev, params, cfg, quant):
     """A full-width prefill with depth cut to 2 layers: the card (matmul
     and flash kernels) against the plain path on the CPU, same weights,
@@ -545,7 +862,7 @@ def check_prefill_vs_cpu(torch, dev, params, cfg, quant):
     import dataclasses
     from repro_torch.models.api import build_model
     model = build_model(dataclasses.replace(cfg, num_layers=2))
-    cut = {k: (v[:2] if k == "layers0" else v) for k, v in params.items()}
+    cut = _cut_to_two(params, model)
     rng = torch.Generator().manual_seed(5)
     tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=rng,
                            dtype=torch.int32)
@@ -586,7 +903,7 @@ def check_step_vs_cpu(torch, dev, params, cfg, quant, kv_quant="none"):
     from repro_torch.models.api import build_model
     small = dataclasses.replace(cfg, num_layers=2)
     model = build_model(small)
-    cut = {k: (v[:2] if k == "layers0" else v) for k, v in params.items()}
+    cut = _cut_to_two(params, model)
     dtypes = {"q": torch.int8, "s": torch.float16}
 
     rng = torch.Generator().manual_seed(3)
@@ -629,7 +946,7 @@ def check_step_vs_cpu(torch, dev, params, cfg, quant, kv_quant="none"):
             or worst > rel * scale:
         fail(f"full-width {quant} kv={kv_quant} step (2 layers) card vs "
              f"CPU: max_abs_err {worst:.3e} vs max|logit| {scale:.3e}")
-    print(f"step check: full-width qwen3-0.6b {quant} kv={kv_quant}, 2 "
+    print(f"step check: full-width {cfg.name} {quant} kv={kv_quant}, 2 "
           f"layers, card kernels "
           f"vs CPU plain: logits {tuple(a.shape)} finite, max_abs_err "
           f"{worst:.3e} (bound {rel:g} x max|logit| = {rel * scale:.3e})",
@@ -689,23 +1006,37 @@ def profile_serve(torch, serve, cfg, model, params, dev, quant,
 
 
 def recipe_setup(torch, dev, serve, quant, argv=SERVE_ARGS,
-                 quantize=True):
+                 quantize=True, layers=None):
     """(args, cfg, model, params) of the full-width serve ``argv`` under
     recipe ``quant``, with its seeded weights made on the card (left
-    dense with ``quantize=False``)."""
+    dense with ``quantize=False``), depth cut to ``layers`` if given."""
+    import dataclasses
     ap = serve.build_parser()
     args = ap.parse_args(list(argv) + ["--quant", quant])
     serve.validate_args(ap, args)
     cfg = serve.get_config(args.arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = serve.build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = serve.build_params(model, args, dev, quantize=quantize)
     torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     print(f"serve {quant} setup: full-width {cfg.name} ({cfg.num_layers} "
           f"layers, d_model {cfg.d_model}, vocab {cfg.vocab_size}) weights "
-          f"made on the card in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          f"made on the card in {time.perf_counter() - t0:.1f} s: "
+          f"{nbytes / 1e9:.2f} GB, peak device memory while making them "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
     return args, cfg, model, params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def check_launches(tag, launches, per_step, steps):
@@ -720,13 +1051,21 @@ def check_launches(tag, launches, per_step, steps):
 
 
 def serve_recipe(torch, dev, serve, quant, extra=(), per_step=None,
-                 tag=None):
-    """Serve the stream at full width under recipe ``quant`` (plus the
-    flags ``extra``) and assert the exact kernel launches per step and
-    every request complete. Returns {kernel: launches in the serve}."""
+                 tag=None, argv=SERVE_ARGS, setup=None):
+    """Serve the stream ``argv`` at full width under recipe ``quant``
+    (plus the flags ``extra``) and assert the exact kernel launches per
+    step and every request complete; ``setup``: the ``recipe_setup`` of
+    ``argv`` to reuse (its weights are kept), else one is made and
+    dropped. Returns {kernel: launches in the serve}."""
     tag = tag or f"serve {quant}"
-    args, cfg, model, params = recipe_setup(
-        torch, dev, serve, quant, argv=SERVE_ARGS + list(extra))
+    if setup is None:
+        args, cfg, model, params = recipe_setup(
+            torch, dev, serve, quant, argv=list(argv) + list(extra))
+    else:
+        _, cfg, model, params = setup
+        ap = serve.build_parser()
+        args = ap.parse_args(list(argv) + list(extra) + ["--quant", quant])
+        serve.validate_args(ap, args)
     serve.reset_launches()
     engine, report, reqs = serve.run_stream(cfg, model, params, args, dev)
     launches = serve.launch_counts()
@@ -775,11 +1114,13 @@ def serve_batch(torch, dev, serve):
     return res
 
 
-def run_prefill(torch, dev, serve, repeats: int = 3):
+def run_prefill(torch, dev, serve, repeats: int = 3, setup=None,
+                per_prefill=PREFILL_LAUNCHES):
     """``model.prefill`` of 8 x 512 seeded tokens at full width (q8_0),
     ``repeats`` times: finite last-token logits and caches of the
-    expected shapes, exact launches per prefill, prefill tokens/s."""
-    _, cfg, model, params = recipe_setup(torch, dev, serve, "q8_0")
+    expected shapes, exact launches per prefill, prefill tokens/s.
+    ``setup``: a ``recipe_setup`` to reuse (default: qwen3-0.6b's)."""
+    _, cfg, model, params = setup or recipe_setup(torch, dev, serve, "q8_0")
     b, s = PREFILL_SHAPE
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
@@ -795,19 +1136,25 @@ def run_prefill(torch, dev, serve, repeats: int = 3):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = serve.launch_counts()
-    kv = cache["layers0"]["k"]
+    want = model.cache_shapes(b, s)
+    got = {n: {k: tuple(v.shape) for k, v in leaves.items()}
+           for n, leaves in cache.items()}
     if logits.shape != (b, 1, cfg.vocab_size) or not bool(
-            torch.isfinite(logits.float()).all()) or tuple(kv.shape) != (
-            cfg.num_layers, b, s, cfg.num_kv_heads, cfg.resolved_head_dim()):
-        fail(f"prefill: logits {tuple(logits.shape)} / cache "
-             f"{tuple(kv.shape)} wrong or not finite")
+            torch.isfinite(logits.float()).all()) or got != want or not all(
+            bool(torch.isfinite(v.float()).all())
+            for leaves in cache.values() for v in leaves.values()):
+        fail(f"prefill {cfg.name}: logits {tuple(logits.shape)} / caches "
+             f"{got} (want {want}) wrong or not finite")
     best = min(times)
-    print(f"prefill: full-width {cfg.name} q8_0, {b} x {s} tokens: "
-          f"{[round(t * 1e3, 2) for t in times]} ms per prefill, best "
-          f"{b * s / best:.0f} prefill tokens/s (first call included in "
-          "the list)", flush=True)
-    res = check_launches("prefill", launches, PREFILL_LAUNCHES, repeats)
-    del params, cache
+    print(f"prefill: full-width {cfg.name} ({cfg.num_layers} layers) q8_0, "
+          f"{b} x {s} tokens: {[round(t * 1e3, 2) for t in times]} ms per "
+          f"prefill, best {b * s / best:.0f} prefill tokens/s (first call "
+          f"included in the list); caches {got}", flush=True)
+    res = check_launches(f"prefill {cfg.name}", launches, per_prefill,
+                         repeats)
+    del cache
+    if setup is None:
+        del params
     torch.cuda.empty_cache()
     return res
 
@@ -831,6 +1178,109 @@ def check_recipe(torch, dev, serve, quant) -> None:
                       label="q8_0 contiguous")
     del params
     torch.cuda.empty_cache()
+
+
+def time_moe_layer(torch, dev, cfg, params) -> None:
+    """deepseek-v3's MoE layer (layer 3) alone on 8 x 8 tokens (one
+    unified step's rows): device time per call from CUDA events around 3
+    calls (the per-layer host sync included) and the peak device memory
+    above what was allocated before (the transient of the expert
+    products)."""
+    from repro_torch.models import moe
+    lp = params["layers1"][0]["ffn"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    x = torch.randn((8, 8, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    xt = x.reshape(-1, cfg.d_model)
+    active = int((moe.route(lp, cfg, xt)[3] > 0).sum())
+    moe.moe_apply(lp, cfg, x, fmt="q8_0")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        out, _ = moe.moe_apply(lp, cfg, x, fmt="q8_0")
+    end.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    if not bool(torch.isfinite(out.float()).all()):
+        fail("deepseek-v3 MoE layer: output not finite")
+    print(f"moe layer: deepseek-v3 layer 3 on 64 tokens, {active} of "
+          f"{cfg.moe.num_experts} experts active: "
+          f"{start.elapsed_time(end) / 3:.3f} ms per call (CUDA events, "
+          f"host sync included), peak transient {peak / 1e9:.2f} GB",
+          flush=True)
+
+
+def check_moe_vs_cpu(torch, dev, cfg, params) -> None:
+    """deepseek-v3's full-width MoE layer (layer 3: 256 experts, top-8,
+    capacity 4 per expert at 64 rows, so assignments drop) on the card
+    against the CPU plain path, same weights and the same 8 x 8 rows as
+    ``time_moe_layer``: which token fills every (expert, capacity) slot
+    and which slots every token reads must be identical (a changed drop
+    is another function), and the outputs agree within two bf16 ulps of
+    the largest |out| (one for each rounding that another summation order
+    can move across a boundary: the combine's and the shared expert's
+    add)."""
+    from repro_torch.models import moe
+    lp = params["layers1"][0]["ffn"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    x = torch.randn((8, 8, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    t0 = time.perf_counter()
+    got = {}
+    for d in (dev, "cpu"):
+        p = lp if d == dev else _to(lp, "cpu")
+        xd = x.to(d)
+        dispatch, _, token_slots, _, _, cap = moe.route(
+            p, cfg, xd.reshape(-1, cfg.d_model))
+        out, _ = moe.moe_apply(p, cfg, xd, fmt="q8_0")
+        got[str(d)] = (dispatch.cpu(), token_slots.cpu(), out.float().cpu())
+        del p
+    (d_a, s_a, o_a), (d_r, s_r, o_r) = got[str(dev)], got["cpu"]
+    e = cfg.moe
+    dropped = int((s_r == e.num_experts * cap).sum())
+    if not torch.equal(d_a, d_r) or not torch.equal(s_a, s_r):
+        fail(f"deepseek-v3 MoE layer: the card's dispatch differs from the "
+             f"CPU's in {int((d_a != d_r).sum())} expert slots and "
+             f"{int((s_a != s_r).sum())} token slots")
+    scale = float(o_r.abs().max())
+    # One bf16 ulp of m * 2^e (m in [0.5, 1)) is 2^(e - 8).
+    ulp = 2.0 ** (int(torch.frexp(o_r.abs().max()).exponent) - 8)
+    err = float((o_a - o_r).abs().max())
+    if not bool(torch.isfinite(o_a).all()) or err > 2 * ulp:
+        fail(f"deepseek-v3 MoE layer card vs CPU: max_abs_err {err:.3e} vs "
+             f"2 bf16 ulps of max|out| {scale:.3e}: {2 * ulp:.3e}")
+    print(f"moe check: deepseek-v3 layer 3 on 64 rows, card vs CPU plain: "
+          f"dispatch identical ({e.num_experts} experts x capacity {cap}, "
+          f"{64 * e.num_experts_per_tok - dropped} assignments kept, "
+          f"{dropped} dropped); output max_abs_err {err:.3e} (bound 2 bf16 "
+          f"ulps of max|out| {scale:.3e}: {2 * ulp:.3e}); "
+          f"{time.perf_counter() - t0:.1f} s with the CPU copy", flush=True)
+
+
+def check_moe_models(torch, dev, serve, ds, gr) -> None:
+    """The MoE models' checks, after every timed serve: the 2-layer decode
+    steps against the CPU path (deepseek-v3's 2 dense MLA layers on bf16
+    and int8 pages, granite-moe's first 2 MoE layers), deepseek-v3's MoE
+    layer alone against the CPU path, its time and transient, and a
+    profiled serve of each."""
+    _, cfg, model, params = ds
+    check_step_vs_cpu(torch, dev, params, cfg, "q8_0")
+    check_step_vs_cpu(torch, dev, params, cfg, "q8_0", kv_quant="int8")
+    check_moe_vs_cpu(torch, dev, cfg, params)
+    time_moe_layer(torch, dev, cfg, params)
+    profile_serve(torch, serve, cfg, model, params, dev, "q8_0",
+                  arena=DEEPSEEK_ARGS[:-8],
+                  label=f"deepseek-v3 ({cfg.num_layers} layers) q8_0")
+    _, cfg, model, params = gr
+    check_step_vs_cpu(torch, dev, params, cfg, "q8_0")
+    profile_serve(torch, serve, cfg, model, params, dev, "q8_0",
+                  arena=GRANITE_ARGS[:-8], label="granite-moe q8_0")
 
 
 def main() -> None:
@@ -874,6 +1324,7 @@ def main() -> None:
     kernels.append(check_paged_attention(torch, np, dev))
     kernels.append(check_paged_int8(torch, np, dev))
     kernels.append(check_flash(torch, dev))
+    kernels += check_paged_mla(torch, np, dev)
     print(f"chip_smoke: kernel phase done at {time.perf_counter() - T0:.1f} "
           "s", flush=True)
 
@@ -886,10 +1337,28 @@ def main() -> None:
         per_step=INT8_LAUNCHES, tag="serve q8_0 kv-int8")
     by_serve["batch"] = serve_batch(torch, dev, serve)
     by_serve["prefill"] = run_prefill(torch, dev, serve)
+    ds = recipe_setup(torch, dev, serve, "q8_0", argv=DEEPSEEK_ARGS,
+                      layers=DEEPSEEK_LAYERS)
+    by_serve["deepseek-v3"] = serve_recipe(
+        torch, dev, serve, "q8_0", per_step=DEEPSEEK_LAUNCHES,
+        tag="serve deepseek-v3 q8_0", argv=DEEPSEEK_ARGS, setup=ds)
+    by_serve["deepseek-v3 kv-int8"] = serve_recipe(
+        torch, dev, serve, "q8_0", extra=["--kv-quant", "int8"],
+        per_step=DEEPSEEK_INT8_LAUNCHES, tag="serve deepseek-v3 q8_0 "
+        "kv-int8", argv=DEEPSEEK_ARGS, setup=ds)
+    by_serve["deepseek-v3 prefill"] = run_prefill(
+        torch, dev, serve, repeats=2, setup=ds,
+        per_prefill=DEEPSEEK_PREFILL_LAUNCHES)
+    gr = recipe_setup(torch, dev, serve, "q8_0", argv=GRANITE_ARGS)
+    by_serve["granite-moe"] = serve_recipe(
+        torch, dev, serve, "q8_0", per_step=GRANITE_LAUNCHES,
+        tag="serve granite-moe q8_0", argv=GRANITE_ARGS, setup=gr)
     print(f"chip_smoke: serves done at {time.perf_counter() - T0:.1f} s",
           flush=True)
     for quant in RECIPE_LAUNCHES:
         check_recipe(torch, dev, serve, quant)
+    check_moe_models(torch, dev, serve, ds, gr)
+    del ds, gr
 
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in by_serve.values())

@@ -1,20 +1,24 @@
 """Architecture registry for the port: ``--arch <id>`` resolution.
 
-Only the dense qwen3 family is ported so far (the paper's own
-evaluation models). Every other architecture of ``repro`` waits for the
-ROADMAP item that ports its layers; asking for one names that item.
+The dense qwen3 family (the paper's own evaluation models) and the two
+MoE models, deepseek-v3 (MLA + MoE) and granite-moe (GQA + MoE), are
+ported. Every other architecture of ``repro`` waits for the ROADMAP item
+that ports its layers; asking for one names that item.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.deepseek_v3_671b import CONFIG as _deepseek_v3
+from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite_moe
 from repro_torch.configs.qwen3_0_6b import CONFIG as _qwen3_0_6b
 from repro_torch.configs.qwen3_1_7b import CONFIG as _qwen3_1_7b
 from repro_torch.configs.qwen3_8b import CONFIG as _qwen3_8b
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in [_qwen3_0_6b, _qwen3_1_7b, _qwen3_8b]
+    c.name: c for c in [_qwen3_0_6b, _qwen3_1_7b, _qwen3_8b, _deepseek_v3,
+                        _granite_moe]
 }
 
 # Architectures of the JAX package not ported yet -> the ROADMAP item
@@ -25,8 +29,6 @@ PENDING: Dict[str, str] = {
     "llama3-405b": "ROADMAP A20 (remaining dense configs)",
     "qwen2-vl-2b": "ROADMAP A16 (vlm M-RoPE path)",
     "jamba-v0.1-52b": "ROADMAP A16 (ssm/hybrid)",
-    "deepseek-v3-671b": "ROADMAP A15 (MLA + MoE)",
-    "granite-moe-3b-a800m": "ROADMAP A15 (MoE)",
     "whisper-small": "ROADMAP A16 (encdec)",
     "mamba2-1.3b": "ROADMAP A16 (ssm)",
 }
@@ -37,7 +39,6 @@ PENDING: Dict[str, str] = {
 PENDING_FAMILY: Dict[str, str] = {
     "llama3.2-3b": "dense", "qwen2-72b": "dense", "llama3-405b": "dense",
     "qwen2-vl-2b": "vlm", "jamba-v0.1-52b": "hybrid",
-    "deepseek-v3-671b": "moe", "granite-moe-3b-a800m": "moe",
     "whisper-small": "encdec", "mamba2-1.3b": "ssm",
 }
 

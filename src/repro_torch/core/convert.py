@@ -3,7 +3,11 @@ the JAX package's parameters into the port's layout.
 
 ``quantize_params`` is the llama.cpp "model quantization" stage, after
 ``repro.core.convert.quantize_params``: every linear/embedding weight is
-quantized per the recipe, norms stay high precision (paper §III.B).
+quantized per the recipe, norms stay high precision (paper §III.B), the
+MoE router is kept unquantized (rounded to bf16, as the JAX stage does),
+and an MoE expert bank (E, out, in) is quantized row by row into (E, out,
+packed) planes. Rows are quantized ``_ROW_ELEMS`` elements at a time, so
+a bank or an embedding never needs an f32 copy of itself.
 
 ``params_from_jax`` takes the JAX package's parameter tree *as numpy
 arrays* (the caller does the ``np.asarray``; this module never imports
@@ -26,6 +30,10 @@ from repro_torch.models.lm import layer_groups
 
 _NORM_KEYS = {"mixer_norm", "ffn_norm", "final_norm", "q_norm", "k_norm"}
 _EMBED_KEYS = {"embed", "lm_head"}
+_RAW_KEYS = {"router"}
+# Weight elements quantized at a time (block quantization only touches
+# the last axis, so row grouping does not change the planes).
+_ROW_ELEMS = 1 << 26
 
 
 def _is_linear_node(node: Any) -> bool:
@@ -33,12 +41,28 @@ def _is_linear_node(node: Any) -> bool:
             and node["w"].ndim >= 2)
 
 
+def _quantize_rows(w: torch.Tensor, fmt: str) -> Dict:
+    """(..., out, in) weights -> planes (..., out, packed), quantizing
+    ``_ROW_ELEMS`` elements' worth of rows at a time."""
+    flat = w.reshape(-1, w.shape[-1])
+    step = max(1, _ROW_ELEMS // flat.shape[1])
+    out: Dict[str, torch.Tensor] = {}
+    for r0 in range(0, flat.shape[0], step):
+        planes = pack.quantize(flat[r0:r0 + step].to(torch.float32), fmt)
+        for k, v in planes.items():
+            if k not in out:
+                out[k] = torch.empty((flat.shape[0],) + tuple(v.shape[1:]),
+                                     dtype=v.dtype, device=v.device)
+            out[k][r0:r0 + step] = v
+    return {k: v.reshape(*w.shape[:-1], -1) for k, v in out.items()}
+
+
 def _quantize_leaf_dict(node: Dict, fmt: str) -> Dict:
     w = node["w"]
     if fmt == "none":
         out = {"w": w.to(torch.bfloat16)}
     else:
-        out = dict(pack.quantize(w.to(torch.float32), fmt))
+        out = _quantize_rows(w, fmt)
     if "b" in node:
         out["b"] = node["b"]
     return out
@@ -51,7 +75,7 @@ def quantize_params(params: Dict, quant: str) -> Dict:
     def walk(node, path):
         if _is_linear_node(node):
             key = path[-1] if path else ""
-            if recipe is None:
+            if recipe is None or key in _RAW_KEYS:
                 fmt = "none"
             elif key in _EMBED_KEYS:
                 fmt = recipe["embed"]

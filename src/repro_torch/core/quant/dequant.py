@@ -15,11 +15,15 @@ def dequantize_fp16(planes: Planes) -> torch.Tensor:
     return planes["w"].to(torch.float32)
 
 
-def dequantize_q8_0(planes: Planes) -> torch.Tensor:
+def dequantize_q8_0(planes: Planes, dtype=torch.float32) -> torch.Tensor:
+    """float(code) * float(scale) in f32, stored as ``dtype`` (one pass:
+    the products are rounded once on the way out, with no f32 copy)."""
     qs, d = planes["qs"], planes["d"]
     n, k = qs.shape
-    q = qs.to(torch.float32).reshape(n, k // 32, 32)
-    return (q * d.to(torch.float32)[..., None]).reshape(n, k)
+    out = torch.empty((n, k // 32, 32), dtype=dtype, device=qs.device)
+    torch.mul(qs.reshape(n, k // 32, 32), d.to(torch.float32)[..., None],
+              out=out)
+    return out.reshape(n, k)
 
 
 def dequantize_q6_k(planes: Planes) -> torch.Tensor:
@@ -57,6 +61,14 @@ DEQUANTIZERS = {
     "q6_k": dequantize_q6_k,
     "q3_k": dequantize_q3_k,
 }
+
+
+def dequantize_as(planes: Planes, fmt: str, dtype) -> torch.Tensor:
+    """``DEQUANTIZERS[fmt](planes)`` rounded once to ``dtype``; q8_0 does
+    it in one pass."""
+    if fmt == "q8_0":
+        return dequantize_q8_0(planes, dtype=dtype)
+    return DEQUANTIZERS[fmt](planes).to(dtype)
 
 
 def dequantize(planes: Planes, fmt: str, **kw) -> torch.Tensor:

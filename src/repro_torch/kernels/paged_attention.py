@@ -1,10 +1,14 @@
-"""Fused paged decode attention, GQA forms: wrapper of ``csrc/paged_attention.cu``.
+"""Fused paged decode attention: wrapper of ``csrc/paged_attention.cu``.
 
-The port of ``repro.kernels.paged_attention.paged_decode_attention`` for
-bf16/f32 pages, and for int8 code pages with fp16 scale pages (the
-``k_scales``/``v_scales`` form); the MLA form (shared K/V, the RoPE side
-``q2``/``k2_pages``) is ROADMAP B9 and refused.
-Layout contract (``PagedKVArena.page_layout``, docs/kernel-contracts.md):
+The port of ``repro.kernels.paged_attention.paged_decode_attention`` in
+all its forms: GQA over bf16/f32 pages, or int8 code pages with fp16
+scale pages (the ``k_scales``/``v_scales`` form); and the MLA form
+(``v_pages=None``: the K pages double as V; optional RoPE side
+``q2``/``k2_pages``, whose score joins the first before ``sm_scale``;
+int8 with ``k_scales``/``k2_scales``), which has its own entry point in
+the CUDA source because its C * 128 query rows per slot are tiled across
+blocks. Layout contract (``PagedKVArena.page_layout``,
+docs/kernel-contracts.md):
 
   q         (B, C, H, D)      C >= 1 chunk queries per slot
   k_pages   (NP, bs, Hkv, D)  physical pages incl. the trailing null page
@@ -15,11 +19,15 @@ Layout contract (``PagedKVArena.page_layout``, docs/kernel-contracts.md):
   lengths   (B,) int32        valid queries per row (default C)
   k_scales  (NP, bs, Hkv) f16 with int8 pages: one scale per (in-page
   v_scales  (NP, bs, Hkv) f16 position, kv-head); element = code * scale
+  q2        (B, C, H, D2)     MLA only: the RoPE-side queries, with
+  k2_pages  (NP, bs, Hkv, D2) its pages (and ``k2_scales`` when int8)
 
 On a CPU tensor the wrapper computes the plain version
 (``ref.paged_attention_ref``); on a CUDA tensor it launches the
 hand-written kernel or raises. Rows past a slot's valid length are
-garbage by contract on both paths.
+garbage by contract on both paths; the MLA kernel writes a 32-row tile
+whose rows all belong to chunk entries at or past ``max(len, 1)`` as 0
+without reading a page (with 128 heads, every row of such an entry).
 """
 from __future__ import annotations
 
@@ -35,6 +43,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {**_DTYPES, torch.int8: 2}
 MAX_HEAD_DIM = 256
 MAX_BLOCK_SIZE = 64
+# Load widths of the MLA kernel (4 elements at a time): the byte
+# alignment each q or page dtype needs.
+_ALIGN = {torch.float32: 16, torch.bfloat16: 8, torch.int8: 4}
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,6 +58,16 @@ def _lib():
         + [ctypes.c_float, ctypes.c_void_p])
     lib.paged_attention_gqa_smem.restype = ctypes.c_longlong
     lib.paged_attention_gqa_smem.argtypes = [ctypes.c_int] * 5
+    lib.paged_attention_mla.restype = ctypes.c_int
+    lib.paged_attention_mla.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 8
+        + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+    lib.paged_attention_mla_splits.restype = ctypes.c_int
+    lib.paged_attention_mla_splits.argtypes = [ctypes.c_int]
+    lib.paged_attention_mla_smem.restype = ctypes.c_longlong
+    lib.paged_attention_mla_smem.argtypes = [ctypes.c_int] * 3
+    lib.paged_attention_mla_row_tile.restype = ctypes.c_int
+    lib.paged_attention_mla_max_d1.restype = ctypes.c_int
     return lib
 
 
@@ -69,19 +90,32 @@ def _smem_limit(device: torch.device) -> int:
     return int(getattr(props, "shared_memory_per_block_optin", 227 * 1024))
 
 
+def _pages_and_scales(name, pages, scales, scale_name, shape3) -> None:
+    """int8 pages come with fp16 (NP, bs, Hkv) scale pages, other pages
+    with none."""
+    if (scales is not None) != (pages.dtype == torch.int8):
+        raise ValueError(f"{pages.dtype} {name} with "
+                         f"{'no ' if scales is None else ''}{scale_name}: "
+                         f"int8 pages need {scale_name}, other pages take "
+                         "none")
+    if scales is not None and (scales.dtype != torch.float16
+                               or tuple(scales.shape) != shape3):
+        raise TypeError(f"{scale_name} must be float16 {shape3}; got "
+                        f"{scales.dtype} {tuple(scales.shape)}")
+
+
 def _check(q, k_pages, v_pages, block_tables, positions, lengths, k_scales,
-           v_scales) -> None:
-    if v_pages is None:
-        raise NotImplementedError("shared K/V pages (v_pages=None) are the "
-                                  "MLA form, ROADMAP B9")
+           v_scales, q2, k2_pages, k2_scales) -> None:
     if q.ndim != 4 or k_pages.ndim != 4:
         raise ValueError(f"q (B,C,H,D) and pages (NP,bs,Hkv,D) expected; "
                          f"got {tuple(q.shape)}, {tuple(k_pages.shape)}")
     b, c, h, d = q.shape
     _, bs, hkv, dk = k_pages.shape
-    if tuple(v_pages.shape) != tuple(k_pages.shape) or dk != d:
+    if dk != d or (v_pages is not None
+                   and tuple(v_pages.shape) != tuple(k_pages.shape)):
+        vs = None if v_pages is None else tuple(v_pages.shape)
         raise ValueError(f"k/v pages must both be (NP, bs, Hkv, {d}); got "
-                         f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
+                         f"{tuple(k_pages.shape)}, {vs}")
     if h % hkv:
         raise ValueError(f"H={h} is not a multiple of Hkv={hkv}")
     if block_tables.ndim != 2 or block_tables.shape[0] != b:
@@ -90,67 +124,105 @@ def _check(q, k_pages, v_pages, block_tables, positions, lengths, k_scales,
     for name, t in (("positions", positions), ("lengths", lengths)):
         if tuple(t.shape) != (b,):
             raise ValueError(f"{name} must be ({b},); got {tuple(t.shape)}")
-    # Scale pages travel with int8 pages, both or neither (the JAX
-    # kernel's asserts), each fp16 (NP, bs, Hkv).
-    if (k_scales is None) != (v_scales is None):
+    # The JAX kernel's asserts: v_scales travels with v_pages, k2_scales
+    # with k2_pages, each scale page with int8 pages only.
+    if v_pages is None and v_scales is not None:
+        raise ValueError("v_scales must accompany v_pages (with "
+                         "v_pages=None the K pages and scales are V)")
+    if v_pages is not None and (k_scales is None) != (v_scales is None):
         raise ValueError("k_scales and v_scales must accompany each other")
-    if (k_scales is not None) != (k_pages.dtype == torch.int8):
-        raise ValueError(f"{k_pages.dtype} pages with "
-                         f"{'no ' if k_scales is None else ''}scale pages: "
-                         "int8 pages need k_scales/v_scales, other pages "
-                         "take none")
-    for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
-        if t is None:
-            continue
-        if t.dtype != torch.float16 or tuple(t.shape) != \
-                tuple(k_pages.shape[:3]):
-            raise TypeError(f"{name} must be float16 "
-                            f"{tuple(k_pages.shape[:3])}; got {t.dtype} "
-                            f"{tuple(t.shape)}")
+    if (q2 is None) != (k2_pages is None):
+        raise ValueError("q2 and k2_pages must accompany each other")
+    if q2 is not None and v_pages is not None:
+        raise ValueError("the RoPE side (q2/k2_pages) is the MLA form: "
+                         "pass v_pages=None (the K pages are V)")
+    shape3 = tuple(k_pages.shape[:3])
+    _pages_and_scales("pages", k_pages, k_scales, "k_scales", shape3)
+    if v_pages is not None:
+        _pages_and_scales("pages", v_pages, v_scales, "v_scales", shape3)
+    if k2_pages is None:
+        if k2_scales is not None:
+            raise ValueError("k2_scales must accompany k2_pages")
+        return
+    if q2.ndim != 4 or tuple(q2.shape[:3]) != (b, c, h) \
+            or k2_pages.ndim != 4 or tuple(k2_pages.shape[:3]) != shape3 \
+            or k2_pages.shape[3] != q2.shape[3]:
+        raise ValueError(f"q2 must be ({b}, {c}, {h}, D2) and k2_pages "
+                         f"{shape3 + ('D2',)}; got {tuple(q2.shape)}, "
+                         f"{tuple(k2_pages.shape)}")
+    if k2_pages.dtype != k_pages.dtype:
+        raise TypeError(f"k2_pages {k2_pages.dtype} must match the K pages' "
+                        f"{k_pages.dtype}")
+    _pages_and_scales("k2_pages", k2_pages, k2_scales, "k2_scales", shape3)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
-                           v_pages: torch.Tensor, block_tables: torch.Tensor,
+                           v_pages, block_tables: torch.Tensor,
                            positions: torch.Tensor, *, sm_scale: float,
                            lengths=None, k_scales=None, v_scales=None,
                            q2=None, k2_pages=None,
                            k2_scales=None) -> torch.Tensor:
     """Fused paged decode attention over a chunk of C queries per slot.
 
-    Returns (B, C, H, D) in q's dtype. ``q2``/``k2_pages``/``k2_scales``
-    (the MLA RoPE side) are refused: that form is ROADMAP B9."""
-    if q2 is not None or k2_pages is not None or k2_scales is not None:
-        raise NotImplementedError("the MLA RoPE side (q2/k2_pages) is "
-                                  "ROADMAP B9")
+    Returns (B, C, H, D) in q's dtype. ``v_pages=None`` is the MLA form
+    (the K pages are V), which takes the RoPE side ``q2``/``k2_pages``
+    (and ``k2_scales`` on int8 pages); its launches are counted apart."""
     b, c = q.shape[:2]
     if lengths is None:
         lengths = torch.full((b,), c, dtype=torch.int32, device=q.device)
     _check(q, k_pages, v_pages, block_tables, positions, lengths, k_scales,
-           v_scales)
+           v_scales, q2, k2_pages, k2_scales)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    positions, sm_scale=sm_scale,
-                                   k_scales=k_scales, v_scales=v_scales)
+                                   k_scales=k_scales, v_scales=v_scales,
+                                   q2=q2, k2_pages=k2_pages,
+                                   k2_scales=k2_scales)
     dev = q.device
-    tensors = (q, k_pages, v_pages, block_tables, positions, lengths) + (
-        () if k_scales is None else (k_scales, v_scales))
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+    tensors = [t for t in (q, q2, k_pages, k2_pages, v_pages, k_scales,
+                           k2_scales, v_scales) if t is not None]
+    index = (block_tables, positions, lengths)
+    if dev.type != "cuda" or any(t.device != dev
+                                 for t in tensors + list(index)):
         raise ValueError("paged_decode_attention needs every operand on one "
                          "CUDA device")
-    if not all(t.is_contiguous() for t in tensors):
+    if not all(t.is_contiguous() for t in tensors + list(index)):
         raise ValueError("paged_decode_attention needs contiguous operands")
     if q.dtype not in _DTYPES or k_pages.dtype not in _KV_DTYPES \
-            or v_pages.dtype != k_pages.dtype:
-        raise TypeError(f"q {q.dtype}, pages {k_pages.dtype}/{v_pages.dtype}:"
-                        " f32 or bf16 q, and f32, bf16 or int8 pages "
-                        "expected")
-    if any(t.dtype != torch.int32 for t in tensors[3:6]):
+            or (v_pages is not None and v_pages.dtype != k_pages.dtype) \
+            or (q2 is not None and q2.dtype != q.dtype):
+        raise TypeError(f"q {q.dtype}, pages {k_pages.dtype}: f32 or bf16 q "
+                        "(and q2), and f32, bf16 or int8 pages expected")
+    if any(t.dtype != torch.int32 for t in index):
         raise TypeError("tables, positions and lengths must be int32")
-    _, _, h, d = q.shape
+    if k_pages.shape[1] > MAX_BLOCK_SIZE:
+        raise ValueError(f"block_size {k_pages.shape[1]} > {MAX_BLOCK_SIZE} "
+                         "is not supported")
+    tables = (block_tables, positions, lengths)
+    if v_pages is None:
+        out = _launch_mla(q, q2, k_pages, k2_pages, k_scales, k2_scales,
+                          *tables, sm_scale)
+        if k_scales is None:
+            paged_decode_attention.mla_launches += 1
+        else:
+            paged_decode_attention.mla_int8_launches += 1
+        return out
+    out = _launch_gqa(q, k_pages, v_pages, k_scales, v_scales, *tables,
+                      sm_scale)
+    if k_scales is None:
+        paged_decode_attention.launches += 1
+    else:
+        paged_decode_attention.int8_launches += 1
+    return out
+
+
+def _launch_gqa(q, k_pages, v_pages, k_scales, v_scales, block_tables,
+                positions, lengths, sm_scale):
+    dev = q.device
+    b, c, h, d = q.shape
     _, bs, hkv, _ = k_pages.shape
-    if d > MAX_HEAD_DIM or bs > MAX_BLOCK_SIZE:
-        raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM} or block_size {bs} "
-                         f"> {MAX_BLOCK_SIZE} is not supported")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM} is not supported")
     lib = _lib()
     smem = lib.paged_attention_gqa_smem(c, h, hkv, d, bs)
     if smem > _smem_limit(dev):
@@ -181,13 +253,68 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     if err:
         raise RuntimeError(f"paged_attention_gqa launch failed: "
                            f"cudaError {err}")
-    if k_scales is None:
-        paged_decode_attention.launches += 1
-    else:
-        paged_decode_attention.int8_launches += 1
     return out
 
 
-# Launches of the bf16/f32 form and of the int8 form, counted apart.
+def _launch_mla(q, q2, k_pages, k2_pages, k_scales, k2_scales, block_tables,
+                positions, lengths, sm_scale):
+    """The MLA form: f32 q_eff/q_rope (what ``mla_decode`` passes), rows
+    tiled ``row_tile`` at a time across blocks; the launch has room for
+    the most page splits a step can take, and the card takes as many as
+    the pages the step's live rows walk need."""
+    dev = q.device
+    b, c, h, d1 = q.shape
+    _, bs, hkv, _ = k_pages.shape
+    d2 = 0 if q2 is None else q2.shape[3]
+    if q.dtype != torch.float32:
+        raise TypeError(f"the MLA form takes float32 q (and q2); got "
+                        f"{q.dtype}")
+    lib = _lib()
+    if d1 % 4 or d2 % 4 or d1 > lib.paged_attention_mla_max_d1():
+        raise ValueError(f"MLA widths D={d1}, D2={d2} must be multiples of "
+                         f"4, D at most {lib.paged_attention_mla_max_d1()}")
+    for t in (q, q2, k_pages, k2_pages):
+        if t is not None and t.data_ptr() % _ALIGN[t.dtype]:
+            raise ValueError(f"{t.dtype} q and pages must be "
+                             f"{_ALIGN[t.dtype]}-byte aligned")
+    smem = lib.paged_attention_mla_smem(d1, d2, bs)
+    if smem > _smem_limit(dev):
+        raise ValueError(f"D={d1} + D2={d2} at block_size {bs} needs {smem} "
+                         f"B of shared memory; the card allows "
+                         f"{_smem_limit(dev)}")
+    g = h // hkv
+    rt = lib.paged_attention_mla_row_tile()
+    row_tiles = -(-c * g // rt)
+    mb = block_tables.shape[1]
+    sms = _sm_count(dev)
+    splits = lib.paged_attention_mla_splits(mb)
+    out = torch.empty_like(q)
+    part_acc = part_ml = out
+    if splits > 1:
+        tiles = b * hkv * row_tiles * splits
+        part_acc = torch.empty((tiles * rt * d1,), dtype=torch.float32,
+                               device=dev)
+        part_ml = torch.empty((tiles * 2 * rt + 1,), dtype=torch.float32,
+                              device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.paged_attention_mla(
+            q.data_ptr(), ptr(q2), k_pages.data_ptr(), ptr(k2_pages),
+            _KV_DTYPES[k_pages.dtype], ptr(k_scales), ptr(k2_scales),
+            block_tables.data_ptr(), positions.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+            part_ml.data_ptr(), b, c, h, hkv, d1, d2, bs, mb, splits, sms,
+            float(sm_scale), stream)
+    if err:
+        raise RuntimeError(f"paged_attention_mla launch failed: "
+                           f"cudaError {err}")
+    return out
+
+
+# Launches of each form, counted apart: GQA bf16/f32, GQA int8, MLA
+# bf16/f32 and MLA int8.
 paged_decode_attention.launches = 0
 paged_decode_attention.int8_launches = 0
+paged_decode_attention.mla_launches = 0
+paged_decode_attention.mla_int8_launches = 0

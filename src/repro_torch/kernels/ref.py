@@ -49,20 +49,27 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
-def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
-                        v_pages: torch.Tensor, block_tables: torch.Tensor,
+def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages,
+                        block_tables: torch.Tensor,
                         positions: torch.Tensor, *, sm_scale: float,
-                        k_scales=None, v_scales=None) -> torch.Tensor:
+                        k_scales=None, v_scales=None, q2=None,
+                        k2_pages=None, k2_scales=None) -> torch.Tensor:
     """Paged decode attention by dense gather: each slot's logical view
     ``pages[block_tables]`` attended with the per-query causal depth
     ``positions + i + 1`` in f32 (``attention.paged_view`` followed by
     ``decode_attention``). q (B, C, H, D); pages (NP, bs, Hkv, D);
-    returns (B, C, H, D) in q's dtype. Rows past a slot's valid length
+    returns (B, C, H, Dv) in q's dtype. Rows past a slot's valid length
     are garbage by contract, as in the kernel.
 
     int8 pages come with fp16 scale pages (NP, bs, Hkv): each gathered
     row is ``float(code) * float(scale)`` in f32, never rounded to q's
-    dtype (the kernel's dequantization)."""
+    dtype (the kernel's dequantization).
+
+    The MLA form: ``v_pages=None`` makes the K pages (and their scales)
+    V; ``q2`` (B, C, H, D2) against ``k2_pages`` (NP, bs, Hkv, D2) (and
+    ``k2_scales``) adds a second score term before ``sm_scale`` (the
+    decoupled-RoPE side), the gather twin of the JAX package's MLA
+    kernel test."""
     b, c, h, d = q.shape
     hkv = k_pages.shape[2]
     g = h // hkv
@@ -73,14 +80,20 @@ def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
         if scales is not None:
             x = x * scales[tables].flatten(1, 2).to(torch.float32)[..., None]
         return x
-    kc, vc = view(k_pages, k_scales), view(v_pages, v_scales)
+    kc = view(k_pages, k_scales)
+    vc = kc if v_pages is None else view(v_pages, v_scales)
     s = kc.shape[1]
     qg = q.to(torch.float32).reshape(b, c, hkv, g, d)
-    sc = torch.einsum("bqhgd,bshd->bhgqs", qg, kc) * sm_scale
+    sc = torch.einsum("bqhgd,bshd->bhgqs", qg, kc)
+    if q2 is not None:
+        q2g = q2.to(torch.float32).reshape(b, c, hkv, g, q2.shape[-1])
+        sc = sc + torch.einsum("bqhgd,bshd->bhgqs", q2g,
+                               view(k2_pages, k2_scales))
+    sc = sc * sm_scale
     kv_len = positions.long()[:, None] + torch.arange(c, device=q.device) + 1
     mask = torch.arange(s, device=q.device)[None, None, None, None, :] \
         < kv_len[:, None, None, :, None]
     sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
     p = torch.softmax(sc, dim=-1)
     o = torch.einsum("bhgqs,bshd->bqhgd", p, vc)
-    return o.reshape(b, c, h, d).to(q.dtype)
+    return o.reshape(b, c, h, vc.shape[-1]).to(q.dtype)

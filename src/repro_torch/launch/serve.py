@@ -20,6 +20,10 @@ paper's fixed [in:out] workload grid):
   PYTHONPATH=src python -m repro_torch.launch.serve --mode batch \
       --quant q8_0 --prompt-len 128 --gen 32 --batch 8
 
+``--arch`` takes the ported configs: qwen3-0.6b/1.7b/8b, and the MoE
+models granite-moe-3b-a800m and deepseek-v3-671b (MLA; its 61 layers at
+full width do not fit one card: ``--reduced`` for the CPU).
+
 The card is the default device. Without one the launcher exits with an
 error unless ``--device cpu`` asks for the plain CPU path explicitly.
 Flags whose feature is not ported yet are refused with the ROADMAP item
@@ -47,11 +51,19 @@ KERNELS = tuple(w for w, _ in MATMUL_KERNELS.values()) + (
     paged_decode_attention, flash_attention)
 
 
+# The paged attention's other forms, each counted as a kernel of its own:
+# (name, counter attribute of paged_decode_attention).
+PAGED_FORMS = (("paged_decode_attention_int8", "int8_launches"),
+               ("paged_decode_attention_mla", "mla_launches"),
+               ("paged_decode_attention_mla_int8", "mla_int8_launches"))
+
+
 def launch_counts():
-    """{kernel: launches} of every hand-written kernel, the int8 form of
-    the paged attention as a kernel of its own."""
+    """{kernel: launches} of every hand-written kernel, each form of the
+    paged attention (int8, MLA, MLA int8) as a kernel of its own."""
     out = {k.__name__: k.launches for k in KERNELS}
-    out["paged_decode_attention_int8"] = paged_decode_attention.int8_launches
+    for name, attr in PAGED_FORMS:
+        out[name] = getattr(paged_decode_attention, attr)
     return out
 
 
@@ -59,12 +71,13 @@ def reset_launches() -> None:
     """Set every kernel's launch count to 0."""
     for k in KERNELS:
         k.launches = 0
-    paged_decode_attention.int8_launches = 0
+    for _, attr in PAGED_FORMS:
+        setattr(paged_decode_attention, attr, 0)
 
 
 def make_extras(cfg, batch: int):
-    """Per-request frontend stubs: dense models take none (vlm/encdec
-    stubs come with ROADMAP A16)."""
+    """Per-request frontend stubs: dense and moe models take none
+    (vlm/encdec stubs come with ROADMAP A16)."""
     return {}
 
 
@@ -192,7 +205,7 @@ def validate_args(ap, args) -> None:
         (getattr(args, "metrics_out", None) or getattr(args, "trace", None),
          "--metrics-out/--trace (telemetry) are ROADMAP A11"),
         (getattr(args, "offload_policy", False),
-         "--offload-policy needs the IMAX model, ROADMAP A15"),
+         "--offload-policy needs the IMAX model, ROADMAP A21"),
     ]
     for bad, why in refused:
         if bad:

@@ -1,4 +1,5 @@
-"""Unified model API subset: ``build_model(cfg) -> ModelAPI``, dense family.
+"""Unified model API subset: ``build_model(cfg) -> ModelAPI``, dense and
+moe families.
 
 Ported from ``repro.models.api``: ``init`` / ``forward`` / ``prefill`` /
 ``decode_step`` / ``cache_shapes`` / ``paged_cache_shapes``. The train
@@ -28,9 +29,11 @@ class ModelAPI:
     def paged_cache_shapes(self, num_slots: int, num_physical: int,
                            block_size: int, kv_quant: str = "none"):
         """Paged-arena storage layout: ``{group: {"k": (layers,
-        num_physical, block_size, Hkv, D), "v": ...}}`` — every leaf of a
-        dense model follows the sequence length, so every leaf is paged
-        (``num_physical`` includes the arena's trailing null page).
+        num_physical, block_size, Hkv, D), "v": ...}}`` (MLA: ``{"ckv":
+        (layers, num_physical, block_size, kv_lora_rank), "krope": ...}``)
+        — every leaf of a dense or moe model follows the sequence length,
+        so every leaf is paged (``num_physical`` includes the arena's
+        trailing null page).
         ``kv_quant="int8"``: each leaf becomes ``{"q": page shape (int8
         codes), "s": page shape minus the feature axis (fp16 scales)}``,
         the JAX package's ``paged_decode_specs`` layout."""
@@ -47,10 +50,10 @@ class ModelAPI:
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet "
-            "(moe: ROADMAP A15; ssm/hybrid/encdec/vlm: A16)")
+            "(ssm/hybrid/encdec/vlm: ROADMAP A16)")
     return ModelAPI(
         cfg=cfg,
         init=functools.partial(_lm_init_kw, cfg),

@@ -1,4 +1,4 @@
-"""GQA attention, ported from ``repro.models.attention``.
+"""GQA and MLA attention, ported from ``repro.models.attention``.
 
 Full-sequence (prefill / forward) attention goes through
 ``chunked_attention``: on the card the hand-written flash-attention
@@ -31,7 +31,15 @@ quantizes on insert and hands codes and scales to the fused kernel,
 which dequantizes in its page walk, or dequantizes the gathered view on
 the ref path.
 
-MLA and cross attention are not ported yet (ROADMAP A15, A16).
+MLA (deepseek-v3): low-rank Q/KV with a decoupled RoPE side. The cache
+holds only the compressed latents, ``{"ckv": (B, S, kv_lora_rank),
+"krope": (B, S, qk_rope_head_dim)}`` (pages (NP, bs, ...) on the paged
+arena). Prefill expands them per head and runs the flash kernel at
+D = nope + rope, Dv = v_head_dim; decode absorbs kv_b into the query and
+output sides and attends the latents in place (the MLA form of
+``kernels.paged_attention``, or the gather / contiguous plain paths).
+
+Cross attention is not ported yet (ROADMAP A16).
 """
 from __future__ import annotations
 
@@ -107,11 +115,13 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, fmt: str = "none") -> Param
 
 def rope_tables(cfg: ModelConfig, positions: torch.Tensor):
     """(cos, sin) RoPE tables for (B, S) ``positions``, shared by every
-    layer of a pass; None for a model without RoPE."""
+    layer of a pass, at the model's rotary width (the head dim, or MLA's
+    ``qk_rope_head_dim``); None for a model without RoPE."""
     if cfg.rope_theta <= 0:
         return None
-    return layers.rope_cos_sin(positions, cfg.resolved_head_dim(),
-                               cfg.rope_theta)
+    width = cfg.mla.qk_rope_head_dim if cfg.mla is not None \
+        else cfg.resolved_head_dim()
+    return layers.rope_cos_sin(positions, width, cfg.rope_theta)
 
 
 def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, fmt: str,
@@ -391,3 +401,164 @@ def gqa_cache_shape(cfg: ModelConfig, batch: int, seq: int):
     hd = cfg.resolved_head_dim()
     return {"k": (batch, seq, cfg.num_kv_heads, hd),
             "v": (batch, seq, cfg.num_kv_heads, hd)}
+
+
+# ----------------------------------------------------------------------
+# MLA (DeepSeek-V3): low-rank Q/KV, decoupled RoPE, compressed cache
+# ----------------------------------------------------------------------
+def mla_init(gen: torch.Generator, cfg: ModelConfig,
+             fmt: str = "none") -> Params:
+    m = cfg.mla
+    d = cfg.d_model
+    h = cfg.num_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "q_a": layers.linear_init(gen, d, m.q_lora_rank, fmt),
+        "q_a_norm": layers.rmsnorm_init(m.q_lora_rank, gen.device),
+        "q_b": layers.linear_init(gen, m.q_lora_rank, h * qk_dim, fmt),
+        "kv_a": layers.linear_init(
+            gen, d, m.kv_lora_rank + m.qk_rope_head_dim, fmt),
+        "kv_a_norm": layers.rmsnorm_init(m.kv_lora_rank, gen.device),
+        "kv_b": layers.linear_init(
+            gen, m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim),
+            fmt),
+        "o": layers.linear_init(gen, h * m.v_head_dim, d, fmt),
+    }
+
+
+def _mla_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, fmt: str, rope):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope), ckv (B,S,rank),
+    krope (B,S,rope)); ``rope``: ``rope_tables`` of the positions."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    qa = layers.rmsnorm_apply(p["q_a_norm"],
+                              layers.linear_apply(p["q_a"], x, fmt),
+                              cfg.norm_eps)
+    q = layers.linear_apply(p["q_b"], qa, fmt).reshape(
+        b, s, h, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
+    q_rope = layers.rope_rotate(q_rope, *rope)
+    kv = layers.linear_apply(p["kv_a"], x, fmt)
+    ckv, krope = kv.split([m.kv_lora_rank, m.qk_rope_head_dim], -1)
+    ckv = layers.rmsnorm_apply(p["kv_a_norm"], ckv, cfg.norm_eps)
+    krope = layers.rope_rotate(krope[:, :, None, :], *rope)[:, :, 0, :]
+    return q_nope, q_rope, ckv, krope
+
+
+def mla_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, rope, *,
+              fmt: str = "none") -> torch.Tensor:
+    """Full-sequence (forward / prefill) MLA over x (B, S, d)."""
+    return mla_prefill(p, cfg, x, rope, fmt=fmt)[0]
+
+
+def mla_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor, rope, *,
+                fmt: str = "none"):
+    """Prefill returning (out, {"ckv", "krope"}): kv_b expands the
+    compressed KV per head, the flash kernel attends at D = nope + rope
+    (the RoPE key shared by every head) and Dv = v_head_dim, and the
+    cache keeps only the compressed latents. The JAX package projects
+    q/kv a second time for the cache; the values are the same."""
+    m = cfg.mla
+    h = cfg.num_heads
+    b, s, _ = x.shape
+    q_nope, q_rope, ckv, krope = _mla_qkv(p, cfg, x, fmt, rope)
+    kvb = layers.linear_apply(p["kv_b"], ckv, fmt).reshape(
+        b, s, h, m.qk_nope_head_dim + m.v_head_dim)
+    k_nope, v = kvb.split([m.qk_nope_head_dim, m.v_head_dim], -1)
+    k = torch.cat([k_nope, krope[:, :, None, :].expand(
+        b, s, h, m.qk_rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    sm = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    o = chunked_attention(q, k, v, causal=True, sm_scale=sm)
+    o = o.reshape(b, s, h * m.v_head_dim)
+    return layers.linear_apply(p["o"], o, fmt), {"ckv": ckv, "krope": krope}
+
+
+def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
+               position: torch.Tensor, cache: Dict, *, fmt: str = "none",
+               block_tables: Optional[torch.Tensor] = None, lengths=None,
+               paged_impl: str = "fused",
+               step: Optional[PagedStep] = None):
+    """Absorbed-matmul MLA decode over a chunk of C tokens: kv_b is folded
+    into the query side (q_eff = q_nope . W_k) and the output side
+    (ctx . W_v), so the compressed cache is attended directly and never
+    expanded. Arguments as ``gqa_decode``; cache {"ckv", "krope"}:
+    contiguous (B, S, ...) leaves, or pages (NP, bs, ...) — each a
+    ``{"q", "s"}`` dict on an int8 arena — written in place.
+
+    Paged, ``paged_impl="fused"``: the MLA form of the fused kernel takes
+    q_eff against the ckv pages (which are also V) and joins the RoPE
+    score through its q2/k2 operands (int8 pages and (NP, bs) scales
+    lifted to its Hkv == 1 layout). ``"ref"``: the dense gather and plain
+    einsums; the contiguous arena takes the same plain einsums."""
+    if paged_impl not in ("fused", "ref"):
+        raise ValueError(f"unknown paged_impl {paged_impl!r}")
+    m = cfg.mla
+    h = cfg.num_heads
+    b, cw = x.shape[:2]
+    if step is None:
+        step = paged_step(cfg, position, block_tables, lengths,
+                          cache["ckv"], cw)
+    q_nope, q_rope, ckv_new, krope_new = _mla_qkv(p, cfg, x, fmt, step.rope)
+    kv_quant = isinstance(cache["ckv"], dict)
+    fused = block_tables is not None and paged_impl == "fused"
+    if block_tables is None:                     # contiguous slot arena
+        ckv = _insert_kv(cache["ckv"], ckv_new, position, lengths)
+        krope = _insert_kv(cache["krope"], krope_new, position, lengths)
+    elif kv_quant:
+        _paged_insert_quant(cache["ckv"], ckv_new, step.rows, step.offs,
+                            step.valid)
+        _paged_insert_quant(cache["krope"], krope_new, step.rows, step.offs,
+                            step.valid)
+        if not fused:
+            ckv = _paged_view_dequant(cache["ckv"], block_tables)
+            krope = _paged_view_dequant(cache["krope"], block_tables)
+    else:
+        _write(cache["ckv"], ckv_new, step.rows, step.offs, step.valid)
+        _write(cache["krope"], krope_new, step.rows, step.offs, step.valid)
+        if not fused:
+            ckv = paged_view(cache["ckv"], block_tables)
+            krope = paged_view(cache["krope"], block_tables)
+
+    wkv = layers.linear_dense_weight(p["kv_b"], fmt, dtype=torch.float32)
+    wkv = wkv[:, :m.kv_lora_rank]      # drop K-quant padding columns
+    wkv = wkv.reshape(h, m.qk_nope_head_dim + m.v_head_dim, m.kv_lora_rank)
+    wk = wkv[:, :m.qk_nope_head_dim]                     # (h, nope, rank)
+    wv = wkv[:, m.qk_nope_head_dim:]                     # (h, v, rank)
+    q_eff = torch.einsum("bqhc,hcr->bqhr", q_nope.to(torch.float32), wk)
+    q2 = q_rope.to(torch.float32)
+    sm = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    if fused:
+        ckv_p, krope_p = cache["ckv"], cache["krope"]
+        if kv_quant:
+            ctx = paged_decode_attention(
+                q_eff.contiguous(), ckv_p["q"][:, :, None, :], None,
+                block_tables, position, sm_scale=sm, lengths=lengths,
+                k_scales=ckv_p["s"][:, :, None], q2=q2.contiguous(),
+                k2_pages=krope_p["q"][:, :, None, :],
+                k2_scales=krope_p["s"][:, :, None])
+        else:
+            ctx = paged_decode_attention(
+                q_eff.contiguous(), ckv_p[:, :, None, :], None,
+                block_tables, position, sm_scale=sm, lengths=lengths,
+                q2=q2.contiguous(), k2_pages=krope_p[:, :, None, :])
+    else:
+        ckv_f = ckv.to(torch.float32)
+        sc = (torch.einsum("bqhr,bsr->bhqs", q_eff, ckv_f)
+              + torch.einsum("bqhe,bse->bhqs", q2,
+                             krope.to(torch.float32))) * sm
+        mask = torch.arange(ckv.shape[1], device=x.device)[None, None, None] \
+            < (step.pos_mat + 1)[:, None, :, None]
+        sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
+        ctx = torch.einsum("bhqs,bsr->bqhr", torch.softmax(sc, dim=-1),
+                           ckv_f)
+    o = torch.einsum("bqhr,hvr->bqhv", ctx, wv)
+    o = o.reshape(b, cw, h * m.v_head_dim).to(x.dtype)
+    return layers.linear_apply(p["o"], o, fmt), cache
+
+
+def mla_cache_shape(cfg: ModelConfig, batch: int, seq: int):
+    m = cfg.mla
+    return {"ckv": (batch, seq, m.kv_lora_rank),
+            "krope": (batch, seq, m.qk_rope_head_dim)}

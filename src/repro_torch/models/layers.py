@@ -56,6 +56,17 @@ def linear_apply(p: Params, x: torch.Tensor, fmt: str = "none") -> torch.Tensor:
     return y
 
 
+def linear_dense_weight(p: Params, fmt: str,
+                        dtype=torch.bfloat16) -> torch.Tensor:
+    """The (out, in) dense weight, dequantized for a quantized format
+    (K-quant padding columns included: the caller slices them off). The
+    MLA absorbed decode reads kv_b this way, in per-head block form."""
+    if fmt == "none":
+        return p["w"].to(dtype)
+    return dequant.dequantize_as({k: v for k, v in p.items() if k != "b"},
+                                 fmt, dtype)
+
+
 # ----------------------------------------------------------------------
 # Norms ("host-side": always high precision)
 # ----------------------------------------------------------------------

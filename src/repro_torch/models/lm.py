@@ -1,20 +1,23 @@
-"""Decoder-only LM assembly, dense family, ported from ``repro.models.lm``.
+"""Decoder-only LM assembly, dense and moe families, ported from
+``repro.models.lm``.
 
 Parameters are plain dicts of tensors. The JAX package stacks each layer
 group along a leading axis and scans over it (``jax.lax.scan``); here a
 group is a Python list of per-layer dicts and every pass is a Python
 loop over the layer index. The KV caches keep the stacked layout
-``{group: {"k": (layers, ...), "v": ...}}`` — paged (layers, NP, bs, Hkv,
-D), with ``{"q", "s"}`` dicts on an int8 arena, or contiguous (layers, B,
-S, Hkv, D) — and layer ``i`` writes in place through the view
-``cache[group]["k"][i]``. ``lm_prefill`` returns its caches in the same
-stacked layout.
+``{group: {"k": (layers, ...), "v": ...}}`` (MLA: ``{"ckv", "krope"}``)
+— paged (layers, NP, bs, ...), with ``{"q", "s"}`` dicts on an int8
+arena, or contiguous (layers, B, S, ...) — and layer ``i`` writes in
+place through the view ``cache[group]["k"][i]``. ``lm_prefill`` returns
+its caches in the same stacked layout.
 
 Embeddings come from plain tokens only: M-RoPE, vision and encoder
 inputs wait for ROADMAP A16.
 
-Only the dense family (GQA mixer + SwiGLU FFN) is ported; MoE, MLA, SSM,
-hybrid, enc-dec and vlm wait for ROADMAP A15/A16.
+Ported layer kinds: the GQA and MLA mixers, the dense SwiGLU and the MoE
+FFN (the dense and moe families: qwen3, granite-moe, deepseek-v3, whose
+first ``first_dense_layers`` FFNs are dense at ``dense_d_ff``). SSM,
+hybrid, enc-dec and vlm wait for ROADMAP A16.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers
+from repro_torch.models import layers, moe
 from repro_torch.models.layers import Params
 
 
@@ -69,27 +72,35 @@ def layer_groups(cfg: ModelConfig):
     return groups
 
 
-def _check_dense(cfg: ModelConfig) -> None:
+def _check_ported(cfg: ModelConfig) -> None:
     for _, _, subs in layer_groups(cfg):
-        if subs != [("gqa", "dense")]:
-            raise NotImplementedError(
-                f"{cfg.name}: only dense GQA layers are ported (got {subs}); "
-                "MoE/MLA are ROADMAP A15, SSM/hybrid/encdec/vlm A16")
+        for mixer, ffn in subs:
+            if mixer not in ("gqa", "mla") or ffn not in ("dense", "moe"):
+                raise NotImplementedError(
+                    f"{cfg.name}: the ({mixer}, {ffn}) layer is not ported "
+                    "(ssm/hybrid/encdec/vlm are ROADMAP A16)")
 
 
-def layer_init(gen: torch.Generator, cfg: ModelConfig, fmt: str) -> Params:
-    return {
-        "mixer_norm": layers.rmsnorm_init(cfg.d_model, gen.device),
-        "attn": attn.gqa_init(gen, cfg, fmt),
-        "ffn_norm": layers.rmsnorm_init(cfg.d_model, gen.device),
-        "ffn": layers.swiglu_init(gen, cfg.d_model, cfg.d_ff, fmt),
-    }
+def layer_init(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str,
+               fmt: str) -> Params:
+    p: Params = {"mixer_norm": layers.rmsnorm_init(cfg.d_model, gen.device)}
+    p["attn"] = (attn.mla_init if mixer == "mla" else attn.gqa_init)(
+        gen, cfg, fmt)
+    p["ffn_norm"] = layers.rmsnorm_init(cfg.d_model, gen.device)
+    if ffn == "moe":
+        p["ffn"] = moe.moe_init(gen, cfg, fmt)
+    else:
+        dff = cfg.d_ff
+        if cfg.moe is not None and cfg.moe.dense_d_ff:
+            dff = cfg.moe.dense_d_ff
+        p["ffn"] = layers.swiglu_init(gen, cfg.d_model, dff, fmt)
+    return p
 
 
 def lm_init(gen: torch.Generator, cfg: ModelConfig,
             quant: str = "none") -> Params:
     """Random parameters on ``gen.device`` from the generator's stream."""
-    _check_dense(cfg)
+    _check_ported(cfg)
     recipe = layers.recipe_for(quant)
     fmt_lin, fmt_emb = recipe["linear"], recipe["embed"]
     params: Params = {
@@ -97,45 +108,58 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig,
                                        fmt_emb),
         "final_norm": layers.rmsnorm_init(cfg.d_model, gen.device),
     }
-    for name, count, _ in layer_groups(cfg):
-        params[name] = [layer_init(gen, cfg, fmt_lin) for _ in range(count)]
+    for name, count, subs in layer_groups(cfg):
+        (mixer, ffn), = subs
+        params[name] = [layer_init(gen, cfg, mixer, ffn, fmt_lin)
+                        for _ in range(count)]
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.linear_init(
             gen, cfg.d_model, cfg.vocab_size, fmt_emb)
     return params
 
 
+def _ffn(p: Params, cfg: ModelConfig, h: torch.Tensor, ffn: str, fmt: str):
+    """Pre-norm FFN residual: (h + FFN(norm(h)), the MoE aux loss or None
+    for a dense FFN)."""
+    hn = layers.rmsnorm_apply(p["ffn_norm"], h, cfg.norm_eps)
+    if ffn == "moe":
+        y, aux = moe.moe_apply(p["ffn"], cfg, hn, fmt=fmt)
+        return h + y, aux
+    return h + layers.swiglu_apply(p["ffn"], hn, fmt), None
+
+
 def layer_apply(p: Params, cfg: ModelConfig, h: torch.Tensor, rope, *,
-                fmt: str) -> torch.Tensor:
+                mixer: str, ffn: str, fmt: str):
     """Full-sequence layer (forward). ``rope``: the pass's shared
-    ``attention.rope_tables``. Returns h."""
-    return layer_prefill(p, cfg, h, rope, fmt=fmt)[0]
+    ``attention.rope_tables``. Returns (h, aux loss or None)."""
+    h, _, aux = layer_prefill(p, cfg, h, rope, mixer=mixer, ffn=ffn, fmt=fmt)
+    return h, aux
 
 
 def layer_prefill(p: Params, cfg: ModelConfig, h: torch.Tensor, rope, *,
-                  fmt: str):
-    """Full-sequence layer that also returns its {"k", "v"} cache."""
+                  mixer: str, ffn: str, fmt: str):
+    """Full-sequence layer that also returns its cache ({"k", "v"}, or
+    MLA's {"ckv", "krope"}). Returns (h, cache, aux loss or None)."""
     hn = layers.rmsnorm_apply(p["mixer_norm"], h, cfg.norm_eps)
-    mix, cache = attn.gqa_prefill(p["attn"], cfg, hn, rope, fmt=fmt)
-    h = h + mix
-    hn = layers.rmsnorm_apply(p["ffn_norm"], h, cfg.norm_eps)
-    return h + layers.swiglu_apply(p["ffn"], hn, fmt), cache
+    prefill = attn.mla_prefill if mixer == "mla" else attn.gqa_prefill
+    mix, cache = prefill(p["attn"], cfg, hn, rope, fmt=fmt)
+    h, aux = _ffn(p, cfg, h + mix, ffn, fmt)
+    return h, cache, aux
 
 
 def layer_decode(p: Params, cfg: ModelConfig, h: torch.Tensor,
-                 position: torch.Tensor, cache: Dict, *, fmt: str,
-                 block_tables: torch.Tensor, lengths=None,
-                 paged_impl: str = "fused",
+                 position: torch.Tensor, cache: Dict, *, mixer: str,
+                 ffn: str, fmt: str, block_tables: torch.Tensor,
+                 lengths=None, paged_impl: str = "fused",
                  step: Optional[attn.PagedStep] = None) -> torch.Tensor:
     """Decode layer step over a chunk of C tokens; writes this layer's
     pages in ``cache`` in place. Returns h."""
     hn = layers.rmsnorm_apply(p["mixer_norm"], h, cfg.norm_eps)
-    mix, _ = attn.gqa_decode(p["attn"], cfg, hn, position, cache, fmt=fmt,
-                             block_tables=block_tables, lengths=lengths,
-                             paged_impl=paged_impl, step=step)
-    h = h + mix
-    hn = layers.rmsnorm_apply(p["ffn_norm"], h, cfg.norm_eps)
-    return h + layers.swiglu_apply(p["ffn"], hn, fmt)
+    decode = attn.mla_decode if mixer == "mla" else attn.gqa_decode
+    mix, _ = decode(p["attn"], cfg, hn, position, cache, fmt=fmt,
+                    block_tables=block_tables, lengths=lengths,
+                    paged_impl=paged_impl, step=step)
+    return _ffn(p, cfg, h + mix, ffn, fmt)[0]
 
 
 def _lm_head(params, cfg: ModelConfig, h, quant: str):
@@ -165,32 +189,39 @@ def _embed_tokens(params, cfg: ModelConfig, batch: Dict, quant: str):
 
 def lm_forward(params, cfg: ModelConfig, batch: Dict, *, quant="none"):
     """Full-sequence forward over ``batch["tokens"]`` (B, S). Returns
-    (logits (B, S, V), aux_loss); the dense family has no auxiliary loss,
-    so it is 0."""
+    (logits (B, S, V), aux_loss): the MoE layers' load-balance losses
+    summed (0 for the dense family)."""
     fmt = layers.recipe_for(quant)["linear"]
     h, rope = _embed_tokens(params, cfg, batch, quant)
-    for name, _, _ in layer_groups(cfg):
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for name, _, subs in layer_groups(cfg):
+        (mixer, ffn), = subs
         for lp in params[name]:
-            h = layer_apply(lp, cfg, h, rope, fmt=fmt)
+            h, aux = layer_apply(lp, cfg, h, rope, mixer=mixer, ffn=ffn,
+                                 fmt=fmt)
+            if aux is not None:
+                aux_total = aux_total + aux
     h = layers.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
-    return _lm_head(params, cfg, h, quant), torch.zeros(
-        (), dtype=torch.float32, device=h.device)
+    return _lm_head(params, cfg, h, quant), aux_total
 
 
 def lm_prefill(params, cfg: ModelConfig, batch: Dict, *, quant="none"):
     """Prefill: returns (last-token logits (B, 1, V), caches) with caches
-    ``{group: {"k": (layers, B, S, Hkv, D), "v": ...}}`` (the JAX
-    package's stacked layout)."""
+    ``{group: {"k": (layers, B, S, Hkv, D), "v": ...}}`` (MLA:
+    ``{"ckv": (layers, B, S, rank), "krope": ...}``), the JAX package's
+    stacked layout."""
     fmt = layers.recipe_for(quant)["linear"]
     h, rope = _embed_tokens(params, cfg, batch, quant)
     caches = {}
-    for name, _, _ in layer_groups(cfg):
-        ks, vs = [], []
+    for name, _, subs in layer_groups(cfg):
+        (mixer, ffn), = subs
+        per_layer = []
         for lp in params[name]:
-            h, c = layer_prefill(lp, cfg, h, rope, fmt=fmt)
-            ks.append(c["k"])
-            vs.append(c["v"])
-        caches[name] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+            h, c, _ = layer_prefill(lp, cfg, h, rope, mixer=mixer, ffn=ffn,
+                                    fmt=fmt)
+            per_layer.append(c)
+        caches[name] = {k: torch.stack([c[k] for c in per_layer])
+                        for k in per_layer[0]}
     h = layers.rmsnorm_apply(params["final_norm"], h[:, -1:], cfg.norm_eps)
     return _lm_head(params, cfg, h, quant), caches
 
@@ -220,16 +251,19 @@ def lm_decode_step(params, cfg: ModelConfig, token: torch.Tensor,
     h = layers.embedding_lookup(params["embed"], token, recipe["embed"],
                                 torch.bfloat16, width=cfg.d_model)
     step = None
-    for name, count, _ in layer_groups(cfg):
+    for name, count, subs in layer_groups(cfg):
+        (mixer, ffn), = subs
         group = cache[name]
         for i, lp in enumerate(params[name]):
-            layer_cache = {k: _layer_leaf(group[k], i) for k in ("k", "v")}
+            layer_cache = {k: _layer_leaf(v, i) for k, v in group.items()}
             if step is None:        # one routing/RoPE plan for all layers
                 step = attn.paged_step(cfg, position, block_tables, lengths,
-                                       layer_cache["k"], token.shape[1])
-            h = layer_decode(lp, cfg, h, position, layer_cache, fmt=fmt,
-                             block_tables=block_tables, lengths=lengths,
-                             paged_impl=paged_impl, step=step)
+                                       next(iter(layer_cache.values())),
+                                       token.shape[1])
+            h = layer_decode(lp, cfg, h, position, layer_cache, mixer=mixer,
+                             ffn=ffn, fmt=fmt, block_tables=block_tables,
+                             lengths=lengths, paged_impl=paged_impl,
+                             step=step)
     h = layers.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
     return _lm_head(params, cfg, h, quant), cache
 
@@ -238,6 +272,8 @@ def lm_cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> Dict:
     """Cache shapes per layer group (leading layer axis)."""
     out = {}
     for name, count, subs in layer_groups(cfg):
-        shape = attn.gqa_cache_shape(cfg, batch, seq)
+        (mixer, _), = subs
+        shape = (attn.mla_cache_shape if mixer == "mla"
+                 else attn.gqa_cache_shape)(cfg, batch, seq)
         out[name] = {k: (count,) + v for k, v in shape.items()}
     return out

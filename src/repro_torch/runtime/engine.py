@@ -21,8 +21,8 @@ are read to the host after every step — the engine's one sync point.
 
 Not ported yet, refused by the constructor with the ROADMAP item that
 ports them: speculative decoding (A12), the prefix cache (A13), serving
-meshes (A17) and non-dense families (A15/A16). Telemetry's StepTimeline
-is A11.
+meshes (A17) and the ssm/hybrid/encdec/vlm families (A16). Telemetry's
+StepTimeline is A11.
 """
 from __future__ import annotations
 
@@ -147,8 +147,8 @@ class ServingEngine:
             (prefix_cache, "the prefix cache and copy-on-write are "
                            "ROADMAP A13"),
             (mesh is not None, "serving meshes are ROADMAP A17"),
-            (model.cfg.family != "dense",
-             f"the {model.cfg.family!r} family is ROADMAP A15/A16"),
+            (model.cfg.family not in ("dense", "moe"),
+             f"the {model.cfg.family!r} family is ROADMAP A16"),
         ]
         for refused, why in refusals:
             if refused:

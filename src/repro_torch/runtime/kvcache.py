@@ -303,15 +303,17 @@ class PagedKVArena:
     def page_layout(self) -> dict:
         """The page/table layout contract the fused paged-attention kernel
         consumes: paged leaves are ``(num_pages, block_size, Hkv, D)`` per
-        layer with ``num_pages == num_blocks + 1`` (the trailing page is
-        the null sentinel); every table row is padded to ``max_blocks``
-        entries with ``null_block``. Null-page contents are garbage and
-        always sit past a row's causal depth, so the kernel never reads
-        them as live KV. ``kv_quant == "int8"``: each paged leaf is a dict
-        ``{"q", "s"}`` — int8 code pages in the page shape plus fp16 scale
-        pages shaped like the pages minus the feature axis — sharing the
-        block table; zeroed pages dequantize to exactly zero. See
-        docs/kernel-contracts.md."""
+        layer (MLA's latents ``(num_pages, block_size, kv_lora_rank)``
+        and ``(num_pages, block_size, qk_rope_head_dim)``, lifted to
+        Hkv = 1 for the kernel) with ``num_pages == num_blocks + 1`` (the
+        trailing page is the null sentinel); every table row is padded to
+        ``max_blocks`` entries with ``null_block``. Null-page contents are
+        garbage and always sit past a row's causal depth, so the kernel
+        never reads them as live KV. ``kv_quant == "int8"``: each paged
+        leaf is a dict ``{"q", "s"}`` — int8 code pages in the page shape
+        plus fp16 scale pages shaped like the pages minus the feature axis
+        — sharing the block table; zeroed pages dequantize to exactly
+        zero. See docs/kernel-contracts.md."""
         return {"block_size": self.block_size,
                 "max_blocks": self.max_blocks,
                 "num_pages": self.num_blocks + 1,
@@ -388,8 +390,9 @@ class PagedKVArena:
         self.free_slot(slot)
 
     def reset_slot(self, slot: int) -> None:
-        """``KVArena``'s admission hook: every leaf of a dense model is
-        paged (masked history, not state), so there is nothing to zero."""
+        """``KVArena``'s admission hook: every leaf of a dense or moe
+        model is paged (masked history, not state), so there is nothing
+        to zero."""
 
     # -- storage ---------------------------------------------------------
     def write_prefill(self, prefill_cache: Dict, slot: int) -> None:

@@ -10,7 +10,8 @@ Tolerances: the matmuls (fp16, q8_0, q6_k, q3_k) do the plain version's
 f32 products in another summation order (the repo's 2e-5 of
 tests/test_kernels.py, relative to the output's scale); paged attention
 in f32 is the blocked online vs dense softmax reorder (FP32_TOL of
-tests/test_paged_attention_kernel.py).
+tests/test_paged_attention_kernel.py; the MLA form at full width takes
+atol 1e-5, see its test).
 """
 import numpy as np
 import pytest
@@ -243,6 +244,178 @@ def test_paged_attention_int8_refusals(cuda):
         paged_decode_attention(*args, sm_scale=1.0,
                                k_scales=c["ks"].float(),
                                v_scales=c["vs"].float())
-    with pytest.raises(NotImplementedError, match="B9"):
+    with pytest.raises(ValueError, match="v_scales must accompany v_pages"):
         paged_decode_attention(c["q"], c["kq"], None, c["tables"], c["pos"],
-                               sm_scale=1.0, k_scales=c["ks"])
+                               sm_scale=1.0, k_scales=c["ks"],
+                               v_scales=c["vs"])
+
+
+def _mla_case(cuda, b, chunk, h, rank, rope, bs, mb, pages, seed=0):
+    """MLA operands (Hkv = 1) on the card: fragmented, permuted and partly
+    null tables, mixed lengths, f32 q_eff/q2, and ckv/krope pages in f32,
+    bf16 or int8 (codes + fp16 scales)."""
+    from repro_torch.models.attention import quantize_kv
+    nb = b * mb
+    rng = np.random.RandomState(seed)
+    perm = rng.permutation(nb)
+    owned = [mb] + [int(x) for x in rng.randint(1, mb + 1, size=b - 1)]
+    tables = np.full((b, mb), nb, np.int32)
+    for i in range(b):
+        tables[i, :owned[i]] = perm[i * mb:i * mb + owned[i]]
+    lens = np.array([chunk] + [int(x) for x in rng.randint(
+        1, chunk + 1, size=b - 1)], np.int32)
+    pos = np.array([rng.randint(0, o * bs - n + 1)
+                    for o, n in zip(owned, lens)], np.int32)
+    t = lambda a: torch.from_numpy(a).to(cuda)     # noqa: E731
+    ckv = t(rng.randn(nb + 1, bs, 1, rank).astype(np.float32))
+    kr = t(rng.randn(nb + 1, bs, 1, rope).astype(np.float32))
+    c = dict(q=t(rng.randn(b, chunk, h, rank).astype(np.float32)),
+             q2=t(rng.randn(b, chunk, h, rope).astype(np.float32)),
+             tables=t(tables), pos=t(pos), lens=t(lens), np_lens=lens,
+             np_pos=pos, np_tables=tables, bs=bs, nb=nb,
+             sm=(128 + rope) ** -0.5)
+    if pages == "int8":
+        kq, ks = quantize_kv(ckv[:, :, 0])
+        k2q, k2s = quantize_kv(kr[:, :, 0])
+        c.update(k=kq[:, :, None], k2=k2q[:, :, None],
+                 scales=dict(k_scales=ks[:, :, None],
+                             k2_scales=k2s[:, :, None]))
+    else:
+        dt = getattr(torch, pages)
+        c.update(k=ckv.to(dt), k2=kr.to(dt), scales={})
+    return c
+
+
+def _mla_run(c, k=None, k2=None, scales=None, q=None):
+    return paged_decode_attention(
+        c["q"] if q is None else q, c["k"] if k is None else k, None,
+        c["tables"], c["pos"], sm_scale=c["sm"], lengths=c["lens"],
+        q2=c["q2"] if q is None else c["q2"].to(q.dtype),
+        k2_pages=c["k2"] if k2 is None else k2,
+        **(c["scales"] if scales is None else scales))
+
+
+# (B, C, H, rank, rope, bs, MB): deepseek-v3's serve shape (8 slots x
+# chunk 8, 128 heads, rank 512, rope 64, block 16, 10 blocks = 160
+# positions), a ragged one (rows not a multiple of the 32-row tile, a
+# chunk of 5, block 64) and a small one.
+MLA_SHAPES = [(8, 8, 128, 512, 64, 16, 10), (3, 5, 20, 512, 64, 64, 3),
+              (3, 4, 8, 64, 16, 4, 6)]
+
+
+@pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("shape", MLA_SHAPES)
+def test_paged_attention_mla_matches_plain(cuda, shape, pages):
+    """The MLA form against its plain version on the valid rows (f32
+    q_eff, f32 output); launches counted in the MLA counters only.
+    Tolerance: rtol 2e-5 and atol 1e-5, the f32 reorder of scores over
+    576 features and of a weighted average over up to 160 keys of values
+    up to ~4 in magnitude, merged across page splits (worst case ~160 x
+    2^-24 x 4 = 4e-5; FP32_TOL's atol 2e-6, set at D = 16, was exceeded
+    by 3.2e-6 on 5 of 131,072 elements at the serve's widths)."""
+    c = _mla_case(cuda, *shape, pages=pages, seed=sum(shape))
+    counters = ("launches", "int8_launches", "mla_launches",
+                "mla_int8_launches")
+    before = [getattr(paged_decode_attention, a) for a in counters]
+    out = _mla_run(c)
+    after = [getattr(paged_decode_attention, a) for a in counters]
+    form = 3 if pages == "int8" else 2
+    assert [y - x for x, y in zip(before, after)] == \
+        [int(i == form) for i in range(4)]
+    ref = paged_attention_ref(c["q"], c["k"], None, c["tables"], c["pos"],
+                              sm_scale=c["sm"], q2=c["q2"],
+                              k2_pages=c["k2"], **c["scales"])
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+    for i, n in enumerate(c["np_lens"]):
+        torch.testing.assert_close(out[i, :n], ref[i, :n], rtol=2e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("pages", ["bfloat16", "int8"])
+def test_paged_attention_mla_dead_pages_and_garbage_rows(cuda, pages):
+    """Pages no slot's walk reaches (the null page included) full of NaN
+    (int8: codes +-127, NaN scales) change no bit of the output, and the
+    rows of chunk entries past a slot's length are written as 0."""
+    c = _mla_case(cuda, 8, 8, 128, 512, 64, 16, 10, pages=pages, seed=3)
+    out = _mla_run(c)
+    live = set()
+    for b, (p, n) in enumerate(zip(c["np_pos"], c["np_lens"])):
+        live.update(int(x) for x in
+                    c["np_tables"][b, :(int(p) + max(int(n), 1) - 1)
+                                   // c["bs"] + 1])
+    dead = torch.tensor([x for x in range(c["nb"] + 1) if x not in live],
+                        dtype=torch.long, device=cuda)
+    assert dead.numel() > 0
+    k, k2 = c["k"].clone(), c["k2"].clone()
+    scales = {n: v.clone() for n, v in c["scales"].items()}
+    if pages == "int8":
+        k[dead], k2[dead] = 127, -127
+        for v in scales.values():
+            v[dead] = float("nan")
+    else:
+        k[dead], k2[dead] = float("nan"), float("nan")
+    out2 = _mla_run(c, k=k, k2=k2, scales=scales)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+    for i, n in enumerate(c["np_lens"]):
+        assert not bool(out[i, n:].any())
+
+
+def test_paged_attention_mla_refuses_bf16_queries(cuda):
+    """The MLA kernel takes the f32 q_eff/q_rope that mla_decode passes;
+    bf16 queries on the card are refused, and nothing is launched."""
+    c = _mla_case(cuda, 3, 4, 8, 64, 16, 4, 6, pages="bfloat16", seed=9)
+    before = paged_decode_attention.mla_launches
+    with pytest.raises(TypeError, match="float32 q"):
+        _mla_run(c, q=c["q"].to(torch.bfloat16))
+    assert paged_decode_attention.mla_launches == before
+
+
+@pytest.mark.parametrize("pages", ["bfloat16", "int8"])
+@pytest.mark.parametrize("entries", ["one", "full", "full-deep"])
+def test_paged_attention_mla_split_follows_the_step(cuda, entries, pages):
+    """At the serve's shape, every slot with one live chunk entry (steady
+    decode: the page walk split finely, then merged), with full chunks
+    (fewer splits) or with full chunks ending at position 160 in every
+    slot (one split, written by the walk without a merge): each against
+    the plain version."""
+    c = _mla_case(cuda, 8, 8, 128, 512, 64, 16, 10, pages=pages, seed=5)
+    n = 1 if entries == "one" else 8
+    c["np_lens"] = np.full(8, n, np.int32)
+    c["lens"] = torch.from_numpy(c["np_lens"]).to(cuda)
+    if entries == "full-deep":      # every slot owns its 10 pages
+        c["np_tables"] = np.arange(80, dtype=np.int32).reshape(8, 10)
+        c["tables"] = torch.from_numpy(c["np_tables"]).to(cuda)
+    owned = (c["np_tables"] != c["nb"]).sum(axis=1)
+    c["np_pos"] = (owned * 16 - n if entries == "full-deep" else np.minimum(
+        c["np_pos"], owned * 16 - n)).astype(np.int32)
+    c["pos"] = torch.from_numpy(c["np_pos"]).to(cuda)
+    out = _mla_run(c)
+    ref = paged_attention_ref(c["q"], c["k"], None, c["tables"], c["pos"],
+                              sm_scale=c["sm"], q2=c["q2"],
+                              k2_pages=c["k2"], **c["scales"])
+    torch.cuda.synchronize()
+    for i in range(8):
+        torch.testing.assert_close(out[i, :n], ref[i, :n], rtol=2e-5,
+                                   atol=1e-5)
+        assert not bool(out[i, n:].any())
+
+
+def test_flash_attention_deepseek_prefill_widths(cuda):
+    """deepseek-v3's MLA prefill: D = 192 (nope 128 + rope 64), Dv = 128,
+    H = Hkv = 128, bf16, B = 2 x S = 256 (the serve's prefill is 8 x 512
+    in chip_smoke.py)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k = (torch.randn((2, 256, 128, 192), generator=gen,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    v = torch.randn((2, 256, 128, 128), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    out = flash_attention(q, k, v, causal=True, sm_scale=192 ** -0.5)
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=True,
+                        sm_scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 256, 128, 128)
+    torch.testing.assert_close(out.float(), ref, rtol=2 ** -7, atol=1e-3)

@@ -6,8 +6,11 @@ fallback, no kernel build on the CPU path.
 * A source scan finds no JAX import and no import of the ``repro``
   package in ``src/repro_torch`` or ``chip_smoke.py``.
 * The CPU path (a reduced model's decode step under every recipe and on
-  int8 pages, and its prefill, so every kernel wrapper) never calls the
-  kernel build step (``_build``); every wrapper's library has a source.
+  int8 pages, and its prefill, so every kernel wrapper; the MLA + MoE
+  deepseek-v3 and the MoE granite-moe too) never calls the kernel build
+  step (``_build``); every wrapper's library has a source.
+* Architectures and families not ported yet are refused, naming their
+  ROADMAP item.
 * Without a card and without ``--device cpu``, the serve launcher exits
   with an error instead of running on the CPU.
 """
@@ -21,7 +24,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.configs.registry import (PENDING, family_of,  # noqa: E402
+                                          get_config)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
@@ -62,19 +66,20 @@ def test_source_imports_no_jax_and_no_repro(path):
     assert not hits, f"{path}: {hits}"
 
 
-def _refuse_builds(monkeypatch):
+def _refuse_builds(monkeypatch, arch="qwen3-0.6b"):
     def refuse(*a, **kw):
         raise AssertionError("kernel builder called on the CPU path")
     monkeypatch.setattr(_build, "build_all", refuse)
     monkeypatch.setattr(_build, "load", refuse)
-    cfg = get_config("qwen3-0.6b").reduced()
+    cfg = get_config(arch).reduced()
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(0)
     return cfg, model, model.init(gen)
 
 
-def _cpu_step_without_builds(monkeypatch, quant, kv_quant="none"):
-    cfg, model, params = _refuse_builds(monkeypatch)
+def _cpu_step_without_builds(monkeypatch, quant, kv_quant="none",
+                             arch="qwen3-0.6b"):
+    cfg, model, params = _refuse_builds(monkeypatch, arch)
     from repro_torch.core.convert import quantize_params
     params = quantize_params(params, quant)
     shapes = model.paged_cache_shapes(2, 5, 4, kv_quant=kv_quant)
@@ -103,6 +108,13 @@ def test_cpu_recipes_never_build_kernels(monkeypatch, quant):
 
 def test_cpu_int8_pages_never_build_kernels(monkeypatch):
     _cpu_step_without_builds(monkeypatch, "q8_0", kv_quant="int8")
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "granite-moe-3b-a800m"])
+def test_cpu_moe_archs_never_build_kernels(monkeypatch, arch, kv_quant):
+    _cpu_step_without_builds(monkeypatch, "q8_0", kv_quant=kv_quant,
+                             arch=arch)
 
 
 def test_cpu_prefill_never_builds_kernels(monkeypatch):
@@ -142,15 +154,40 @@ def test_serve_refuses_unported_features(argv, capsys):
 
 
 def test_engine_and_registry_refusals_name_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        get_config("deepseek-v3-671b")
+    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+        get_config("jamba-v0.1-52b")
     model = build_model(get_config("qwen3-0.6b").reduced())
     from repro_torch.runtime.engine import ServingEngine
-    moe = types.SimpleNamespace(cfg=types.SimpleNamespace(family="moe"))
+    hybrid = types.SimpleNamespace(cfg=types.SimpleNamespace(
+        family="hybrid"))
     for m, kw, item in ((model, dict(block_size=None, spec="ngram"), "A12"),
                         (model, dict(block_size=4, spec="ngram"), "A12"),
                         (model, dict(block_size=4, prefix_cache=True), "A13"),
-                        (moe, dict(block_size=4), "A15"),
+                        (hybrid, dict(block_size=4), "A16"),
                         (model, dict(block_size=4, mesh=object()), "A17")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             ServingEngine(m, {}, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("arch", sorted(PENDING))
+def test_pending_archs_are_refused(arch):
+    """Every architecture still to port names its ROADMAP item, and so
+    does ``build_model`` for its family (the dense ones only miss their
+    config)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        get_config(arch)
+    family = family_of(arch)
+    if family == "dense":
+        return
+    import dataclasses
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
+                              family=family)
+    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
+        build_model(cfg)
+
+
+def test_moe_archs_are_ported():
+    """deepseek-v3 (MLA + MoE) and granite-moe resolve and build."""
+    for arch in ("deepseek-v3-671b", "granite-moe-3b-a800m"):
+        assert arch not in PENDING and family_of(arch) == "moe"
+        assert build_model(get_config(arch)).cfg.name == arch

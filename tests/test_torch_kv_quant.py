@@ -155,12 +155,15 @@ def test_int8_zeroed_pages_read_as_zero():
      "float16"),
     (dict(k_scales=0, v_scales=0, scale_shape=(NB + 1, BS)), TypeError,
      "float16"),
-    (dict(v_none=True), NotImplementedError, "B9"),
-    (dict(q2=True), NotImplementedError, "B9"),
+    (dict(v_none=True, k_scales=0, v_scales=0), ValueError,
+     "v_scales must accompany v_pages"),
+    (dict(q2=True, k_scales=0, v_scales=0), ValueError,
+     "q2 and k2_pages must accompany"),
 ])
 def test_int8_wrapper_checks(kw, err, match):
     """Scales come with int8 pages, both or neither, fp16 (NP, bs, Hkv);
-    the MLA operands are refused (ROADMAP B9)."""
+    the MLA form's operands come in their pairs (v_scales only with
+    v_pages, q2 with k2_pages), as the JAX kernel asserts."""
     pages = torch.zeros(NB + 1, BS, HKV, D, dtype=kw.get("pages",
                                                         torch.int8))
     scales = torch.zeros(kw.get("scale_shape", (NB + 1, BS, HKV)),

@@ -99,14 +99,15 @@ def jax_logit_rows(jeng, run):
     return out, jrow, scale[0]
 
 
-def serve_both(quant, engine=ENGINE, **kw):
+def serve_both(quant, engine=ENGINE, arch="qwen3-0.6b", **kw):
     """The same stream through the JAX engine and the port's on the CPU,
-    with the same weights and engine arguments (``kw`` to both)."""
-    cfg = ASSIGNED["qwen3-0.6b"].reduced()
+    with the same weights (reduced ``arch``) and engine arguments (``kw``
+    to both)."""
+    cfg = ASSIGNED[arch].reduced()
     jmodel = jbuild(cfg)
     jparams = jax.jit(lambda key: jconvert.quantize_params(
         jmodel.init(key), quant))(jax.random.PRNGKey(0))
-    tcfg = get_config("qwen3-0.6b").reduced()
+    tcfg = get_config(arch).reduced()
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
                               device="cpu")
 
