@@ -11,14 +11,17 @@ Phases, one line each (every failure exits non-zero):
 2. build  — compiles every ``src/repro_torch/csrc/*.cu`` with nvcc for
             sm_90a into ``build/`` (one nvcc per source, in parallel);
 3. kernels — each hand-written kernel (matmul_q8_0, matmul_fp16,
-            matmul_q6_k, matmul_q3_k, paged_decode_attention in its bf16,
-            int8, MLA and MLA-int8 forms, flash_attention) against its
-            plain PyTorch version on the card at the main path's shapes
-            (and ragged ones, qwen3-8b's widths, and deepseek-v3's MLA
+            matmul_q6_k, matmul_q3_k and its approx_cvt53 form,
+            paged_decode_attention in its bf16, int8, MLA and MLA-int8
+            forms, flash_attention) against its plain PyTorch version on
+            the card at the main path's shapes (and ragged ones,
+            qwen3-8b's and granite-moe's widths, and deepseek-v3's MLA
             decode and prefill widths), with the tolerance stated, its
             time, the plain version's time, one library call's time (a
             yardstick only: the port never calls it) and the least time
-            the card could take for the same work;
+            the card could take for the same work; the bf16 attention
+            kernels (tensor cores) also beside the CUDA-core kernel that
+            f32 operands take, timed on the same bf16 operands;
 4. serve  — ``repro_torch.launch.serve`` at the full width of
             qwen3-0.6b (seeded random weights made on the card): the
             paged stream once for each of the paper's weight recipes
@@ -31,7 +34,9 @@ Phases, one line each (every failure exits non-zero):
             deepseek-v3 cut to 4 layers (3 dense MLA layers and one MLA +
             MoE layer) on bf16 and int8 pages and its ``model.prefill``
             of 8 x 512 tokens, and granite-moe at its full 32 layers, with
-            the same stream and exact launches;
+            the same stream and exact launches; from here on every
+            attention launch's route is counted, and a model path that
+            reaches a CUDA-core (f32) kernel fails;
 5. checks — per recipe, one full-width decode step (depth cut to 2
             layers) against the plain CPU path, and a shorter serve under
             torch.profiler; for q8_0 also a 2-layer prefill and a 2-layer
@@ -87,7 +92,14 @@ MATMULS = {
                     256),
     "matmul_q3_k": ("q3_k", "src/repro/kernels/q3_k_matmul.py:47", False,
                     256),
+    # B6': the same kernel with the paper's CVT53 scales (sc & ~1), which
+    # no serving path runs: checked and timed at the q3_k_s recipe's
+    # shapes, launched on no main path (its row says so).
+    "matmul_q3_k_approx_cvt53": ("q3_k",
+                                 "src/repro/kernels/q3_k_matmul.py:33",
+                                 False, 256),
 }
+OFF_MAIN_PATH = {"matmul_q3_k_approx_cvt53"}
 # qwen3-8b's K (d_model, d_ff) at its d_model N: checked, not timed.
 WIDE = [("qwen3-8b q/o", 4096, 4096), ("qwen3-8b down", 4096, 12288)]
 # Full-width attention shapes of the flash kernel's checks: (label, B, Sq,
@@ -195,6 +207,9 @@ def check_matmul(torch, dev, name):
     from repro_torch.kernels.ref import matmul_ref
     fmt, replaces, lm_head, ragged_k = MATMULS[name]
     wrapper, layout = MATMUL_KERNELS[fmt]
+    kw = {"approx_cvt53": True} if name in OFF_MAIN_PATH else {}
+    dequantize = (lambda p: dequant.dequantize(p, fmt, **kw)) if kw \
+        else dequant.DEQUANTIZERS[fmt]
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     totals = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
@@ -211,11 +226,11 @@ def check_matmul(torch, dev, name):
         planes = pack.quantize(w, fmt)
         del w
         args = [planes[p] for p in layout]
-        y = wrapper(x, *args)
-        ref = matmul_ref(x, planes, fmt)
+        y = wrapper(x, *args, **kw)
+        ref = matmul_ref(x, planes, fmt, **kw)
         # The serving layers ask for bf16: the kernel's own f32 result,
         # rounded once.
-        y16 = wrapper(x, *args, out_dtype=torch.bfloat16)
+        y16 = wrapper(x, *args, out_dtype=torch.bfloat16, **kw)
         torch.cuda.synchronize()
         err = float((y - ref).abs().max())
         # Same products, another summation order: the repo's 2e-5
@@ -237,16 +252,17 @@ def check_matmul(torch, dev, name):
         copies = max(1, min(48, math.ceil(150e6 / wbytes)))
         cps = [planes] + [{k2: v.clone() for k2, v in planes.items()}
                           for _ in range(copies - 1)]
-        wf = [dequant.DEQUANTIZERS[fmt](p) for p in cps]
+        wf = [dequantize(p) for p in cps]
         xf = x.float()
         iters = 20 if n * k > 1e8 else 100
         launches0 = wrapper.launches
         bf16 = torch.bfloat16               # the serving layers' form
         t_k = time_ms(torch, [lambda p=p: wrapper(
-            x, *[p[q] for q in layout], out_dtype=bf16) for p in cps], iters)
+            x, *[p[q] for q in layout], out_dtype=bf16, **kw) for p in cps],
+            iters)
         wrapper.launches = launches0         # timing launches do not count
-        t_p = time_ms(torch, [lambda p=p: matmul_ref(x, p, fmt).to(bf16)
-                              for p in cps], iters)
+        t_p = time_ms(torch, [lambda p=p: matmul_ref(x, p, fmt, **kw).to(
+            bf16) for p in cps], iters)
         t_l = time_ms(torch, [lambda wq=wq: torch.matmul(xf, wq.T)
                               for wq in wf], iters)
         nbytes = wbytes + x.numel() * 2 + m * n * 2
@@ -267,17 +283,23 @@ def check_matmul(torch, dev, name):
           f"launches at M={M_STEP}): kernel {totals['ms']:.4f} ms | plain "
           f"{totals['plain_ms']:.4f} ms | library {totals['library_ms']:.4f} "
           f"ms | bound {b_ms:.4f} ms ({b_by})", flush=True)
-    return dict(name=name, route="cuda",
-                source=f"src/repro_torch/csrc/{fmt}_matmul.cu",
-                replaces=replaces, max_abs_err=worst, ms=totals["ms"],
-                plain_ms=totals["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-                library_ms=totals["library_ms"])
+    row = dict(name=name, route="cuda",
+               source=f"src/repro_torch/csrc/{fmt}_matmul.cu",
+               replaces=replaces, max_abs_err=worst, ms=totals["ms"],
+               plain_ms=totals["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+               library_ms=totals["library_ms"])
+    if name in OFF_MAIN_PATH:
+        row["main_path"] = False
+    return row
 
 
-def _paged_case(torch, np, dev, dtype):
+def _paged_case(torch, np, dev, dtype, H=16, D=128, MB=16):
     """Full-width paged attention operands: fragmented, permuted and
-    partly null tables, mixed lengths, every slot active."""
-    B, C, H, Hkv, D, bs, MB, nb = 8, 8, 16, 8, 128, 16, 16, 256
+    partly null tables, mixed lengths, every slot active; qwen3-0.6b's
+    heads by default (H = 16, Hkv = 8, D = 128), MB pages of 16 keys a
+    slot (the serve's 256-key table by default)."""
+    B, C, Hkv, bs = 8, 8, 8, 16
+    nb = max(256, B * MB)
     rng = np.random.RandomState(1)
     perm = rng.permutation(nb)
     owned = rng.randint(1, MB + 1, size=B)
@@ -301,7 +323,8 @@ def _paged_case(torch, np, dev, dtype):
 
 def check_paged_attention(torch, np, dev):
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.paged_attention import (_launch_gqa,
+                                                     paged_decode_attention)
     from repro_torch.kernels.ref import paged_attention_ref
     worst = 0.0
     # (dtype, rtol, atol): f32 is the blocked-online vs dense softmax
@@ -347,7 +370,10 @@ def check_paged_attention(torch, np, dev):
         print(f"kernel paged_decode_attention {dtype}: max_abs_err {err:.3e} "
               f"(rtol {rtol:g} atol {atol:g}, valid rows) | {len(dead)} dead "
               "pages NaN-filled: output bit-identical", flush=True)
-    # Timing at the serving dtype (bf16), the case above.
+    # Timing at the serving dtype (bf16), the case above: the tensor-core
+    # kernel the wrapper launches, and beside it the earlier CUDA-core
+    # kernel on the same operands (the f32 route; no model path runs it
+    # on bf16).
     B, C, H, D = c["q"].shape
     Hkv = c["kp"].shape[2]
     G, bs = H // Hkv, c["bs"]
@@ -355,6 +381,9 @@ def check_paged_attention(torch, np, dev):
     t_k = time_ms(torch, [lambda: paged_decode_attention(
         *args, sm_scale=c["sm"], lengths=c["lens"])], 200)
     paged_decode_attention.launches = launches0
+    t_o = time_ms(torch, [lambda: _launch_gqa(
+        *args[:3], None, None, *args[3:], c["lens"], c["sm"],
+        tensor_cores=False)], 200)
     t_p = time_ms(torch, [lambda: paged_attention_ref(
         *args, sm_scale=c["sm"])], 50)
     # Library yardstick: SDPA over the gathered (B, H, S, D) view with the
@@ -377,14 +406,135 @@ def check_paged_attention(torch, np, dev):
     flops = keys * Hkv * (C * G) * 4 * D
     b_ms, b_by = bound(nbytes, flops)
     print(f"kernel paged_decode_attention bf16 B={B} C={C} H={H} Hkv={Hkv} "
-          f"D={D} bs={bs}: kernel {t_k:.4f} ms | plain {t_p:.4f} ms | "
+          f"D={D} bs={bs}: kernel {t_k:.4f} ms | earlier CUDA-core kernel "
+          f"{t_o:.4f} ms | plain {t_p:.4f} ms | "
           f"library(SDPA on gathered view) {t_l:.4f} ms | bound {b_ms:.5f} ms "
           f"({b_by}) | per step x28: kernel {28 * t_k:.4f} ms", flush=True)
     return dict(name="paged_decode_attention", route="cuda",
                 source="src/repro_torch/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:156",
                 max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
-                bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l)
+                bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l,
+                earlier_ms=28 * t_o, ms_per_call=t_k,
+                granite=time_paged_granite(torch, np, dev),
+                long_table=check_paged_long_table(torch, np, dev))
+
+
+def check_paged_long_table(torch, np, dev):
+    """The GQA form at the serve's widths on a 1024-key table (64 pages of
+    16 a slot), where the tensor-core kernel splits a slot's walk (256
+    keys a split, up to four) and the last block of a (slot, kv-head)
+    merges them: bf16 and int8 pages with bf16 q against the plain
+    version, two launches bit-identical, dead pages NaN-filled changing
+    no bit. Times the bf16-page call."""
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.ref import paged_attention_ref
+    from repro_torch.models.attention import quantize_kv
+    c = _paged_case(torch, np, dev, torch.float32, MB=64)
+    live, keys = _live_pages(c)
+    dead = torch.tensor([p for p in range(c["nb"] + 1) if p not in live],
+                        dtype=torch.long, device=dev)
+    q = c["q"].to(torch.bfloat16)
+    kq, ks = quantize_kv(c["kp"])
+    vq, vs = quantize_kv(c["vp"])
+    forms = {"bf16": (c["kp"].to(torch.bfloat16), c["vp"].to(torch.bfloat16),
+                      {}),
+             "int8": (kq, vq, dict(k_scales=ks, v_scales=vs))}
+    run = lambda kp, vp, kw: paged_decode_attention(  # noqa: E731
+        q, kp, vp, c["tables"], c["pos"], sm_scale=c["sm"],
+        lengths=c["lens"], **kw)
+    depth = [-(-(int(c["np_pos"][b]) + max(int(c["np_lens"][b]), 1)) // 256)
+             for b in range(len(c["np_pos"]))]
+    errs = {}
+    for form, (kp, vp, kw) in forms.items():
+        out, out2 = run(kp, vp, kw), run(kp, vp, kw)
+        ref = paged_attention_ref(q.float(), kp, vp, c["tables"], c["pos"],
+                                  sm_scale=c["sm"], **kw)            # f32
+        kd, vd = kp.clone(), vp.clone()
+        kwd = {n: v.clone() for n, v in kw.items()}
+        if form == "int8":
+            kd[dead], vd[dead] = 127, -127
+            for v in kwd.values():
+                v[dead] = float("nan")
+        else:
+            kd[dead], vd[dead] = float("nan"), float("nan")
+        out3 = run(kd, vd, kwd)
+        torch.cuda.synchronize()
+        err = 0.0
+        for b in range(out.shape[0]):
+            n = int(c["np_lens"][b])
+            o, r = out[b, :n], ref[b, :n]
+            # bf16 pages: the bf16 check above; int8: check_paged_int8's.
+            ok = torch.allclose(o.float(), r, rtol=2 ** -7, atol=1e-3) \
+                if form == "bf16" else within_one_ulp(torch, o, r, 2e-5, 2e-6)
+            if not bool(torch.isfinite(o.float()).all()) or not ok:
+                fail(f"paged_decode_attention {form} pages, 1024-key table, "
+                     f"slot {b}: max_abs_err "
+                     f"{float((o.float() - r).abs().max()):.3e}")
+            err = max(err, float((o.float() - r).abs().max()))
+        if not torch.equal(out, out2):
+            fail(f"paged_decode_attention {form} pages, 1024-key table: two "
+                 "launches differ")
+        if not torch.equal(out, out3):
+            fail(f"paged_decode_attention {form} pages, 1024-key table: NaN "
+                 f"in {len(dead)} dead pages changed the output")
+        errs[form] = err
+        print(f"kernel paged_decode_attention {form} pages, bf16 q, 1024-key "
+              f"table (splits a slot walks: {depth}): max_abs_err {err:.3e} "
+              f"| two launches bit-identical | {len(dead)} dead pages "
+              "NaN-filled: output bit-identical", flush=True)
+    kp, vp, kw = forms["bf16"]
+    launches0 = paged_decode_attention.launches
+    t_k = time_ms(torch, [lambda: run(kp, vp, kw)], 200)
+    paged_decode_attention.launches = launches0
+    print(f"kernel paged_decode_attention bf16 1024-key table: kernel "
+          f"{t_k:.4f} ms per call ({keys} live keys)", flush=True)
+    return dict(max_abs_err=errs, ms_per_call=t_k, splits=depth)
+
+
+def time_paged_granite(torch, np, dev):
+    """The GQA form at granite-moe's decode widths (H = 24, Hkv = 8,
+    D = 64: 24 query rows of a kv-head, two 16-row tiles), bf16, against
+    the plain version, timed per call and per step (32 layers): the
+    tensor-core kernel and the earlier CUDA-core kernel side by side."""
+    from repro_torch.kernels.paged_attention import (_launch_gqa,
+                                                     paged_decode_attention)
+    from repro_torch.kernels.ref import paged_attention_ref
+    c = _paged_case(torch, np, dev, torch.bfloat16, H=24, D=64)
+    args = (c["q"], c["kp"], c["vp"], c["tables"], c["pos"])
+    out = paged_decode_attention(*args, sm_scale=c["sm"], lengths=c["lens"])
+    ref = paged_attention_ref(*args, sm_scale=c["sm"])
+    torch.cuda.synchronize()
+    err = 0.0
+    for b in range(out.shape[0]):
+        n = int(c["np_lens"][b])
+        o, r = out[b, :n].float(), ref[b, :n].float()
+        if not torch.allclose(o, r, rtol=2 ** -7, atol=1e-3):
+            fail(f"paged_decode_attention granite widths slot {b}: "
+                 f"max_abs_err {float((o - r).abs().max()):.3e}")
+        err = max(err, float((o - r).abs().max()))
+    launches0 = paged_decode_attention.launches
+    t_k = time_ms(torch, [lambda: paged_decode_attention(
+        *args, sm_scale=c["sm"], lengths=c["lens"])], 200)
+    paged_decode_attention.launches = launches0
+    t_o = time_ms(torch, [lambda: _launch_gqa(
+        *args[:3], None, None, *args[3:], c["lens"], c["sm"],
+        tensor_cores=False)], 200)
+    t_p = time_ms(torch, [lambda: paged_attention_ref(
+        *args, sm_scale=c["sm"])], 50)
+    B, C, H, D = c["q"].shape
+    _, keys = _live_pages(c)
+    nbytes = keys * 8 * D * 2 * 2 + 2 * c["q"].numel() * 2 \
+        + c["tables"].numel() * 4 + 2 * B * 4
+    b_ms, b_by = bound(nbytes, keys * 8 * (C * 3) * 4 * D)
+    print(f"kernel paged_decode_attention bf16 granite-moe widths B={B} "
+          f"C={C} H={H} Hkv=8 D={D}: max_abs_err {err:.3e} (rtol 2^-7 atol "
+          f"1e-3) | kernel {t_k:.4f} ms | earlier CUDA-core kernel "
+          f"{t_o:.4f} ms | plain {t_p:.4f} ms | bound {b_ms:.5f} ms ({b_by})"
+          f" | per step x32: kernel {32 * t_k:.4f} ms, earlier "
+          f"{32 * t_o:.4f} ms", flush=True)
+    return dict(ms_per_call=t_k, earlier_ms_per_call=t_o, plain_ms=t_p,
+                bound_ms=b_ms, max_abs_err=err)
 
 
 def _live_pages(c):
@@ -403,7 +553,8 @@ def check_paged_int8(torch, np, dev):
     """The int8 form of paged_decode_attention (int8 code pages, fp16
     scale pages) at the main path's decode shapes."""
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.paged_attention import (_launch_gqa,
+                                                     paged_decode_attention)
     from repro_torch.kernels.ref import paged_attention_ref
     from repro_torch.models.attention import quantize_kv
     c = _paged_case(torch, np, dev, torch.float32)
@@ -468,6 +619,9 @@ def check_paged_int8(torch, np, dev):
         *args, sm_scale=c["sm"], lengths=c["lens"], k_scales=ks,
         v_scales=vs)], 200)
     paged_decode_attention.int8_launches = launches0
+    t_o = time_ms(torch, [lambda: _launch_gqa(
+        *args[:3], ks, vs, *args[3:], c["lens"], c["sm"],
+        tensor_cores=False)], 200)
     t_p = time_ms(torch, [lambda: paged_attention_ref(
         *args, sm_scale=c["sm"], k_scales=ks, v_scales=vs)], 50)
     # Library yardstick: SDPA over the dequantized gathered (B, H, S, D)
@@ -489,7 +643,8 @@ def check_paged_int8(torch, np, dev):
     flops = keys * Hkv * (C * G) * 4 * D
     b_ms, b_by = bound(nbytes, flops)
     print(f"kernel paged_decode_attention int8 B={B} C={C} H={H} Hkv={Hkv} "
-          f"D={D} bs={c['bs']}: kernel {t_k:.4f} ms | plain {t_p:.4f} ms | "
+          f"D={D} bs={c['bs']}: kernel {t_k:.4f} ms | earlier CUDA-core "
+          f"kernel {t_o:.4f} ms | plain {t_p:.4f} ms | "
           f"library(SDPA on dequantized gathered view) {t_l:.4f} ms | bound "
           f"{b_ms:.5f} ms ({b_by}) | per step x28: kernel {28 * t_k:.4f} ms",
           flush=True)
@@ -497,7 +652,8 @@ def check_paged_int8(torch, np, dev):
                 source="src/repro_torch/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:156",
                 max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
-                bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l)
+                bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l,
+                earlier_ms=28 * t_o, ms_per_call=t_k)
 
 
 def _mla_case(torch, np, dev, shape, seed, entries=None, deep=False):
@@ -724,7 +880,7 @@ def check_flash(torch, dev):
     timed at qwen3-0.6b's prefill of 8 x 512 tokens, per prefill (28
     calls)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import _launch, flash_attention
     from repro_torch.kernels.ref import attention_ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
@@ -762,6 +918,11 @@ def check_flash(torch, dev):
     t_k = time_ms(torch, [lambda: flash_attention(q, k, v, causal=causal)],
                   50)
     flash_attention.launches = launches0
+    # The earlier CUDA-core kernel on the same bf16 operands (the f32
+    # route; no model path runs it on bf16).
+    t_o = time_ms(torch, [lambda: _launch(
+        q, k, v, causal=causal, sm_scale=d ** -0.5, q_offset=0,
+        tensor_cores=False, count=False)], 20)
     t_p = time_ms(torch, [lambda: attention_ref(q, k, v, causal=causal)], 20)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     t_l = time_ms(torch, [lambda: F.scaled_dot_product_attention(
@@ -771,7 +932,8 @@ def check_flash(torch, dev):
     flops = 4.0 * b * h * d * pairs
     b_ms, b_by = bound(nbytes, flops)
     print(f"kernel flash_attention bf16 B={b} S={sq} H={h} Hkv={hkv} D={d} "
-          f"causal: kernel {t_k:.4f} ms | plain {t_p:.4f} ms | "
+          f"causal: kernel {t_k:.4f} ms | earlier CUDA-core kernel "
+          f"{t_o:.4f} ms | plain {t_p:.4f} ms | "
           f"library(SDPA is_causal, enable_gqa) {t_l:.4f} ms | bound "
           f"{b_ms:.5f} ms ({b_by}) | per prefill x28: kernel "
           f"{28 * t_k:.4f} ms", flush=True)
@@ -781,6 +943,7 @@ def check_flash(torch, dev):
                 replaces="src/repro/kernels/flash_attention.py:73",
                 max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
                 bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l,
+                earlier_ms=28 * t_o, ms_per_call=t_k,
                 deepseek_prefill=check_flash_mla(torch, dev))
 
 
@@ -790,7 +953,7 @@ def check_flash_mla(torch, dev):
     attention_ref, timed per call and per prefill (4 MLA layers).
     Returns those numbers (an extra key of the flash row)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import _launch, flash_attention
     from repro_torch.kernels.ref import attention_ref
     b, s, h, d, dv = FLASH_MLA
     gen = torch.Generator(device=dev)
@@ -814,6 +977,9 @@ def check_flash_mla(torch, dev):
     t_k = time_ms(torch, [lambda: flash_attention(
         q, k, v, causal=True, sm_scale=sm)], 10)
     flash_attention.launches = launches0
+    t_o = time_ms(torch, [lambda: _launch(
+        q, k, v, causal=True, sm_scale=sm, q_offset=0,
+        tensor_cores=False, count=False)], 3)
     t_p = time_ms(torch, [lambda: attention_ref(
         q, k, v, causal=True, sm_scale=sm)], 3)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -826,14 +992,15 @@ def check_flash_mla(torch, dev):
     print(f"kernel flash_attention deepseek-v3 prefill bf16 B={b} S={s} "
           f"H={h} D={d} Dv={dv} causal: max_abs_err {err:.3e} (rtol/atol "
           f"1e-4 of the f32 plain version + one bf16 ulp) | kernel "
-          f"{t_k:.4f} ms | plain {t_p:.4f} ms | library(SDPA is_causal) "
+          f"{t_k:.4f} ms | earlier CUDA-core kernel {t_o:.4f} ms | plain "
+          f"{t_p:.4f} ms | library(SDPA is_causal) "
           f"{t_l:.4f} ms | bound {b_ms:.5f} ms ({b_by}) | per prefill x{n}:"
           f" kernel {n * t_k:.4f} ms", flush=True)
     del q, k, v, qh, kh, vh, out
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=n * t_k, plain_ms=n * t_p,
                 bound_ms=n * b_ms, bound_by=b_by, library_ms=n * t_l,
-                ms_per_call=t_k)
+                ms_per_call=t_k, earlier_ms_per_call=t_o)
 
 
 def _to(tree, d):
@@ -996,7 +1163,11 @@ def profile_serve(torch, serve, cfg, model, params, dev, quant,
           f"step wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f}% of step wall, idle "
           f"{100 - 100 * busy_ms / wall_ms:.1f}%), {per_launch}", flush=True)
-    for e in sorted(events, key=dev_us, reverse=True)[:6]:
+    top = sorted(events, key=dev_us, reverse=True)
+    # The six heaviest kernels, and the attention kernels wherever they
+    # rank.
+    for e in top[:6] + [e for e in top[6:] if "attention" in e.key
+                        or "paged_gqa" in e.key or "flash" in e.key]:
         print(f"{tag}   device {dev_us(e) / 1e3 / steps:8.3f} ms/step "
               f"{e.count / steps:7.1f} calls/step  {e.key[:90]}", flush=True)
     for e in host[:6]:
@@ -1283,6 +1454,25 @@ def check_moe_models(torch, dev, serve, ds, gr) -> None:
                   arena=GRANITE_ARGS[:-8], label="granite-moe q8_0")
 
 
+def record_attention_routes():
+    """Count, from here on, which kernel each attention launch takes (the
+    wrappers pick by dtype): {route: launches}. Every model path passes
+    bf16, so the CUDA-core routes must stay at 0."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    seen = {"flash tensor cores": 0, "flash CUDA cores": 0,
+            "paged GQA tensor cores": 0, "paged GQA CUDA cores": 0}
+
+    def counted(fn, label):
+        def run(*a, tensor_cores, **kw):
+            seen[f"{label} {'tensor' if tensor_cores else 'CUDA'} cores"] += 1
+            return fn(*a, tensor_cores=tensor_cores, **kw)
+        return run
+    fa._launch = counted(fa._launch, "flash")
+    pa._launch_gqa = counted(pa._launch_gqa, "paged GQA")
+    return seen
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -1329,6 +1519,7 @@ def main() -> None:
           "s", flush=True)
 
     from repro_torch.launch import serve
+    routes = record_attention_routes()
     by_serve = {}
     for quant in RECIPE_LAUNCHES:
         by_serve[quant] = serve_recipe(torch, dev, serve, quant)
@@ -1360,11 +1551,18 @@ def main() -> None:
     check_moe_models(torch, dev, serve, ds, gr)
     del ds, gr
 
+    if routes["flash CUDA cores"] or routes["paged GQA CUDA cores"] or \
+            not routes["flash tensor cores"] or \
+            not routes["paged GQA tensor cores"]:
+        fail(f"attention routes of the model paths: {routes} (every model "
+             "path passes bf16: tensor cores only)")
+    print(f"attention routes of the model paths (serves, prefills, checks): "
+          f"{routes}", flush=True)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in by_serve.values())
         k["launches_by_run"] = {q: c[k["name"]] for q, c in by_serve.items()
                                 if c.get(k["name"])}
-        if not k["launches"]:
+        if not k["launches"] and k.get("main_path", True):
             fail(f"{k['name']} was launched no time on the main path")
     print(f"chip_smoke: {time.perf_counter() - T0:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -74,11 +74,16 @@ __device__ __forceinline__ void q6_k_decode16(uint32_t ql0, uint32_t ql1,
 // 2-bit lows (bits 2j..2j+1), qh16 its 16 1-bit highs (bit j; the caller
 // shifts the sub-block's half of the 32-bit qh word down, logically).
 // q = lo + 4 * hi - 4; sc holds us in [32, 63] and the weight is
-// q * ((us - 32) * d) in f32, in the order dequantize_q3_k takes.
+// q * ((us - 32) * d) in f32, in the order dequantize_q3_k takes. With
+// kApprox (the paper's CVT53, approx_cvt53=True) the 6-bit scale loses
+// its low bit first: us = sc & ~1, bit for bit q3_k_matmul.py:33-34. A
+// template parameter, so the exact form's code carries no test of it.
+template <bool kApprox>
 __device__ __forceinline__ void q3_k_decode16(uint32_t ql, uint32_t qh16,
                                               int8_t sc, __half d,
                                               float out[16]) {
-  const float eff = (static_cast<float>(sc) - 32.f) * __half2float(d);
+  const int us = kApprox ? (static_cast<int>(sc) & ~1) : static_cast<int>(sc);
+  const float eff = (static_cast<float>(us) - 32.f) * __half2float(d);
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
     const int lo = static_cast<int>((ql >> (2 * j)) & 0x3u);

@@ -22,15 +22,50 @@
 // does: each staged element is float(code) * float(scale) in f32 (never
 // rounded to bf16), and a dead page's scales are never loaded either.
 //
-// GQA form. What bounds it on the card: the bytes of the live K/V pages
-// (each read once); the flops are ~C * G per byte, far below the ridge.
-// So the design is about keeping enough page loads in flight and
-// spending few instructions per byte:
+// GQA form. Two kernels, picked by dtype alone (the wrapper's docstring
+// says so). The bytes of the live K/V pages bound the function (each
+// read once; the flops are ~C * G per byte, far below the ridge), but at
+// decode sizes a call lasts a few round trips to memory, so both designs
+// are about latency.
+//
+// bf16 q on bf16 or int8 pages (every serving path; D a multiple of 16):
+// the tensor-core kernel, gtc::paged_gqa_tc_kernel (entry point
+// paged_attention_gqa_tc):
+//   * the grid is (slot x kv-head x row group, split); a block's 16 or
+//     32 query rows (C * G rows of a kv-head, padded to m16 tiles) meet
+//     16-key tiles decoupled from the page size (a tile spans several
+//     pages at bs = 4, a quarter page at bs = 64); a split is two tiles
+//     per warp (more only past 64 splits), so the serve's 256-key table
+//     is one split and needs no merge;
+//   * the block loads the split's page ids from the table itself; each
+//     warp walks its own tiles through its own 2-stage cp.async ring (the
+//     next tile loads while this one computes; no block-wide barrier per
+//     tile): 16-byte copies of the key rows, each lane finding one key's
+//     row and sharing it by shuffles; keys past the slot's deepest valid
+//     position (pos + max(len, 1) - 1) are zero-filled, never loaded, and
+//     pages past last_live are never touched, so garbage in dead pages
+//     changes no bit;
+//   * S = Q.K^T and P.V with mma.sync m16n8k16 bf16 -> f32, P split into
+//     three bf16 parts (hi + mid + lo is p to ~2^-25, so the product keeps
+//     the f32 plain version's precision); int8 codes become bf16 in a
+//     warp buffer (exact: |code| <= 127), the K scale multiplies each
+//     score column in f32 and the V scale folds into p before the split
+//     (float(code) * float(scale) up to rounding order; a zeroed page
+//     reads as exactly 0);
+//   * the warps' states merge through shared memory in warp order; with
+//     more than one split the last block of a (slot, kv-head, row group)
+//     to finish, picked by an atomic ticket, merges the live splits'
+//     partials in split order (one launch; the sums follow a fixed order,
+//     so two runs give the same bits); blocks of splits past the slot's
+//     live keys exit at once.
+//
+// Any f32 operand (q or pages): the CUDA-core kernel,
+// paged_attention_gqa_kernel (entry point paged_attention_gqa), whose f32
+// products meet the f32 tolerance:
 //   * the grid is (slot x kv-head, split): the TPU's sequential walk over
 //     kv blocks becomes `splits` blocks that each walk a contiguous run of
-//     the slot's pages (flash-decoding), so a handful of slots still fill
-//     the card; each block loads its page ids from the table itself (the
-//     TPU's scalar prefetch becomes a load by the block);
+//     the slot's pages (flash-decoding); each block loads its page ids
+//     from the table itself;
 //   * a page's K and V tiles are staged in shared memory together, rows
 //     padded to D + 1 floats, so the thread-per-(row, key) score loop and
 //     the thread-per-(row, feature) P.V loop are free of bank conflicts;
@@ -74,11 +109,11 @@
 //   * with so few blocks per SM the kernel is bound by latency inside a
 //     block: each thread keeps 8 (q) or 4 (page) 16-byte loads in flight
 //     while staging, and two FMA chains per row in the score loop.
-// cp.async/TMA page loads and tensor-core products are later work.
 #include <math.h>
 #include <type_traits>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -297,6 +332,618 @@ int launch(const void* q, const void* kp, const void* vp, const __half* ks,
       part_acc, part_ml, static_cast<TQ*>(out), sh);
   return static_cast<int>(cudaGetLastError());
 }
+
+// ---------------------------------------------------------------------
+// GQA form, bf16 q over bf16 or int8 pages: tensor-core products and a
+// per-warp cp.async ring (see the top note).
+// ---------------------------------------------------------------------
+namespace gtc {
+
+using bf16 = __nv_bfloat16;
+constexpr int KT = 16;                 // keys of a tile
+constexpr int TPW = 2;                 // key tiles a warp walks, at least
+constexpr int MAX_SPLITS = 64;         // bounds the merge's weights
+constexpr int WSTR = MAX_SPLITS + 2;   // weights row: [split] M den
+
+// Warps of a block: 8, or 4 at DP = 256 (their rings' shared memory).
+__host__ __device__ constexpr int warps_for(int DP) {
+  return DP > 192 ? 4 : 8;
+}
+
+struct TcShape {
+  int B, C, H, Hkv, D, bs, MB, splits, row_groups;
+  int tps;                             // key tiles of a split
+};
+
+// Byte offset of (row, byte) in a tile of `row_bytes`-byte rows whose
+// 16-byte chunks are XOR-swizzled by the row (conflict-free ldmatrix
+// and 16-byte accesses down a column).
+__device__ __forceinline__ int swb(int row, int byte, int row_bytes) {
+  const int chunks = row_bytes >> 4;
+  const int mask = (chunks < 8 ? chunks : 8) - 1;
+  const int c = byte >> 4;
+  return row * row_bytes + (((c & ~mask) | ((c ^ row) & mask)) << 4) +
+         (byte & 15);
+}
+
+// Shared-memory layout of one block (bytes), DP = D rounded up to 64,
+// RB = 16 * RTB query rows, ES = bytes of a page element.
+struct Layout {
+  int q, ids, ring, conv, merge, wts, flag, total;
+};
+
+__host__ __device__ constexpr int align128(int x) { return (x + 127) & ~127; }
+
+__host__ __device__ inline Layout layout(int RB, int DP, int ES, int tps) {
+  const int W = warps_for(DP);
+  Layout L{};
+  L.q = 0;                                        // [RB][DP] bf16
+  L.ids = L.q + align128(RB * DP * 2);            // split's page ids
+  const int ring_b = W * 2 * 2 * KT * DP * ES;    // 2 stages of K and V
+  const int conv_b = ES == 1 ? W * 2 * KT * DP * 2 : 0;
+  const int merge_b = W * RB * (DP + 10) * 4;     // per-warp states
+  L.ring = L.ids + align128((tps * KT + 1) * 4);
+  L.conv = L.ring + ring_b;
+  L.merge = L.ring;                               // aliases the ring
+  const int body = ring_b + conv_b > merge_b ? ring_b + conv_b : merge_b;
+  L.wts = L.ring + align128(body);                // [RB][WSTR] f32
+  L.flag = L.wts + align128(RB * WSTR * 4);
+  L.total = L.flag + 16;
+  return L;
+}
+
+// 4 f32 / den -> 4 bf16 (one 8-byte store; dst 8-byte aligned).
+__device__ __forceinline__ void store_bf16x4(bf16* dst, float4 v,
+                                             float den) {
+  const float d = den == 0.f ? 1.f : den;
+  __nv_bfloat162 a = __floats2bfloat162_rn(v.x / d, v.y / d);
+  __nv_bfloat162 c = __floats2bfloat162_rn(v.z / d, v.w / d);
+  *reinterpret_cast<uint2*>(dst) = make_uint2(
+      *reinterpret_cast<uint32_t*>(&a), *reinterpret_cast<uint32_t*>(&c));
+}
+
+__device__ __forceinline__ void fma4(float a, float4 x, float4& acc) {
+  acc.x = fmaf(a, x.x, acc.x);
+  acc.y = fmaf(a, x.y, acc.y);
+  acc.z = fmaf(a, x.z, acc.z);
+  acc.w = fmaf(a, x.w, acc.w);
+}
+
+// 16 int8 codes (one 16-byte chunk) -> 16 bf16 at dst (two chunks).
+__device__ __forceinline__ void codes_to_bf16(const int4 raw, uint4* lo,
+                                              uint4* hi) {
+  const uint32_t w[4] = {(uint32_t)raw.x, (uint32_t)raw.y, (uint32_t)raw.z,
+                         (uint32_t)raw.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float f0 = (float)(int8_t)(w[i] & 0xffu);
+    const float f1 = (float)(int8_t)((w[i] >> 8) & 0xffu);
+    const float f2 = (float)(int8_t)((w[i] >> 16) & 0xffu);
+    const float f3 = (float)(int8_t)(w[i] >> 24);
+    __nv_bfloat162 a = __floats2bfloat162_rn(f0, f1);
+    __nv_bfloat162 c = __floats2bfloat162_rn(f2, f3);
+    o[2 * i] = *reinterpret_cast<uint32_t*>(&a);
+    o[2 * i + 1] = *reinterpret_cast<uint32_t*>(&c);
+  }
+  *lo = make_uint4(o[0], o[1], o[2], o[3]);
+  *hi = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// One block: RTB row tiles of one (slot, kv-head) against one split of
+// the slot's key tiles; warp w walks tiles w, w + W, ... of the
+// split through its own ring. TKV: bf16 pages or int8 codes.
+template <typename TKV, int RTB, int DP>
+__global__ void __launch_bounds__(32 * warps_for(DP))
+paged_gqa_tc_kernel(const bf16* __restrict__ q,
+                    const TKV* __restrict__ k_pages,
+                    const TKV* __restrict__ v_pages,
+                    const __half* __restrict__ k_scales,
+                    const __half* __restrict__ v_scales,
+                    const int* __restrict__ tables,
+                    const int* __restrict__ positions,
+                    const int* __restrict__ lengths, bf16* __restrict__ out,
+                    float* __restrict__ part_acc,
+                    float* __restrict__ part_ml,
+                    int* __restrict__ tickets, TcShape s, float sm_scale) {
+  constexpr int W = warps_for(DP);
+  constexpr int THREADS = 32 * W;
+  constexpr bool kInt8 = sizeof(TKV) == 1;
+  constexpr int ES = sizeof(TKV);
+  constexpr int RB = RTB * 16;
+  constexpr int NVT = DP / 8;
+  constexpr int ROW_B = DP * ES;       // bytes of a staged key row
+  constexpr int TILE_B = KT * ROW_B;
+  extern __shared__ __align__(128) unsigned char sm[];
+  const Layout lay = layout(RB, DP, ES, s.tps);
+  float* wts = reinterpret_cast<float*>(sm + lay.wts);
+  bf16* q_sh = reinterpret_cast<bf16*>(sm + lay.q);
+  int* ids = reinterpret_cast<int*>(sm + lay.ids);
+  int* flag = reinterpret_cast<int*>(sm + lay.flag);
+
+  const int unit = blockIdx.x;         // (slot, kv-head, row group)
+  const int rg = unit % s.row_groups;
+  const int bh = unit / s.row_groups;
+  const int b = bh / s.Hkv, hkv = bh % s.Hkv;
+  const int z = blockIdx.y;
+  const int G = s.H / s.Hkv, R = s.C * G, D = s.D, bs = s.bs;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+
+  // Q rows of this row group -> shared (bf16, swizzled; rows past R
+  // zero), in flight while the positions and page ids load.
+  const int row0 = rg * RB;
+  {
+    constexpr int CPR = DP / 8;
+    for (int idx = tid; idx < RB * CPR; idx += THREADS) {
+      const int r = idx / CPR, c = idx % CPR;
+      const int rr = row0 + r;
+      const bool ok = rr < R && c * 8 < D;   // pad columns: zero
+      const int i = ok ? rr / G : 0, gg = ok ? rr % G : 0;
+      const bf16* src =
+          q + (((size_t)b * s.C + i) * s.H + hkv * G + gg) * D + c * 8;
+      cp_async16(reinterpret_cast<unsigned char*>(q_sh) +
+                     swb(r, c * 16, DP * 2),
+                 ok ? src : q, ok);
+    }
+    cp_async_commit();
+  }
+  // Keys any valid row of the slot can see: [0, keys_end). Pages past
+  // it (past last_live) are never touched, and the keys of a live page
+  // past it are zero-filled, never loaded.
+  const int pos0 = positions[b];
+  const int keys_end = min(pos0 + max(lengths[b], 1), s.MB * bs);
+  const int ntile = (keys_end + KT - 1) / KT;
+  const int nlive = (ntile + s.tps - 1) / s.tps;
+  if (z >= nlive) {
+    cp_async_wait<0>();
+    return;
+  }
+  const int t_begin = z * s.tps, t_end = min(ntile, t_begin + s.tps);
+
+  const int key0 = t_begin * KT;
+  const int j0 = key0 / bs;
+  const int j1 = (min(keys_end, t_end * KT) - 1) / bs;
+  for (int j = j0 + tid; j <= j1; j += THREADS)
+    ids[j - j0] = tables[(size_t)b * s.MB + j];
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // This warp's tiles of the split, walked through its ring.
+  const int my_n = t_begin + warp < t_end
+                       ? (t_end - (t_begin + warp) + W - 1) / W
+                       : 0;
+  unsigned char* ring = sm + lay.ring + warp * 2 * 2 * TILE_B;
+
+  // The staged row of key (lane % 16) of this warp's tile n, in rows of
+  // D elements from the pages' start (-1: no such tile, or past
+  // keys_end); each lane finds one, and the others shuffle it.
+  auto key_row = [&](int n) -> long long {
+    const int key = (t_begin + warp + n * W) * KT + (lane & 15);
+    if (n >= my_n || key >= keys_end) return -1;
+    return ((long long)ids[key / bs - j0] * bs + key % bs) * s.Hkv + hkv;
+  };
+  auto issue = [&](int n, long long kr) {  // tile n -> stage n % 2
+    if (n < my_n) {
+      unsigned char* kd = ring + (n & 1) * 2 * TILE_B;
+      unsigned char* vd = kd + TILE_B;
+      constexpr int CPR = ROW_B / 16;  // 16-byte chunks of a staged row
+      const int cw = D * ES / 16;      // ... of a page row; the rest is 0
+#pragma unroll
+      for (int i = 0; i < KT * CPR / 32; ++i) {
+        const int idx = lane + 32 * i, kk = idx / CPR, c = idx % CPR;
+        const long long r = __shfl_sync(0xffffffffu, kr, kk);
+        const bool ok = r >= 0 && c < cw;
+        const size_t src = ok ? (size_t)r * D * ES + c * 16 : 0;
+        const int off = swb(kk, c * 16, ROW_B);
+        cp_async16(kd + off,
+                   reinterpret_cast<const unsigned char*>(k_pages) + src, ok);
+        cp_async16(vd + off,
+                   reinterpret_cast<const unsigned char*>(v_pages) + src, ok);
+      }
+    }
+    cp_async_commit();                 // empty groups keep the count
+  };
+  // int8: lane l < 16 holds the K scale of key l of a tile, lane 16 + l
+  // its V scale (0 for keys past keys_end: never loaded).
+  auto scale_at = [&](long long kr) -> float {
+    if (!kInt8 || kr < 0) return 0.f;
+    return __half2float((lane < 16 ? k_scales : v_scales)[kr]);
+  };
+
+  float acc[RTB][NVT][4];
+  float m[RTB][2], l[RTB][2];
+#pragma unroll
+  for (int rt = 0; rt < RTB; ++rt) {
+#pragma unroll
+    for (int i = 0; i < NVT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[rt][i][e] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[rt][h] = -INFINITY;
+      l[rt][h] = 0.f;
+    }
+  }
+
+  // Two stages: tile n + 1 is in flight while tile n is computed.
+  const long long kr0 = key_row(0);
+  issue(0, kr0);
+  float sc_cur = scale_at(kr0);
+  // Columns past D are zero in Q and the staged tiles, so the products
+  // run over the padded width DP with no guard.
+  constexpr int nkd = DP / 16, nvt = NVT;
+
+  for (int n = 0; n < my_n; ++n) {
+    const long long kr1 = key_row(n + 1);
+    issue(n + 1, kr1);                 // into the stage tile n - 1 left
+    const float sc_nxt = scale_at(kr1);            // in flight meanwhile
+    cp_async_wait<1>();
+    __syncwarp();
+    const int tile = t_begin + warp + n * W;
+    const unsigned char* kst = ring + (n & 1) * 2 * TILE_B;
+    const unsigned char* vst = kst + TILE_B;
+    const bf16* kb;                    // bf16 [KT][DP] tiles, swizzled
+    const bf16* vb;
+    if constexpr (kInt8) {
+      // Codes -> bf16 (exact: |code| <= 127) in the warp's own buffer.
+      bf16* kc = reinterpret_cast<bf16*>(sm + lay.conv) + warp * 2 * KT * DP;
+      bf16* vc = kc + KT * DP;
+      constexpr int CPR = DP / 16;     // code chunks of a staged row
+#pragma unroll
+      for (int i = 0; i < KT * CPR / 32; ++i) {
+        const int idx = lane + 32 * i, kk = idx / CPR, c = idx % CPR;
+        const int off = swb(kk, c * 16, ROW_B);
+        uint4 *lo, *hi;
+        unsigned char* kcb = reinterpret_cast<unsigned char*>(kc);
+        unsigned char* vcb = reinterpret_cast<unsigned char*>(vc);
+        lo = reinterpret_cast<uint4*>(kcb + swb(kk, c * 32, DP * 2));
+        hi = reinterpret_cast<uint4*>(kcb + swb(kk, c * 32 + 16, DP * 2));
+        codes_to_bf16(*reinterpret_cast<const int4*>(kst + off), lo, hi);
+        lo = reinterpret_cast<uint4*>(vcb + swb(kk, c * 32, DP * 2));
+        hi = reinterpret_cast<uint4*>(vcb + swb(kk, c * 32 + 16, DP * 2));
+        codes_to_bf16(*reinterpret_cast<const int4*>(vst + off), lo, hi);
+      }
+      __syncwarp();
+      kb = kc;
+      vb = vc;
+    } else {
+      kb = reinterpret_cast<const bf16*>(kst);
+      vb = reinterpret_cast<const bf16*>(vst);
+    }
+    const unsigned char* kbb = reinterpret_cast<const unsigned char*>(kb);
+    const unsigned char* vbb = reinterpret_cast<const unsigned char*>(vb);
+    const unsigned char* qbb = reinterpret_cast<const unsigned char*>(q_sh);
+
+    // S = Q . K^T: RTB x (16 rows x 16 keys), f32; step kd + 1's
+    // fragments load while step kd's products run.
+    float sc[RTB][2][4];
+#pragma unroll
+    for (int rt = 0; rt < RTB; ++rt)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[rt][j][e] = 0.f;
+    uint32_t kf[2][4], qa[2][RTB][4];
+#pragma unroll
+    for (int kd = 0; kd < DP / 16; ++kd) {
+      if (kd < nkd) {
+#pragma unroll
+        for (int ld = (kd == 0 ? 0 : 1); ld < 2; ++ld) {
+          const int kl = kd + ld;
+          if (kl < nkd) {
+            ldmatrix_x4(kf[kl & 1],
+                        kbb + swb((lane & 7) + 8 * (lane >> 4),
+                                  (kl * 16 + 8 * ((lane >> 3) & 1)) * 2,
+                                  DP * 2));
+#pragma unroll
+            for (int rt = 0; rt < RTB; ++rt)
+              ldmatrix_x4(qa[kl & 1][rt],
+                          qbb + swb(rt * 16 + (lane & 15),
+                                    (kl * 16 + 8 * (lane >> 4)) * 2, DP * 2));
+          }
+        }
+#pragma unroll
+        for (int rt = 0; rt < RTB; ++rt) {
+          mma_bf16(sc[rt][0], qa[kd & 1][rt], kf[kd & 1][0], kf[kd & 1][1]);
+          mma_bf16(sc[rt][1], qa[kd & 1][rt], kf[kd & 1][2], kf[kd & 1][3]);
+        }
+      }
+    }
+
+    // Scale, mask, online softmax (a row's 4 threads reduce by
+    // shuffles), P = p (times the key's V scale on int8 pages).
+#pragma unroll
+    for (int rt = 0; rt < RTB; ++rt) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = j * 8 + 2 * t + (e & 1);  // key within the tile
+          const int key = tile * KT + kl;
+          const int r = row0 + rt * 16 + g + 8 * (e >> 1);
+          float x = sc[rt][j][e];
+          if constexpr (kInt8) x *= __shfl_sync(0xffffffffu, sc_cur, kl);
+          x *= sm_scale;
+          if (key >= keys_end || key > pos0 + r / G) x = -INFINITY;
+          sc[rt][j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float mu[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[rt][h], mx[h]);
+        const float alpha =
+            m[rt][h] == -INFINITY ? 0.f : expf(m[rt][h] - m_new);
+        mu[h] = m_new == -INFINITY ? 0.f : m_new;
+        m[rt][h] = m_new;
+        l[rt][h] *= alpha;
+#pragma unroll
+        for (int i = 0; i < NVT; ++i) {
+          acc[rt][i][2 * h] *= alpha;
+          acc[rt][i][2 * h + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = expf(sc[rt][j][e] - mu[e >> 1]);       // masked: 0
+          l[rt][e >> 1] += p;
+          if constexpr (kInt8)
+            p *= __shfl_sync(0xffffffffu, sc_cur,
+                             16 + j * 8 + 2 * t + (e & 1));
+          sc[rt][j][e] = p;
+        }
+    }
+
+    // acc += P . V, P split into three bf16 parts (hi + mid + lo is p to
+    // ~2^-25): the product keeps the f32 plain version's precision. p3
+    // [rt][part] is an A fragment: f = (n-tile j, row half) gives a0
+    // (rows g, keys 2t..), a1 (rows g+8), a2 (rows g, keys 2t+8..), a3.
+    uint32_t p3[RTB][3][4];
+#pragma unroll
+    for (int rt = 0; rt < RTB; ++rt)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int j = f >> 1, e0 = (f & 1) * 2;
+        float x0 = sc[rt][j][e0], x1 = sc[rt][j][e0 + 1];
+#pragma unroll
+        for (int part = 0; part < 3; ++part) {
+          const __nv_bfloat16 h0 = __float2bfloat16_rn(x0);
+          const __nv_bfloat16 h1 = __float2bfloat16_rn(x1);
+          p3[rt][part][f] = pack_bf16(h0, h1);
+          x0 -= __bfloat162float(h0);
+          x1 -= __bfloat162float(h1);
+        }
+      }
+    // V fragments four column tiles at a time, the next four loading
+    // while this group's products run (lo parts first).
+    constexpr int NG = DP / 64;
+    uint32_t vf[2][4][4];
+#pragma unroll
+    for (int vg = 0; vg < NG; ++vg) {
+#pragma unroll
+      for (int ld = (vg == 0 ? 0 : 1); ld < 2; ++ld) {
+        const int gl = vg + ld;
+        if (gl < NG) {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int vp = gl * 4 + jj;
+            if (2 * vp < nvt)
+              ldmatrix_x4_trans(
+                  vf[gl & 1][jj],
+                  vbb + swb((lane & 7) + 8 * ((lane >> 3) & 1),
+                            (vp * 16 + 8 * (lane >> 4)) * 2, DP * 2));
+          }
+        }
+      }
+#pragma unroll
+      for (int part = 2; part >= 0; --part)
+#pragma unroll
+        for (int rt = 0; rt < RTB; ++rt)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int vp = vg * 4 + jj;
+            if (2 * vp < nvt) {
+              mma_bf16(acc[rt][2 * vp], p3[rt][part], vf[vg & 1][jj][0],
+                       vf[vg & 1][jj][1]);
+              mma_bf16(acc[rt][2 * vp + 1], p3[rt][part], vf[vg & 1][jj][2],
+                       vf[vg & 1][jj][3]);
+            }
+          }
+    }
+    sc_cur = sc_nxt;
+    __syncwarp();                      // the stage (and buffer) is free
+  }
+  cp_async_wait<0>();
+
+  // The warps' states -> shared, then merged in warp order.
+#pragma unroll
+  for (int rt = 0; rt < RTB; ++rt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[rt][h] += __shfl_xor_sync(0xffffffffu, l[rt][h], 1);
+      l[rt][h] += __shfl_xor_sync(0xffffffffu, l[rt][h], 2);
+    }
+  __syncthreads();                     // every ring is drained
+  float* mst = reinterpret_cast<float*>(sm + lay.merge);
+  // A warp's state: acc rows of MS floats (8 more than DP: the 8 rows a
+  // store of g = 0..7 writes fall in different banks), then m and l.
+  constexpr int MS = DP + 8;
+  const int WS = RB * (MS + 2);        // floats of one warp's state
+  const int ML = RB * MS;              // offset of m (then l) in it
+  {
+    float* w = mst + warp * WS;        // [RB][MS] acc, [RB] m, [RB] l
+#pragma unroll
+    for (int rt = 0; rt < RTB; ++rt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rt * 16 + g + 8 * h;
+#pragma unroll
+        for (int i = 0; i < NVT; ++i)
+          if (i < nvt)
+            *reinterpret_cast<float2*>(w + r * MS + i * 8 + 2 * t) =
+                make_float2(acc[rt][i][2 * h], acc[rt][i][2 * h + 1]);
+        if (t == 0) {
+          w[ML + r] = m[rt][h];
+          w[ML + RB + r] = l[rt][h];
+        }
+      }
+  }
+  __syncthreads();
+  // Per row: the common max, each warp's weight and the merged sum.
+  for (int r = tid; r < RB; r += THREADS) {
+    float mm = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < W; ++w) mm = fmaxf(mm, mst[w * WS + ML + r]);
+    float den = 0.f;
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+      const float mw = mst[w * WS + ML + r];
+      const float a = mw == -INFINITY ? 0.f : expf(mw - mm);
+      wts[r * WSTR + w] = a;
+      den = fmaf(a, mst[w * WS + ML + RB + r], den);
+    }
+    wts[r * WSTR + WSTR - 2] = mm;
+    wts[r * WSTR + WSTR - 1] = den;
+  }
+  __syncthreads();
+  const int D4 = D / 4;
+  float* pa = part_acc + ((size_t)unit * s.splits + z) * RB * D;
+  float* pml = part_ml + ((size_t)unit * s.splits + z) * 2 * RB;
+  for (int idx = tid; idx < RB * D4; idx += THREADS) {
+    const int r = idx / D4, c = (idx % D4) * 4;
+    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < W; ++w)
+      fma4(wts[r * WSTR + w],
+           *reinterpret_cast<const float4*>(mst + w * WS + r * MS + c), num);
+    const int rr = row0 + r;
+    if (nlive == 1) {
+      if (rr < R)
+        store_bf16x4(
+            out + (((size_t)b * s.C + rr / G) * s.H + hkv * G + rr % G) * D +
+                c,
+            num, wts[r * WSTR + WSTR - 1]);
+    } else {
+      *reinterpret_cast<float4*>(pa + r * D + c) = num;
+    }
+  }
+  if (nlive == 1) return;
+  for (int r = tid; r < RB; r += THREADS) {
+    pml[r] = wts[r * WSTR + WSTR - 2];
+    pml[RB + r] = wts[r * WSTR + WSTR - 1];
+  }
+
+  // The last split block of this unit to finish (an atomic ticket)
+  // merges the live splits' partials in split order.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int ticket = atomicAdd(&tickets[unit], 1);
+    *flag = ticket == nlive - 1;
+  }
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  const float* pa0 = part_acc + (size_t)unit * s.splits * RB * D;
+  const float* pm0 = part_ml + (size_t)unit * s.splits * 2 * RB;
+  for (int r = tid; r < RB; r += THREADS) {
+    float mm = -INFINITY;
+    for (int zz = 0; zz < nlive; ++zz)
+      mm = fmaxf(mm, __ldcg(pm0 + (size_t)zz * 2 * RB + r));
+    float den = 0.f;
+    for (int zz = 0; zz < nlive; ++zz) {
+      const float mz = __ldcg(pm0 + (size_t)zz * 2 * RB + r);
+      const float a = mz == -INFINITY ? 0.f : expf(mz - mm);
+      wts[r * WSTR + zz] = a;
+      den = fmaf(a, __ldcg(pm0 + (size_t)zz * 2 * RB + RB + r), den);
+    }
+    wts[r * WSTR + WSTR - 1] = den;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < RB * D4; idx += THREADS) {
+    const int r = idx / D4, c = (idx % D4) * 4;
+    const int rr = row0 + r;
+    if (rr >= R) continue;
+    float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+    for (int zz = 0; zz < nlive; ++zz)
+      fma4(wts[r * WSTR + zz],
+           __ldcg(reinterpret_cast<const float4*>(
+               pa0 + (size_t)zz * RB * D + r * D + c)),
+           num);
+    store_bf16x4(
+        out + (((size_t)b * s.C + rr / G) * s.H + hkv * G + rr % G) * D + c,
+        num, wts[r * WSTR + WSTR - 1]);
+  }
+}
+
+// Row tiles a block takes: two while the accumulators stay within 128
+// registers a thread (DP <= 128), else one.
+__host__ __device__ inline int rtb_for(int rows, int DP) {
+  return (DP <= 128 && rows > 16) ? 2 : 1;
+}
+__host__ __device__ inline int dp_for(int D) { return (D + 63) / 64 * 64; }
+
+template <typename TKV, int RTB, int DP>
+int launch(const void* q, const void* kp, const void* vp, const __half* ks,
+           const __half* vs, const int* tables, const int* positions,
+           const int* lengths, void* out, float* part_acc, float* part_ml,
+           int* tickets, TcShape sh, float sm_scale, cudaStream_t st) {
+  const Layout lay = layout(RTB * 16, DP, (int)sizeof(TKV), sh.tps);
+  // Opt in to the card's whole per-block limit once per instantiation
+  // (the block's bytes grow with the split); the wrapper has checked
+  // lay.total against that limit.
+  static const cudaError_t opt_in = [] {
+    int dev = 0, limit = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&limit,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(paged_gqa_tc_kernel<TKV, RTB, DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               limit);
+    return e;
+  }();
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  const dim3 grid(sh.B * sh.Hkv * sh.row_groups, sh.splits);
+  paged_gqa_tc_kernel<TKV, RTB, DP>
+      <<<grid, 32 * warps_for(DP), lay.total, st>>>(
+      static_cast<const bf16*>(q), static_cast<const TKV*>(kp),
+      static_cast<const TKV*>(vp), ks, vs, tables, positions, lengths,
+      static_cast<bf16*>(out), part_acc, part_ml, tickets, sh, sm_scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TKV>
+int dispatch(const void* q, const void* kp, const void* vp, const __half* ks,
+             const __half* vs, const int* tables, const int* positions,
+             const int* lengths, void* out, float* part_acc, float* part_ml,
+             int* tickets, TcShape sh, float sm_scale, cudaStream_t st) {
+  const int dp = dp_for(sh.D);
+  const int rtb = rtb_for(sh.C * (sh.H / sh.Hkv), dp);
+#define REPRO_GQA_TC(RTB, DP)                                              \
+  if (rtb == RTB && dp == DP)                                              \
+  return launch<TKV, RTB, DP>(q, kp, vp, ks, vs, tables, positions, lengths, \
+                              out, part_acc, part_ml, tickets, sh, sm_scale, \
+                              st)
+  REPRO_GQA_TC(1, 64);
+  REPRO_GQA_TC(2, 64);
+  REPRO_GQA_TC(1, 128);
+  REPRO_GQA_TC(2, 128);
+  REPRO_GQA_TC(1, 192);
+  REPRO_GQA_TC(1, 256);
+#undef REPRO_GQA_TC
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace gtc
 
 // ---------------------------------------------------------------------
 // MLA form: shared K/V pages plus the RoPE score side.
@@ -763,6 +1410,64 @@ extern "C" int paged_attention_gqa(const void* q, int q_dtype,
   if (kv_dtype == 1) REPRO_PAGED_LAUNCH(float, __nv_bfloat16);
   REPRO_PAGED_LAUNCH(float, float);
 #undef REPRO_PAGED_LAUNCH
+}
+
+// GQA form, bf16 q on bf16 or int8 pages: the tensor-core kernel
+// (gtc). Its launch plan for a table of MB pages of bs keys: plan[0]
+// query rows of a block (16 or 32), plan[1] row groups of a (slot,
+// kv-head) (ceil(C * H / Hkv / rows)), plan[2] key tiles (16 keys) of a
+// page-walk split (two per warp, more only if the table would need
+// over 64 splits), plan[3] splits, plan[4] shared-memory bytes.
+extern "C" void paged_attention_gqa_tc_plan(int C, int H, int Hkv, int D,
+                                            int kv_dtype, int MB, int bs,
+                                            int* plan) {
+  const int dp = gtc::dp_for(D);
+  const int rows = C * (H / Hkv);
+  const int rb = 16 * gtc::rtb_for(rows, dp);
+  const int w = gtc::warps_for(dp);
+  const int tiles = (MB * bs + gtc::KT - 1) / gtc::KT;
+  const int need = (tiles + w * gtc::MAX_SPLITS - 1) / (w * gtc::MAX_SPLITS);
+  const int tps = w * (need > gtc::TPW ? need : gtc::TPW);
+  plan[0] = rb;
+  plan[1] = (rows + rb - 1) / rb;
+  plan[2] = tps;
+  plan[3] = (tiles + tps - 1) / tps;
+  plan[4] = gtc::layout(rb, dp, kv_dtype == 2 ? 1 : 2, tps).total;
+}
+
+// q bf16 (B, C, H, D), D % 16 == 0, D <= 256; pages bf16 (kv_dtype 1)
+// or int8 codes (2) with fp16 (NP, bs, Hkv) k_scales/v_scales; out bf16
+// like q. row_groups, tps and splits as the plan gives them; with
+// splits > 1,
+// part_acc holds B*Hkv*row_groups*splits*rows*D floats, part_ml
+// B*Hkv*row_groups*splits*2*rows and tickets B*Hkv*row_groups ints,
+// which must be zero when the launch starts (the wrapper zeroes them for
+// each launch). Returns the cudaError_t of the launch.
+extern "C" int paged_attention_gqa_tc(
+    const void* q, const void* k_pages, const void* v_pages, int kv_dtype,
+    const void* k_scales, const void* v_scales, const void* tables,
+    const void* positions, const void* lengths, void* out, void* part_acc,
+    void* part_ml, void* tickets, int B, int C, int H, int Hkv, int D,
+    int bs, int MB, int splits, int row_groups, int tps, float sm_scale,
+    void* stream) {
+  if (D % 16 || D > 256) return static_cast<int>(cudaErrorInvalidValue);
+  const gtc::TcShape sh{B, C, H, Hkv, D, bs, MB, splits, row_groups, tps};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* tb = static_cast<const int*>(tables);
+  const int* ps = static_cast<const int*>(positions);
+  const int* ln = static_cast<const int*>(lengths);
+  float* pa = static_cast<float*>(part_acc);
+  float* pm = static_cast<float*>(part_ml);
+  int* tk = static_cast<int*>(tickets);
+  const __half* ks = static_cast<const __half*>(k_scales);
+  const __half* vs = static_cast<const __half*>(v_scales);
+  if (kv_dtype == 2)
+    return gtc::dispatch<int8_t>(q, k_pages, v_pages, ks, vs, tb, ps, ln, out,
+                                 pa, pm, tk, sh, sm_scale, st);
+  if (kv_dtype == 1)
+    return gtc::dispatch<__nv_bfloat16>(q, k_pages, v_pages, ks, vs, tb, ps,
+                                        ln, out, pa, pm, tk, sh, sm_scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // MLA form. Row stride of the staged [q | q2] and [ckv | krope] tiles:

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -68,9 +68,9 @@ def splits(m: int, n: int, k: int, sms: int):
 
 
 @functools.lru_cache(maxsize=None)
-def kernel(name: str, n_planes: int) -> Callable:
-    """The C entry point ``name`` of library ``csrc/<name>.cu``."""
-    fn = getattr(_build.load(name), name)
+def kernel(name: str, n_planes: int, entry: str) -> Callable:
+    """The C entry point ``entry`` of library ``csrc/<name>.cu``."""
+    fn = getattr(_build.load(name), entry)
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
                    + [ctypes.c_void_p] * n_planes
@@ -86,12 +86,12 @@ def _sm_count(device: torch.device) -> int:
 
 def launch(wrapper: Callable, name: str, x: torch.Tensor,
            planes: Sequence[torch.Tensor], n: int,
-           out_dtype: torch.dtype, *, vector_planes: Sequence[int] = ()
-           ) -> torch.Tensor:
+           out_dtype: torch.dtype, *, vector_planes: Sequence[int] = (),
+           entry: Optional[str] = None) -> torch.Tensor:
     """Launch ``csrc/<name>.cu`` on CUDA operands and count it on
     ``wrapper.launches``. ``vector_planes``: positions in ``planes`` of
     the planes the kernel reads as 16-byte vectors (they must be 16-byte
-    aligned)."""
+    aligned). ``entry``: the C entry point, if not ``name``."""
     if x.device.type != "cuda" or any(p.device != x.device for p in planes):
         raise ValueError(
             f"{wrapper.__name__} needs x and its planes on one CUDA device; "
@@ -109,7 +109,7 @@ def launch(wrapper: Callable, name: str, x: torch.Tensor,
     k_split, count = splits(m, n, k, _sm_count(x.device))
     ws = torch.empty((count, m, n), dtype=torch.float32, device=x.device) \
         if count > 1 else y           # unused without a split
-    fn = kernel(name, len(planes))
+    fn = kernel(name, len(planes), entry or name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), X_DTYPES[x.dtype],

@@ -14,9 +14,14 @@ Key j < Skv is visible to query i iff, when ``causal``,
 j <= ``q_offset`` + i; a row that sees no key is 0.
 
 On a CPU tensor the wrapper computes the plain version
-(``ref.attention_ref``); on a CUDA tensor it launches the hand-written
-kernel or raises. It has no backward: a CUDA tensor that requires grad
-is refused (training is ROADMAP A18).
+(``ref.attention_ref``); on a CUDA tensor it launches a hand-written
+kernel or raises. The dtype alone picks the kernel: bf16 q, k, v (every
+prefill and forward path of the models) run the tensor-core kernel
+(``mma.sync`` bf16 products, ``cp.async`` staging; D and Dv multiples
+of 16), f32 the CUDA-core kernel (D and Dv multiples of 4), whose f32
+products meet the f32 tolerance that tensor cores cannot. It has no
+backward: a CUDA tensor that requires grad is refused (training is
+ROADMAP A18).
 """
 from __future__ import annotations
 
@@ -35,12 +40,12 @@ MAX_HEAD_DIM = 256
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("flash_attention")
-    lib.flash_attention.restype = ctypes.c_int
-    lib.flash_attention.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
-        + [ctypes.c_float, ctypes.c_void_p])
+    for fn in (lib.flash_attention, lib.flash_attention_cuda_cores):
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10
+                       + [ctypes.c_float, ctypes.c_void_p])
     lib.flash_attention_smem.restype = ctypes.c_longlong
-    lib.flash_attention_smem.argtypes = [ctypes.c_int] * 2
+    lib.flash_attention_smem.argtypes = [ctypes.c_int] * 3
     return lib
 
 
@@ -75,6 +80,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
                              q_offset=q_offset)
+    return _launch(q, k, v, causal=causal, sm_scale=sm_scale,
+                   q_offset=q_offset, tensor_cores=q.dtype == torch.bfloat16)
+
+
+def _launch(q, k, v, *, causal, sm_scale, q_offset, tensor_cores,
+            count=True):
+    """Check CUDA operands and launch one kernel: the tensor-core one
+    (bf16 only) or the CUDA-core one. ``flash_attention`` picks by dtype;
+    ``chip_smoke.py`` also times the CUDA-core kernel on bf16 operands
+    (the earlier design) beside it, with ``count=False``. A launch adds
+    one to ``flash_attention.launches`` when ``count``; an empty Sq
+    launches nothing."""
     dev = q.device
     tensors = (q, k, v)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -85,32 +102,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q {q.dtype}, k {k.dtype}, v {v.dtype}: one dtype, "
                         "f32 or bf16, expected")
+    if tensor_cores and q.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core kernel takes bf16; got {q.dtype}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in tensors):
         raise ValueError("flash_attention needs contiguous, 16-byte "
                          "aligned q, k, v")
-    b, sq, h, _ = q.shape
+    b, sq, h, d = q.shape
     skv, hkv, dv = k.shape[1], k.shape[2], v.shape[-1]
-    if d % 4 or dv % 4 or max(d, dv) > MAX_HEAD_DIM:
-        raise ValueError(f"head dims D={d}, Dv={dv} must be multiples of 4 "
-                         f"and at most {MAX_HEAD_DIM}")
+    mult = 16 if tensor_cores else 4
+    if d % mult or dv % mult or max(d, dv) > MAX_HEAD_DIM:
+        raise ValueError(f"head dims D={d}, Dv={dv} must be multiples of "
+                         f"{mult} ({q.dtype}) and at most {MAX_HEAD_DIM}")
     lib = _lib()
-    smem = lib.flash_attention_smem(d, dv)
+    smem = lib.flash_attention_smem(int(tensor_cores), d, dv)
     if smem > _smem_limit(dev):
         raise ValueError(f"D={d}, Dv={dv} needs {smem} B of shared memory; "
                          f"the card allows {_smem_limit(dev)}")
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
     if sq == 0:
         return out
+    fn = lib.flash_attention if tensor_cores else \
+        lib.flash_attention_cuda_cores
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, sq, skv, h, hkv, d, dv, int(q_offset),
-            int(bool(causal)), float(sm_scale), stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 _DTYPES[q.dtype], b, sq, skv, h, hkv, d, dv, int(q_offset),
+                 int(bool(causal)), float(sm_scale), stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
-    flash_attention.launches += 1
+    if count:
+        flash_attention.launches += 1
     return out
 
 

@@ -31,10 +31,15 @@ MATMUL_KERNELS = {
 
 
 def quantized_matmul(x: torch.Tensor, planes: Planes, fmt: str, *,
-                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """y[..., N] = x[..., K] @ dequant(planes)[N, K]^T (f32, or out_dtype)."""
+                     out_dtype: Optional[torch.dtype] = None,
+                     approx_cvt53: bool = False) -> torch.Tensor:
+    """y[..., N] = x[..., K] @ dequant(planes)[N, K]^T (f32, or out_dtype).
+    ``approx_cvt53`` (q3_k only): the paper's CVT53 scales, ``sc & ~1``."""
     if fmt not in MATMUL_KERNELS:
         raise ValueError(f"unknown format {fmt!r}")
+    if approx_cvt53 and fmt != "q3_k":
+        raise ValueError(f"approx_cvt53 is a q3_k option; got {fmt!r}")
+    kw = {"approx_cvt53": True} if approx_cvt53 else {}
     wrapper, layout = MATMUL_KERNELS[fmt]
     lead = x.shape[:-1]
     k = x.shape[-1]
@@ -47,5 +52,5 @@ def quantized_matmul(x: torch.Tensor, planes: Planes, fmt: str, *,
         x2 = F.pad(x2, (0, kp - k))
     # The wrapper rounds its f32 result to out_dtype itself.
     y = wrapper(x2.contiguous(), *(planes[n] for n in layout),
-                out_dtype=out_dtype or torch.float32)
+                out_dtype=out_dtype or torch.float32, **kw)
     return y.reshape(*lead, y.shape[-1])

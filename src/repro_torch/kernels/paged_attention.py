@@ -23,8 +23,13 @@ docs/kernel-contracts.md):
   k2_pages  (NP, bs, Hkv, D2) its pages (and ``k2_scales`` when int8)
 
 On a CPU tensor the wrapper computes the plain version
-(``ref.paged_attention_ref``); on a CUDA tensor it launches the
-hand-written kernel or raises. Rows past a slot's valid length are
+(``ref.paged_attention_ref``); on a CUDA tensor it launches a
+hand-written kernel or raises. In the GQA form the dtypes alone pick
+the kernel: bf16 q on bf16 or int8 pages (every serving path: the
+models' activations are bf16) runs the tensor-core kernel (``mma.sync``
+products, a ``cp.async`` ring per warp; D a multiple of 16); any f32
+operand (q or pages) runs the CUDA-core kernel, whose f32 products meet
+the f32 tolerance that tensor cores cannot. Rows past a slot's valid length are
 garbage by contract on both paths; the MLA kernel writes a 32-row tile
 whose rows all belong to chunk entries at or past ``max(len, 1)`` as 0
 without reading a page (with 128 heads, every row of such an entry).
@@ -58,6 +63,13 @@ def _lib():
         + [ctypes.c_float, ctypes.c_void_p])
     lib.paged_attention_gqa_smem.restype = ctypes.c_longlong
     lib.paged_attention_gqa_smem.argtypes = [ctypes.c_int] * 5
+    lib.paged_attention_gqa_tc.restype = ctypes.c_int
+    lib.paged_attention_gqa_tc.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 9
+        + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+    lib.paged_attention_gqa_tc_plan.restype = None
+    lib.paged_attention_gqa_tc_plan.argtypes = (
+        [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)])
     lib.paged_attention_mla.restype = ctypes.c_int
     lib.paged_attention_mla.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 8
@@ -207,8 +219,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         else:
             paged_decode_attention.mla_int8_launches += 1
         return out
+    tensor_cores = q.dtype == torch.bfloat16 and \
+        k_pages.dtype != torch.float32
     out = _launch_gqa(q, k_pages, v_pages, k_scales, v_scales, *tables,
-                      sm_scale)
+                      sm_scale, tensor_cores=tensor_cores)
     if k_scales is None:
         paged_decode_attention.launches += 1
     else:
@@ -217,12 +231,20 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def _launch_gqa(q, k_pages, v_pages, k_scales, v_scales, block_tables,
-                positions, lengths, sm_scale):
+                positions, lengths, sm_scale, *, tensor_cores):
+    """One launch of the GQA form: the tensor-core kernel (bf16 q on
+    bf16 or int8 pages) or the CUDA-core kernel (any dtypes).
+    ``paged_decode_attention`` picks by dtype; ``chip_smoke.py`` also
+    times the CUDA-core kernel on bf16 operands (the earlier design)
+    beside it. Counts nothing."""
     dev = q.device
     b, c, h, d = q.shape
     _, bs, hkv, _ = k_pages.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM} is not supported")
+    if tensor_cores:
+        return _launch_gqa_tc(q, k_pages, v_pages, k_scales, v_scales,
+                              block_tables, positions, lengths, sm_scale)
     lib = _lib()
     smem = lib.paged_attention_gqa_smem(c, h, hkv, d, bs)
     if smem > _smem_limit(dev):
@@ -252,6 +274,63 @@ def _launch_gqa(q, k_pages, v_pages, k_scales, v_scales, block_tables,
             float(sm_scale), stream)
     if err:
         raise RuntimeError(f"paged_attention_gqa launch failed: "
+                           f"cudaError {err}")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_plan(c, h, hkv, d, kv, mb, bs):
+    """(rows per block, row groups, key tiles per split, splits, shared
+    bytes) of the tensor-core kernel (``paged_attention_gqa_tc_plan``)."""
+    plan = (ctypes.c_int * 5)()
+    _lib().paged_attention_gqa_tc_plan(c, h, hkv, d, kv, mb, bs, plan)
+    return tuple(plan)
+
+
+def _launch_gqa_tc(q, k_pages, v_pages, k_scales, v_scales, block_tables,
+                   positions, lengths, sm_scale):
+    dev = q.device
+    b, c, h, d = q.shape
+    _, bs, hkv, _ = k_pages.shape
+    if q.dtype != torch.bfloat16 or k_pages.dtype == torch.float32:
+        raise TypeError(f"the tensor-core kernel takes bf16 q on bf16 or "
+                        f"int8 pages; got {q.dtype}, {k_pages.dtype}")
+    if d % 16:
+        raise ValueError(f"head_dim {d}: bf16 queries need a multiple of 16")
+    if not all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)):
+        raise ValueError("q and pages must be 16-byte aligned")
+    kv = _KV_DTYPES[k_pages.dtype]
+    mb = block_tables.shape[1]
+    rows, groups, tps, splits, smem = _tc_plan(c, h, hkv, d, kv, mb, bs)
+    if smem > _smem_limit(dev):
+        raise ValueError(f"chunk {c} x group {h // hkv} x head_dim {d} needs "
+                         f"{smem} B of shared memory; the card allows "
+                         f"{_smem_limit(dev)}")
+    lib = _lib()
+    out = torch.empty_like(q)
+    units = b * hkv * groups
+    part_acc = part_ml = tickets = out
+    if splits > 1:      # per-split partials, merged by the last block
+        part_acc = torch.empty((units * splits * rows * d,),
+                               dtype=torch.float32, device=dev)
+        part_ml = torch.empty((units * splits * 2 * rows,),
+                              dtype=torch.float32, device=dev)
+        # Zeroed on this launch's stream for this launch alone, so no
+        # earlier launch (aborted, on another stream, or in a CUDA graph)
+        # can leave a count behind that keeps the merge from firing.
+        tickets = torch.zeros((units,), dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.paged_attention_gqa_tc(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), kv,
+            ptr(k_scales), ptr(v_scales), block_tables.data_ptr(),
+            positions.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), b,
+            c, h, hkv, d, bs, mb, splits, groups, tps, float(sm_scale),
+            stream)
+    if err:
+        raise RuntimeError(f"paged_attention_gqa_tc launch failed: "
                            f"cudaError {err}")
     return out
 

@@ -15,10 +15,14 @@ from repro_torch.core.quant.pack import Planes
 NEG_INF = -1e30
 
 
-def matmul_ref(x: torch.Tensor, planes: Planes, fmt: str) -> torch.Tensor:
+def matmul_ref(x: torch.Tensor, planes: Planes, fmt: str, *,
+               approx_cvt53: bool = False) -> torch.Tensor:
     """y = x @ dequantize(planes).T in f32 (dequantize, then an f32
-    product)."""
-    w = dequant.DEQUANTIZERS[fmt](planes)
+    product). ``approx_cvt53`` (q3_k only) drops each sub-block scale's
+    low bit first, the paper's CVT53."""
+    if approx_cvt53 and fmt != "q3_k":
+        raise ValueError(f"approx_cvt53 is a q3_k option; got {fmt!r}")
+    w = dequant.dequantize(planes, fmt, approx_cvt53=approx_cvt53)
     return x.to(torch.float32) @ w.T
 
 

@@ -419,3 +419,172 @@ def test_flash_attention_deepseek_prefill_widths(cuda):
     torch.cuda.synchronize()
     assert out.shape == (2, 256, 128, 128)
     torch.testing.assert_close(out.float(), ref, rtol=2 ** -7, atol=1e-3)
+
+
+# --- The bf16 tensor-core kernels (bf16 q on bf16 or int8 pages, bf16
+# flash attention) at the widths and edges their designs must cover.
+
+@pytest.mark.parametrize("chunk", [1, 8])
+@pytest.mark.parametrize("bs", [4, 16, 64])
+def test_paged_attention_tc_granite_widths(cuda, bs, chunk):
+    """granite-moe's G = 3, D = 64: C * G = 24 query rows, two 16-row
+    tiles at chunk 8; a 16-key tile spans four pages at bs = 4 and a
+    quarter page at bs = 64 (the 384-key table of slot 0 walks two
+    splits of 256 keys, eight warps of two tiles, merged by the last
+    block)."""
+    _check_paged(cuda, chunk, "bfloat16", h=24, hkv=8, d=64, bs=bs,
+                 launches=2)
+
+
+def _dead_pages(c_tables, c_pos, c_lens, bs, nb):
+    live = set()
+    for b in range(len(c_pos)):
+        last = (int(c_pos[b]) + max(int(c_lens[b]), 1) - 1) // bs
+        live.update(int(p) for p in c_tables[b, :last + 1])
+    return [p for p in range(nb + 1) if p not in live]
+
+
+@pytest.mark.parametrize("pages", ["bfloat16", "int8"])
+@pytest.mark.parametrize("case", [(8, 8, 16, 8, 128, 16),
+                                  (3, 8, 24, 8, 64, 64)])
+def test_paged_attention_tc_repeatable_and_dead_pages(cuda, case, pages):
+    """bf16 q: two launches give the same bits, and pages no slot's walk
+    reaches (the null page included) full of NaN (int8: codes +-127 and
+    NaN scales) change no bit; int8 against the f32 plain version within
+    its f32 tolerance plus one bf16 ulp of the output."""
+    b, chunk, h, hkv, d, bs = case
+    c = _int8_pages(cuda, b, chunk, h, hkv, d, bs)
+    q = c["q"].to(torch.bfloat16)
+    if pages == "int8":
+        kp, vp = c["kq"], c["vq"]
+        kw = dict(k_scales=c["ks"], v_scales=c["vs"])
+    else:
+        from repro_torch.models.attention import dequantize_kv
+        kp = dequantize_kv(c["kq"], c["ks"]).to(torch.bfloat16)
+        vp = dequantize_kv(c["vq"], c["vs"]).to(torch.bfloat16)
+        kw = {}
+    args = (q, kp, vp, c["tables"], c["pos"])
+    run = lambda *a, **k: paged_decode_attention(  # noqa: E731
+        *a, sm_scale=d ** -0.5, lengths=c["lens"], **k)
+    out, out2 = run(*args, **kw), run(*args, **kw)
+    nb = kp.shape[0] - 1
+    dead = torch.tensor(_dead_pages(c["tables"].cpu().numpy(),
+                                    c["pos"].cpu().numpy(), c["np_lens"], bs,
+                                    nb), dtype=torch.long, device=cuda)
+    assert dead.numel() > 0
+    kd, vd = kp.clone(), vp.clone()
+    kwd = {n: v.clone() for n, v in kw.items()}
+    if pages == "int8":
+        kd[dead], vd[dead] = 127, -127
+        for v in kwd.values():
+            v[dead] = float("nan")
+    else:
+        kd[dead], vd[dead] = float("nan"), float("nan")
+    out3 = run(q, kd, vd, c["tables"], c["pos"], **kwd)
+    ref = paged_attention_ref(q.float(), *args[1:], sm_scale=d ** -0.5,
+                              **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(out, out3)
+    for i, n in enumerate(c["np_lens"]):
+        o, r = out[i, :n].float(), ref[i, :n]
+        ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+        ulp = torch.where(r == 0, torch.zeros_like(r), ulp)
+        assert bool(((o - r).abs() <= ulp + 2e-6 + 2e-5 * r.abs()).all())
+
+
+def test_paged_attention_tc_refuses_head_dim(cuda):
+    """bf16 q on bf16 pages needs D % 16 == 0 (the tensor-core kernel);
+    nothing is launched otherwise."""
+    q = torch.zeros((1, 1, 2, 72), dtype=torch.bfloat16, device=cuda)
+    kp = torch.zeros((2, 4, 1, 72), dtype=torch.bfloat16, device=cuda)
+    idx = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    pos = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    before = paged_decode_attention.launches
+    with pytest.raises(ValueError, match="multiple of 16"):
+        paged_decode_attention(q, kp, kp, idx, pos, sm_scale=1.0)
+    assert paged_decode_attention.launches == before
+
+
+# (B, Sq, Skv, H, Hkv, D, Dv, causal, q_offset): granite-moe's D = 64, a
+# ragged query tile (Sq = 77), Dv != D (deepseek-v3's 192 / 128) with GQA.
+FLASH_TC_SHAPES = [(2, 256, 256, 24, 8, 64, 64, True, 0),
+                   (3, 77, 77, 16, 8, 128, 128, True, 0),
+                   (2, 100, 160, 8, 2, 192, 128, True, 60),
+                   (2, 130, 130, 4, 4, 64, 128, False, 0)]
+
+
+@pytest.mark.parametrize("shape", FLASH_TC_SHAPES)
+def test_flash_attention_tc_matches_plain(cuda, shape):
+    """bf16 through the tensor-core kernel: within 1e-4 of the f32 plain
+    version plus one bf16 ulp of the output, and two launches give the
+    same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    b, sq, skv, h, hkv, d, dv, causal, off = shape
+    gen = torch.Generator(device=cuda).manual_seed(sq + d)
+    q, k = (torch.randn((b, s, n, d), generator=gen,
+                        device=cuda).to(torch.bfloat16)
+            for s, n in ((sq, h), (skv, hkv)))
+    v = torch.randn((b, skv, hkv, dv), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    out = flash_attention(q, k, v, causal=causal, q_offset=off)
+    out2 = flash_attention(q, k, v, causal=causal, q_offset=off)
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                        q_offset=off)
+    torch.cuda.synchronize()
+    assert out.shape == (b, sq, h, dv) and torch.equal(out, out2)
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    ulp = torch.where(ref == 0, torch.zeros_like(ref), ulp)
+    assert bool(((out.float() - ref).abs()
+                 <= ulp + 1e-4 + 1e-4 * ref.abs()).all())
+
+
+def test_flash_attention_tc_unseen_keys(cuda):
+    """bf16: keys past the causal horizon (q_offset + Sq - 1) full of NaN
+    are never loaded: the output is bit-identical to the one with finite
+    values there."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q = torch.randn((2, 100, 8, 128), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((2, 200, 2, 128), generator=gen,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    out = flash_attention(q, k, v, causal=True, q_offset=20)
+    k[:, 120:], v[:, 120:] = float("nan"), float("nan")
+    out2 = flash_attention(q, k, v, causal=True, q_offset=20)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
+
+
+def test_flash_attention_tc_refuses_head_dim(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.zeros((1, 8, 2, 72), dtype=torch.bfloat16, device=cuda)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="multiples of 16"):
+        flash_attention(q, q, q)
+    assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mnk", [(1, 64, 256), (64, 1024, 1024),
+                                 (70, 300, 3072)])
+def test_matmul_q3_k_approx_cvt53_matches_plain(cuda, mnk, dtype):
+    """The approx_cvt53 form (scales sc & ~1) against its plain version at
+    2e-5 of the output's scale; it counts on matmul_q3_k's launches."""
+    from repro_torch.kernels.q3_k_matmul import LAYOUT, matmul_q3_k
+    m, n, k = mnk
+    gen = torch.Generator(device=cuda).manual_seed(m + n + k)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(getattr(torch,
+                                                                     dtype))
+    planes = pack.quantize(torch.randn((n, k), generator=gen, device=cuda)
+                           * 0.05, "q3_k")
+    args = [planes[name] for name in LAYOUT]
+    before = matmul_q3_k.launches
+    y = matmul_q3_k(x, *args, approx_cvt53=True)
+    assert matmul_q3_k.launches == before + 1
+    ref = matmul_ref(x, planes, "q3_k", approx_cvt53=True)
+    exact = matmul_ref(x, planes, "q3_k")
+    torch.cuda.synchronize()
+    tol = 2e-5 * max(1.0, float(ref.abs().max()))
+    assert float((y - ref).abs().max()) <= tol
+    assert not torch.equal(ref, exact)

@@ -120,3 +120,30 @@ def test_q8_0_wrapper_checks():
 @pytest.mark.parametrize("fmt", ["fp16", "q6_k", "q3_k"])
 def test_wrapper_checks(fmt):
     _wrapper_checks(fmt)
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+def test_q3_k_approx_cvt53_matches_jax(impl):
+    """The CVT53 form (scales ``sc & ~1``) against the JAX package's, both
+    its plain version and its Pallas kernel in interpret mode, at
+    tests/test_kernels.py's shape and tolerance (2e-5)."""
+    x, jp, tp = _case(8, 512, 16, "q3_k", seed=3)
+    kw = dict(interpret=True) if impl == "pallas" else {}
+    y_j = jops.quantized_matmul(jnp.asarray(x), jp, "q3_k", impl=impl,
+                                approx_cvt53=True, **kw)
+    y_t = tops.quantized_matmul(torch.from_numpy(x), tp, "q3_k",
+                                approx_cvt53=True)
+    np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), **TOL)
+    # The approximation moves the result (odd scales exist).
+    exact = tops.quantized_matmul(torch.from_numpy(x), tp, "q3_k")
+    assert not torch.equal(exact, y_t)
+
+
+@pytest.mark.parametrize("fmt", ["fp16", "q8_0", "q6_k"])
+def test_approx_cvt53_is_q3_k_only(fmt):
+    _, _, tp = _case(2, 256, 8, fmt)
+    with pytest.raises(ValueError, match="q3_k option"):
+        tops.quantized_matmul(torch.zeros((2, 256)), tp, fmt,
+                              approx_cvt53=True)
+    with pytest.raises(ValueError, match="q3_k option"):
+        matmul_ref(torch.zeros((2, 256)), tp, fmt, approx_cvt53=True)
