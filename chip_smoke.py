@@ -19,9 +19,8 @@ Phases, one line each (every failure exits non-zero):
             decode and prefill widths), with the tolerance stated, its
             time, the plain version's time, one library call's time (a
             yardstick only: the port never calls it) and the least time
-            the card could take for the same work; the bf16 attention
-            kernels (tensor cores) also beside the CUDA-core kernel that
-            f32 operands take, timed on the same bf16 operands;
+            the card could take for the same work; the matmuls also at
+            the prefill's M = 4,096 (per prefill beside per step);
 4. serve  — ``repro_torch.launch.serve`` at the full width of
             qwen3-0.6b (seeded random weights made on the card): the
             paged stream once for each of the paper's weight recipes
@@ -35,8 +34,9 @@ Phases, one line each (every failure exits non-zero):
             MoE layer) on bf16 and int8 pages and its ``model.prefill``
             of 8 x 512 tokens, and granite-moe at its full 32 layers, with
             the same stream and exact launches; from here on every
-            attention launch's route is counted, and a model path that
-            reaches a CUDA-core (f32) kernel fails;
+            attention and matmul launch's route is counted (by dtype):
+            a serve or prefill that reaches a CUDA-core (f32) kernel
+            fails, as does any model-path attention launch that does;
 5. checks — per recipe, one full-width decode step (depth cut to 2
             layers) against the plain CPU path, and a shorter serve under
             torch.profiler; for q8_0 also a 2-layer prefill and a 2-layer
@@ -126,6 +126,7 @@ INT8_LAUNCHES = {"matmul_q8_0": 197, "paged_decode_attention_int8": 28}
 BATCH_LAUNCHES = {"matmul_q8_0": 197}           # contiguous arena
 PREFILL_LAUNCHES = {"matmul_q8_0": 197, "flash_attention": 28}
 M_STEP = 64                                     # slots x chunk
+M_PREFILL = PREFILL_SHAPE[0] * PREFILL_SHAPE[1]
 # The MoE models: the same stream at full width (q8_0). deepseek-v3 is cut
 # to 4 layers (its 3 dense MLA layers and one MLA + MoE layer; 61 do not
 # fit one card), granite-moe runs all 32.
@@ -279,18 +280,90 @@ def check_matmul(torch, dev, name):
         per_step += count
         del cps, wf
     b_ms, b_by = bound(totals["bytes"], totals["flops"])
+    prefill, err = time_matmul_prefill(torch, dev, name)
+    worst = max(worst, err)
     print(f"kernel {name} per unified step of the {fmt} recipe ({per_step} "
           f"launches at M={M_STEP}): kernel {totals['ms']:.4f} ms | plain "
           f"{totals['plain_ms']:.4f} ms | library {totals['library_ms']:.4f} "
-          f"ms | bound {b_ms:.4f} ms ({b_by})", flush=True)
+          f"ms | bound {b_ms:.4f} ms ({b_by}) || per {PREFILL_SHAPE[0]} x "
+          f"{PREFILL_SHAPE[1]} prefill (196 linears at M={M_PREFILL}): kernel "
+          f"{prefill['ms']:.3f} ms | plain {prefill['plain_ms']:.3f} ms | "
+          f"library {prefill['library_ms']:.3f} ms | bound "
+          f"{prefill['bound_ms']:.3f} ms ({prefill['bound_by']})", flush=True)
     row = dict(name=name, route="cuda",
                source=f"src/repro_torch/csrc/{fmt}_matmul.cu",
                replaces=replaces, max_abs_err=worst, ms=totals["ms"],
                plain_ms=totals["plain_ms"], bound_ms=b_ms, bound_by=b_by,
-               library_ms=totals["library_ms"])
+               library_ms=totals["library_ms"], prefill=prefill)
     if name in OFF_MAIN_PATH:
         row["main_path"] = False
     return row
+
+
+def time_matmul_prefill(torch, dev, name):
+    """The seven linears of qwen3-0.6b at the prefill's M = 8 x 512
+    (each 28 times per prefill): the kernel against its plain version
+    (2e-5 of the output's scale, bf16 output the f32 one rounded), timed
+    beside the plain version and cuBLAS f32, each with its bound (the
+    flops bound it here). Returns the per-prefill totals and the worst
+    error."""
+    from repro_torch.core.quant import dequant, pack
+    from repro_torch.kernels.ops import MATMUL_KERNELS
+    from repro_torch.kernels.ref import matmul_ref
+    fmt = MATMULS[name][0]
+    wrapper, layout = MATMUL_KERNELS[fmt]
+    kw = {"approx_cvt53": True} if name in OFF_MAIN_PATH else {}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(10)
+    tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0.0, flops=0.0)
+    worst = 0.0
+    for shape, n, k in LINEARS:
+        m = M_PREFILL
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        planes = pack.quantize(
+            torch.randn((n, k), generator=gen, device=dev) * 0.02, fmt)
+        args = [planes[p] for p in layout]
+        y = wrapper(x, *args, **kw)
+        y16 = wrapper(x, *args, out_dtype=torch.bfloat16, **kw)
+        ref = matmul_ref(x, planes, fmt, **kw)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        tol = 2e-5 * max(1.0, float(ref.abs().max()))
+        if not bool(torch.isfinite(y).all()) or err > tol \
+                or not torch.equal(y16, y.to(torch.bfloat16)):
+            fail(f"{name} {shape} ({m}x{n}x{k}): max_abs_err {err:.3e} "
+                 f"> {tol:.3e}, or the bf16 output is not the f32 result "
+                 "rounded")
+        worst = max(worst, err)
+        del y, y16, ref
+        launches0 = wrapper.launches
+        bf16 = torch.bfloat16
+        t_k = time_ms(torch, [lambda: wrapper(x, *args, out_dtype=bf16,
+                                               **kw)], 10)
+        wrapper.launches = launches0
+        t_p = time_ms(torch, [lambda: matmul_ref(x, planes, fmt, **kw).to(
+            bf16)], 3)
+        xf = x.float()
+        wf = dequant.dequantize(planes, fmt, **kw) if kw else \
+            dequant.DEQUANTIZERS[fmt](planes)
+        t_l = time_ms(torch, [lambda: torch.matmul(xf, wf.T)], 5)
+        wbytes = sum(p.numel() * p.element_size() for p in planes.values())
+        nbytes = wbytes + x.numel() * 2 + m * n * 2
+        flops = 2.0 * m * n * k
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"kernel {name} {shape} M={m} N={n} K={k}: max_abs_err "
+              f"{err:.3e} (tol {tol:.3e}), bf16 out = f32 out rounded | "
+              f"bf16-out kernel {t_k:.4f} ms ({flops / t_k / 1e9:.1f} "
+              f"TFLOP/s) | plain {t_p:.4f} ms | library(torch.matmul f32, "
+              f"pre-dequantized) {t_l:.4f} ms | bound {b_ms:.4f} ms ({b_by})",
+              flush=True)
+        for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                       ("bytes", nbytes), ("flops", flops)):
+            tot[key] += 28 * v
+        del x, xf, wf, planes, args
+    b_ms, b_by = bound(tot.pop("bytes"), tot.pop("flops"))
+    torch.cuda.empty_cache()
+    return dict(tot, bound_ms=b_ms, bound_by=b_by), worst
 
 
 def _paged_case(torch, np, dev, dtype, H=16, D=128, MB=16):
@@ -323,8 +396,7 @@ def _paged_case(torch, np, dev, dtype, H=16, D=128, MB=16):
 
 def check_paged_attention(torch, np, dev):
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention import (_launch_gqa,
-                                                     paged_decode_attention)
+    from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.ref import paged_attention_ref
     worst = 0.0
     # (dtype, rtol, atol): f32 is the blocked-online vs dense softmax
@@ -370,10 +442,7 @@ def check_paged_attention(torch, np, dev):
         print(f"kernel paged_decode_attention {dtype}: max_abs_err {err:.3e} "
               f"(rtol {rtol:g} atol {atol:g}, valid rows) | {len(dead)} dead "
               "pages NaN-filled: output bit-identical", flush=True)
-    # Timing at the serving dtype (bf16), the case above: the tensor-core
-    # kernel the wrapper launches, and beside it the earlier CUDA-core
-    # kernel on the same operands (the f32 route; no model path runs it
-    # on bf16).
+    # Timing at the serving dtype (bf16), the case above.
     B, C, H, D = c["q"].shape
     Hkv = c["kp"].shape[2]
     G, bs = H // Hkv, c["bs"]
@@ -381,9 +450,6 @@ def check_paged_attention(torch, np, dev):
     t_k = time_ms(torch, [lambda: paged_decode_attention(
         *args, sm_scale=c["sm"], lengths=c["lens"])], 200)
     paged_decode_attention.launches = launches0
-    t_o = time_ms(torch, [lambda: _launch_gqa(
-        *args[:3], None, None, *args[3:], c["lens"], c["sm"],
-        tensor_cores=False)], 200)
     t_p = time_ms(torch, [lambda: paged_attention_ref(
         *args, sm_scale=c["sm"])], 50)
     # Library yardstick: SDPA over the gathered (B, H, S, D) view with the
@@ -406,8 +472,7 @@ def check_paged_attention(torch, np, dev):
     flops = keys * Hkv * (C * G) * 4 * D
     b_ms, b_by = bound(nbytes, flops)
     print(f"kernel paged_decode_attention bf16 B={B} C={C} H={H} Hkv={Hkv} "
-          f"D={D} bs={bs}: kernel {t_k:.4f} ms | earlier CUDA-core kernel "
-          f"{t_o:.4f} ms | plain {t_p:.4f} ms | "
+          f"D={D} bs={bs}: kernel {t_k:.4f} ms | plain {t_p:.4f} ms | "
           f"library(SDPA on gathered view) {t_l:.4f} ms | bound {b_ms:.5f} ms "
           f"({b_by}) | per step x28: kernel {28 * t_k:.4f} ms", flush=True)
     return dict(name="paged_decode_attention", route="cuda",
@@ -415,8 +480,7 @@ def check_paged_attention(torch, np, dev):
                 replaces="src/repro/kernels/paged_attention.py:156",
                 max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
                 bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l,
-                earlier_ms=28 * t_o, ms_per_call=t_k,
-                granite=time_paged_granite(torch, np, dev),
+                ms_per_call=t_k, granite=time_paged_granite(torch, np, dev),
                 long_table=check_paged_long_table(torch, np, dev))
 
 
@@ -495,10 +559,8 @@ def check_paged_long_table(torch, np, dev):
 def time_paged_granite(torch, np, dev):
     """The GQA form at granite-moe's decode widths (H = 24, Hkv = 8,
     D = 64: 24 query rows of a kv-head, two 16-row tiles), bf16, against
-    the plain version, timed per call and per step (32 layers): the
-    tensor-core kernel and the earlier CUDA-core kernel side by side."""
-    from repro_torch.kernels.paged_attention import (_launch_gqa,
-                                                     paged_decode_attention)
+    the plain version, timed per call and per step (32 layers)."""
+    from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.ref import paged_attention_ref
     c = _paged_case(torch, np, dev, torch.bfloat16, H=24, D=64)
     args = (c["q"], c["kp"], c["vp"], c["tables"], c["pos"])
@@ -517,9 +579,6 @@ def time_paged_granite(torch, np, dev):
     t_k = time_ms(torch, [lambda: paged_decode_attention(
         *args, sm_scale=c["sm"], lengths=c["lens"])], 200)
     paged_decode_attention.launches = launches0
-    t_o = time_ms(torch, [lambda: _launch_gqa(
-        *args[:3], None, None, *args[3:], c["lens"], c["sm"],
-        tensor_cores=False)], 200)
     t_p = time_ms(torch, [lambda: paged_attention_ref(
         *args, sm_scale=c["sm"])], 50)
     B, C, H, D = c["q"].shape
@@ -529,12 +588,11 @@ def time_paged_granite(torch, np, dev):
     b_ms, b_by = bound(nbytes, keys * 8 * (C * 3) * 4 * D)
     print(f"kernel paged_decode_attention bf16 granite-moe widths B={B} "
           f"C={C} H={H} Hkv=8 D={D}: max_abs_err {err:.3e} (rtol 2^-7 atol "
-          f"1e-3) | kernel {t_k:.4f} ms | earlier CUDA-core kernel "
-          f"{t_o:.4f} ms | plain {t_p:.4f} ms | bound {b_ms:.5f} ms ({b_by})"
-          f" | per step x32: kernel {32 * t_k:.4f} ms, earlier "
-          f"{32 * t_o:.4f} ms", flush=True)
-    return dict(ms_per_call=t_k, earlier_ms_per_call=t_o, plain_ms=t_p,
-                bound_ms=b_ms, max_abs_err=err)
+          f"1e-3) | kernel {t_k:.4f} ms | plain {t_p:.4f} ms | bound "
+          f"{b_ms:.5f} ms ({b_by}) | per step x32: kernel {32 * t_k:.4f} "
+          "ms", flush=True)
+    return dict(ms_per_call=t_k, plain_ms=t_p, bound_ms=b_ms,
+                max_abs_err=err)
 
 
 def _live_pages(c):
@@ -553,8 +611,7 @@ def check_paged_int8(torch, np, dev):
     """The int8 form of paged_decode_attention (int8 code pages, fp16
     scale pages) at the main path's decode shapes."""
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention import (_launch_gqa,
-                                                     paged_decode_attention)
+    from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.ref import paged_attention_ref
     from repro_torch.models.attention import quantize_kv
     c = _paged_case(torch, np, dev, torch.float32)
@@ -619,9 +676,6 @@ def check_paged_int8(torch, np, dev):
         *args, sm_scale=c["sm"], lengths=c["lens"], k_scales=ks,
         v_scales=vs)], 200)
     paged_decode_attention.int8_launches = launches0
-    t_o = time_ms(torch, [lambda: _launch_gqa(
-        *args[:3], ks, vs, *args[3:], c["lens"], c["sm"],
-        tensor_cores=False)], 200)
     t_p = time_ms(torch, [lambda: paged_attention_ref(
         *args, sm_scale=c["sm"], k_scales=ks, v_scales=vs)], 50)
     # Library yardstick: SDPA over the dequantized gathered (B, H, S, D)
@@ -643,8 +697,7 @@ def check_paged_int8(torch, np, dev):
     flops = keys * Hkv * (C * G) * 4 * D
     b_ms, b_by = bound(nbytes, flops)
     print(f"kernel paged_decode_attention int8 B={B} C={C} H={H} Hkv={Hkv} "
-          f"D={D} bs={c['bs']}: kernel {t_k:.4f} ms | earlier CUDA-core "
-          f"kernel {t_o:.4f} ms | plain {t_p:.4f} ms | "
+          f"D={D} bs={c['bs']}: kernel {t_k:.4f} ms | plain {t_p:.4f} ms | "
           f"library(SDPA on dequantized gathered view) {t_l:.4f} ms | bound "
           f"{b_ms:.5f} ms ({b_by}) | per step x28: kernel {28 * t_k:.4f} ms",
           flush=True)
@@ -653,7 +706,7 @@ def check_paged_int8(torch, np, dev):
                 replaces="src/repro/kernels/paged_attention.py:156",
                 max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
                 bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l,
-                earlier_ms=28 * t_o, ms_per_call=t_k)
+                ms_per_call=t_k)
 
 
 def _mla_case(torch, np, dev, shape, seed, entries=None, deep=False):
@@ -918,11 +971,10 @@ def check_flash(torch, dev):
     t_k = time_ms(torch, [lambda: flash_attention(q, k, v, causal=causal)],
                   50)
     flash_attention.launches = launches0
-    # The earlier CUDA-core kernel on the same bf16 operands (the f32
-    # route; no model path runs it on bf16).
+    # PR 15's mma.sync kernel on the same operands (uncounted).
     t_o = time_ms(torch, [lambda: _launch(
         q, k, v, causal=causal, sm_scale=d ** -0.5, q_offset=0,
-        tensor_cores=False, count=False)], 20)
+        entry="flash_attention_mma")], 50)
     t_p = time_ms(torch, [lambda: attention_ref(q, k, v, causal=causal)], 20)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     t_l = time_ms(torch, [lambda: F.scaled_dot_product_attention(
@@ -932,7 +984,7 @@ def check_flash(torch, dev):
     flops = 4.0 * b * h * d * pairs
     b_ms, b_by = bound(nbytes, flops)
     print(f"kernel flash_attention bf16 B={b} S={sq} H={h} Hkv={hkv} D={d} "
-          f"causal: kernel {t_k:.4f} ms | earlier CUDA-core kernel "
+          f"causal: kernel {t_k:.4f} ms | PR 15's mma.sync kernel "
           f"{t_o:.4f} ms | plain {t_p:.4f} ms | "
           f"library(SDPA is_causal, enable_gqa) {t_l:.4f} ms | bound "
           f"{b_ms:.5f} ms ({b_by}) | per prefill x28: kernel "
@@ -943,7 +995,7 @@ def check_flash(torch, dev):
                 replaces="src/repro/kernels/flash_attention.py:73",
                 max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
                 bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l,
-                earlier_ms=28 * t_o, ms_per_call=t_k,
+                mma_ms=28 * t_o, ms_per_call=t_k,
                 deepseek_prefill=check_flash_mla(torch, dev))
 
 
@@ -979,7 +1031,7 @@ def check_flash_mla(torch, dev):
     flash_attention.launches = launches0
     t_o = time_ms(torch, [lambda: _launch(
         q, k, v, causal=True, sm_scale=sm, q_offset=0,
-        tensor_cores=False, count=False)], 3)
+        entry="flash_attention_mma")], 10)
     t_p = time_ms(torch, [lambda: attention_ref(
         q, k, v, causal=True, sm_scale=sm)], 3)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -992,7 +1044,7 @@ def check_flash_mla(torch, dev):
     print(f"kernel flash_attention deepseek-v3 prefill bf16 B={b} S={s} "
           f"H={h} D={d} Dv={dv} causal: max_abs_err {err:.3e} (rtol/atol "
           f"1e-4 of the f32 plain version + one bf16 ulp) | kernel "
-          f"{t_k:.4f} ms | earlier CUDA-core kernel {t_o:.4f} ms | plain "
+          f"{t_k:.4f} ms | PR 15's mma.sync kernel {t_o:.4f} ms | plain "
           f"{t_p:.4f} ms | library(SDPA is_causal) "
           f"{t_l:.4f} ms | bound {b_ms:.5f} ms ({b_by}) | per prefill x{n}:"
           f" kernel {n * t_k:.4f} ms", flush=True)
@@ -1000,7 +1052,7 @@ def check_flash_mla(torch, dev):
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=n * t_k, plain_ms=n * t_p,
                 bound_ms=n * b_ms, bound_by=b_by, library_ms=n * t_l,
-                ms_per_call=t_k, earlier_ms_per_call=t_o)
+                ms_per_call=t_k, mma_ms_per_call=t_o)
 
 
 def _to(tree, d):
@@ -1454,23 +1506,39 @@ def check_moe_models(torch, dev, serve, ds, gr) -> None:
                   arena=GRANITE_ARGS[:-8], label="granite-moe q8_0")
 
 
-def record_attention_routes():
-    """Count, from here on, which kernel each attention launch takes (the
-    wrappers pick by dtype): {route: launches}. Every model path passes
-    bf16, so the CUDA-core routes must stay at 0."""
+def record_routes(torch):
+    """Count, from here on, which kernel each attention and matmul launch
+    takes (the wrappers pick by dtype): {route: launches}. Every model
+    path passes bf16 activations, so the f32 (CUDA-core) routes must stay
+    at 0."""
+    from repro_torch.kernels import _dequant_matmul as dm
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
-    seen = {"flash tensor cores": 0, "flash CUDA cores": 0,
-            "paged GQA tensor cores": 0, "paged GQA CUDA cores": 0}
+    seen = {}
 
-    def counted(fn, label):
-        def run(*a, tensor_cores, **kw):
-            seen[f"{label} {'tensor' if tensor_cores else 'CUDA'} cores"] += 1
-            return fn(*a, tensor_cores=tensor_cores, **kw)
+    def counted(fn, label, arg):
+        def run(*a, **kw):
+            route = "bf16 (tensor cores)" if a[arg].dtype == torch.bfloat16 \
+                else "f32 (CUDA cores)"
+            key = f"{label} {route}"
+            seen[key] = seen.get(key, 0) + 1
+            return fn(*a, **kw)
         return run
-    fa._launch = counted(fa._launch, "flash")
-    pa._launch_gqa = counted(pa._launch_gqa, "paged GQA")
+    fa._launch = counted(fa._launch, "flash", 0)
+    pa._launch_gqa = counted(pa._launch_gqa, "paged GQA", 0)
+    dm.launch = counted(dm.launch, "matmul", 2)     # launch(wrapper, name, x)
     return seen
+
+
+def check_routes(routes, label, kinds):
+    """Fail unless every launch of ``kinds`` took the bf16 route, and
+    each kind took it at least once."""
+    bad = {k: v for k, v in routes.items() if "f32" in k and v}
+    missing = [k for k in kinds if not routes.get(f"{k} bf16 (tensor cores)")]
+    if bad or missing:
+        fail(f"routes of {label}: {routes} (every model path passes bf16: "
+             "tensor cores only)")
+    print(f"routes of {label}: {routes}", flush=True)
 
 
 def main() -> None:
@@ -1519,7 +1587,7 @@ def main() -> None:
           "s", flush=True)
 
     from repro_torch.launch import serve
-    routes = record_attention_routes()
+    routes = record_routes(torch)
     by_serve = {}
     for quant in RECIPE_LAUNCHES:
         by_serve[quant] = serve_recipe(torch, dev, serve, quant)
@@ -1546,18 +1614,16 @@ def main() -> None:
         tag="serve granite-moe q8_0", argv=GRANITE_ARGS, setup=gr)
     print(f"chip_smoke: serves done at {time.perf_counter() - T0:.1f} s",
           flush=True)
+    check_routes(routes, "the serves and prefills",
+                 ("flash", "paged GQA", "matmul"))
     for quant in RECIPE_LAUNCHES:
         check_recipe(torch, dev, serve, quant)
     check_moe_models(torch, dev, serve, ds, gr)
     del ds, gr
 
-    if routes["flash CUDA cores"] or routes["paged GQA CUDA cores"] or \
-            not routes["flash tensor cores"] or \
-            not routes["paged GQA tensor cores"]:
-        fail(f"attention routes of the model paths: {routes} (every model "
-             "path passes bf16: tensor cores only)")
-    print(f"attention routes of the model paths (serves, prefills, checks): "
-          f"{routes}", flush=True)
+    check_routes({k: v for k, v in routes.items() if "matmul" not in k},
+                 "the model paths' attention (serves, prefills, checks)",
+                 ("flash", "paged GQA"))
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in by_serve.values())
         k["launches_by_run"] = {q: c[k["name"]] for q, c in by_serve.items()

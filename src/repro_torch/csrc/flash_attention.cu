@@ -19,35 +19,38 @@
 // Two kernels, picked by dtype alone (the wrapper's docstring says so):
 //
 // bf16 (every prefill and forward of the models; D, Dv multiples of 16):
-// the tensor-core kernel, tc::flash_tc_kernel. At prefill sizes the
-// flops (~S * Hkv-group per byte) are far above the ridge, so the
-// tensor cores bound the function. Design:
-//   * a block of 4 warps takes 64 query rows: 64 / G positions of the G
-//     heads that share a kv-head (G <= 8; else one head), so every K/V
-//     tile feeds all of them; the heaviest causal tiles first; each
-//     warp owns 16 rows and keeps their running max, sum and output in
-//     registers (a row's 4 lanes reduce with shuffles), and up to D = 128
-//     its Q fragments too;
-//   * Q once and K/V tiles of 32 keys in a cp.async ring (3 stages and
-//     one barrier a tile where three blocks still fit an SM, else 2), in
-//     bf16 read straight from the (B, S, heads, D) rows (row stride
-//     heads x D) and zero-filled past Skv, past the causal horizon and
-//     past D (cp.async src-size 0: nothing is read, and a masked p of 0
-//     never meets garbage); rows padded by 16 bytes, so every ldmatrix
-//     is conflict-free and every fragment address is a constant offset;
-//   * S = Q.K^T with mma.sync m16n8k16 bf16 -> f32 (bf16 products are
-//     exact in f32: the scores match the f32 plain version up to
-//     summation order), the next fragment loading while the current
-//     products run; the online softmax in the log2 domain (ex2);
-//   * P.V as two bf16 products on P_hi = bf16(p) and P_lo = bf16(p -
-//     P_hi) (exact to ~2^-17 of p; one bf16 P would lose 2^-9 and miss
-//     the f32 tolerance), V fragments by ldmatrix.trans; l from the f32
-//     p; causal tiles past the diagonal are never loaded.
-//   It runs well below the mma.sync rate: each tile's S -> softmax ->
-//   P.V chain is serial inside a warp and three warps share an SM
-//   sub-partition (registers), so the tensor cores idle through the
-//   softmax; wgmma (asynchronous products from shared memory) is the
-//   way past that (PERF.md).
+// the wgmma kernel, wg::flash_wgmma_kernel. At prefill sizes the flops
+// (~S * Hkv-group per byte) are far above the ridge, so the tensor cores
+// -- and the softmax's exponentials between their products -- bound it.
+// Design:
+//   * persistent: one block per SM walks work items (item_at: rounds of
+//     gridDim.x items, zig-zag, heaviest causal items first); an item is
+//     128 query rows, 128 / G positions of the G heads that share a
+//     kv-head (G <= 8; else one head), so every K/V tile feeds all of
+//     them;
+//   * a producer warp (setmaxnreg: 24 registers) loads the item's Q by
+//     TMA -- the (B, S, heads, D) tensor described in place as a 5-D map,
+//     so the box is the item's rows in order -- and K/V tiles of 128 keys
+//     (64 at D or Dv > 128) into a 2- or 3-stage ring, in the 128-byte
+//     swizzle wgmma reads; mbarriers carry the TMA bytes and the
+//     consumers' releases; Q is released when the item's last S product
+//     has read it, so the next item's Q loads under this one's P.V;
+//   * two consumer warpgroups (240 registers) of 64 rows each: S = Q.K^T
+//     with wgmma m64nBKk16 from shared memory (bf16 products are exact
+//     in f32: the scores match the f32 plain version up to summation
+//     order), the online softmax on the accumulator in registers in the
+//     log2 domain (ex2), and O += P.V with the register-A form of wgmma,
+//     V read transposed from shared memory (no transpose anywhere), P as
+//     P_hi = bf16(p) and P_lo = bf16(p - P_hi) (exact to ~2^-17 of p; one
+//     bf16 P would lose 2^-9 and miss the f32 tolerance); the next tile's
+//     S product queues behind this tile's P.V and one wait completes both,
+//     so the tensor cores run them back to back while nothing is in
+//     flight across iterations (ptxas would serialize every wgmma); the
+//     two warpgroups' softmaxes and products interleave;
+//   * keys past Skv arrive as zeros (TMA) and are masked; causal tiles
+//     past the diagonal are never loaded; in an item's last tile V rows
+//     past its horizon are zeroed before P.V, so NaN there cannot meet a
+//     masked p of 0.
 //
 // f32 (the f32 checks; tensor cores cannot meet the f32 tolerance): the
 // CUDA-core kernel, flash_attention_kernel (D and Dv multiples of 4),
@@ -67,6 +70,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -83,23 +87,12 @@ struct Shape {
   int fold;                            // bf16 kernel: heads of a block
 };
 
-// 4 consecutive elements -> f32 (16-byte f32 / 8-byte bf16 loads).
+// 4 consecutive floats (16-byte loads and stores).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 __device__ __forceinline__ void store4(float4 v, float* p) {
   *reinterpret_cast<float4*>(p) = v;
-}
-__device__ __forceinline__ void store4(float4 v, __nv_bfloat16* p) {
-  __nv_bfloat162 h[2] = {__floats2bfloat162_rn(v.x, v.y),
-                         __floats2bfloat162_rn(v.z, v.w)};
-  *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(h);
 }
 
 // rows x width elements of a (B, S, heads, width) tensor, starting at
@@ -687,53 +680,494 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------
+// bf16 form: wgmma products, TMA staging, a producer warp (see the top
+// note).
+// ---------------------------------------------------------------------
+namespace wg {
+
+
+using bf16 = __nv_bfloat16;
+using namespace repro_torch::hopper;
+
+constexpr int BQ = 128;                // query rows of a block
+constexpr int THREADS = 384;           // producer warpgroup + 2 consumers
+constexpr int SMEM_SM = 227 * 1024;
+
+__host__ __device__ constexpr bool fits(int DP, int DVP, int BK, int NS) {
+  return BQ * DP * 2 + NS * BK * (DP + DVP) * 2 + 2048 <= SMEM_SM;
+}
+
+template <int DP, int DVP>
+struct Layout {
+  // Keys of a K/V tile: 128 where Q and a 2-stage ring of them fit the
+  // SM, else 64; a third stage where it fits too.
+  static constexpr int BK = fits(DP, DVP, 128, 2) ? 128 : 64;
+  static constexpr int NS = fits(DP, DVP, BK, 3) ? 3 : 2;
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int K_BYTES = BK * DP * 2;
+  static constexpr int V_BYTES = BK * DVP * 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + NS * K_BYTES;
+  static constexpr int BAR_OFF = V_OFF + NS * V_BYTES;
+  // q_full, q_empty, k_full[NS], v_full[NS], empty[NS]; 1024 bytes of
+  // alignment.
+  static constexpr size_t SMEM = BAR_OFF + 8 * (2 + 3 * NS) + 1024;
+};
+
+template <int BK>
+__device__ __forceinline__ void qk_product(float (&s)[BK / 2], uint64_t dq,
+                                           uint64_t dk, int scale_d) {
+  if constexpr (BK == 128)
+    wgmma_ss_n128(s, dq, dk, scale_d);
+  else
+    wgmma_ss_n64(s, dq, dk, scale_d);
+}
+
+// One work item: BQ / F query positions of the F heads of a head group
+// in one batch row; items are numbered heaviest causal tiles first.
+struct Item {
+  int p0, hg, b, hk, k_hi, ntiles;
+};
+
+template <int BK>
+__device__ __forceinline__ Item item_of(const Shape& s, int w) {
+  const int F = s.fold, bqp = BQ / F, hgs = s.H / F;
+  const int npt = (s.Sq + bqp - 1) / bqp;
+  const int t = w / (hgs * s.B), r = w % (hgs * s.B);
+  Item it;
+  it.p0 = (npt - 1 - t) * bqp;
+  it.hg = r % hgs;
+  it.b = r / hgs;
+  it.hk = it.hg * F / (s.H / s.Hkv);
+  int k_hi = s.Skv;                    // keys the item's rows can see
+  if (s.causal) k_hi = min(k_hi, s.q_offset + min(it.p0 + bqp, s.Sq));
+  it.k_hi = max(k_hi, 0);
+  it.ntiles = (it.k_hi + BK - 1) / BK;
+  return it;
+}
+
+// Item of round k of this block: rounds of gridDim.x items, taken in
+// ascending block order in even rounds and descending in odd ones, so the
+// heavy and light items of the causal order even out across blocks.
+__device__ __forceinline__ int item_at(int k) {
+  const int n = gridDim.x, x = blockIdx.x;
+  return k * n + (k & 1 ? n - 1 - x : x);
+}
+
+template <int DP, int DVP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv,
+                   bf16* __restrict__ out, Shape s, float sm_scale,
+                   int items) {
+  using L = Layout<DP, DVP>;
+  constexpr int BK = L::BK, NS = L::NS;
+  constexpr int NQC = DP / 64, NVC = DVP / 64;     // 64-column tiles
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* q_sh = smem;                      // [NQC][BQ][64]
+  unsigned char* k_sh = smem + L::K_OFF;           // [NS][NQC][BK][64]
+  unsigned char* v_sh = smem + L::V_OFF;           // [NS][NVC][BK][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* q_full = bars;
+  uint64_t* q_empty = bars + 1;
+  uint64_t* k_full = bars + 2;
+  uint64_t* v_full = bars + 2 + NS;
+  uint64_t* empty = bars + 2 + 2 * NS;
+
+  // Rows r = position r / F, head r % F of the F heads that share a
+  // kv-head; rows past F * bqp are no box's (zeros, never stored).
+  const int F = s.fold, bqp = BQ / F, rows = F * bqp;
+  const int wgi = warpgroup_index();
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);             // one arrival per consumer warp
+    for (int i = 0; i < NS; ++i) {
+      mbar_init(&k_full[i], 1);
+      mbar_init(&v_full[i], 1);
+      mbar_init(&empty[i], 8);
+    }
+    mbar_init_fence();
+  }
+  if (rows < BQ && wgi > 0) {
+    for (int i = threadIdx.x - 128; i < NQC * (BQ - rows) * 8; i += 256) {
+      const int c = i / ((BQ - rows) * 8), r = rows + (i / 8) % (BQ - rows);
+      *reinterpret_cast<uint4*>(q_sh + c * BQ * 128 + r * 128 + (i % 8) * 16) =
+          make_uint4(0, 0, 0, 0);
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {
+    // Producer: one thread loads each item's Q once its last S product
+    // has read the previous one, and keeps the K/V ring full by TMA.
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      int g = 0;                       // K/V tiles loaded so far
+      for (int li = 0; item_at(li) < items; ++li) {
+        const Item itm = item_of<BK>(s, item_at(li));
+        mbar_wait(q_empty, (li & 1) ^ 1);
+        mbar_arrive_tx(q_full, NQC * rows * 128);
+        for (int c = 0; c < NQC; ++c)
+          tma_load_5d(q_sh + c * BQ * 128, &tq, q_full, c * 64, 0, itm.hg,
+                      itm.p0, itm.b);
+        for (int it = 0; it < itm.ntiles; ++it, ++g) {
+          const int st = g % NS;
+          mbar_wait(&empty[st], ((g / NS) & 1) ^ 1);
+          mbar_arrive_tx(&k_full[st], L::K_BYTES);
+          for (int c = 0; c < NQC; ++c)
+            tma_load_4d(k_sh + st * L::K_BYTES + c * BK * 128, &tk,
+                        &k_full[st], c * 64, itm.hk, it * BK, itm.b);
+          mbar_arrive_tx(&v_full[st], L::V_BYTES);
+          for (int c = 0; c < NVC; ++c)
+            tma_load_4d(v_sh + st * L::V_BYTES + c * BK * 128, &tv,
+                        &v_full[st], c * 64, itm.hk, it * BK, itm.b);
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers: warpgroup cw takes rows 64 cw .. 64 cw + 63 of each item.
+  setmaxnreg_inc<240>();
+  const int cw = wgi - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g4 = lane / 4, t = lane % 4;
+  const int r0 = 64 * cw + 16 * warp + g4;         // rows r0, r0 + 8
+  const uint32_t q_base = smem_addr(q_sh) + cw * 64 * 128;
+  const uint32_t k_base = smem_addr(k_sh), v_base = smem_addr(v_sh);
+  const float sl2 = sm_scale * 1.4426950408889634f;
+  auto release = [&](uint64_t* bar) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar);
+  };
+
+  // Scores of the current tile; P = P_hi + P_lo of it.
+  float sc[BK / 2];
+  uint32_t ph[BK / 16][4], pl[BK / 16][4];
+  // S = Q . K^T of ring tile g: 64 rows x BK keys, f32.
+  auto issue_s = [&](int g) {
+    const int st = g % NS;
+    mbar_wait(&k_full[st], (g / NS) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < DP / 16; ++kd)
+      qk_product<BK>(
+          sc, desc(q_base + (kd / 4) * BQ * 128 + (kd % 4) * 32, 16, 1024),
+          desc(k_base + st * L::K_BYTES + (kd / 4) * BK * 128 + (kd % 4) * 32,
+               16, 1024),
+          kd > 0);
+  };
+
+  int g = 0;                           // K/V tiles consumed so far
+  for (int li = 0; item_at(li) < items; ++li) {
+    const Item itm = item_of<BK>(s, item_at(li));
+    const int k_hi = itm.k_hi, ntiles = itm.ntiles;
+    const int qp[2] = {itm.p0 + r0 / F, itm.p0 + (r0 + 8) / F};
+    float o[NVC][32];
+#pragma unroll
+    for (int j = 0; j < NVC; ++j)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[j][e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    mbar_wait(q_full, li & 1);
+    if (ntiles > 0) {
+      issue_s(g);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+    }
+    if (ntiles <= 1) release(q_empty);   // the item's last S has read Q
+    for (int it = 0; it < ntiles; ++it, ++g) {
+      const int st = g % NS, k0 = it * BK;
+
+      // Scale into the log2 domain and mask: only a tile on the causal
+      // diagonal or the ragged key edge has masked entries. Row r sees
+      // this tile's columns c < lim(r) = min(k_hi, q_offset + qp(r) + 1)
+      // - k0; a masked score is set (not added), so a NaN key past k_hi
+      // is gone.
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] *= sl2;
+      if (k0 + BK > k_hi || (s.causal && k0 + BK - 1 > s.q_offset + itm.p0)) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          int lim = k_hi - k0 - 2 * t;
+          if (s.causal) lim = min(lim, s.q_offset + qp[hh] + 1 - k0 - 2 * t);
+#pragma unroll
+          for (int nt = 0; nt < BK / 8; ++nt) {
+            if (nt * 8 >= lim) sc[4 * nt + 2 * hh] = -INFINITY;
+            if (nt * 8 + 1 >= lim) sc[4 * nt + 2 * hh + 1] = -INFINITY;
+          }
+        }
+      }
+      // Online softmax: row maxima over the thread's columns, then
+      // across the row's quad.
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float v4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt)
+          v4[nt % 4] = fmaxf(v4[nt % 4], fmaxf(sc[4 * nt + 2 * hh],
+                                               sc[4 * nt + 2 * hh + 1]));
+        float mx = fmaxf(fmaxf(v4[0], v4[1]), fmaxf(v4[2], v4[3]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        const float alpha = m[hh] == -INFINITY ? 0.f : ex2(m[hh] - m_new);
+        const float mu = m_new == -INFINITY ? 0.f : m_new;
+        m[hh] = m_new;
+#pragma unroll
+        for (int j = 0; j < NVC; ++j)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            o[j][4 * i + 2 * hh] *= alpha;
+            o[j][4 * i + 2 * hh + 1] *= alpha;
+          }
+        float s4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int nt = 0; nt < BK / 8; ++nt) {
+          const float pa = ex2(sc[4 * nt + 2 * hh] - mu);   // masked: 0
+          const float pb = ex2(sc[4 * nt + 2 * hh + 1] - mu);
+          sc[4 * nt + 2 * hh] = pa;
+          sc[4 * nt + 2 * hh + 1] = pb;
+          s4[nt % 4] += pa + pb;
+        }
+        l[hh] = l[hh] * alpha + ((s4[0] + s4[1]) + (s4[2] + s4[3]));
+      }
+
+      // P = P_hi + P_lo, each the A operand of its own product (exact to
+      // ~2^-17 of p; one bf16 P would lose 2^-9).
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          split_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r],
+                     pl[kk][r]);
+
+      // O += P . V. In the item's last tile, V rows past k_hi (loaded by
+      // the box, maybe NaN) are zeroed first: a masked p of 0 must not
+      // meet them.
+      mbar_wait(&v_full[st], (g / NS) & 1);
+      if (it == ntiles - 1 && k_hi - k0 < BK) {
+        unsigned char* vs = v_sh + st * L::V_BYTES;
+        const int dead = BK - (k_hi - k0);
+        for (int i = threadIdx.x - 128 - 128 * cw; i < NVC * dead * 8;
+             i += 128) {
+          const int c = i / (dead * 8), r = k_hi - k0 + (i / 8) % dead;
+          *reinterpret_cast<uint4*>(vs + c * BK * 128 + r * 128 +
+                                    (i % 8) * 16) = make_uint4(0, 0, 0, 0);
+        }
+        fence_proxy_async();
+        named_bar_sync(1 + cw, 128);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int j = 0; j < NVC; ++j) {
+          const uint64_t dv = desc(v_base + st * L::V_BYTES + j * BK * 128 +
+                                       kk * 16 * 128,
+                                   BK * 128, 1024);
+          wgmma_rs_n64_tb(o[j], ph[kk], dv);
+          wgmma_rs_n64_tb(o[j], pl[kk], dv);
+        }
+      // The next tile's S queues behind this P.V; one wait completes
+      // both, so no product is in flight across iterations.
+      if (it + 1 < ntiles) issue_s(g + 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+#pragma unroll
+      for (int j = 0; j < NVC; ++j) fence_regs(o[j]);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        fence_regs(ph[kk]);
+        fence_regs(pl[kk]);
+      }
+      release(&empty[st]);
+      if (it + 2 == ntiles) release(q_empty);
+    }
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float lr = l[hh];
+      lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const float inv = 1.f / (lr == 0.f ? 1.f : lr);
+      const int r = r0 + 8 * hh;
+      if (r >= rows || qp[hh] >= s.Sq) continue;
+      bf16* orow = out + (((size_t)itm.b * s.Sq + qp[hh]) * s.H +
+                          itm.hg * F + r % F) * s.Dv + 2 * t;
+#pragma unroll
+      for (int j = 0; j < NVC; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (64 * j + 8 * i < s.Dv)
+            *reinterpret_cast<__nv_bfloat162*>(orow + 64 * j + 8 * i) =
+                __floats2bfloat162_rn(o[j][4 * i + 2 * hh] * inv,
+                                      o[j][4 * i + 2 * hh + 1] * inv);
+    }
+  }
+}
+
+// The (D, Dv) widths instantiated: the smallest that holds D and Dv.
+// Every model width is one of them: 64/64 (granite-moe), 128/128
+// (qwen3), 192/128 (deepseek-v3's MLA prefill).
+struct Widths {
+  int dp, dvp;
+};
+constexpr Widths WIDTHS[] = {{64, 64},   {128, 64},  {128, 128}, {192, 128},
+                             {192, 192}, {256, 128}, {256, 256}};
+
+Widths pick(int D, int Dv) {
+  for (const Widths& w : WIDTHS)
+    if (D <= w.dp && Dv <= w.dvp) return w;
+  return Widths{0, 0};
+}
+
+size_t smem_for(const Widths& w) {
+#define REPRO_FLASH_SMEM(DP, DVP) \
+  if (w.dp == DP && w.dvp == DVP) return Layout<DP, DVP>::SMEM
+  REPRO_FLASH_SMEM(64, 64);
+  REPRO_FLASH_SMEM(128, 64);
+  REPRO_FLASH_SMEM(128, 128);
+  REPRO_FLASH_SMEM(192, 128);
+  REPRO_FLASH_SMEM(192, 192);
+  REPRO_FLASH_SMEM(256, 128);
+  REPRO_FLASH_SMEM(256, 256);
+#undef REPRO_FLASH_SMEM
+  return 0;
+}
+
+template <int DP, int DVP>
+int launch(const void* q, const void* k, const void* v, void* out, Shape sh,
+           float sm_scale, cudaStream_t st) {
+  using L = Layout<DP, DVP>;
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      flash_wgmma_kernel<DP, DVP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  // The model's tensors in place: q as (D, F, H / F, Sq, B) so a box of
+  // {64, F, 1, BQ / F, 1} is the block's rows in order (position-major);
+  // k and v as (width, Hkv, Skv, B) in boxes of {64, 1, BK, 1}.
+  const int F = sh.fold;
+  const uint64_t e = 2;                          // bytes of a bf16
+  const uint64_t skv = sh.Skv > 0 ? sh.Skv : 1;  // never loaded if 0
+  CUtensorMap tq, tk, tv;
+  const uint64_t qd[5] = {(uint64_t)sh.D, (uint64_t)F, (uint64_t)(sh.H / F),
+                          (uint64_t)sh.Sq, (uint64_t)sh.B};
+  const uint64_t qs[4] = {sh.D * e, F * sh.D * e, sh.H * sh.D * e,
+                          (uint64_t)sh.Sq * sh.H * sh.D * e};
+  const uint32_t qb[5] = {64, (uint32_t)F, 1, (uint32_t)(BQ / F), 1};
+  const uint64_t kd[4] = {(uint64_t)sh.D, (uint64_t)sh.Hkv, skv,
+                          (uint64_t)sh.B};
+  const uint64_t ks[3] = {sh.D * e, sh.Hkv * sh.D * e, skv * sh.Hkv * sh.D * e};
+  const uint64_t vd[4] = {(uint64_t)sh.Dv, (uint64_t)sh.Hkv, skv,
+                          (uint64_t)sh.B};
+  const uint64_t vs[3] = {sh.Dv * e, sh.Hkv * sh.Dv * e,
+                          skv * sh.Hkv * sh.Dv * e};
+  const uint32_t kvb[4] = {64, 1, (uint32_t)L::BK, 1};
+  int err = make_map_bf16(&tq, q, 5, qd, qs, qb);
+  if (!err) err = make_map_bf16(&tk, k, 4, kd, ks, kvb);
+  if (!err) err = make_map_bf16(&tv, v, 4, vd, vs, kvb);
+  if (err) return err;
+  // Persistent: one block per SM (at most one per item) walks its items
+  // (item_at), so the next item's loads overlap this one's work.
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int bqp = BQ / F;
+  const int items = (sh.Sq + bqp - 1) / bqp * (sh.H / F) * sh.B;
+  flash_wgmma_kernel<DP, DVP><<<min(items, sms), THREADS, L::SMEM, st>>>(
+      tq, tk, tv, static_cast<bf16*>(out), sh, sm_scale, items);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             Shape sh, float sm_scale, cudaStream_t st) {
+  const Widths w = pick(sh.D, sh.Dv);
+#define REPRO_FLASH_WG(DP, DVP)                                  \
+  if (w.dp == DP && w.dvp == DVP)                                \
+    return launch<DP, DVP>(q, k, v, out, sh, sm_scale, st)
+  REPRO_FLASH_WG(64, 64);
+  REPRO_FLASH_WG(128, 64);
+  REPRO_FLASH_WG(128, 128);
+  REPRO_FLASH_WG(192, 128);
+  REPRO_FLASH_WG(192, 192);
+  REPRO_FLASH_WG(256, 128);
+  REPRO_FLASH_WG(256, 256);
+#undef REPRO_FLASH_WG
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // Shared-memory bytes one block needs (the wrapper checks it against the
-// card's limit before launching): the bf16 tensor-core kernel's
-// (tensor_cores = 1; 0 if D, Dv have no instantiation) or the CUDA-core
-// kernel's.
-extern "C" long long flash_attention_smem(int tensor_cores, int D, int Dv) {
-  if (tensor_cores) {
-    const tc::Widths w = tc::pick(D, Dv);
-    return w.dp ? (long long)tc::smem_for(w.dp, w.dvp) : 0;
+// card's limit before launching): the bf16 wgmma kernel's (bf16 = 1; 0 if
+// D, Dv have no instantiation) or the f32 CUDA-core kernel's.
+extern "C" long long flash_attention_smem(int bf16, int D, int Dv) {
+  if (bf16) {
+    const wg::Widths w = wg::pick(D, Dv);
+    return w.dp ? (long long)wg::smem_for(w) : 0;
   }
   return 4LL * (2LL * 64 * (D + 4) + 64LL * Dv + 64LL * (64 + 4));
 }
 
-// The CUDA-core kernel at either dtype (q, k, v and out alike; D, Dv
-// multiples of 4): the wrapper's f32 route, and at bf16 the earlier
-// design that chip_smoke.py times the tensor-core kernel against (no
-// model path calls it).
-extern "C" int flash_attention_cuda_cores(const void* q, const void* k,
-                                          const void* v, void* out,
-                                          int dtype, int B, int Sq, int Skv,
-                                          int H, int Hkv, int D, int Dv,
-                                          int q_offset, int causal,
-                                          float sm_scale, void* stream) {
+// The f32 CUDA-core kernel (q, k, v and out f32; D, Dv multiples of 4).
+extern "C" int flash_attention_f32(const void* q, const void* k,
+                                   const void* v, void* out, int B, int Sq,
+                                   int Skv, int H, int Hkv, int D, int Dv,
+                                   int q_offset, int causal, float sm_scale,
+                                   void* stream) {
   const Shape sh{B, Sq, Skv, H, Hkv, D, Dv, q_offset, causal, 1};
   const size_t smem = (size_t)flash_attention_smem(0, D, Dv);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, out, sh, sm_scale, smem, st);
-  return dispatch<float>(q, k, v, out, sh, sm_scale, smem, st);
+  return dispatch<float>(q, k, v, out, sh, sm_scale, smem,
+                         static_cast<cudaStream_t>(stream));
 }
 
-// The tensor-core kernel: dtype must be 1 = bfloat16 (q, k, v and out
-// alike; the wrapper sends f32 to flash_attention_cuda_cores). q is
-// (B, Sq, H, D), k (B, Skv, Hkv, D), v (B, Skv, Hkv, Dv), out
-// (B, Sq, H, Dv), all contiguous and 16-byte aligned; D, Dv multiples of
-// 16, at most 256. Returns the cudaError_t of the launch.
-extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int dtype, int B, int Sq, int Skv,
-                               int H, int Hkv, int D, int Dv, int q_offset,
-                               int causal, float sm_scale, void* stream) {
-  if (dtype != 1 || D % 16 || Dv % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // A block takes all G = H / Hkv heads of a kv-head while G <= 8 (at
-  // least 8 query positions a block), else one head.
+// A kv-head's G = H / Hkv query heads share a block while G <= 8, else
+// one head a block.
+static Shape bf16_shape(int B, int Sq, int Skv, int H, int Hkv, int D,
+                        int Dv, int q_offset, int causal) {
   const int G = H / Hkv;
-  const Shape sh{B, Sq, Skv, H, Hkv, D, Dv, q_offset, causal, G <= 8 ? G : 1};
-  return tc::dispatch(q, k, v, out, sh, sm_scale,
-                      static_cast<cudaStream_t>(stream));
+  return Shape{B, Sq, Skv, H, Hkv, D, Dv, q_offset, causal, G <= 8 ? G : 1};
+}
+
+// The bf16 wgmma kernel: q (B, Sq, H, D), k (B, Skv, Hkv, D), v
+// (B, Skv, Hkv, Dv), out (B, Sq, H, Dv), all bf16, contiguous and 16-byte
+// aligned; D, Dv multiples of 16, at most 256. Returns the cudaError_t of
+// the launch (or of a tensor map's encoding).
+extern "C" int flash_attention(const void* q, const void* k, const void* v,
+                               void* out, int B, int Sq, int Skv, int H,
+                               int Hkv, int D, int Dv, int q_offset,
+                               int causal, float sm_scale, void* stream) {
+  if (D % 16 || Dv % 16) return static_cast<int>(cudaErrorInvalidValue);
+  return wg::dispatch(q, k, v, out,
+                      bf16_shape(B, Sq, Skv, H, Hkv, D, Dv, q_offset, causal),
+                      sm_scale, static_cast<cudaStream_t>(stream));
+}
+
+// PR 15's mma.sync kernel on the same operands, for one side-by-side
+// timing (no wrapper counts it).
+extern "C" int flash_attention_mma(const void* q, const void* k,
+                                   const void* v, void* out, int B, int Sq,
+                                   int Skv, int H, int Hkv, int D, int Dv,
+                                   int q_offset, int causal, float sm_scale,
+                                   void* stream) {
+  if (D % 16 || Dv % 16) return static_cast<int>(cudaErrorInvalidValue);
+  return tc::dispatch(q, k, v, out,
+                      bf16_shape(B, Sq, Skv, H, Hkv, D, Dv, q_offset, causal),
+                      sm_scale, static_cast<cudaStream_t>(stream));
 }

@@ -59,7 +59,7 @@
 //     so two runs give the same bits); blocks of splits past the slot's
 //     live keys exit at once.
 //
-// Any f32 operand (q or pages): the CUDA-core kernel,
+// f32 q (on f32, bf16 or int8 pages): the CUDA-core kernel,
 // paged_attention_gqa_kernel (entry point paged_attention_gqa), whose f32
 // products meet the f32 tolerance:
 //   * the grid is (slot x kv-head, split): the TPU's sequential walk over
@@ -1374,9 +1374,11 @@ extern "C" long long paged_attention_gqa_smem(int C, int H, int Hkv, int D,
   return 4LL * (2 * R * D + 2LL * bs * (D + 1) + R * bs + 3 * R);
 }
 
-// q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: the same, or 2 = int8
-// codes, which need k_scales/v_scales fp16 (NP, bs, Hkv) scale pages
-// (null otherwise). out has q's dtype and q's (B, C, H, D) layout.
+// The CUDA-core kernel: q_dtype must be 0 = float32 (bf16 q runs the
+// tensor-core kernel, paged_attention_gqa_tc); kv_dtype 0 = float32,
+// 1 = bfloat16 or 2 = int8 codes, which need k_scales/v_scales fp16 (NP,
+// bs, Hkv) scale pages (null otherwise). out is f32 in q's (B, C, H, D)
+// layout.
 // With splits > 1, part_acc holds B*Hkv*splits*R*D floats and part_ml
 // B*Hkv*splits*2*R floats (R = C * H / Hkv). Returns the cudaError_t of the launches.
 extern "C" int paged_attention_gqa(const void* q, int q_dtype,
@@ -1401,11 +1403,7 @@ extern "C" int paged_attention_gqa(const void* q, int q_dtype,
 #define REPRO_PAGED_LAUNCH(TQ, TKV)                                     \
   return launch<TQ, TKV>(q, k_pages, v_pages, ks, vs, tb, ps, ln, out, pa, \
                          pm, sh, sm_scale, smem, st)
-  if (q_dtype == 1) {
-    if (kv_dtype == 2) REPRO_PAGED_LAUNCH(__nv_bfloat16, int8_t);
-    if (kv_dtype == 1) REPRO_PAGED_LAUNCH(__nv_bfloat16, __nv_bfloat16);
-    REPRO_PAGED_LAUNCH(__nv_bfloat16, float);
-  }
+  if (q_dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (kv_dtype == 2) REPRO_PAGED_LAUNCH(float, int8_t);
   if (kv_dtype == 1) REPRO_PAGED_LAUNCH(float, __nv_bfloat16);
   REPRO_PAGED_LAUNCH(float, float);

@@ -11,9 +11,10 @@
 // The tile loop, split-K and the bound are dequant_matmul.cuh's; this
 // file is the q6_k front-end: a thread reads one 16-element sub-block of
 // a row (two ql words, one qh word, its sc and its super-block's d) and
-// decodes it in registers (common.cuh q6_k_decode16), bit-identical to
-// dequantize_q6_k. At 0.82 bytes per weight and M = 64 the kernel is
-// bound by f32 FMA issue, not by the weight stream.
+// decodes it in registers into exact bf16 codes (common.cuh q6_k_codes)
+// and the scale sc * d: code * scale is dequantize_q6_k, bit for bit. At
+// 0.82 bytes per weight and M = 64 the weight stream bounds it; at
+// M = 4,096 the tensor cores and the per-sub-block scaling.
 #include "dequant_matmul.cuh"
 
 namespace {
@@ -26,13 +27,25 @@ struct Q6_K {
   const int8_t* sc;
   const __half* d;
   static constexpr bool kRaggedK = false;
+  static constexpr int kScaleK = 16, kParts = 1;
+  struct Raw {
+    uint32_t ql0, ql1, qh;
+    int8_t sc;
+    __half d;
+  };
 
-  __device__ __forceinline__ void decode16(int n, int k, int K,
-                                           float w[16]) const {
+  __device__ __forceinline__ Raw load(int n, int k, int K) const {
     const uint32_t* lo = ql + (size_t)n * (K / 8) + k / 8;
     const size_t s = (size_t)n * (K / 16) + k / 16;
-    q6_k_decode16(lo[0], lo[1], qh[s], sc[s],
-                  d[(size_t)n * (K / 256) + k / 256], w);
+    return Raw{lo[0], lo[1], qh[s], sc[s],
+               d[(size_t)n * (K / 256) + k / 256]};
+  }
+  __device__ __forceinline__ void codes(const Raw& r, uint32_t c[1][8]) const {
+    q6_k_codes(r.ql0, r.ql1, r.qh, c[0]);
+  }
+  // sc * d in f32, in the order dequantize_q6_k takes.
+  __device__ __forceinline__ float scale(const Raw& r) const {
+    return static_cast<float>(r.sc) * __half2float(r.d);
   }
 };
 
@@ -42,13 +55,13 @@ struct Q6_K {
 extern "C" int q6_k_matmul(const void* x, int x_dtype, const void* ql,
                            const void* qh, const void* sc, const void* d,
                            void* y, int y_dtype, void* workspace, int M,
-                           int N, int K, int k_split, int splits,
+                           int N, int K, int tile, int k_split, int splits,
                            void* stream) {
   const Q6_K fmt{static_cast<const uint32_t*>(ql),
                  static_cast<const uint32_t*>(qh),
                  static_cast<const int8_t*>(sc),
                  static_cast<const __half*>(d)};
   return repro_torch::dequant_matmul::launch(
-      fmt, x, x_dtype, y, y_dtype, workspace, M, N, K, k_split, splits,
+      fmt, x, x_dtype, y, y_dtype, workspace, M, N, K, tile, k_split, splits,
       stream);
 }

@@ -5,10 +5,12 @@ Each of their ``csrc/<fmt>_matmul.cu`` sources exposes one C function
 over the tile loop of ``csrc/dequant_matmul.cuh``:
 
     int <fmt>_matmul(x, x_dtype, <plane pointers...>, y, y_dtype,
-                     workspace, M, N, K, k_split, splits, stream)
+                     workspace, M, N, K, tile, k_split, splits, stream)
 
-This module builds its ctypes signature, picks the split of K, checks
-the operands of a CUDA call, allocates the output and the split-K
+x's dtype picks the kernel: bf16 (every model layer) the tensor-core
+one, f32 the CUDA-core one. This module builds the ctypes signature,
+plans the output tiles and the split of K (``plan``), checks the
+operands of a CUDA call, allocates the output and the split-K
 workspace, launches, and counts the launch on the wrapper.
 """
 from __future__ import annotations
@@ -22,8 +24,16 @@ import torch
 from repro_torch.kernels import _build
 
 X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 64                      # the kernel's BM == BN
-K_STEP = 32                    # the kernel's BK: splits are multiples of it
+# K steps of a block: the tensor-core kernel's (bf16 x) and the CUDA-core
+# kernel's (f32 x). A split is a whole number of them.
+K_STEP = {torch.bfloat16: 64, torch.float32: 32}
+# Output tiles (BM == BN): the tensor-core kernel's 64 x 64 (one consumer
+# warpgroup) up to M = 64 (decode), 128 x 128 (two) above it; the
+# CUDA-core kernel's 64 x 64.
+SMALL_M = 64
+# The tensor-core kernel's splits keep at least this many K steps each:
+# a split's partial tile (BM x BN f32) should not outweigh its planes.
+MIN_TC_STEPS = 4
 
 
 def check(name: str, x: torch.Tensor, planes: Dict[str, torch.Tensor],
@@ -56,15 +66,21 @@ def check(name: str, x: torch.Tensor, planes: Dict[str, torch.Tensor],
                         "expected")
 
 
-def splits(m: int, n: int, k: int, sms: int):
-    """(k_split, splits): split K across the grid when the output tiles
-    alone would leave most SMs idle (each split is a whole number of
-    32-wide K steps; the last may hold a ragged tail)."""
-    tiles = -(-n // TILE) * -(-m // TILE)
-    steps = max(1, -(-k // K_STEP))   # K = 0: one empty step, y = 0
-    count = 1 if tiles >= sms else min(steps, -(-2 * sms // tiles))
+def plan(m: int, n: int, k: int, sms: int, x_dtype: torch.dtype):
+    """(tile, k_split, splits) of one call: output tiles of tile x tile,
+    and K cut into ``splits`` ranges of ``k_split`` elements (a whole
+    number of the kernel's K steps; the last range may hold a ragged tail
+    or, at K = 0, nothing). K is split only when the output tiles alone
+    would leave most SMs idle: up to two blocks per SM."""
+    step = K_STEP[x_dtype]
+    tile = 128 if x_dtype == torch.bfloat16 and m > SMALL_M else 64
+    tiles = -(-n // tile) * -(-m // tile)
+    steps = max(1, -(-k // step))     # K = 0: one empty step, y = 0
+    most = steps if x_dtype == torch.float32 else \
+        max(1, steps // MIN_TC_STEPS)
+    count = 1 if tiles >= sms else min(most, -(-2 * sms // tiles))
     per = -(-steps // count)
-    return per * K_STEP, -(-steps // per)
+    return tile, per * step, -(-steps // per)
 
 
 @functools.lru_cache(maxsize=None)
@@ -75,7 +91,7 @@ def kernel(name: str, n_planes: int, entry: str) -> Callable:
     fn.argtypes = ([ctypes.c_void_p, ctypes.c_int]
                    + [ctypes.c_void_p] * n_planes
                    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     return fn
 
 
@@ -106,7 +122,7 @@ def launch(wrapper: Callable, name: str, x: torch.Tensor,
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return y
-    k_split, count = splits(m, n, k, _sm_count(x.device))
+    tile, k_split, count = plan(m, n, k, _sm_count(x.device), x.dtype)
     ws = torch.empty((count, m, n), dtype=torch.float32, device=x.device) \
         if count > 1 else y           # unused without a split
     fn = kernel(name, len(planes), entry or name)
@@ -114,8 +130,8 @@ def launch(wrapper: Callable, name: str, x: torch.Tensor,
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), X_DTYPES[x.dtype],
                  *[p.data_ptr() for p in planes], y.data_ptr(),
-                 X_DTYPES[out_dtype], ws.data_ptr(), m, n, k, k_split, count,
-                 stream)
+                 X_DTYPES[out_dtype], ws.data_ptr(), m, n, k, tile, k_split,
+                 count, stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     wrapper.launches += 1

@@ -24,11 +24,11 @@ docs/kernel-contracts.md):
 
 On a CPU tensor the wrapper computes the plain version
 (``ref.paged_attention_ref``); on a CUDA tensor it launches a
-hand-written kernel or raises. In the GQA form the dtypes alone pick
-the kernel: bf16 q on bf16 or int8 pages (every serving path: the
-models' activations are bf16) runs the tensor-core kernel (``mma.sync``
-products, a ``cp.async`` ring per warp; D a multiple of 16); any f32
-operand (q or pages) runs the CUDA-core kernel, whose f32 products meet
+hand-written kernel or raises. In the GQA form q's dtype alone picks
+the kernel: bf16 q (every serving path: the models' activations are
+bf16), on bf16 or int8 pages, runs the tensor-core kernel (``mma.sync``
+products, a ``cp.async`` ring per warp; D a multiple of 16; f32 pages
+are refused); f32 q runs the CUDA-core kernel, whose f32 products meet
 the f32 tolerance that tensor cores cannot. Rows past a slot's valid length are
 garbage by contract on both paths; the MLA kernel writes a 32-row tile
 whose rows all belong to chunk entries at or past ``max(len, 1)`` as 0
@@ -219,10 +219,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
         else:
             paged_decode_attention.mla_int8_launches += 1
         return out
-    tensor_cores = q.dtype == torch.bfloat16 and \
-        k_pages.dtype != torch.float32
     out = _launch_gqa(q, k_pages, v_pages, k_scales, v_scales, *tables,
-                      sm_scale, tensor_cores=tensor_cores)
+                      sm_scale)
     if k_scales is None:
         paged_decode_attention.launches += 1
     else:
@@ -231,18 +229,16 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def _launch_gqa(q, k_pages, v_pages, k_scales, v_scales, block_tables,
-                positions, lengths, sm_scale, *, tensor_cores):
-    """One launch of the GQA form: the tensor-core kernel (bf16 q on
-    bf16 or int8 pages) or the CUDA-core kernel (any dtypes).
-    ``paged_decode_attention`` picks by dtype; ``chip_smoke.py`` also
-    times the CUDA-core kernel on bf16 operands (the earlier design)
-    beside it. Counts nothing."""
+                positions, lengths, sm_scale):
+    """One launch of the GQA form, the kernel picked by q's dtype: bf16 q
+    (on bf16 or int8 pages) the tensor-core kernel, f32 q the CUDA-core
+    kernel. Counts nothing."""
     dev = q.device
     b, c, h, d = q.shape
     _, bs, hkv, _ = k_pages.shape
     if d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM} is not supported")
-    if tensor_cores:
+    if q.dtype == torch.bfloat16:
         return _launch_gqa_tc(q, k_pages, v_pages, k_scales, v_scales,
                               block_tables, positions, lengths, sm_scale)
     lib = _lib()

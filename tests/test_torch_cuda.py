@@ -510,7 +510,14 @@ def test_paged_attention_tc_refuses_head_dim(cuda):
 FLASH_TC_SHAPES = [(2, 256, 256, 24, 8, 64, 64, True, 0),
                    (3, 77, 77, 16, 8, 128, 128, True, 0),
                    (2, 100, 160, 8, 2, 192, 128, True, 60),
-                   (2, 130, 130, 4, 4, 64, 128, False, 0)]
+                   (2, 130, 130, 4, 4, 64, 128, False, 0),
+                   # D = Dv = 256 (64-key tiles); a ragged last 128-row
+                   # item (200 = 3 x 64 positions of 2 folded heads + 8),
+                   # and one with G = 16 > 8 heads (no fold, 128
+                   # positions an item).
+                   (1, 200, 200, 4, 2, 256, 256, True, 0),
+                   (2, 200, 200, 16, 8, 128, 128, True, 0),
+                   (1, 150, 150, 32, 2, 128, 128, True, 0)]
 
 
 @pytest.mark.parametrize("shape", FLASH_TC_SHAPES)
@@ -588,3 +595,42 @@ def test_matmul_q3_k_approx_cvt53_matches_plain(cuda, mnk, dtype):
     tol = 2e-5 * max(1.0, float(ref.abs().max()))
     assert float((y - ref).abs().max()) <= tol
     assert not torch.equal(ref, exact)
+
+
+# (M, N, K) of qwen3-0.6b's up/gate and down projections in an 8 x 512
+# prefill: the tensor-core kernel's 128 x 128 tiles, K not split.
+PREFILL_MNK = [(4096, 3072, 1024), (4096, 1024, 3072)]
+
+
+@pytest.mark.parametrize("mnk", PREFILL_MNK)
+@pytest.mark.parametrize("fmt", ["q8_0", "fp16", "q6_k", "q3_k"])
+def test_matmul_prefill_shapes_repeatable(cuda, fmt, mnk):
+    """bf16 x at the prefill's M = 4,096: within 2e-5 of the output's
+    scale, the bf16 output the f32 one rounded once, one launch counted
+    per call, and two launches give the same bits in both dtypes."""
+    _check_matmul(cuda, fmt, *mnk, "bfloat16")
+    wrapper, layout = MATMUL_KERNELS[fmt]
+    m, n, k = mnk
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+    planes = pack.quantize(torch.randn((n, k), generator=gen, device=cuda)
+                           * 0.05, fmt)
+    args = [planes[name] for name in layout]
+    for dt in (torch.float32, torch.bfloat16):
+        a = wrapper(x, *args, out_dtype=dt)
+        b = wrapper(x, *args, out_dtype=dt)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+def test_paged_attention_bf16_q_refuses_f32_pages(cuda):
+    """bf16 q runs the tensor-core kernel only, which takes bf16 or int8
+    pages; nothing is launched for f32 pages."""
+    q = torch.zeros((1, 1, 2, 64), dtype=torch.bfloat16, device=cuda)
+    kp = torch.zeros((2, 4, 1, 64), dtype=torch.float32, device=cuda)
+    idx = torch.zeros((1, 1), dtype=torch.int32, device=cuda)
+    pos = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    before = paged_decode_attention.launches
+    with pytest.raises(TypeError, match="bf16 or int8 pages"):
+        paged_decode_attention(q, kp, kp, idx, pos, sm_scale=1.0)
+    assert paged_decode_attention.launches == before
