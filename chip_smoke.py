@@ -933,7 +933,7 @@ def check_flash(torch, dev):
     timed at qwen3-0.6b's prefill of 8 x 512 tokens, per prefill (28
     calls)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import _launch, flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_ref
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
@@ -971,10 +971,6 @@ def check_flash(torch, dev):
     t_k = time_ms(torch, [lambda: flash_attention(q, k, v, causal=causal)],
                   50)
     flash_attention.launches = launches0
-    # PR 15's mma.sync kernel on the same operands (uncounted).
-    t_o = time_ms(torch, [lambda: _launch(
-        q, k, v, causal=causal, sm_scale=d ** -0.5, q_offset=0,
-        entry="flash_attention_mma")], 50)
     t_p = time_ms(torch, [lambda: attention_ref(q, k, v, causal=causal)], 20)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     t_l = time_ms(torch, [lambda: F.scaled_dot_product_attention(
@@ -984,8 +980,7 @@ def check_flash(torch, dev):
     flops = 4.0 * b * h * d * pairs
     b_ms, b_by = bound(nbytes, flops)
     print(f"kernel flash_attention bf16 B={b} S={sq} H={h} Hkv={hkv} D={d} "
-          f"causal: kernel {t_k:.4f} ms | PR 15's mma.sync kernel "
-          f"{t_o:.4f} ms | plain {t_p:.4f} ms | "
+          f"causal: kernel {t_k:.4f} ms | plain {t_p:.4f} ms | "
           f"library(SDPA is_causal, enable_gqa) {t_l:.4f} ms | bound "
           f"{b_ms:.5f} ms ({b_by}) | per prefill x28: kernel "
           f"{28 * t_k:.4f} ms", flush=True)
@@ -995,7 +990,7 @@ def check_flash(torch, dev):
                 replaces="src/repro/kernels/flash_attention.py:73",
                 max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
                 bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l,
-                mma_ms=28 * t_o, ms_per_call=t_k,
+                ms_per_call=t_k,
                 deepseek_prefill=check_flash_mla(torch, dev))
 
 
@@ -1005,7 +1000,7 @@ def check_flash_mla(torch, dev):
     attention_ref, timed per call and per prefill (4 MLA layers).
     Returns those numbers (an extra key of the flash row)."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import _launch, flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_ref
     b, s, h, d, dv = FLASH_MLA
     gen = torch.Generator(device=dev)
@@ -1029,9 +1024,6 @@ def check_flash_mla(torch, dev):
     t_k = time_ms(torch, [lambda: flash_attention(
         q, k, v, causal=True, sm_scale=sm)], 10)
     flash_attention.launches = launches0
-    t_o = time_ms(torch, [lambda: _launch(
-        q, k, v, causal=True, sm_scale=sm, q_offset=0,
-        entry="flash_attention_mma")], 10)
     t_p = time_ms(torch, [lambda: attention_ref(
         q, k, v, causal=True, sm_scale=sm)], 3)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -1044,7 +1036,7 @@ def check_flash_mla(torch, dev):
     print(f"kernel flash_attention deepseek-v3 prefill bf16 B={b} S={s} "
           f"H={h} D={d} Dv={dv} causal: max_abs_err {err:.3e} (rtol/atol "
           f"1e-4 of the f32 plain version + one bf16 ulp) | kernel "
-          f"{t_k:.4f} ms | PR 15's mma.sync kernel {t_o:.4f} ms | plain "
+          f"{t_k:.4f} ms | plain "
           f"{t_p:.4f} ms | library(SDPA is_causal) "
           f"{t_l:.4f} ms | bound {b_ms:.5f} ms ({b_by}) | per prefill x{n}:"
           f" kernel {n * t_k:.4f} ms", flush=True)
@@ -1052,7 +1044,7 @@ def check_flash_mla(torch, dev):
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=n * t_k, plain_ms=n * t_p,
                 bound_ms=n * b_ms, bound_by=b_by, library_ms=n * t_l,
-                ms_per_call=t_k, mma_ms_per_call=t_o)
+                ms_per_call=t_k)
 
 
 def _to(tree, d):
@@ -1172,6 +1164,44 @@ def check_step_vs_cpu(torch, dev, params, cfg, quant, kv_quant="none"):
           flush=True)
 
 
+def _device_events(torch, prof):
+    """Device-side events of a profile with device time: a CPU op's
+    device time repeats the time of the kernels it launched, which appear
+    as events of their own."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    return [e for e in prof.key_averages()
+            if e.device_type != torch.autograd.DeviceType.CPU
+            and dev_us(e) > 0], dev_us
+
+
+def profile_prefill(torch, model, params, tokens, cfg) -> None:
+    """Where a prefill's time goes: one more ``model.prefill`` under
+    torch.profiler, device busy against its wall time and the heaviest
+    kernels (after the timed prefills and their launch check)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": tokens}, quant="q8_0")
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events, dev_us = _device_events(torch, prof)
+    tag = f"profile prefill {cfg.name}:"
+    if not events:
+        print(f"{tag} the profiler recorded no device time (not measured)",
+              flush=True)
+        return
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    print(f"{tag} wall {wall_ms:.1f} ms (under the profiler), device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)", flush=True)
+    for e in sorted(events, key=dev_us, reverse=True)[:8]:
+        print(f"{tag}   device {dev_us(e) / 1e3:8.3f} ms {e.count:6d} calls"
+              f"  {e.key[:90]}", flush=True)
+
+
 def profile_serve(torch, serve, cfg, model, params, dev, quant,
                   arena=SERVE_ARGS[:-8], label=None) -> None:
     """Where a serve step's time goes: a shorter stream of the same shape
@@ -1188,14 +1218,7 @@ def profile_serve(torch, serve, cfg, model, params, dev, quant,
         _, rep, _ = serve.run_stream(cfg, model, params, args, dev)
         torch.cuda.synchronize()
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-    # Device-side events only: a CPU op's device time repeats the time of
-    # the kernels it launched, which appear as events of their own.
-    events = [e for e in prof.key_averages()
-              if e.device_type != torch.autograd.DeviceType.CPU
-              and dev_us(e) > 0]
+    events, dev_us = _device_events(torch, prof)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     wall_ms = sum(rep.stats.step_s) * 1e3
     steps = rep.stats.steps
@@ -1207,10 +1230,13 @@ def profile_serve(torch, serve, cfg, model, params, dev, quant,
     host = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)
-    launch = [e for e in host if e.key == "cudaLaunchKernel"]
-    per_launch = (f"{launch[0].count / steps:.1f} kernel launches/step at "
-                  f"{launch[0].self_cpu_time_total / launch[0].count:.1f} "
-                  "us each") if launch else "launches not recorded"
+    # Plain launches and the matmuls' cluster launches (cudaLaunchKernelEx).
+    launch = [e for e in host
+              if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC")]
+    count = sum(e.count for e in launch)
+    per_launch = (f"{count / steps:.1f} kernel launches/step at "
+                  f"{sum(e.self_cpu_time_total for e in launch) / count:.1f}"
+                  " us each") if launch else "launches not recorded"
     print(f"{tag} {steps} steps of a {args.requests}-request stream: "
           f"step wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
           f"({100 * busy_ms / wall_ms:.1f}% of step wall, idle "
@@ -1375,6 +1401,7 @@ def run_prefill(torch, dev, serve, repeats: int = 3, setup=None,
           f"included in the list); caches {got}", flush=True)
     res = check_launches(f"prefill {cfg.name}", launches, per_prefill,
                          repeats)
+    profile_prefill(torch, model, params, tokens, cfg)
     del cache
     if setup is None:
         del params

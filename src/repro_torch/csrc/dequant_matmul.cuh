@@ -43,12 +43,16 @@
 // dequantizer -- in shared memory.
 //
 // Both: small N leaves most SMs idle, so the wrapper may split K across
-// gridDim.z in whole K steps (kernels/_dequant_matmul.py plan()); each
-// split writes its partial tile to a workspace and a second pass sums the
-// splits in a fixed order (no atomics: a result never varies from run to
-// run, and the f32 and bf16 outputs come from one accumulation order).
-// Each sub-block reads its scales by absolute K index, so a split need
-// not align with a 256-element super-block.
+// gridDim.z in whole K steps (kernels/_dequant_matmul.py plan()), and the
+// splits are summed in split order (no atomics: a result never varies
+// from run to run, and the f32 and bf16 outputs come from one
+// accumulation order). The tensor-core kernel launches a tile's splits
+// (at most 8) as one thread-block cluster: each block leaves its partial
+// tile in its own shared memory and block 0 reads them all over
+// distributed shared memory, so there is no second launch; the CUDA-core
+// kernel writes partials to a workspace and a second pass sums them. Each
+// sub-block reads its scales by absolute K index, so a split need not
+// align with a 256-element super-block.
 //
 // A format supplies
 //   struct Fmt {
@@ -222,7 +226,7 @@ template <typename Fmt, typename TY, int BM, int BN>
 __global__ void __launch_bounds__(128 * (BM / 64 + 1), BM == 64 ? 2 : 1)
 tc_kernel(const __grid_constant__ CUtensorMap xmap, const Fmt fmt,
           const __nv_bfloat16* __restrict__ x, int x_tma, TY* __restrict__ y,
-          float* __restrict__ parts, int M, int N, int K, int k_split) {
+          int M, int N, int K, int k_split) {
   using L = Layout<Fmt, BM, BN>;
   constexpr int NC = BM / 64;                    // consumer warpgroups
   constexpr int PARTS = Fmt::kParts;
@@ -248,7 +252,10 @@ tc_kernel(const __grid_constant__ CUtensorMap xmap, const Fmt fmt,
 
   if (wgi == 0) {
     // Producer. Thread tid decodes SUBS sub-blocks of weight row n per
-    // step; the planes of step it + 1 load while step it decodes.
+    // step; the planes of step it + 1 load while step it decodes. With two
+    // consumers it gives registers to them (their accumulator and
+    // fragment take 128 of the 168 a thread has at launch).
+    if constexpr (NC == 2) setmaxnreg_dec<120>();
     constexpr int TPR = 128 / BN;                // threads per weight row
     constexpr int SUBS = 4 / TPR;
     const int nl = tid / TPR, j0 = (tid % TPR) * SUBS, n = n0 + nl;
@@ -322,6 +329,7 @@ tc_kernel(const __grid_constant__ CUtensorMap xmap, const Fmt fmt,
   // Consumer warpgroup cw: x rows m0 + 64 cw .. + 63 against the tile's
   // BN weight rows. A warpgroup whose rows all lie past M only releases
   // the stages.
+  if constexpr (NC == 2) setmaxnreg_inc<192>();
   const int cw = wgi - 1;
   const bool active = m0 + 64 * cw < M;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
@@ -372,23 +380,64 @@ tc_kernel(const __grid_constant__ CUtensorMap xmap, const Fmt fmt,
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[st]);
   }
-  if (!active) return;
+  const int mr = 64 * cw + 16 * warp + g;        // the tile's rows mr, +8
+  if (gridDim.z == 1) {
+    if (!active) return;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + mr + (e / 2) * 8, n = n0 + 8 * i + 2 * t + e % 2;
+        if (m < M && n < N) from_float(acc[4 * i + e], &y[(size_t)m * N + n]);
+      }
+    return;
+  }
 
-  float* part = gridDim.z > 1 ? parts + (size_t)blockIdx.z * M * N : nullptr;
-  const int mr = m0 + 64 * cw + 16 * warp + g;
+  // Split K: the splits of this tile are one cluster. Each block leaves
+  // its partial tile (BM x BN f32, row-major) in its own shared memory,
+  // where the ring was; then block r of the cluster sums slice r of the
+  // tile over distributed shared memory, every split's four values loaded
+  // before they are added in split order -- the order of the two-pass
+  // reduction, with no atomics -- and stores it.
+  named_bar_sync(1, 128 * NC);         // every consumer is done with the ring
+  float* part = reinterpret_cast<float*>(smem);
 #pragma unroll
   for (int i = 0; i < BN / 8; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int m = mr + (e / 2) * 8, n = n0 + 8 * i + 2 * t + e % 2;
-      if (m < M && n < N) store_out(acc[4 * i + e], y, part, (size_t)m * N + n);
-    }
+    for (int e = 0; e < 4; ++e)
+      part[(mr + (e / 2) * 8) * BN + 8 * i + 2 * t + e % 2] = acc[4 * i + e];
+  cluster_sync();
+  const int splits = gridDim.z, per = BM * BN / 4 / splits + 1;
+  const uint32_t base = smem_addr(part);
+  const int q_end = min(BM * BN / 4, per * (int)(cluster_rank() + 1));
+  for (int q = per * cluster_rank() + threadIdx.x - 128; q < q_end;
+       q += 128 * NC) {
+    float4 v[8];
+#pragma unroll
+    for (int z = 0; z < 8; ++z)
+      if (z < splits) v[z] = ld_cluster_f32x4(base + 16 * q, z);
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int z = 0; z < 8; ++z)
+      if (z < splits) {
+        sum[0] += v[z].x;
+        sum[1] += v[z].y;
+        sum[2] += v[z].z;
+        sum[3] += v[z].w;
+      }
+    const int m = m0 + 4 * q / BN, n = n0 + 4 * q % BN;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (m < M && n + e < N) from_float(sum[e], &y[(size_t)m * N + n + e]);
+  }
+  cluster_sync();                      // peers keep their partials till then
 }
 
 template <typename Fmt, typename TY, int BM, int BN>
-int launch(const Fmt& fmt, const void* x, void* y, float* parts, int M,
-           int N, int K, int k_split, int splits, cudaStream_t s) {
+int launch(const Fmt& fmt, const void* x, void* y, int M, int N, int K,
+           int k_split, int splits, cudaStream_t s) {
   using L = Layout<Fmt, BM, BN>;
+  static_assert(BM * BN * 4 <= STAGES * L::STAGE, "partial tile > ring");
   auto kern = tc_kernel<Fmt, TY, BM, BN>;
   static const cudaError_t opt_in = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::SMEM);
@@ -405,16 +454,30 @@ int launch(const Fmt& fmt, const void* x, void* y, float* parts, int M,
     const int err = make_map_bf16(&xmap, x, 2, dims, strides, box);
     if (err) return err;
   }
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  kern<<<grid, 128 * (BM / 64 + 1), L::SMEM, s>>>(
-      xmap, fmt, static_cast<const __nv_bfloat16*>(x), x_tma,
-      static_cast<TY*>(y), parts, M, N, K, k_split);
-  return static_cast<int>(cudaGetLastError());
+  // The splits of a tile form one cluster (at most 8 blocks).
+  if (splits > 8) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
+  cfg.blockDim = dim3(128 * (BM / 64 + 1));
+  cfg.dynamicSmemBytes = L::SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = splits;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kern, xmap, fmt, static_cast<const __nv_bfloat16*>(x), x_tma,
+      static_cast<TY*>(y), M, N, K, k_split);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // namespace tc
 
-// Second pass of a split-K launch: y = sum over splits, in split order.
+// Second pass of a CUDA-core split-K launch: y = sum over splits, in
+// split order.
 template <typename TY>
 __global__ void splitk_reduce(const float* __restrict__ parts,
                               TY* __restrict__ y, int splits, long long mn) {
@@ -429,15 +492,14 @@ template <typename Fmt, typename TY>
 int launch_typed(const Fmt& fmt, const void* x, bool bf16_x, void* y,
                  float* parts, int M, int N, int K, int tile, int k_split,
                  int splits, cudaStream_t s) {
-  int err;
-  if (!bf16_x)
-    err = cc::launch<Fmt, TY>(fmt, x, y, parts, M, N, K, k_split, splits, s);
-  else if (tile == 64)
-    err = tc::launch<Fmt, TY, 64, 64>(fmt, x, y, parts, M, N, K, k_split,
-                                      splits, s);
-  else
-    err = tc::launch<Fmt, TY, 128, 128>(fmt, x, y, parts, M, N, K, k_split,
-                                        splits, s);
+  if (bf16_x && tile == 64)
+    return tc::launch<Fmt, TY, 64, 64>(fmt, x, y, M, N, K, k_split, splits,
+                                       s);
+  if (bf16_x)
+    return tc::launch<Fmt, TY, 128, 128>(fmt, x, y, M, N, K, k_split, splits,
+                                         s);
+  const int err =
+      cc::launch<Fmt, TY>(fmt, x, y, parts, M, N, K, k_split, splits, s);
   if (err != 0 || splits <= 1) return err;
   const long long mn = (long long)M * N;
   const int threads = 256;
@@ -448,11 +510,11 @@ int launch_typed(const Fmt& fmt, const void* x, bool bf16_x, void* y,
 }
 
 // x_dtype / y_dtype: 0 = float32, 1 = bfloat16. bf16 x runs the
-// tensor-core kernel with tile x tile output tiles (64 or 128) and K
-// steps of 64, f32 x the CUDA-core kernel (tile 64, K steps of 32). With
-// splits > 1, `workspace` holds splits * M * N floats and `k_split` is a
-// multiple of the K step. Returns the cudaError_t of the launches (0 =
-// success).
+// tensor-core kernel with tile x tile output tiles (64 or 128), K steps
+// of 64 and at most 8 splits (one cluster a tile); f32 x the CUDA-core
+// kernel (tile 64, K steps of 32), whose splits > 1 need `workspace` of
+// splits * M * N floats for the second pass. `k_split` is a multiple of
+// the K step. Returns the cudaError_t of the launches (0 = success).
 template <typename Fmt>
 int launch(const Fmt& fmt, const void* x, int x_dtype, void* y, int y_dtype,
            void* workspace, int M, int N, int K, int tile, int k_split,

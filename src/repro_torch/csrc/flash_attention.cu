@@ -24,10 +24,12 @@
 // -- and the softmax's exponentials between their products -- bound it.
 // Design:
 //   * persistent: one block per SM walks work items (item_at: rounds of
-//     gridDim.x items, zig-zag, heaviest causal items first); an item is
-//     128 query rows, 128 / G positions of the G heads that share a
-//     kv-head (G <= 8; else one head), so every K/V tile feeds all of
-//     them;
+//     gridDim.x items, zig-zag); an item is 128 query rows, 128 / G
+//     positions of the G heads that share a kv-head (G <= 8; else one
+//     head), so every K/V tile feeds all of them; items are numbered head
+//     group by head group (heaviest causal tiles first within one), so
+//     the items that read one K/V run at about the same time and find it
+//     in L2;
 //   * a producer warp (setmaxnreg: 24 registers) loads the item's Q by
 //     TMA -- the (B, S, heads, D) tensor described in place as a 5-D map,
 //     so the box is the item's rows in order -- and K/V tiles of 128 keys
@@ -39,14 +41,18 @@
 //     with wgmma m64nBKk16 from shared memory (bf16 products are exact
 //     in f32: the scores match the f32 plain version up to summation
 //     order), the online softmax on the accumulator in registers in the
-//     log2 domain (ex2), and O += P.V with the register-A form of wgmma,
-//     V read transposed from shared memory (no transpose anywhere), P as
-//     P_hi = bf16(p) and P_lo = bf16(p - P_hi) (exact to ~2^-17 of p; one
-//     bf16 P would lose 2^-9 and miss the f32 tolerance); the next tile's
-//     S product queues behind this tile's P.V and one wait completes both,
-//     so the tensor cores run them back to back while nothing is in
-//     flight across iterations (ptxas would serialize every wgmma); the
-//     two warpgroups' softmaxes and products interleave;
+//     log2 domain (ex2), and O += P.V with the register-A form of wgmma
+//     (m64n128k16), V read transposed from shared memory (no transpose
+//     anywhere), P as P_hi = bf16(p) and P_lo = bf16(p - P_hi) (exact to
+//     ~2^-17 of p; one bf16 P would lose 2^-9 and miss the f32
+//     tolerance);
+//   * FA3's overlaps: within a warpgroup, S of tile j and P.V of tile
+//     j - 1 are issued together and the softmax of tile j runs while that
+//     P.V is on the tensor cores (wait_group 1), O is rescaled after it;
+//     across the two warpgroups, named barriers make them take turns to
+//     issue, so one's softmax runs under the other's products. Nothing is
+//     in flight across loop iterations (ptxas would serialize every
+//     wgmma);
 //   * keys past Skv arrive as zeros (TMA) and are masked; causal tiles
 //     past the diagonal are never loaded; in an item's last tile V rows
 //     past its horizon are zeroed before P.V, so NaN there cannot meet a
@@ -71,7 +77,6 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
-#include "mma.cuh"
 
 namespace {
 
@@ -84,7 +89,7 @@ constexpr int PS = BK + 4;             // p tile row stride (floats)
 
 struct Shape {
   int B, Sq, Skv, H, Hkv, D, Dv, q_offset, causal;
-  int fold;                            // bf16 kernel: heads of a block
+  int fold;                            // bf16 kernel: heads of an item
 };
 
 // 4 consecutive floats (16-byte loads and stores).
@@ -305,382 +310,6 @@ int dispatch(const void* q, const void* k, const void* v, void* out,
 }
 
 // ---------------------------------------------------------------------
-// bf16 form: tensor-core products, cp.async staging (see the top note).
-// ---------------------------------------------------------------------
-namespace tc {
-
-using bf16 = __nv_bfloat16;
-constexpr int WARPS = 4;
-constexpr int THREADS = 32 * WARPS;
-
-// Staged rows are padded by 8 elements (16 bytes): the 8 rows an
-// ldmatrix reads at one column then start in 8 different bank groups,
-// and every fragment address is a lane's base plus a constant.
-constexpr int PAD = 8;
-constexpr int BQ = 16 * WARPS;         // query rows of a block: 16 a warp
-constexpr int BK = 32;                 // keys of a staged K/V tile
-constexpr int SMEM_SM = 227 * 1024;    // shared memory an SM can give
-
-// Bytes of a block with NS ring stages.
-__host__ __device__ constexpr size_t smem_bytes(int DP, int DVP, int NS) {
-  return sizeof(bf16) *
-         ((size_t)BQ * (DP + PAD) + (size_t)NS * BK * (DP + DVP + 2 * PAD));
-}
-// Ring stages: 3 (the next-but-one tile loads while this one computes,
-// one barrier a tile) where three blocks still share an SM, else 2.
-__host__ __device__ constexpr int stages_for(int DP, int DVP) {
-  return 3 * (smem_bytes(DP, DVP, 3) + 1024) <= SMEM_SM ? 3 : 2;
-}
-__host__ __device__ constexpr size_t smem_for(int DP, int DVP) {
-  return smem_bytes(DP, DVP, stages_for(DP, DVP));
-}
-
-// cp.async of ROWS rows, from sequence row s0 of (b, head), of a
-// (B, S, heads, width) bf16 tensor into a [ROWS][W + PAD] tile.
-// Rows at or past `valid` and columns past `width` are zero-filled and
-// never read (zero columns add nothing to a product).
-template <int W, int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst,
-                                          const bf16* __restrict__ src,
-                                          int b, int s0, int S, int heads,
-                                          int head, int width, int valid) {
-  constexpr int CPR = W / 8;           // 16-byte chunks per tile row
-  const int cw = width / 8;
-#pragma unroll
-  for (int i = 0; i < ROWS * CPR / THREADS; ++i) {
-    const int idx = threadIdx.x + i * THREADS;
-    const int r = idx / CPR, c = idx % CPR;
-    const bool ok = s0 + r < valid && c < cw;
-    const bf16* g =
-        ok ? src + (((size_t)b * S + s0 + r) * heads + head) * width + c * 8
-           : src;
-    cp_async16(dst + r * (W + PAD) + c * 8, g, ok);
-  }
-}
-
-// cp.async of a block's Q rows: row r is query position p0 + r / F of
-// head h0 + r % F (the F heads of a block share their kv-head); rows
-// past BQP * F or Sq, and columns past D, are zero-filled.
-template <int DP>
-__device__ __forceinline__ void load_q(bf16* dst, const bf16* __restrict__ q,
-                                       const Shape& s, int b, int p0,
-                                       int h0, int bqp) {
-  constexpr int CPR = DP / 8;
-  const int cw = s.D / 8, F = s.fold;
-#pragma unroll
-  for (int i = 0; i < BQ * CPR / THREADS; ++i) {
-    const int idx = threadIdx.x + i * THREADS;
-    const int r = idx / CPR, c = idx % CPR;
-    const int pp = r / F, gi = r - pp * F;
-    const bool ok = pp < bqp && p0 + pp < s.Sq && c < cw;
-    const bf16* g =
-        ok ? q + (((size_t)b * s.Sq + p0 + pp) * s.H + h0 + gi) * s.D + c * 8
-           : q;
-    cp_async16(dst + r * (DP + PAD) + c * 8, g, ok);
-  }
-}
-
-template <int DP, int DVP>
-__global__ void __launch_bounds__(THREADS, 3)
-flash_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, bf16* __restrict__ out, Shape s,
-                float sm_scale) {
-  constexpr int NS = stages_for(DP, DVP);
-  constexpr int NB = BK / 8;           // key n-tiles of a tile
-  constexpr int NKD = DP / 16;         // k-steps of S
-  constexpr int NVT = DVP / 8;         // output n-tiles
-  constexpr int QS = DP + PAD, VS = DVP + PAD;     // row strides
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* q_sh = reinterpret_cast<bf16*>(smem_raw);  // [BQ][QS]
-  bf16* k_sh = q_sh + BQ * QS;                     // [NS][BK][QS]
-  bf16* v_sh = k_sh + NS * BK * QS;                // [NS][BK][VS]
-
-  // Block (position tile, head group, batch): BQP query positions of
-  // the F = s.fold heads h0 .. h0 + F - 1 that share kv-head hk (GQA:
-  // each K/V tile then feeds F heads), row r = position r / F, head
-  // r % F; the heaviest causal tiles first.
-  const int F = s.fold, bqp = BQ / F;
-  const int p0 = (gridDim.x - 1 - (int)blockIdx.x) * bqp;
-  const int h0 = blockIdx.y * F, b = blockIdx.z;
-  const int hk = h0 / (s.H / s.Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int r0 = warp * 16;                        // the warp's 16 rows
-  // Query positions of this lane's rows r0 + g and r0 + g + 8.
-  const int qp[2] = {p0 + (r0 + g) / F, p0 + (r0 + g + 8) / F};
-
-  // Keys this tile's queries can see: [0, k_hi).
-  int k_hi = s.Skv;
-  if (s.causal) k_hi = min(k_hi, s.q_offset + min(p0 + bqp, s.Sq));
-  k_hi = max(k_hi, 0);
-  const int ntiles = (k_hi + BK - 1) / BK;
-
-  // Prologue: Q and key tile 0 (one group), key tile 1 (the next);
-  // every iteration then commits one group, empty or not.
-  load_q<DP>(q_sh, q, s, b, p0, h0, bqp);
-  for (int j = 0; j < 2; ++j) {
-    if (j < ntiles) {
-      load_tile<DP, BK>(k_sh + j * BK * QS, k, b, j * BK, s.Skv, s.Hkv, hk,
-                        s.D, k_hi);
-      load_tile<DVP, BK>(v_sh + j * BK * VS, v, b, j * BK, s.Skv, s.Hkv,
-                         hk, s.Dv, k_hi);
-    }
-    cp_async_commit();
-  }
-
-  // Rows g and g + 8 of the warp's 16 (hh = 0, 1): output, running max
-  // m (of scores times sm_scale * log2 e) and this lane's share of the
-  // running sum l.
-  float o[NVT][4];
-#pragma unroll
-  for (int i = 0; i < NVT; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[i][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const float sl2 = sm_scale * 1.4426950408889634f;
-
-  // Shared addresses of this lane's ldmatrix rows (A: rows lane % 16,
-  // column half lane / 16; B: rows lane % 8 + 8 (lane / 16), column half
-  // lane / 8 % 2; V, transposed: rows lane % 8 + 8 (lane / 8 % 2), column
-  // half lane / 16); every fragment adds a constant to these.
-  const uint32_t k_lane =
-      smem_addr(k_sh) +
-      (((lane & 7) + 8 * (lane >> 4)) * QS + 8 * ((lane >> 3) & 1)) * 2;
-  const uint32_t v_lane =
-      smem_addr(v_sh) +
-      (((lane & 7) + 8 * ((lane >> 3) & 1)) * VS + 8 * (lane >> 4)) * 2;
-  const uint32_t q_lane =
-      smem_addr(q_sh) + ((r0 + (lane & 15)) * QS + 8 * (lane >> 4)) * 2;
-  // The warp's Q fragments stay in registers up to DP = 128; wider rows
-  // would spill, so they reload from shared memory every tile.
-  constexpr bool kQReg = DP <= 128;
-  uint32_t qf[kQReg ? NKD : 1][4];
-
-  for (int it = 0; it < ntiles; ++it) {
-    const int st = it % NS, k0 = it * BK;
-    cp_async_wait<1>();                // tile it has landed (this thread)
-    __syncthreads();                   // ... and every thread's copies
-    if (kQReg && it == 0) {
-#pragma unroll
-      for (int kd = 0; kd < (kQReg ? NKD : 0); ++kd)
-        ldsm_x4(qf[kd], q_lane + kd * 32);
-    }
-    if (NS == 3) {                     // stage of tile it - 1 is free
-      const int nx = (it + 2) % NS;
-      if (it + 2 < ntiles) {
-        load_tile<DP, BK>(k_sh + nx * BK * QS, k, b, k0 + 2 * BK, s.Skv,
-                          s.Hkv, hk, s.D, k_hi);
-        load_tile<DVP, BK>(v_sh + nx * BK * VS, v, b, k0 + 2 * BK, s.Skv,
-                           s.Hkv, hk, s.Dv, k_hi);
-      }
-      cp_async_commit();
-    }
-    const uint32_t ks = k_lane + st * BK * QS * 2;
-    const uint32_t vs = v_lane + st * BK * VS * 2;
-
-    // S = Q . K^T: 16 rows x BK keys per warp, f32; the next K fragment
-    // loads while this one's products run. Columns past D are zero in Q
-    // and K.
-    float sc[NB][4];
-#pragma unroll
-    for (int i = 0; i < NB; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
-    {
-      constexpr int NP = NB / 2, STEPS = NKD * NP;
-      uint32_t kb[2][4], qa[2][4];
-#pragma unroll
-      for (int i = 0; i <= STEPS; ++i) {
-        if (i < STEPS) {               // load step i
-          if (!kQReg && i % NP == 0)
-            ldsm_x4(qa[(i / NP) & 1], q_lane + (i / NP) * 32);
-          ldsm_x4(kb[i & 1],
-                  ks + ((i % NP) * 16 * QS + (i / NP) * 16) * 2);
-        }
-        if (i > 0) {                   // products of step i - 1
-          const int j = i - 1, kd = j / NP, np = j % NP;
-          const uint32_t* a = kQReg ? qf[kQReg ? kd : 0] : qa[kd & 1];
-          mma_bf16(sc[2 * np], a, kb[j & 1][0], kb[j & 1][1]);
-          mma_bf16(sc[2 * np + 1], a, kb[j & 1][2], kb[j & 1][3]);
-        }
-      }
-    }
-
-    // Scale into the log2 domain and mask: only a tile on the causal
-    // diagonal or the ragged key edge has masked entries (a branch the
-    // whole block takes alike). Row r sees this tile's columns
-    // c < lim(r) = min(k_hi, q_offset + qi(r) + 1) - k0.
-#pragma unroll
-    for (int nt = 0; nt < NB; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] *= sl2;
-    if (k0 + BK > k_hi || (s.causal && k0 + BK - 1 > s.q_offset + p0)) {
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        int lim = k_hi - k0 - 2 * t;
-        if (s.causal)
-          lim = min(lim, s.q_offset + qp[hh] + 1 - k0 - 2 * t);
-#pragma unroll
-        for (int nt = 0; nt < NB; ++nt) {
-          if (nt * 8 >= lim) sc[nt][2 * hh] = -INFINITY;
-          if (nt * 8 + 1 >= lim) sc[nt][2 * hh + 1] = -INFINITY;
-        }
-      }
-    }
-    // Online softmax: row maxima by a tree, then across the row's quad.
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float v8[NB];
-#pragma unroll
-      for (int nt = 0; nt < NB; ++nt)
-        v8[nt] = fmaxf(sc[nt][2 * hh], sc[nt][2 * hh + 1]);
-#pragma unroll
-      for (int w = NB / 2; w > 0; w >>= 1)
-#pragma unroll
-        for (int i = 0; i < w; ++i) v8[i] = fmaxf(v8[i], v8[i + w]);
-      float mx = fmaxf(v8[0], __shfl_xor_sync(0xffffffffu, v8[0], 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[hh], mx);
-      const float alpha = m[hh] == -INFINITY ? 0.f : ex2(m[hh] - m_new);
-      const float mu = m_new == -INFINITY ? 0.f : m_new;
-      m[hh] = m_new;
-      if (__any_sync(0xffffffffu, alpha != 1.f)) {     // rows' max moved
-#pragma unroll
-        for (int i = 0; i < NVT; ++i) {
-          o[i][2 * hh] *= alpha;
-          o[i][2 * hh + 1] *= alpha;
-        }
-      }
-      float s8[NB];
-#pragma unroll
-      for (int nt = 0; nt < NB; ++nt) {
-        const float p0 = ex2(sc[nt][2 * hh] - mu);       // masked: 0
-        const float p1 = ex2(sc[nt][2 * hh + 1] - mu);
-        sc[nt][2 * hh] = p0;
-        sc[nt][2 * hh + 1] = p1;
-        s8[nt] = p0 + p1;
-      }
-#pragma unroll
-      for (int w = NB / 2; w > 0; w >>= 1)
-#pragma unroll
-        for (int i = 0; i < w; ++i) s8[i] += s8[i + w];
-      l[hh] = l[hh] * alpha + s8[0];
-    }
-
-    // O += P . V with P = P_hi + P_lo (two bf16 products): exact to
-    // ~2^-17 of p, where one bf16 P would lose 2^-9. Each V fragment
-    // feeds 4 products; the next fragment loads meanwhile.
-    {
-      constexpr int NVP = DVP / 16, STEPS = (BK / 16) * NVP;
-      uint32_t pp[2][4];               // [lo, hi] of the current 16 keys
-      uint32_t vf[2][4];
-#pragma unroll
-      for (int i = 0; i <= STEPS; ++i) {
-        if (i < STEPS)
-          ldsm_x4_trans(vf[i & 1],
-                        vs + ((i / NVP) * 16 * VS + (i % NVP) * 16) * 2);
-        if (i > 0) {
-          const int j = i - 1, kk = j / NVP, vp = j % NVP;
-          if (vp == 0) {
-            split_bf16(sc[2 * kk][0], sc[2 * kk][1], pp[1][0], pp[0][0]);
-            split_bf16(sc[2 * kk][2], sc[2 * kk][3], pp[1][1], pp[0][1]);
-            split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], pp[1][2],
-                       pp[0][2]);
-            split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], pp[1][3],
-                       pp[0][3]);
-          }
-#pragma unroll
-          for (int part = 0; part < 2; ++part) {
-            mma_bf16(o[2 * vp], pp[part], vf[j & 1][0], vf[j & 1][1]);
-            mma_bf16(o[2 * vp + 1], pp[part], vf[j & 1][2], vf[j & 1][3]);
-          }
-        }
-      }
-    }
-
-    if (NS == 2) {
-      __syncthreads();                 // every warp is done with stage st
-      if (it + 2 < ntiles) {
-        load_tile<DP, BK>(k_sh + st * BK * QS, k, b, k0 + 2 * BK, s.Skv,
-                          s.Hkv, hk, s.D, k_hi);
-        load_tile<DVP, BK>(v_sh + st * BK * VS, v, b, k0 + 2 * BK, s.Skv,
-                           s.Hkv, hk, s.Dv, k_hi);
-      }
-      cp_async_commit();
-    }
-  }
-  cp_async_wait<0>();
-
-  const int nvt = s.Dv / 8;
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    float lr = l[hh];
-    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
-    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
-    const float inv = 1.f / (lr == 0.f ? 1.f : lr);
-    const int r = r0 + g + 8 * hh;
-    if (r >= bqp * F || qp[hh] >= s.Sq) continue;
-    bf16* orow =
-        out + (((size_t)b * s.Sq + qp[hh]) * s.H + h0 + r % F) * s.Dv + 2 * t;
-#pragma unroll
-    for (int i = 0; i < NVT; ++i)
-      if (i < nvt)
-        *reinterpret_cast<__nv_bfloat162*>(orow + i * 8) =
-            __floats2bfloat162_rn(o[i][2 * hh] * inv, o[i][2 * hh + 1] * inv);
-  }
-}
-
-// The (D, Dv) widths instantiated: the smallest that holds D and Dv.
-// Every model width is one of them: 64/64 (granite-moe), 128/128
-// (qwen3), 192/128 (deepseek-v3's MLA prefill).
-struct Widths {
-  int dp, dvp;
-};
-constexpr Widths WIDTHS[] = {{64, 64},   {128, 64},  {128, 128}, {192, 128},
-                             {192, 192}, {256, 128}, {256, 256}};
-
-Widths pick(int D, int Dv) {
-  for (const Widths& w : WIDTHS)
-    if (D <= w.dp && Dv <= w.dvp) return w;
-  return Widths{0, 0};
-}
-
-template <int DP, int DVP>
-int launch(const void* q, const void* k, const void* v, void* out, Shape sh,
-           float sm_scale, cudaStream_t st) {
-  constexpr size_t smem = smem_for(DP, DVP);
-  static const cudaError_t opt_in = cudaFuncSetAttribute(
-      flash_tc_kernel<DP, DVP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
-  const int bqp = BQ / sh.fold;
-  const dim3 grid((sh.Sq + bqp - 1) / bqp, sh.H / sh.fold, sh.B);
-  flash_tc_kernel<DP, DVP><<<grid, THREADS, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), sh, sm_scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int dispatch(const void* q, const void* k, const void* v, void* out,
-             Shape sh, float sm_scale, cudaStream_t st) {
-  const Widths w = pick(sh.D, sh.Dv);
-#define REPRO_FLASH_TC(DP, DVP)                                  \
-  if (w.dp == DP && w.dvp == DVP)                                \
-    return launch<DP, DVP>(q, k, v, out, sh, sm_scale, st)
-  REPRO_FLASH_TC(64, 64);
-  REPRO_FLASH_TC(128, 64);
-  REPRO_FLASH_TC(128, 128);
-  REPRO_FLASH_TC(192, 128);
-  REPRO_FLASH_TC(192, 192);
-  REPRO_FLASH_TC(256, 128);
-  REPRO_FLASH_TC(256, 256);
-#undef REPRO_FLASH_TC
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace tc
-
-// ---------------------------------------------------------------------
 // bf16 form: wgmma products, TMA staging, a producer warp (see the top
 // note).
 // ---------------------------------------------------------------------
@@ -725,7 +354,9 @@ __device__ __forceinline__ void qk_product(float (&s)[BK / 2], uint64_t dq,
 }
 
 // One work item: BQ / F query positions of the F heads of a head group
-// in one batch row; items are numbered heaviest causal tiles first.
+// in one batch row. Items are numbered head group by head group, so the
+// items that read one K/V run close together in time and find it in L2;
+// within a head group the heaviest causal tiles come first.
 struct Item {
   int p0, hg, b, hk, k_hi, ntiles;
 };
@@ -734,7 +365,7 @@ template <int BK>
 __device__ __forceinline__ Item item_of(const Shape& s, int w) {
   const int F = s.fold, bqp = BQ / F, hgs = s.H / F;
   const int npt = (s.Sq + bqp - 1) / bqp;
-  const int t = w / (hgs * s.B), r = w % (hgs * s.B);
+  const int r = w / npt, t = w % npt;
   Item it;
   it.p0 = (npt - 1 - t) * bqp;
   it.hg = r % hgs;
@@ -749,7 +380,7 @@ __device__ __forceinline__ Item item_of(const Shape& s, int w) {
 
 // Item of round k of this block: rounds of gridDim.x items, taken in
 // ascending block order in even rounds and descending in odd ones, so the
-// heavy and light items of the causal order even out across blocks.
+// heavy and light causal tiles even out across blocks.
 __device__ __forceinline__ int item_at(int k) {
   const int n = gridDim.x, x = blockIdx.x;
   return k * n + (k & 1 ? n - 1 - x : x);
@@ -846,7 +477,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(bar);
   };
 
-  // Scores of the current tile; P = P_hi + P_lo of it.
+  // Scores of the current tile (then its p), and P = P_hi + P_lo of the
+  // tile before it, whose P.V may be in flight.
   float sc[BK / 2];
   uint32_t ph[BK / 16][4], pl[BK / 16][4];
   // S = Q . K^T of ring tile g: 64 rows x BK keys, f32.
@@ -862,7 +494,37 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                16, 1024),
           kd > 0);
   };
+  // O += P . V of ring tile g (P_hi and P_lo, V read transposed): 128
+  // output columns a product (two 64-column tiles, the leading byte
+  // offset apart), and 64 for an odd last tile.
+  auto issue_pv = [&](float (&o)[NVC][32], int g) {
+    const int st = g % NS;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < NVC; j += 2) {
+        const uint64_t dv = desc(v_base + st * L::V_BYTES + j * BK * 128 +
+                                     kk * 16 * 128,
+                                 BK * 128, 1024);
+        if (j + 1 < NVC) {             // o[j], o[j + 1]: one fragment
+          float(&o2)[64] = *reinterpret_cast<float(*)[64]>(o[j]);
+          wgmma_rs_n128_tb(o2, ph[kk], dv);
+          wgmma_rs_n128_tb(o2, pl[kk], dv);
+          continue;
+        }
+        wgmma_rs_n64_tb(o[j], ph[kk], dv);
+        wgmma_rs_n64_tb(o[j], pl[kk], dv);
+      }
+  };
 
+  // The two warpgroups take turns to issue their products (named
+  // barriers 3 + cw), so one's softmax runs under the other's tensor-core
+  // work (FA3's ping-pong). Warpgroup 0 goes first; each issues the same
+  // number of times (both take the same items).
+  auto my_turn = [&] { named_bar_sync(3 + cw, 256); };
+  auto your_turn = [&] { named_bar_arrive(3 + (1 - cw), 256); };
+  if (cw == 1) your_turn();
   int g = 0;                           // K/V tiles consumed so far
   for (int li = 0; item_at(li) < items; ++li) {
     const Item itm = item_of<BK>(s, item_at(li));
@@ -875,22 +537,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       for (int e = 0; e < 32; ++e) o[j][e] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-    mbar_wait(q_full, li & 1);
-    if (ntiles > 0) {
-      issue_s(g);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(sc);
-    }
-    if (ntiles <= 1) release(q_empty);   // the item's last S has read Q
-    for (int it = 0; it < ntiles; ++it, ++g) {
-      const int st = g % NS, k0 = it * BK;
-
-      // Scale into the log2 domain and mask: only a tile on the causal
-      // diagonal or the ragged key edge has masked entries. Row r sees
-      // this tile's columns c < lim(r) = min(k_hi, q_offset + qp(r) + 1)
-      // - k0; a masked score is set (not added), so a NaN key past k_hi
-      // is gone.
+    // Tile it's scores -> p in sc (in the log2 domain), its row sums into
+    // l; returns in alpha the factors the rows' O must take before tile
+    // it's P.V. O itself is not touched: the previous P.V may be in
+    // flight. Only a tile on the causal diagonal or the ragged key edge
+    // has masked entries. Row r sees this tile's columns c < lim(r) =
+    // min(k_hi, q_offset + qp(r) + 1) - k0; a masked score is set (not
+    // added), so a NaN key past k_hi is gone.
+    auto softmax = [&](int it, float (&alpha)[2]) {
+      const int k0 = it * BK;
 #pragma unroll
       for (int i = 0; i < BK / 2; ++i) sc[i] *= sl2;
       if (k0 + BK > k_hi || (s.causal && k0 + BK - 1 > s.q_offset + itm.p0)) {
@@ -905,8 +560,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           }
         }
       }
-      // Online softmax: row maxima over the thread's columns, then
-      // across the row's quad.
+      // Row maxima over the thread's columns, then across the row's quad.
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         float v4[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
@@ -918,16 +572,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
         const float m_new = fmaxf(m[hh], mx);
-        const float alpha = m[hh] == -INFINITY ? 0.f : ex2(m[hh] - m_new);
+        alpha[hh] = m[hh] == -INFINITY ? 0.f : ex2(m[hh] - m_new);
         const float mu = m_new == -INFINITY ? 0.f : m_new;
         m[hh] = m_new;
-#pragma unroll
-        for (int j = 0; j < NVC; ++j)
-#pragma unroll
-          for (int i = 0; i < 8; ++i) {
-            o[j][4 * i + 2 * hh] *= alpha;
-            o[j][4 * i + 2 * hh + 1] *= alpha;
-          }
         float s4[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int nt = 0; nt < BK / 8; ++nt) {
@@ -937,23 +584,77 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           sc[4 * nt + 2 * hh + 1] = pb;
           s4[nt % 4] += pa + pb;
         }
-        l[hh] = l[hh] * alpha + ((s4[0] + s4[1]) + (s4[2] + s4[3]));
+        l[hh] = l[hh] * alpha[hh] + ((s4[0] + s4[1]) + (s4[2] + s4[3]));
       }
-
-      // P = P_hi + P_lo, each the A operand of its own product (exact to
-      // ~2^-17 of p; one bf16 P would lose 2^-9).
+    };
+    // O *= alpha, then P = P_hi + P_lo of the tile in sc (exact to ~2^-17
+    // of p; one bf16 P would lose 2^-9).
+    auto rescale_split = [&](const float (&alpha)[2]) {
+#pragma unroll
+      for (int j = 0; j < NVC; ++j)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[j][4 * i + e] *= alpha[e / 2];
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
 #pragma unroll
         for (int r = 0; r < 4; ++r)
           split_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1], ph[kk][r],
                      pl[kk][r]);
+    };
 
-      // O += P . V. In the item's last tile, V rows past k_hi (loaded by
-      // the box, maybe NaN) are zeroed first: a masked p of 0 must not
-      // meet them.
-      mbar_wait(&v_full[st], (g / NS) & 1);
-      if (it == ntiles - 1 && k_hi - k0 < BK) {
+    // Tile 0: S, softmax, P. Then, per tile it >= 1, S(it) and the
+    // previous tile's P.V go to the tensor cores back to back; the wait
+    // for S(it) leaves that P.V in flight while softmax(it) runs, and
+    // the second wait completes it before O is rescaled (FA3's
+    // intra-warpgroup overlap). No product is in flight across
+    // iterations, or ptxas would serialize every wgmma.
+    mbar_wait(q_full, li & 1);
+    float alpha[2];
+    if (ntiles > 0) {
+      my_turn();
+      issue_s(g);
+      wgmma_commit();
+      your_turn();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      if (ntiles == 1) release(q_empty);   // the item's last S has read Q
+      softmax(0, alpha);
+      rescale_split(alpha);
+    } else {
+      release(q_empty);
+    }
+    for (int it = 1; it < ntiles; ++it) {
+      const int gp = g + it - 1;         // the previous tile's ring slot
+      my_turn();
+      issue_s(g + it);
+      wgmma_commit();
+      mbar_wait(&v_full[gp % NS], (gp / NS) & 1);
+      issue_pv(o, gp);
+      wgmma_commit();
+      your_turn();
+      wgmma_wait<1>();                   // S(it) done; P.V in flight
+      fence_regs(sc);
+      if (it == ntiles - 1) release(q_empty);
+      softmax(it, alpha);
+      wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < NVC; ++j) fence_regs(o[j]);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        fence_regs(ph[kk]);
+        fence_regs(pl[kk]);
+      }
+      release(&empty[gp % NS]);
+      rescale_split(alpha);
+    }
+    if (ntiles > 0) {
+      // The last tile's P.V. V rows past k_hi (loaded by the box, maybe
+      // NaN) are zeroed first: a masked p of 0 must not meet them.
+      const int gl = g + ntiles - 1, st = gl % NS, k0 = (ntiles - 1) * BK;
+      mbar_wait(&v_full[st], (gl / NS) & 1);
+      if (k_hi - k0 < BK) {
         unsigned char* vs = v_sh + st * L::V_BYTES;
         const int dead = BK - (k_hi - k0);
         for (int i = threadIdx.x - 128 - 128 * cw; i < NVC * dead * 8;
@@ -965,23 +666,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         fence_proxy_async();
         named_bar_sync(1 + cw, 128);
       }
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-        for (int j = 0; j < NVC; ++j) {
-          const uint64_t dv = desc(v_base + st * L::V_BYTES + j * BK * 128 +
-                                       kk * 16 * 128,
-                                   BK * 128, 1024);
-          wgmma_rs_n64_tb(o[j], ph[kk], dv);
-          wgmma_rs_n64_tb(o[j], pl[kk], dv);
-        }
-      // The next tile's S queues behind this P.V; one wait completes
-      // both, so no product is in flight across iterations.
-      if (it + 1 < ntiles) issue_s(g + 1);
+      my_turn();
+      issue_pv(o, gl);
       wgmma_commit();
+      your_turn();
       wgmma_wait<0>();
-      fence_regs(sc);
 #pragma unroll
       for (int j = 0; j < NVC; ++j) fence_regs(o[j]);
 #pragma unroll
@@ -990,8 +679,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         fence_regs(pl[kk]);
       }
       release(&empty[st]);
-      if (it + 2 == ntiles) release(q_empty);
     }
+    g += ntiles;
 
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -1013,6 +702,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                                       o[j][4 * i + 2 * hh + 1] * inv);
     }
   }
+  if (cw == 0) my_turn();              // warpgroup 1's last arrival
 }
 
 // The (D, Dv) widths instantiated: the smallest that holds D and Dv.
@@ -1137,14 +827,6 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                          static_cast<cudaStream_t>(stream));
 }
 
-// A kv-head's G = H / Hkv query heads share a block while G <= 8, else
-// one head a block.
-static Shape bf16_shape(int B, int Sq, int Skv, int H, int Hkv, int D,
-                        int Dv, int q_offset, int causal) {
-  const int G = H / Hkv;
-  return Shape{B, Sq, Skv, H, Hkv, D, Dv, q_offset, causal, G <= 8 ? G : 1};
-}
-
 // The bf16 wgmma kernel: q (B, Sq, H, D), k (B, Skv, Hkv, D), v
 // (B, Skv, Hkv, Dv), out (B, Sq, H, Dv), all bf16, contiguous and 16-byte
 // aligned; D, Dv multiples of 16, at most 256. Returns the cudaError_t of
@@ -1154,20 +836,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int Hkv, int D, int Dv, int q_offset,
                                int causal, float sm_scale, void* stream) {
   if (D % 16 || Dv % 16) return static_cast<int>(cudaErrorInvalidValue);
-  return wg::dispatch(q, k, v, out,
-                      bf16_shape(B, Sq, Skv, H, Hkv, D, Dv, q_offset, causal),
-                      sm_scale, static_cast<cudaStream_t>(stream));
-}
-
-// PR 15's mma.sync kernel on the same operands, for one side-by-side
-// timing (no wrapper counts it).
-extern "C" int flash_attention_mma(const void* q, const void* k,
-                                   const void* v, void* out, int B, int Sq,
-                                   int Skv, int H, int Hkv, int D, int Dv,
-                                   int q_offset, int causal, float sm_scale,
-                                   void* stream) {
-  if (D % 16 || Dv % 16) return static_cast<int>(cudaErrorInvalidValue);
-  return tc::dispatch(q, k, v, out,
-                      bf16_shape(B, Sq, Skv, H, Hkv, D, Dv, q_offset, causal),
-                      sm_scale, static_cast<cudaStream_t>(stream));
+  // An item folds the G = H / Hkv heads of a kv-head while G <= 8, else
+  // it takes one head.
+  const int G = H / Hkv;
+  const Shape sh{B, Sq, Skv, H, Hkv, D, Dv, q_offset, causal, G <= 8 ? G : 1};
+  return wg::dispatch(q, k, v, out, sh, sm_scale,
+                      static_cast<cudaStream_t>(stream));
 }

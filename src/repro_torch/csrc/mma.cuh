@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy building blocks (sm_80+ PTX, run on
-// sm_90a) shared by the bf16 attention kernels: 16-byte cp.async with
-// zero fill, ldmatrix (plain and transposed) and the bf16 m16n8k16 mma
-// with f32 accumulation.
+// sm_90a): 16-byte cp.async with zero fill, ldmatrix (plain and
+// transposed) and the bf16 m16n8k16 mma with f32 accumulation (the paged
+// attention kernel), and the bf16 pair conversions and ex2 that the
+// wgmma kernels share (hopper.cuh includes this file).
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + t, g = lane / 4,
 // t = lane % 4):
@@ -59,24 +60,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
       "[%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p))
-      : "memory");
-}
-
-// The same from a shared-memory address (smem_addr) computed once.
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t r[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
       : "memory");
 }
 

@@ -31,9 +31,11 @@ K_STEP = {torch.bfloat16: 64, torch.float32: 32}
 # warpgroup) up to M = 64 (decode), 128 x 128 (two) above it; the
 # CUDA-core kernel's 64 x 64.
 SMALL_M = 64
-# The tensor-core kernel's splits keep at least this many K steps each:
-# a split's partial tile (BM x BN f32) should not outweigh its planes.
+# The tensor-core kernel's splits keep at least this many K steps each
+# (a split's partial tile, BM x BN f32, should not outweigh its planes),
+# and a tile's splits are one thread-block cluster, at most 8 blocks.
 MIN_TC_STEPS = 4
+MAX_TC_SPLITS = 8
 
 
 def check(name: str, x: torch.Tensor, planes: Dict[str, torch.Tensor],
@@ -77,7 +79,7 @@ def plan(m: int, n: int, k: int, sms: int, x_dtype: torch.dtype):
     tiles = -(-n // tile) * -(-m // tile)
     steps = max(1, -(-k // step))     # K = 0: one empty step, y = 0
     most = steps if x_dtype == torch.float32 else \
-        max(1, steps // MIN_TC_STEPS)
+        min(MAX_TC_SPLITS, max(1, steps // MIN_TC_STEPS))
     count = 1 if tiles >= sms else min(most, -(-2 * sms // tiles))
     per = -(-steps // count)
     return tile, per * step, -(-steps // per)
@@ -123,8 +125,10 @@ def launch(wrapper: Callable, name: str, x: torch.Tensor,
     if m == 0 or n == 0:
         return y
     tile, k_split, count = plan(m, n, k, _sm_count(x.device), x.dtype)
+    # The CUDA-core kernel's split-K partials (the tensor-core kernel sums
+    # its splits inside their cluster).
     ws = torch.empty((count, m, n), dtype=torch.float32, device=x.device) \
-        if count > 1 else y           # unused without a split
+        if count > 1 and x.dtype == torch.float32 else y
     fn = kernel(name, len(planes), entry or name)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):

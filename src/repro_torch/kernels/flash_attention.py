@@ -39,8 +39,7 @@ MAX_HEAD_DIM = 256
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("flash_attention")
-    for fn in (lib.flash_attention, lib.flash_attention_f32,
-               lib.flash_attention_mma):
+    for fn in (lib.flash_attention, lib.flash_attention_f32):
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -84,11 +83,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    q_offset=q_offset)
 
 
-def _launch(q, k, v, *, causal, sm_scale, q_offset, entry=None):
+def _launch(q, k, v, *, causal, sm_scale, q_offset):
     """Check CUDA operands and launch the kernel of their dtype (bf16: the
     tensor-core kernel, f32: the CUDA-core kernel), counted on
-    ``flash_attention.launches``; an empty Sq launches nothing.
-    ``entry``: another C entry point of the bf16 form, uncounted."""
+    ``flash_attention.launches``; an empty Sq launches nothing."""
     dev = q.device
     tensors = (q, k, v)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
@@ -118,8 +116,7 @@ def _launch(q, k, v, *, causal, sm_scale, q_offset, entry=None):
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=dev)
     if sq == 0:
         return out
-    fn = getattr(lib, entry) if entry else \
-        lib.flash_attention if bf16 else lib.flash_attention_f32
+    fn = lib.flash_attention if bf16 else lib.flash_attention_f32
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -127,8 +124,7 @@ def _launch(q, k, v, *, causal, sm_scale, q_offset, entry=None):
                  int(bool(causal)), float(sm_scale), stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
-    if entry is None:
-        flash_attention.launches += 1
+    flash_attention.launches += 1
     return out
 
 

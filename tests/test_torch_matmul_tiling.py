@@ -4,8 +4,8 @@ Pure Python: the plan decides, for one call, the output tile and how K
 is cut across the grid's z dimension. The CUDA kernels rely on it: each
 split must be a whole number of the kernel's K steps (so a sub-block's
 scales are never cut), the splits must cover K exactly once (so the
-fixed-order second pass sums every product once), and the tiles must be
-the ones the kernels are instantiated for.
+fixed-order sum of the splits takes every product once), and the tiles
+must be the ones the kernels are instantiated for.
 """
 import pytest
 
@@ -90,6 +90,15 @@ def test_decode_splits_keep_whole_runs_of_steps():
         assert splits > 1
         assert k_split >= dm.MIN_TC_STEPS * dm.K_STEP[BF16] or splits == 1
         assert tiles * splits <= 2 * SMS + tiles
+
+
+@pytest.mark.parametrize("mnk", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_tensor_core_splits_fit_one_cluster(mnk):
+    """The tensor-core kernel sums a tile's splits inside one thread-block
+    cluster, so a bf16 plan never has more than MAX_TC_SPLITS (8)."""
+    m, n, k = mnk
+    _, _, splits = dm.plan(m, n, k, SMS, BF16)
+    assert 1 <= splits <= dm.MAX_TC_SPLITS == 8
 
 
 def test_ragged_k_tail_sits_in_the_last_split():
