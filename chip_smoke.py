@@ -20,7 +20,10 @@ Phases, one line each (every failure exits non-zero):
             time, the plain version's time, one library call's time (a
             yardstick only: the port never calls it) and the least time
             the card could take for the same work; the matmuls also at
-            the prefill's M = 4,096 (per prefill beside per step);
+            the prefill's M = 4,096 (per prefill beside per step); the
+            MLA forms run the tensor-core kernel (two launches
+            bit-identical, no CUDA-core launch) and are timed beside PR
+            16's CUDA-core kernel on the same pages;
 4. serve  — ``repro_torch.launch.serve`` at the full width of
             qwen3-0.6b (seeded random weights made on the card): the
             paged stream once for each of the paper's weight recipes
@@ -66,9 +69,6 @@ T0 = time.perf_counter()
 # larger of its bytes over the first and its flops over the second.
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
-# f32 outside the tensor cores (the data sheet's 67 TFLOP/s): the peak
-# for work whose operands are f32, as the MLA form's q_eff and output.
-F32_FLOPS = 67e12
 
 SERVE_ARGS = ["--arch", "qwen3-0.6b", "--slots", "8", "--chunk-size", "8",
               "--block-size", "16", "--num-blocks", "256", "--requests",
@@ -142,7 +142,7 @@ DEEPSEEK_INT8_LAUNCHES = {"matmul_q8_0": 29,
 DEEPSEEK_PREFILL_LAUNCHES = {"matmul_q8_0": 33, "flash_attention": 4}
 GRANITE_LAUNCHES = {"matmul_q8_0": 129, "paged_decode_attention": 32}
 # B9 at the deepseek serve's decode shape: (B, C, H, rank, rope, bs, MB,
-# physical blocks), and a ragged one (rows not a multiple of the 32-row
+# physical blocks), and a ragged one (rows not a multiple of the 64-row
 # tile, chunk 5, block 64).
 MLA_CASE = (8, 8, 128, 512, 64, 16, 10, 256)
 MLA_RAGGED = (3, 5, 20, 512, 64, 64, 3, 12)
@@ -759,9 +759,10 @@ def _mla_pages(torch, c, form):
 
 def _time_mla(torch, c, k, k2, sc, run, form, counter, label):
     """B9 on case ``c`` (length pattern ``label``) timed per call: the
-    kernel, its plain version, the library yardstick and the bound,
-    printed and returned."""
+    kernel, PR 16's CUDA-core kernel on the same pages, its plain version,
+    the library yardstick and the bound, printed and returned."""
     import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.ref import paged_attention_ref
     dev = c["q"].device
@@ -770,6 +771,9 @@ def _time_mla(torch, c, k, k2, sc, run, form, counter, label):
     launches0 = getattr(paged_decode_attention, counter)
     t_k = time_ms(torch, [run], 200)
     setattr(paged_decode_attention, counter, launches0)
+    t_16 = time_ms(torch, [lambda: pa._launch_mla_cc(
+        c["q"], c["q2"], k, k2, sc.get("k_scales"), sc.get("k2_scales"),
+        c["tables"], c["pos"], c["lens"], c["sm"])], 200)
     t_p = time_ms(torch, [lambda: paged_attention_ref(
         c["q"], k, None, c["tables"], c["pos"], sm_scale=c["sm"],
         q2=c["q2"], k2_pages=k2, **sc)], 20)
@@ -806,20 +810,33 @@ def _time_mla(torch, c, k, k2, sc, run, form, counter, label):
         c["tables"].numel() * 4 + 2 * B * 4
     # The causal work of the valid rows: H rows per chunk entry, each over
     # its depth pos + i + 1, 2 flops per multiply-add over the score
-    # (rank + rope) and the P.V (rank) features.
+    # (rank + rope) and the P.V (rank) features, once, at the bf16
+    # tensor-core peak. The design does more: each product once per bf16
+    # part of q (scores) and of p (P.V).
     depths = sum(int(c["np_pos"][b]) * int(c["np_lens"][b])
                  + int(c["np_lens"][b]) * (int(c["np_lens"][b]) + 1) // 2
                  for b in range(B))
     flops = 2.0 * H * depths * (2 * rank + rope)
-    b_ms, b_by = bound(nbytes, flops, F32_FLOPS)
+    b_ms, b_by = bound(nbytes, flops)
+    nq, np_ = pa.mla_parts()
+    tc_flops = 2.0 * H * depths * (nq * (rank + rope) + np_ * rank)
+    plan = pa.mla_split_plan(c["np_pos"], c["np_lens"], C, H, 1, c["bs"],
+                             c["tables"].shape[1],
+                             torch.cuda.get_device_properties(dev)
+                             .multi_processor_count)
     print(f"kernel paged_decode_attention mla {form} B={B} C={C} H={H} "
           f"rank={rank} rope={rope} bs={c['bs']} lengths {label}: kernel "
-          f"{t_k:.4f} ms | plain {t_p:.4f} ms | library(SDPA f32 on the "
-          f"gathered view, K=[ckv|krope], V=ckv) {t_l:.4f} ms | bound "
-          f"{b_ms:.5f} ms ({b_by}; {nbytes / 1e6:.2f} MB, "
-          f"{flops / 1e9:.3f} GFLOP at the f32 peak)", flush=True)
-    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                bound_by=b_by)
+          f"{t_k:.4f} ms (split: {plan[0]} key tiles of 16 a split) | PR "
+          f"16's CUDA-core kernel {t_16:.4f} ms | plain {t_p:.4f} ms | "
+          f"library(SDPA f32 on the gathered view, K=[ckv|krope], V=ckv) "
+          f"{t_l:.4f} ms | bound {b_ms:.5f} ms ({b_by}; {nbytes / 1e6:.2f} "
+          f"MB, {flops / 1e9:.3f} GFLOP at the bf16 peak) | tensor-core "
+          f"work done ({nq} q parts, {np_} p parts): {tc_flops / 1e9:.3f} "
+          f"GFLOP, {tc_flops / BF16_FLOPS * 1e3:.5f} ms at the bf16 peak",
+          flush=True)
+    return dict(ms=t_k, pr16_ms=t_16, plain_ms=t_p, library_ms=t_l,
+                bound_ms=b_ms, bound_by=b_by, tc_gflop=tc_flops / 1e9,
+                split_tiles=plan[0])
 
 
 def check_paged_mla(torch, np, dev):
@@ -832,8 +849,11 @@ def check_paged_mla(torch, np, dev):
     lengths. Each serve-shape pattern is timed per call; the rows'
     numbers are the mixed pattern's per step (4 MLA layers). Returns the
     two forms' kernel rows."""
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.ref import paged_attention_ref
+    routes = record_routes(torch, mla_only=True)
+    TC, CC = "paged MLA bf16 (tensor cores)", "paged MLA f32 (CUDA cores)"
     rows = []
     full = MLA_CASE[1]
     cases = ((None, MLA_RAGGED, 8, None, False),
@@ -849,17 +869,26 @@ def check_paged_mla(torch, np, dev):
             c = _mla_case(torch, np, dev, shape, seed, entries=entries,
                           deep=deep)
             k, k2, sc = _mla_pages(torch, c, form)
+            rt = pa.mla_row_tile(k.dtype)
 
             def run(k=k, k2=k2, sc=sc, c=c):
                 return paged_decode_attention(
                     c["q"], k, None, c["tables"], c["pos"],
                     sm_scale=c["sm"], lengths=c["lens"], q2=c["q2"],
                     k2_pages=k2, **sc)
-            out = run()
+            before = dict(routes)
+            out, again = run(), run()
             ref = paged_attention_ref(c["q"], k, None, c["tables"],
                                       c["pos"], sm_scale=c["sm"],
                                       q2=c["q2"], k2_pages=k2, **sc)
             torch.cuda.synchronize()
+            if not torch.equal(out, again):
+                fail(f"paged_decode_attention mla {form} {shape}: two "
+                     "launches differ")
+            if routes.get(TC, 0) != before.get(TC, 0) + 2 or \
+                    routes.get(CC, 0) != before.get(CC, 0):
+                fail(f"paged_decode_attention mla {form} {shape}: not two "
+                     f"tensor-core launches ({routes})")
             err = 0.0
             for b in range(out.shape[0]):
                 n = int(c["np_lens"][b])
@@ -874,10 +903,10 @@ def check_paged_mla(torch, np, dev):
                          f"{b}: max_abs_err "
                          f"{float((o - r).abs().max()):.3e}")
                 err = max(err, float((o - r).abs().max()))
-                # The kernel writes a 32-row tile of garbage rows as 0:
-                # with H a multiple of 32, every row past the length (the
+                # The kernel writes a row tile of garbage rows as 0: with
+                # H a multiple of the tile, every row past the length (the
                 # plain version computes them).
-                if out.is_cuda and shape[2] % 32 == 0 and \
+                if out.is_cuda and shape[2] % rt == 0 and \
                         bool(out[b, n:].any()):
                     fail(f"paged_decode_attention mla {form}: rows past "
                          f"slot {b}'s length are not 0")
@@ -899,14 +928,15 @@ def check_paged_mla(torch, np, dev):
             if not torch.equal(out, out2):
                 fail(f"paged_decode_attention mla {form} {shape}: garbage "
                      f"in {len(dead)} dead pages changed the output")
-            zero = " rows past each length 0 |" if shape[2] % 32 == 0 \
+            zero = " rows past each length 0 |" if shape[2] % rt == 0 \
                 else ""
             if label is not None:
                 serve_cases[label] = (c, k, k2, sc, run)
             print(f"kernel paged_decode_attention mla {form} B,C,H,rank,"
                   f"rope,bs,MB={shape[:7]} lengths "
                   f"{label or 'mixed'}: max_abs_err {err:.3e} (rtol "
-                  f"2e-5 atol 1e-5, valid rows) |{zero}"
+                  f"2e-5 atol 1e-5, valid rows) | two launches "
+                  f"bit-identical, both tensor-core |{zero}"
                   f" {len(dead)} dead pages "
                   f"{'NaN scales, +-127 codes' if form == 'int8' else 'NaN'}"
                   ": output bit-identical", flush=True)
@@ -1533,24 +1563,31 @@ def check_moe_models(torch, dev, serve, ds, gr) -> None:
                   arena=GRANITE_ARGS[:-8], label="granite-moe q8_0")
 
 
-def record_routes(torch):
+def record_routes(torch, mla_only=False):
     """Count, from here on, which kernel each attention and matmul launch
     takes (the wrappers pick by dtype): {route: launches}. Every model
-    path passes bf16 activations, so the f32 (CUDA-core) routes must stay
-    at 0."""
+    path passes bf16 activations (and the MLA form bf16 or int8 pages),
+    so the f32 (CUDA-core) routes must stay at 0. ``mla_only``: the MLA
+    form's two kernels alone."""
     from repro_torch.kernels import _dequant_matmul as dm
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     seen = {}
 
-    def counted(fn, label, arg):
+    def counted(fn, label, arg=None):
         def run(*a, **kw):
-            route = "bf16 (tensor cores)" if a[arg].dtype == torch.bfloat16 \
-                else "f32 (CUDA cores)"
-            key = f"{label} {route}"
-            seen[key] = seen.get(key, 0) + 1
+            route = label if arg is None else label + (
+                " bf16 (tensor cores)" if a[arg].dtype == torch.bfloat16
+                else " f32 (CUDA cores)")
+            seen[route] = seen.get(route, 0) + 1
             return fn(*a, **kw)
         return run
+    pa._launch_mla_tc = counted(pa._launch_mla_tc,
+                                "paged MLA bf16 (tensor cores)")
+    pa._launch_mla_cc = counted(pa._launch_mla_cc,
+                                "paged MLA f32 (CUDA cores)")
+    if mla_only:
+        return seen
     fa._launch = counted(fa._launch, "flash", 0)
     pa._launch_gqa = counted(pa._launch_gqa, "paged GQA", 0)
     dm.launch = counted(dm.launch, "matmul", 2)     # launch(wrapper, name, x)
@@ -1642,7 +1679,7 @@ def main() -> None:
     print(f"chip_smoke: serves done at {time.perf_counter() - T0:.1f} s",
           flush=True)
     check_routes(routes, "the serves and prefills",
-                 ("flash", "paged GQA", "matmul"))
+                 ("flash", "paged GQA", "paged MLA", "matmul"))
     for quant in RECIPE_LAUNCHES:
         check_recipe(torch, dev, serve, quant)
     check_moe_models(torch, dev, serve, ds, gr)
@@ -1650,7 +1687,7 @@ def main() -> None:
 
     check_routes({k: v for k, v in routes.items() if "matmul" not in k},
                  "the model paths' attention (serves, prefills, checks)",
-                 ("flash", "paged GQA"))
+                 ("flash", "paged GQA", "paged MLA"))
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in by_serve.values())
         k["launches_by_run"] = {q: c[k["name"]] for q, c in by_serve.items()

@@ -75,44 +75,82 @@
 //     partials and a second kernel merges them in split order (no
 //     atomics, so a result never varies from run to run).
 //
-// MLA form (paged_attention_mla below). Hkv is 1 and G = H = 128, so one
-// (slot, kv-head) has C * 128 query rows of width 512 + 64: too many to
-// stage in one block (the GQA design would need 4 MB of shared memory at
-// C = 8). Every row reads the same pages, so the work is a small matrix
-// product per page, S = [q_eff | q_rope] . [ckv | krope]^T, then
-// acc += P . ckv (~2 * (576 + 512) flops per row and key), f32 q_eff and
-// q_rope in, f32 out (what mla_decode passes). Its least time is set by
-// the bytes of the valid rows' f32 q_eff, q2 and output and by those f32
-// flops:
-//   * the grid is (slot x kv-head x 32-row tile, split); a tile's q rows
-//     are staged once, and each live page is staged ONCE per block as one
-//     f32 tile [ckv | krope] (rows padded to 4 mod 32 floats: conflict-free
-//     16-byte loads), used for the scores and, its ckv part, as V (the
-//     JAX contract "one DMA per live block");
-//   * scores: thread (key t, rows r and r + 16), each 16-byte load of the
-//     key row feeding 8 FMAs; P.V: each thread owns two of the 512 output
-//     columns for all 32 rows in registers (64 accumulators), reading P
-//     as broadcast 16-byte loads;
-//   * rows past a slot's valid length are garbage by contract: a tile
-//     whose first chunk entry is at or past max(len, 1) reads no page and
-//     writes its rows as 0 (in steady decode 7 of 8 entries), and a tile
-//     walks no page past the causal depth of its last row;
-//   * the page walk is split as in the GQA form, with the same fixed-order
-//     merge (one block per output row, so its loads overlap). The split
-//     count follows the step: every block sums, from positions and
-//     lengths, the pages all live tiles walk and takes that over two
-//     blocks per SM as the pages per split (steady decode at the serve's
-//     shape: 1 or 2 of 10 pages; more live rows, longer runs and fewer
-//     splits; one split is written without a merge). The launch has
-//     room for up to 16 splits; blocks past the step's count return at
-//     once;
-//   * with so few blocks per SM the kernel is bound by latency inside a
-//     block: each thread keeps 8 (q) or 4 (page) 16-byte loads in flight
-//     while staging, and two FMA chains per row in the score loop.
+// MLA form. Hkv is 1 and G = H = 128 (deepseek-v3), so a slot has C * 128
+// query rows of width 512 + 64, and every row reads the same pages: the
+// work is S = [q_eff | q_rope] . [ckv | krope]^T, then acc += P . ckv
+// (~2 * (576 + 512) flops per row and key), f32 q_eff and q_rope in, f32
+// out (what mla_decode passes). Its least time is set by the bytes of the
+// valid rows' f32 queries and output; the flops at the bf16 tensor-core
+// rate take less. Two kernels, picked by the page dtype alone.
+//
+// bf16 pages, or int8 code pages with fp16 scales (every serving path):
+// the tensor-core kernel, mtc::paged_mla_tc_kernel (entry point
+// paged_attention_mla_tc):
+//   * rows r = i * G + g in 64-row tiles: at G = 128 a chunk entry's heads
+//     are two tiles of one causal depth; at small G a tile spans entries
+//     and masks per row. Each live page is read once per 64 rows: a
+//     16-key tile [ckv | krope] (bf16, swizzled; int8 codes turned into
+//     exact bf16 once per block) serves the scores and, its ckv part, P.V;
+//   * products on mma.sync m16n8k16 (bf16 -> f32). The f32 queries stay
+//     f32 in shared memory and each fragment is split into three bf16
+//     parts (hi + mid + lo, ~2^-25 relative; two parts leave ~2^-17 of
+//     sum |q||k| per score, past the tolerance -- tests/test_torch_mla.py
+//     emulates the split); the keys are exact in bf16 (int8: |code| <=
+//     127). p is split into three parts too, as the GQA form splits it
+//     (two leave little margin on int8 pages). On int8 pages the ckv and
+//     krope terms are scaled per key column in f32 before they join, and
+//     the ckv scale folds into p before its split;
+//   * why mma.sync and not wgmma: three bf16 parts of a 64 x 576 query
+//     tile are 221 KB, more than fits beside a key ring, so the A operand
+//     is split in registers either way, and the products are small (S is
+//     64 x 16 per key tile) in a kernel bound by memory traffic and
+//     latency, where wgmma's higher rate would not show. The block's 16
+//     warps are 4 row groups x 4 column quarters: each warp sums a
+//     quarter of the score's features for its 16 rows, the four shares
+//     are pooled through shared memory and summed in one fixed order (so
+//     the four warps hold the same S and run the same softmax), and each
+//     warp owns 128 output columns (64 f32 accumulators a thread);
+//   * shared memory: the q tile 64 x (576 + 8) f32 (149.5 KB), a 3-stage
+//     ring of key tiles (55 KB; int8 27.6 KB + an 18 KB conversion
+//     buffer), score shares 16 KB: one block per SM;
+//   * one cooperative launch of one block per SM. Every block plans the
+//     step from positions and lengths (the same plan in each): the key
+//     tiles each live row tile walks, and `per` tiles a split -- at least
+//     work / SMs and 2, and the fewest that fit all of the step's (row
+//     tile, split) items on the SMs at once (or the whole walk, nothing
+//     split, when even that does not fit). Block i walks item i. The
+//     launch shape depends on the table's width alone;
+//   * the splits of a row tile merge inside the launch: each writes its
+//     partial (acc, max, sum), counts itself on the tile's ticket (zeroed
+//     by the wrapper for each launch), waits until every split has (they
+//     all run at once), and merges its own slice of the tile's rows from
+//     every split, staged in shared memory, summed in split order (no
+//     atomics on sums: two launches give the same bits);
+//   * rows past a slot's valid length are garbage by contract: a row tile
+//     whose rows all lie past max(len, 1) reads no page and is written as
+//     0; keys past a walk's end are zero-filled, never loaded, and pages
+//     past last_live are never touched, so garbage in dead pages changes
+//     no bit;
+//   * what holds it back (PERF.md section 6): a split block moves ~0.5 MB
+//     (the 147 KB q tile, its pages, a 128 KB partial written and read
+//     back, its output rows) through one SM's share of the memory
+//     system, and splitting the f32 queries costs ALU on every key tile;
+//     the tensor cores are not the limit.
+//
+// f32 pages (on no serving path): the CUDA-core kernel,
+// paged_attention_mla_kernel (entry point paged_attention_mla), whose f32
+// products meet the f32 tolerance: the grid is (slot x kv-head x 32-row
+// tile, split); a tile's q rows and each live page are staged once per
+// block as f32; scores one thread per (key, two rows), P.V two output
+// columns per thread for all 32 rows; the split count follows the step
+// (from positions and lengths, on the card), and a second kernel merges
+// the splits in split order.
 #include <math.h>
 #include <type_traits>
+#include <vector>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -946,7 +984,8 @@ int dispatch(const void* q, const void* kp, const void* vp, const __half* ks,
 }  // namespace gtc
 
 // ---------------------------------------------------------------------
-// MLA form: shared K/V pages plus the RoPE score side.
+// MLA form on f32 pages: shared K/V pages plus the RoPE score side on
+// the CUDA cores (see the top note).
 // ---------------------------------------------------------------------
 constexpr int MLA_RT = 32;             // query rows of a block
 constexpr int MLA_COLS = 2;            // output columns a thread owns
@@ -1363,6 +1402,697 @@ int launch_mla(const float* q, const float* q2, const void* kp,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------
+// MLA form on bf16 or int8 pages: tensor-core products, 64-row tiles
+// (see the top note).
+// ---------------------------------------------------------------------
+namespace mtc {
+
+constexpr int RT = 64;                 // query rows of a row tile
+constexpr int KT = 16;                 // keys of a tile
+constexpr int NS = 3;                  // stages of the key ring
+constexpr int WARPS = 16;              // 4 row groups x 4 column quarters
+constexpr int THREADS = 32 * WARPS;
+constexpr int XW = 256;                // floats of a warp's score share
+constexpr int MAX_SPLITS = 16;         // bounds the partials' memory
+constexpr int MIN_TILES = 2;           // key tiles a split walks, at least
+constexpr int NQ = 3;                  // bf16 parts of the f32 queries
+constexpr int NP = 3;                  // bf16 parts of p
+constexpr int WSTR = MAX_SPLITS + 1;   // merge weights row: [split] den
+constexpr int MAX_D2 = 256;
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Shape {
+  int B, C, H, Hkv, D1, D2, bs, MB;
+  int splits;                          // the most a step takes (partials)
+  int row_tiles, units;                // units = B * Hkv * row_tiles
+};
+
+// Staged feature width: [ckv | krope] rounded up to 64 (zero columns).
+__host__ __device__ constexpr int feat_width(int D1, int D2) {
+  return (D1 + D2 + 63) / 64 * 64;
+}
+
+// Shared-memory layout of one block (bytes); FT = feat_width, ES = bytes
+// of a page element, U = units, B = slots. After a walk, the merge
+// stages the partials where the q rows and the ring were, and their
+// (max, sum) rows and weights in xch.
+struct Layout {
+  int q, ring, conv, xch, ids, off, pl, red, total;
+};
+
+__host__ __device__ inline Layout layout(int FT, int ES, int MB, int U,
+                                         int B) {
+  Layout L{};
+  L.q = 0;                                        // [RT][FT + 8] f32
+  L.ring = gtc::align128(RT * (FT + 8) * 4);      // NS x [KT][FT] pages
+  L.conv = L.ring + NS * KT * FT * ES;            // int8: [KT][FT] bf16
+  L.xch = L.conv + (ES == 1 ? KT * FT * 2 : 0);   // [WARPS][XW] f32
+  L.ids = L.xch + WARPS * XW * 4;                 // a split's page ids
+  L.off = L.ids + gtc::align128((MB + 2) * 4);    // [U + 1] first items
+  L.pl = L.off + gtc::align128((U + 1) * 4);      // [B] positions, lengths
+  L.red = L.pl + gtc::align128(2 * B * 4);        // the step's per
+  L.total = L.red + 16;
+  return L;
+}
+
+// Keys the walk of row tile `tile` of a slot must cover: the deepest
+// causal depth among its rows of valid chunk entries; 0 when every row
+// lies past max(len, 1) (garbage by contract: the tile reads no page).
+__host__ __device__ inline int walk_keys(int tile, int pos0, int len, int C,
+                                         int G, int MB, int bs) {
+  const int len1 = len > 1 ? len : 1;
+  const int r0 = tile * RT;
+  if (r0 / G >= len1) return 0;
+  int e_end = (r0 + RT - 1) / G + 1;   // one past the deepest entry
+  e_end = e_end < C ? e_end : C;
+  const int keys = pos0 + (e_end < len1 ? e_end : len1);
+  return keys < MB * bs ? keys : MB * bs;
+}
+
+// A step's split: `per` key tiles a split. The launch holds one block
+// per SM (`sms`), and every split of a tile merges the tile's partials
+// after all of them are written, so all items of a step must run at
+// once: per is the fewest tiles, from per_floor up, whose items fit the
+// SMs, or the whole walk (one split a tile, nothing merged) when even
+// that needs more. Both the kernel and paged_attention_mla_tc_plan
+// search it so (items(p): the step's items at p tiles a split, never
+// growing with p).
+// The least `per`: work / SMs (work: the key tiles all live row tiles
+// walk), at least MIN_TILES (each split's partials cost the merge
+// another read), no more splits than the partials hold, at most maxt.
+__host__ __device__ inline int per_floor(int work, int maxt, int most,
+                                         int sms) {
+  int lo = (work + sms - 1) / sms;
+  const int fit = (maxt + most - 1) / most;
+  lo = lo > fit ? lo : fit;
+  lo = lo > MIN_TILES ? lo : MIN_TILES;
+  return lo < maxt ? lo : maxt;
+}
+
+__host__ __device__ inline int max_splits(int MB, int bs) {
+  const int most = ((MB * bs + KT - 1) / KT + MIN_TILES - 1) / MIN_TILES;
+  return most < MAX_SPLITS ? most : MAX_SPLITS;
+}
+
+// x0, x1 split into N bf16 pairs a[0..N)[f] (x0 in the low halves)
+// whose sum is (x0, x1) to ~2^(-8N - 1) relative: each part is the
+// previous remainder rounded, and each remainder is exact in f32.
+template <int N>
+__device__ __forceinline__ void split_into(float x0, float x1,
+                                           uint32_t (&a)[N][4], int f) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    a[i][f] = bf16x2(x0, x1);
+    x0 -= __uint_as_float(a[i][f] << 16);
+    x1 -= __uint_as_float(a[i][f] & 0xffff0000u);
+  }
+}
+
+// The launch: one block per SM. Each block plans the step, then walks
+// the items i = blockIdx.x, i + gridDim.x, ... of the step's list (split
+// z of live row tile u, in (u, z) order), then writes the row tiles
+// u = blockIdx.x, ... whose rows are all garbage as 0. Warp w of a
+// block: rows 16 (w % 4) .. + 15 of the tile, output columns D1 / 4 *
+// (w / 4) .. + D1 / 4, and a quarter of the score's features.
+template <typename TKV, int D1>
+__global__ void __launch_bounds__(THREADS, 1)
+paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
+                    const TKV* __restrict__ k_pages,
+                    const TKV* __restrict__ k2_pages,
+                    const __half* __restrict__ k_scales,
+                    const __half* __restrict__ k2_scales,
+                    const int* __restrict__ tables,
+                    const int* __restrict__ positions,
+                    const int* __restrict__ lengths, float* __restrict__ out,
+                    float* __restrict__ part_acc,
+                    float* __restrict__ part_ml, int* __restrict__ tickets,
+                    Shape s, float sm_scale) {
+  constexpr bool kInt8 = sizeof(TKV) == 1;
+  constexpr int ES = sizeof(TKV);
+  constexpr int QC = D1 / 4;           // output columns of a warp
+  constexpr int NT = QC / 8;           // ... in 8-column tiles
+  constexpr int D4 = D1 / 4;           // float4s of an output row
+  extern __shared__ __align__(128) unsigned char sm[];
+  const int D2 = s.D2, bs = s.bs, U = s.units;
+  const int FT = feat_width(D1, D2), QS = FT + 8, RB = FT * ES;
+  const Layout lay = layout(FT, ES, s.MB, U, s.B);
+  float* q_sh = reinterpret_cast<float*>(sm + lay.q);
+  unsigned char* ring = sm + lay.ring;
+  float* xch = reinterpret_cast<float*>(sm + lay.xch);
+  int* ids = reinterpret_cast<int*>(sm + lay.ids);
+  int* off = reinterpret_cast<int*>(sm + lay.off);
+  int* red = reinterpret_cast<int*>(sm + lay.red);  // [2][WARPS], flag
+  const int G = s.H / s.Hkv, R = s.C * G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int rg = warp & 3, cq = warp >> 2;
+  int* pos_sh = reinterpret_cast<int*>(sm + lay.pl);  // [B], then [B]
+  for (int i = tid; i < s.B; i += THREADS) {
+    pos_sh[i] = positions[i];
+    pos_sh[s.B + i] = lengths[i];
+  }
+  __syncthreads();
+
+  // The step's plan and item list, the same in every block, made by warp
+  // 0: unit u's splits are items off[u] .. off[u + 1] - 1. Lane l owns
+  // units [l * cpl, (l + 1) * cpl) and keeps their walk tiles in off[]
+  // first.
+  if (warp == 0) {
+    auto warp_sum = [&](int v) -> int {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      return v;
+    };
+    const int cpl = (U + 31) / 32;
+    const int ub = min(U, lane * cpl), ue = min(U, ub + cpl);
+    int work = 0;
+    for (int u = ub; u < ue; ++u) {
+      const int b = u / s.row_tiles / s.Hkv;
+      off[u] = (walk_keys(u % s.row_tiles, pos_sh[b], pos_sh[s.B + b], s.C,
+                          G, s.MB, bs) + KT - 1) / KT;
+      work += off[u];
+    }
+    const int maxt = (s.MB * bs + KT - 1) / KT;
+    int per = per_floor(warp_sum(work), maxt, s.splits, gridDim.x);
+    for (int hi = maxt; per < hi;) {
+      const int mid = (per + hi) / 2;
+      int n = 0;
+      for (int u = ub; u < ue; ++u) n += (off[u] + mid - 1) / mid;
+      if (warp_sum(n) <= (int)gridDim.x) hi = mid; else per = mid + 1;
+    }
+    int items = 0;                     // this lane's units' splits
+    for (int u = ub; u < ue; ++u) items += (off[u] + per - 1) / per;
+    int incl = items;                  // inclusive scan over the lanes
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    int first = incl - items;
+    for (int u = ub; u < ue; ++u) {
+      const int n = (off[u] + per - 1) / per;
+      off[u] = first;
+      first += n;
+    }
+    const int total = __shfl_sync(0xffffffffu, incl, 31);
+    if (lane == 0) {
+      off[U] = total;
+      red[0] = per;
+    }
+  }
+  __syncthreads();
+  const int per = red[0], total = off[U];
+
+  for (int item = blockIdx.x; item < total; item += gridDim.x) {
+    // Unit u: the last with off[u] <= item.
+    int lo = 0, hi = U - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (off[mid] <= item) lo = mid; else hi = mid - 1;
+    }
+    const int unit = lo, z = item - off[lo];
+    const int nlive = off[lo + 1] - off[lo];
+    const int tile = unit % s.row_tiles, bh = unit / s.row_tiles;
+    const int b = bh / s.Hkv, hkv = bh % s.Hkv;
+    const int r0 = tile * RT;
+    const int rows = min(RT, R - r0);  // rows of the tile that exist
+    const int pos0 = pos_sh[b];
+    const int wk = walk_keys(tile, pos0, pos_sh[s.B + b], s.C, G, s.MB, bs);
+    const int ntile = (wk + KT - 1) / KT;
+    // Flat (slot, chunk entry, head) index of row r of the tile.
+    auto head = [&](int r) -> size_t {
+      const int rr = r0 + r, i = rr / G;
+      return ((size_t)b * s.C + i) * s.H + hkv * G + (rr - i * G);
+    };
+    // Split z of the tile's nlive splits: its share of the walk's tiles,
+    // as even as the tiles allow.
+    const int each = (ntile + nlive - 1) / nlive;
+    const int t_begin = z * each;
+    const int my_n = max(0, min(ntile, t_begin + each) - t_begin);
+    // Keys of this split: [key0, kend). Pages past it are never
+    // touched, and the keys of its last tile past it are zero-filled,
+    // never loaded.
+    const int key0 = t_begin * KT;
+    const int kend = min(wk, (t_begin + my_n) * KT);
+    const int j0 = key0 / bs, j1 = (kend - 1) / bs;
+    for (int j = j0 + tid; j <= j1; j += THREADS)
+      ids[j - j0] = tables[(size_t)b * s.MB + j];
+
+    // [q | q2] rows of the tile -> shared as f32 (rows past R and
+    // columns past D1 + D2 zero); warp w stages rows w, w + 16, ...
+    {
+      const int c1 = D1 / 4, c2 = (D1 + D2) / 4, cpr = FT / 4;
+      for (int r = warp; r < RT; r += WARPS) {
+        const bool row_ok = r < rows;
+        const float* qr = row_ok ? q + head(r) * D1 : q;
+        const float* q2r = row_ok ? q2 + head(r) * D2 : q;
+        for (int c = lane; c < cpr; c += 32) {
+          const bool ok = row_ok && c < c2;
+          cp_async16(q_sh + r * QS + 4 * c,
+                     !ok ? q : (c < c1 ? qr + 4 * c : q2r + 4 * (c - c1)),
+                     ok);
+        }
+      }
+      cp_async_commit();
+    }
+    __syncthreads();                   // the page ids
+
+    // Tile n of the split -> stage n % NS, one key per warp: ckv at row
+    // bytes [0, D1 ES), krope after it, zero to FT (bf16 swizzled for
+    // ldmatrix; int8 codes as they are, converted below).
+    auto issue = [&](int n) {
+      if (n < my_n) {
+        unsigned char* dst = ring + (n % NS) * KT * RB;
+        const int cpr = RB / 16, c1 = D1 * ES / 16;
+        const int c2 = (D1 + D2) * ES / 16;
+        const unsigned char* base =
+            reinterpret_cast<const unsigned char*>(k_pages);
+        for (int kk = warp; kk < KT; kk += WARPS) {
+          const int key = (t_begin + n) * KT + kk;
+          const bool key_ok = key < kend;
+          const unsigned char* kr = base;
+          const unsigned char* k2r = base;
+          if (key_ok) {
+            const size_t row =
+                ((size_t)ids[key / bs - j0] * bs + key % bs) * s.Hkv + hkv;
+            kr = base + row * D1 * ES;
+            k2r = reinterpret_cast<const unsigned char*>(k2_pages) +
+                  row * D2 * ES;
+          }
+          for (int c = lane; c < cpr; c += 32) {
+            const bool ok = key_ok && c < c2;
+            cp_async16(
+                dst + (kInt8 ? kk * RB + 16 * c : gtc::swb(kk, 16 * c, RB)),
+                !ok ? base : (c < c1 ? kr + 16 * c : k2r + 16 * (c - c1)),
+                ok);
+          }
+        }
+      }
+      cp_async_commit();               // empty groups keep the count
+    };
+    // int8: lane l < 16 holds the ckv scale of key l of tile n, lane
+    // 16 + l its krope scale (0 past the split's keys: never loaded).
+    auto scale_at = [&](int n) -> float {
+      const int key = (t_begin + n) * KT + (lane & 15);
+      if (!kInt8 || n >= my_n || key >= kend || (lane >= 16 && D2 == 0))
+        return 0.f;
+      const size_t row =
+          ((size_t)ids[key / bs - j0] * bs + key % bs) * s.Hkv + hkv;
+      return __half2float((lane < 16 ? k_scales : k2_scales)[row]);
+    };
+
+    // The causal limit of this thread's rows g and g + 8 (-1: a pad
+    // row).
+    int lim[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rr = r0 + rg * 16 + g + 8 * h;
+      lim[h] = rr < R ? pos0 + rr / G : -1;
+    }
+    // The 16-feature steps of the score this warp sums: a quarter of
+    // [ckv | krope] (9 of 36 at rank 512, rope 64); ckv steps before K1.
+    const int K1 = D1 / 16, KS = (D1 + D2) / 16;
+    const int ks0 = cq * KS / 4, ks1 = (cq + 1) * KS / 4;
+    const float* qa = q_sh + (rg * 16 + g) * QS + 2 * t;
+    const float sl2 = sm_scale * LOG2E;  // scores in log2 units
+
+    float acc[NT][4];
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+    // NS - 1 tiles in flight ahead of the one computed.
+#pragma unroll
+    for (int n = 0; n < NS - 1; ++n) issue(n);
+    float sc0 = scale_at(0), sc1 = scale_at(1);
+
+    for (int n = 0; n < my_n; ++n) {
+      cp_async_wait<NS - 2>();         // q and tile n, this thread's part
+      __syncthreads();                 // ... every thread's; tile n - 1 done
+      issue(n + NS - 1);               // into the stage tile n - 1 left
+      const float sc2 = scale_at(n + NS - 1);      // in flight meanwhile
+      const unsigned char* kb = ring + (n % NS) * KT * RB;
+      if constexpr (kInt8) {
+        // Codes -> bf16 (exact: |code| <= 127), once for the block.
+        unsigned char* conv = sm + lay.conv;
+        const int cpr = FT / 16;
+        for (int idx = tid; idx < KT * cpr; idx += THREADS) {
+          const int kk = idx / cpr, c = idx - kk * cpr;
+          uint32_t cv[8];
+          q8_0_codes(*reinterpret_cast<const int4*>(kb + kk * RB + c * 16),
+                     cv);
+          *reinterpret_cast<uint4*>(conv + gtc::swb(kk, c * 32, FT * 2)) =
+              make_uint4(cv[0], cv[1], cv[2], cv[3]);
+          *reinterpret_cast<uint4*>(conv +
+                                    gtc::swb(kk, c * 32 + 16, FT * 2)) =
+              make_uint4(cv[4], cv[5], cv[6], cv[7]);
+        }
+        __syncthreads();
+        kb = conv;
+      }
+
+      // This warp's share of S = q . [ckv | krope]^T for its 16 rows and
+      // the tile's 16 keys: the f32 q fragment split into NQ bf16 parts
+      // (smallest first) against the exact bf16 keys.
+      float sa[2][4], sr[2][4];        // ckv and (int8) krope terms
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sa[j][e] = sr[j][e] = 0.f;
+      auto kstep = [&](int f, float (&d)[2][4]) {
+        uint32_t a[NQ][4];
+        const float2 x0 = *reinterpret_cast<const float2*>(qa + f);
+        const float2 x1 = *reinterpret_cast<const float2*>(qa + 8 * QS + f);
+        const float2 x2 = *reinterpret_cast<const float2*>(qa + f + 8);
+        const float2 x3 =
+            *reinterpret_cast<const float2*>(qa + 8 * QS + f + 8);
+        split_into<NQ>(x0.x, x0.y, a, 0);
+        split_into<NQ>(x1.x, x1.y, a, 1);
+        split_into<NQ>(x2.x, x2.y, a, 2);
+        split_into<NQ>(x3.x, x3.y, a, 3);
+        uint32_t kf[4];
+        ldmatrix_x4(kf, kb + gtc::swb((lane & 7) + 8 * (lane >> 4),
+                                      (f + 8 * ((lane >> 3) & 1)) * 2,
+                                      FT * 2));
+#pragma unroll
+        for (int i = NQ - 1; i >= 0; --i) {
+          mma_bf16(d[0], a[i], kf[0], kf[1]);
+          mma_bf16(d[1], a[i], kf[2], kf[3]);
+        }
+      };
+      const int kc = min(ks1, K1);
+#pragma unroll 3
+      for (int kk = ks0; kk < kc; ++kk) kstep(16 * kk, sa);
+#pragma unroll 2
+      for (int kk = max(ks0, K1); kk < ks1; ++kk)
+        kstep(16 * kk, kInt8 ? sr : sa);
+      // int8: each term scaled per key column in f32 before they join.
+      float sp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (kInt8) {
+            const int kl = j * 8 + 2 * t + (e & 1);
+            sp[j][e] = sa[j][e] * __shfl_sync(0xffffffffu, sc0, kl) +
+                       sr[j][e] * __shfl_sync(0xffffffffu, sc0, 16 + kl);
+          } else {
+            sp[j][e] = sa[j][e];
+          }
+        }
+      // The four warps of a row group pool their shares, summed in the
+      // same order by each (so all four hold the same S and run the same
+      // softmax).
+      {
+        float* mine = xch + warp * XW + lane * 4;
+        *reinterpret_cast<float4*>(mine) =
+            make_float4(sp[0][0], sp[0][1], sp[0][2], sp[0][3]);
+        *reinterpret_cast<float4*>(mine + 128) =
+            make_float4(sp[1][0], sp[1][1], sp[1][2], sp[1][3]);
+        hopper::named_bar_sync(1 + rg, 128);
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          const float* o = xch + (rg + 4 * w) * XW + lane * 4;
+          const float4 o0 = *reinterpret_cast<const float4*>(o);
+          const float4 o1 = *reinterpret_cast<const float4*>(o + 128);
+          if (w == 0) {
+            sp[0][0] = o0.x; sp[0][1] = o0.y; sp[0][2] = o0.z;
+            sp[0][3] = o0.w;
+            sp[1][0] = o1.x; sp[1][1] = o1.y; sp[1][2] = o1.z;
+            sp[1][3] = o1.w;
+          } else {
+            sp[0][0] += o0.x; sp[0][1] += o0.y; sp[0][2] += o0.z;
+            sp[0][3] += o0.w;
+            sp[1][0] += o1.x; sp[1][1] += o1.y; sp[1][2] += o1.z;
+            sp[1][3] += o1.w;
+          }
+        }
+      }
+
+      // Scale (to log2 units), mask, online softmax (a row's 4 threads
+      // reduce by shuffles), P = p (times the key's ckv scale on int8
+      // pages).
+      const int key_t = (t_begin + n) * KT;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = key_t + j * 8 + 2 * t + (e & 1);
+          float x = sp[j][e] * sl2;
+          if (key >= wk || key > lim[e >> 1]) x = -INFINITY;
+          sp[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float mu[2], alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m[h], mx[h]);
+        alpha[h] = m[h] == -INFINITY ? 0.f : ex2(m[h] - m_new);
+        mu[h] = m_new == -INFINITY ? 0.f : m_new;
+        m[h] = m_new;
+        l[h] *= alpha[h];
+      }
+      // acc *= alpha, skipped where no row's max moved (alpha 1 exactly).
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f))
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          acc[i][0] *= alpha[0];
+          acc[i][1] *= alpha[0];
+          acc[i][2] *= alpha[1];
+          acc[i][3] *= alpha[1];
+        }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = ex2(sp[j][e] - mu[e >> 1]);          // masked: 0
+          l[e >> 1] += p;
+          if constexpr (kInt8)
+            p *= __shfl_sync(0xffffffffu, sc0, j * 8 + 2 * t + (e & 1));
+          sp[j][e] = p;
+        }
+
+      // acc += P . ckv over this warp's columns, P split into NP bf16
+      // parts (an A fragment each: f = (key tile j, row half) gives a0
+      // (rows g, keys 2t..), a1 (rows g + 8), a2 (rows g, keys 2t + 8..),
+      // a3).
+      uint32_t pa[NP][4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        split_into<NP>(sp[f >> 1][(f & 1) * 2], sp[f >> 1][(f & 1) * 2 + 1],
+                       pa, f);
+#pragma unroll
+      for (int vp = 0; vp < NT / 2; ++vp) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(
+            vf, kb + gtc::swb((lane & 7) + 8 * ((lane >> 3) & 1),
+                              (cq * QC + vp * 16 + 8 * (lane >> 4)) * 2,
+                              FT * 2));
+#pragma unroll
+        for (int i = NP - 1; i >= 0; --i) {
+          mma_bf16(acc[2 * vp], pa[i], vf[0], vf[1]);
+          mma_bf16(acc[2 * vp + 1], pa[i], vf[2], vf[3]);
+        }
+      }
+      sc0 = sc1;
+      sc1 = sc2;
+    }
+    cp_async_wait<0>();
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+      l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    }
+
+    if (nlive == 1) {                  // the walk in one split: no merge
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rg * 16 + g + 8 * h;
+        if (r >= rows) continue;
+        const float d = l[h] == 0.f ? 1.f : l[h];
+        float* o = out + head(r) * D1 + cq * QC + 2 * t;
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+          *reinterpret_cast<float2*>(o + 8 * i) =
+              make_float2(acc[i][2 * h] / d, acc[i][2 * h + 1] / d);
+      }
+      __syncthreads();                 // shared memory is the next item's
+      continue;
+    }
+    // Partials of this split: acc [RT][D1], then (max, sum) per row.
+    {
+      const size_t slot = (size_t)unit * s.splits + z;
+      float* pw = part_acc + slot * RT * D1 + cq * QC + 2 * t;
+      float* pml = part_ml + slot * 2 * RT;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = rg * 16 + g + 8 * h;
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+          *reinterpret_cast<float2*>(pw + r * D1 + 8 * i) =
+              make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
+        if (cq == 0 && t == 0) {
+          pml[r] = m[h];
+          pml[RT + r] = l[h];
+        }
+      }
+    }
+
+    // Every split of the tile merges a slice of its rows once all the
+    // tile's partials are written (a ticket counts them; the plan runs
+    // all of a step's items at once, and the launch is cooperative, so
+    // every split is running), summing the splits in split order.
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      atomicAdd(&tickets[unit], 1);
+      int done;
+      do {
+        asm volatile("ld.acquire.gpu.b32 %0, [%1];\n"
+                     : "=r"(done)
+                     : "l"(tickets + unit)
+                     : "memory");
+        if (done < nlive) __nanosleep(64);
+      } while (done < nlive);
+    }
+    __syncthreads();
+    const int slice = (RT + nlive - 1) / nlive;
+    const int ra = min(rows, z * slice), sr = min(rows, ra + slice) - ra;
+    // Every split's (max, sum) rows and the slice's rows of every split's
+    // partial -> shared memory (the q rows' and the ring's space), all
+    // loads in flight at once.
+    {
+      const float* pm0 = part_ml + (size_t)unit * s.splits * 2 * RT;
+      const float* pa0 = part_acc + ((size_t)unit * s.splits * RT + ra) * D1;
+      for (int i = tid; i < nlive * 2 * RT / 4; i += THREADS)
+        cp_async16(xch + 4 * i, pm0 + 4 * i, true);
+      const int per_split = sr * D4;
+      for (int i = tid; i < nlive * per_split; i += THREADS) {
+        const int zz = i / per_split, k = i - zz * per_split;
+        cp_async16(q_sh + 4 * i, pa0 + ((size_t)zz * RT * D1) + 4 * k, true);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // Each slice row's weights w_z = 2^(m_z - max m) and den = sum w_z
+    // l_z, in split order.
+    float* wts = xch + MAX_SPLITS * 2 * RT;        // [RT][WSTR]
+    for (int r = tid; r < sr; r += THREADS) {
+      float mm = -INFINITY;
+      for (int zz = 0; zz < nlive; ++zz)
+        mm = fmaxf(mm, xch[zz * 2 * RT + ra + r]);
+      float den = 0.f;
+      for (int zz = 0; zz < nlive; ++zz) {
+        const float mz = xch[zz * 2 * RT + ra + r];
+        const float a = mz == -INFINITY ? 0.f : ex2(mz - mm);
+        wts[r * WSTR + zz] = a;
+        den = fmaf(a, xch[zz * 2 * RT + RT + ra + r], den);
+      }
+      wts[r * WSTR + MAX_SPLITS] = den == 0.f ? 1.f : den;
+    }
+    __syncthreads();
+    {
+      const float4* st = reinterpret_cast<const float4*>(q_sh);
+      for (int i = tid; i < sr * D4; i += THREADS) {
+        const int r = i / D4;
+        float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int zz = 0; zz < nlive; ++zz)
+          gtc::fma4(wts[r * WSTR + zz], st[zz * sr * D4 + i], num);
+        const float d = wts[r * WSTR + MAX_SPLITS];
+        *reinterpret_cast<float4*>(out + head(ra + r) * D1 + 4 * (i % D4)) =
+            make_float4(num.x / d, num.y / d, num.z / d, num.w / d);
+      }
+    }
+    __syncthreads();                   // shared memory is the next item's
+  }
+
+  // Row tiles whose rows all lie past max(len, 1): written as 0, no page
+  // read.
+  for (int u = blockIdx.x; u < U; u += gridDim.x) {
+    if (off[u + 1] != off[u]) continue;
+    const int tile = u % s.row_tiles, bh = u / s.row_tiles;
+    const int b = bh / s.Hkv, hkv = bh % s.Hkv;
+    const int r0 = tile * RT, rows = min(RT, R - r0);
+    for (int idx = tid; idx < rows * D4; idx += THREADS) {
+      const int rr = r0 + idx / D4, i = rr / G;
+      *reinterpret_cast<float4*>(
+          out + (((size_t)b * s.C + i) * s.H + hkv * G + (rr - i * G)) * D1 +
+          4 * (idx % D4)) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+}
+
+template <typename TKV, int D1>
+int launch(const float* q, const float* q2, const void* kp, const void* k2p,
+           const __half* ks, const __half* k2s, const int* tables,
+           const int* positions, const int* lengths, float* out,
+           float* part_acc, float* part_ml, int* tickets, Shape sh,
+           int blocks, float sm_scale, cudaStream_t st) {
+  const Layout lay = layout(feat_width(D1, sh.D2), (int)sizeof(TKV), sh.MB,
+                            sh.units, sh.B);
+  // Opt in to the card's whole per-block limit once per instantiation;
+  // the wrapper has checked lay.total against that limit.
+  static const cudaError_t opt_in = [] {
+    int dev = 0, limit = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&limit,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(paged_mla_tc_kernel<TKV, D1>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               limit);
+    return e;
+  }();
+  if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
+  // Cooperative: every block is resident at once (the merge waits for
+  // the splits of a tile, each on its own block).
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = lay.total;
+  cfg.stream = st;
+  cudaLaunchAttribute coop;
+  coop.id = cudaLaunchAttributeCooperative;
+  coop.val.cooperative = 1;
+  cfg.attrs = &coop;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, paged_mla_tc_kernel<TKV, D1>, q, q2,
+      static_cast<const TKV*>(kp), static_cast<const TKV*>(k2p), ks, k2s,
+      tables, positions, lengths, out, part_acc, part_ml, tickets, sh,
+      sm_scale);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+template <typename TKV>
+int dispatch(const float* q, const float* q2, const void* kp,
+             const void* k2p, const __half* ks, const __half* k2s,
+             const int* tables, const int* positions, const int* lengths,
+             float* out, float* part_acc, float* part_ml, int* tickets,
+             Shape sh, int blocks, float sm_scale, cudaStream_t st) {
+#define REPRO_MLA_TC(RANK)                                                  \
+  if (sh.D1 == RANK)                                                        \
+  return launch<TKV, RANK>(q, q2, kp, k2p, ks, k2s, tables, positions,      \
+                           lengths, out, part_acc, part_ml, tickets, sh,    \
+                           blocks, sm_scale, st)
+  REPRO_MLA_TC(64);
+  REPRO_MLA_TC(128);
+  REPRO_MLA_TC(256);
+  REPRO_MLA_TC(512);
+#undef REPRO_MLA_TC
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace mtc
+
 
 }  // namespace
 
@@ -1472,7 +2202,11 @@ extern "C" int paged_attention_gqa_tc(
 // D1 + D2 rounded up to 32 floats, plus 4 (rows start 4 banks apart).
 static int mla_stride(int D1, int D2) { return (D1 + D2 + 31) / 32 * 32 + 4; }
 
-extern "C" int paged_attention_mla_row_tile() { return MLA_RT; }
+// Query rows of a row tile: the CUDA-core kernel's on f32 pages
+// (kv_dtype 0), the tensor-core kernel's on bf16 (1) or int8 (2) pages.
+extern "C" int paged_attention_mla_row_tile(int kv_dtype) {
+  return kv_dtype == 0 ? MLA_RT : mtc::RT;
+}
 extern "C" int paged_attention_mla_max_d1() { return MLA_MAX_D1; }
 
 extern "C" long long paged_attention_mla_smem(int D1, int D2, int bs) {
@@ -1528,4 +2262,109 @@ extern "C" int paged_attention_mla(const void* q, const void* q2,
   if (kv_dtype == 1) REPRO_MLA_LAUNCH(__nv_bfloat16);
   REPRO_MLA_LAUNCH(float);
 #undef REPRO_MLA_LAUNCH
+}
+
+// MLA form on bf16 or int8 pages: the tensor-core kernel (mtc). Shared
+// bytes of one block (the wrapper checks them against the card's limit).
+extern "C" long long paged_attention_mla_tc_smem(int B, int C, int H, int Hkv,
+                                                 int D1, int D2, int kv_dtype,
+                                                 int MB) {
+  const int units = B * Hkv * ((C * (H / Hkv) + mtc::RT - 1) / mtc::RT);
+  return mtc::layout(mtc::feat_width(D1, D2), kv_dtype == 2 ? 1 : 2, MB,
+                     units, B)
+      .total;
+}
+
+// The scratch of a call: n[0] the most splits a step can take for a
+// table of MB pages of bs keys, n[1] floats of part_acc, n[2] floats of
+// part_ml, n[3] ints of tickets (all 0 when a step takes one split).
+extern "C" void paged_attention_mla_tc_scratch(int B, int C, int H, int Hkv,
+                                               int D1, int bs, int MB,
+                                               long long* n) {
+  const long long units =
+      (long long)B * Hkv * ((C * (H / Hkv) + mtc::RT - 1) / mtc::RT);
+  const long long splits = mtc::max_splits(MB, bs);
+  const bool merge = splits > 1;
+  n[0] = splits;
+  n[1] = merge ? units * splits * mtc::RT * D1 : 0;
+  n[2] = merge ? units * splits * 2 * mtc::RT : 0;
+  n[3] = merge ? units : 0;
+}
+
+// parts[0]: bf16 parts of the f32 queries, parts[1]: of p.
+extern "C" void paged_attention_mla_tc_parts(int* parts) {
+  parts[0] = mtc::NQ;
+  parts[1] = mtc::NP;
+}
+
+// The split the kernel takes for host copies of positions and lengths
+// (the same arithmetic as on the card, for `sms` SMs): plan[0] key tiles
+// (16 keys) of a split, plan[1] splits of the longest walk.
+extern "C" void paged_attention_mla_tc_plan(const int* positions,
+                                            const int* lengths, int B, int C,
+                                            int H, int Hkv, int bs, int MB,
+                                            int sms, int* plan) {
+  const int G = H / Hkv, row_tiles = (C * G + mtc::RT - 1) / mtc::RT;
+  const int U = B * Hkv * row_tiles;
+  std::vector<int> nt(U);
+  int work = 0;
+  for (int u = 0; u < U; ++u) {
+    const int b = u / row_tiles / Hkv;
+    nt[u] = (mtc::walk_keys(u % row_tiles, positions[b], lengths[b], C, G,
+                            MB, bs) + mtc::KT - 1) / mtc::KT;
+    work += nt[u];
+  }
+  const int maxt = (MB * bs + mtc::KT - 1) / mtc::KT;
+  int per = mtc::per_floor(work, maxt, mtc::max_splits(MB, bs), sms);
+  for (int hi = maxt; per < hi;) {
+    const int mid = (per + hi) / 2;
+    int n = 0;
+    for (int u = 0; u < U; ++u) n += (nt[u] + mid - 1) / mid;
+    if (n <= sms) hi = mid; else per = mid + 1;
+  }
+  plan[0] = per;
+  plan[1] = (maxt + per - 1) / per;
+}
+
+// q (B, C, H, D1) and q2 (B, C, H, D2) float32, D1 one of 64, 128, 256,
+// 512 and D2 % 16 == 0, D2 <= 256 (q2 and k2 null when D2 is 0);
+// k_pages (NP, bs, Hkv, D1) and k2_pages (NP, bs, Hkv, D2), kv_dtype 1 =
+// bfloat16 or 2 = int8 codes with k_scales/k2_scales fp16 (NP, bs, Hkv)
+// scale pages; all 16-byte aligned. out is float32 (B, C, H, D1).
+// `splits`, part_acc, part_ml and tickets as paged_attention_mla_tc_scratch
+// gives them (tickets zero when the launch starts). The launch is one
+// block per SM (`sms`); each step's split is chosen on the card from
+// positions and lengths. Returns the cudaError_t of the launch.
+extern "C" int paged_attention_mla_tc(
+    const void* q, const void* q2, const void* k_pages, const void* k2_pages,
+    int kv_dtype, const void* k_scales, const void* k2_scales,
+    const void* tables, const void* positions, const void* lengths,
+    void* out, void* part_acc, void* part_ml, void* tickets, int B, int C,
+    int H, int Hkv, int D1, int D2, int bs, int MB, int splits, int sms,
+    float sm_scale, void* stream) {
+  if (D2 % 16 || D2 > mtc::MAX_D2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int row_tiles = (C * (H / Hkv) + mtc::RT - 1) / mtc::RT;
+  const mtc::Shape sh{B, C, H, Hkv, D1, D2, bs, MB, splits, row_tiles,
+                      B * Hkv * row_tiles};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* qf = static_cast<const float*>(q);
+  const float* q2f = static_cast<const float*>(q2);
+  const int* tb = static_cast<const int*>(tables);
+  const int* ps = static_cast<const int*>(positions);
+  const int* ln = static_cast<const int*>(lengths);
+  float* o = static_cast<float*>(out);
+  float* pa = static_cast<float*>(part_acc);
+  float* pm = static_cast<float*>(part_ml);
+  int* tk = static_cast<int*>(tickets);
+  const __half* ks = static_cast<const __half*>(k_scales);
+  const __half* k2s = static_cast<const __half*>(k2_scales);
+  if (kv_dtype == 2)
+    return mtc::dispatch<int8_t>(qf, q2f, k_pages, k2_pages, ks, k2s, tb, ps,
+                                 ln, o, pa, pm, tk, sh, sms, sm_scale, st);
+  if (kv_dtype == 1)
+    return mtc::dispatch<__nv_bfloat16>(qf, q2f, k_pages, k2_pages, ks, k2s,
+                                        tb, ps, ln, o, pa, pm, tk, sh, sms,
+                                        sm_scale, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -29,10 +29,19 @@ the kernel: bf16 q (every serving path: the models' activations are
 bf16), on bf16 or int8 pages, runs the tensor-core kernel (``mma.sync``
 products, a ``cp.async`` ring per warp; D a multiple of 16; f32 pages
 are refused); f32 q runs the CUDA-core kernel, whose f32 products meet
-the f32 tolerance that tensor cores cannot. Rows past a slot's valid length are
-garbage by contract on both paths; the MLA kernel writes a 32-row tile
-whose rows all belong to chunk entries at or past ``max(len, 1)`` as 0
-without reading a page (with 128 heads, every row of such an entry).
+the f32 tolerance that tensor cores cannot. The MLA form takes f32
+q_eff/q_rope (what ``mla_decode`` passes) and the page dtype alone picks
+its kernel: bf16 or int8 pages (every serving path) run the tensor-core
+kernel (``mma.sync`` on the queries split into three bf16 parts, one
+cooperative launch of one block per SM that plans the step's page-walk
+split and merges it; ``rank`` 64, 128, 256 or 512, ``rope`` a multiple
+of 16 up to 256); f32 pages, on no serving path, keep the CUDA-core
+kernel. There is no fallback from one to the other. Rows past a slot's
+valid length are garbage by contract on every path; the MLA kernels
+write a row tile (``mla_row_tile``: 64 rows on bf16 or int8 pages, 32
+on f32 pages) whose rows all belong to chunk entries at or past
+``max(len, 1)`` as 0 without reading a page (with 128 heads, every row
+of such an entry).
 """
 from __future__ import annotations
 
@@ -48,9 +57,16 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {**_DTYPES, torch.int8: 2}
 MAX_HEAD_DIM = 256
 MAX_BLOCK_SIZE = 64
-# Load widths of the MLA kernel (4 elements at a time): the byte
+# Load widths of the MLA CUDA-core kernel (4 elements at a time): the byte
 # alignment each q or page dtype needs.
 _ALIGN = {torch.float32: 16, torch.bfloat16: 8, torch.int8: 4}
+# MLA ranks (kv_lora_rank) the tensor-core MLA kernel is built for.
+MLA_TC_RANKS = (64, 128, 256, 512)
+# bf16 parts the tensor-core MLA kernel splits the f32 queries and p into
+# (csrc/paged_attention.cu mtc::NQ, mtc::NP; ``mla_parts`` reads them
+# from the built kernel).
+MLA_Q_PARTS = 3
+MLA_P_PARTS = 3
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,7 +95,24 @@ def _lib():
     lib.paged_attention_mla_smem.restype = ctypes.c_longlong
     lib.paged_attention_mla_smem.argtypes = [ctypes.c_int] * 3
     lib.paged_attention_mla_row_tile.restype = ctypes.c_int
+    lib.paged_attention_mla_row_tile.argtypes = [ctypes.c_int]
     lib.paged_attention_mla_max_d1.restype = ctypes.c_int
+    lib.paged_attention_mla_tc.restype = ctypes.c_int
+    lib.paged_attention_mla_tc.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 9
+        + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+    lib.paged_attention_mla_tc_smem.restype = ctypes.c_longlong
+    lib.paged_attention_mla_tc_smem.argtypes = [ctypes.c_int] * 8
+    lib.paged_attention_mla_tc_scratch.restype = None
+    lib.paged_attention_mla_tc_scratch.argtypes = (
+        [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)])
+    lib.paged_attention_mla_tc_parts.restype = None
+    lib.paged_attention_mla_tc_parts.argtypes = [
+        ctypes.POINTER(ctypes.c_int)]
+    lib.paged_attention_mla_tc_plan.restype = None
+    lib.paged_attention_mla_tc_plan.argtypes = (
+        [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int] * 7
+        + [ctypes.POINTER(ctypes.c_int)])
     return lib
 
 
@@ -333,17 +366,116 @@ def _launch_gqa_tc(q, k_pages, v_pages, k_scales, v_scales, block_tables,
 
 def _launch_mla(q, q2, k_pages, k2_pages, k_scales, k2_scales, block_tables,
                 positions, lengths, sm_scale):
-    """The MLA form: f32 q_eff/q_rope (what ``mla_decode`` passes), rows
-    tiled ``row_tile`` at a time across blocks; the launch has room for
-    the most page splits a step can take, and the card takes as many as
-    the pages the step's live rows walk need."""
+    """One launch of the MLA form: f32 q_eff/q_rope in (what
+    ``mla_decode`` passes), f32 out. bf16 or int8 pages (every serving
+    path) run the tensor-core kernel; f32 pages, on no serving path, the
+    CUDA-core kernel. Counts nothing."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"the MLA form takes float32 q (and q2); got "
+                        f"{q.dtype}")
+    launch = _launch_mla_cc if k_pages.dtype == torch.float32 \
+        else _launch_mla_tc
+    return launch(q, q2, k_pages, k2_pages, k_scales, k2_scales,
+                  block_tables, positions, lengths, sm_scale)
+
+
+def mla_row_tile(pages_dtype: torch.dtype) -> int:
+    """Query rows of the MLA kernel's row tile on pages of
+    ``pages_dtype``: a tile whose rows all lie past a slot's valid length
+    is written as 0 without reading a page."""
+    return _lib().paged_attention_mla_row_tile(_KV_DTYPES[pages_dtype])
+
+
+def mla_parts():
+    """(bf16 parts of the f32 queries, bf16 parts of p) of the
+    tensor-core MLA kernel."""
+    parts = (ctypes.c_int * 2)()
+    _lib().paged_attention_mla_tc_parts(parts)
+    return tuple(parts)
+
+
+def mla_split_plan(positions, lengths, c, h, hkv, bs, mb, sms):
+    """(key tiles of 16 keys a split walks, splits) that the tensor-core
+    MLA kernel takes for these positions and lengths (host arrays) on a
+    card of ``sms`` SMs: the same arithmetic as on the card."""
+    pos = (ctypes.c_int * len(positions))(*[int(x) for x in positions])
+    lens = (ctypes.c_int * len(lengths))(*[int(x) for x in lengths])
+    plan = (ctypes.c_int * 2)()
+    _lib().paged_attention_mla_tc_plan(pos, lens, len(pos), c, h, hkv, bs,
+                                       mb, sms, plan)
+    return tuple(plan)
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_tc_scratch(b, c, h, hkv, d1, bs, mb):
+    """(splits the launch has room for, floats of the partials, floats of
+    their (max, sum), tickets) of the tensor-core MLA kernel."""
+    n = (ctypes.c_longlong * 4)()
+    _lib().paged_attention_mla_tc_scratch(b, c, h, hkv, d1, bs, mb, n)
+    return tuple(n)
+
+
+def _launch_mla_tc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
+                   block_tables, positions, lengths, sm_scale):
+    """The tensor-core kernel (bf16 or int8 pages): one block per SM
+    walking the step's (64-row tile, page-walk split) items; the card
+    picks the split from positions and lengths, and the last split of a
+    tile to finish merges them inside the launch."""
     dev = q.device
     b, c, h, d1 = q.shape
     _, bs, hkv, _ = k_pages.shape
     d2 = 0 if q2 is None else q2.shape[3]
-    if q.dtype != torch.float32:
-        raise TypeError(f"the MLA form takes float32 q (and q2); got "
-                        f"{q.dtype}")
+    if d1 not in MLA_TC_RANKS or d2 % 16 or d2 > 256:
+        raise ValueError(f"MLA widths D={d1}, D2={d2}: the tensor-core "
+                         f"kernel takes D in {MLA_TC_RANKS} and D2 a "
+                         "multiple of 16 up to 256")
+    if not all(t.data_ptr() % 16 == 0
+               for t in (q, q2, k_pages, k2_pages) if t is not None):
+        raise ValueError("q, q2 and pages must be 16-byte aligned")
+    lib = _lib()
+    kv = _KV_DTYPES[k_pages.dtype]
+    mb = block_tables.shape[1]
+    smem = lib.paged_attention_mla_tc_smem(b, c, h, hkv, d1, d2, kv, mb)
+    if smem > _smem_limit(dev):
+        raise ValueError(f"D={d1} + D2={d2} with {mb} pages a slot for "
+                         f"{b} x {c} x {h} rows needs {smem} B of shared "
+                         f"memory; the card allows {_smem_limit(dev)}")
+    splits, n_acc, n_ml, n_tickets = _mla_tc_scratch(b, c, h, hkv, d1, bs,
+                                                     mb)
+    out = torch.empty_like(q)
+    part_acc = part_ml = tickets = out
+    if splits > 1:      # per-split partials, merged by the last block
+        part_acc = torch.empty((n_acc,), dtype=torch.float32, device=dev)
+        part_ml = torch.empty((n_ml,), dtype=torch.float32, device=dev)
+        # Zeroed on this launch's stream for this launch alone (as the
+        # GQA form's tickets).
+        tickets = torch.zeros((n_tickets,), dtype=torch.int32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.paged_attention_mla_tc(
+            q.data_ptr(), ptr(q2), k_pages.data_ptr(), ptr(k2_pages), kv,
+            ptr(k_scales), ptr(k2_scales), block_tables.data_ptr(),
+            positions.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), b,
+            c, h, hkv, d1, d2, bs, mb, splits, _sm_count(dev),
+            float(sm_scale), stream)
+    if err:
+        raise RuntimeError(f"paged_attention_mla_tc launch failed: "
+                           f"cudaError {err}")
+    return out
+
+
+def _launch_mla_cc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
+                   block_tables, positions, lengths, sm_scale):
+    """The CUDA-core kernel (f32 pages): rows tiled ``row_tile`` at a
+    time across blocks; the launch has room for the most page splits a
+    step can take, and the card takes as many as the pages the step's
+    live rows walk need (a second kernel merges them)."""
+    dev = q.device
+    b, c, h, d1 = q.shape
+    _, bs, hkv, _ = k_pages.shape
+    d2 = 0 if q2 is None else q2.shape[3]
     lib = _lib()
     if d1 % 4 or d2 % 4 or d1 > lib.paged_attention_mla_max_d1():
         raise ValueError(f"MLA widths D={d1}, D2={d2} must be multiples of "
@@ -358,7 +490,8 @@ def _launch_mla(q, q2, k_pages, k2_pages, k_scales, k2_scales, block_tables,
                          f"B of shared memory; the card allows "
                          f"{_smem_limit(dev)}")
     g = h // hkv
-    rt = lib.paged_attention_mla_row_tile()
+    kv = _KV_DTYPES[k_pages.dtype]
+    rt = lib.paged_attention_mla_row_tile(kv)
     row_tiles = -(-c * g // rt)
     mb = block_tables.shape[1]
     sms = _sm_count(dev)
@@ -375,12 +508,11 @@ def _launch_mla(q, q2, k_pages, k2_pages, k_scales, k2_scales, block_tables,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.paged_attention_mla(
-            q.data_ptr(), ptr(q2), k_pages.data_ptr(), ptr(k2_pages),
-            _KV_DTYPES[k_pages.dtype], ptr(k_scales), ptr(k2_scales),
-            block_tables.data_ptr(), positions.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
-            part_ml.data_ptr(), b, c, h, hkv, d1, d2, bs, mb, splits, sms,
-            float(sm_scale), stream)
+            q.data_ptr(), ptr(q2), k_pages.data_ptr(), ptr(k2_pages), kv,
+            ptr(k_scales), ptr(k2_scales), block_tables.data_ptr(),
+            positions.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(), b, c, h, hkv, d1, d2,
+            bs, mb, splits, sms, float(sm_scale), stream)
     if err:
         raise RuntimeError(f"paged_attention_mla launch failed: "
                            f"cudaError {err}")

@@ -297,8 +297,9 @@ def _mla_run(c, k=None, k2=None, scales=None, q=None):
 
 # (B, C, H, rank, rope, bs, MB): deepseek-v3's serve shape (8 slots x
 # chunk 8, 128 heads, rank 512, rope 64, block 16, 10 blocks = 160
-# positions), a ragged one (rows not a multiple of the 32-row tile, a
-# chunk of 5, block 64) and a small one.
+# positions), a ragged one (rows not a multiple of the row tile: 64 rows
+# on bf16 and int8 pages, 32 on f32 pages; a chunk of 5, so a 64-row tile
+# spans chunk entries; block 64) and a small one (rank 64, rope 16).
 MLA_SHAPES = [(8, 8, 128, 512, 64, 16, 10), (3, 5, 20, 512, 64, 64, 3),
               (3, 4, 8, 64, 16, 4, 6)]
 
@@ -312,7 +313,9 @@ def test_paged_attention_mla_matches_plain(cuda, shape, pages):
     576 features and of a weighted average over up to 160 keys of values
     up to ~4 in magnitude, merged across page splits (worst case ~160 x
     2^-24 x 4 = 4e-5; FP32_TOL's atol 2e-6, set at D = 16, was exceeded
-    by 3.2e-6 on 5 of 131,072 elements at the serve's widths)."""
+    by 3.2e-6 on 5 of 131,072 elements at the serve's widths). Two
+    launches on the same inputs give the same bits (the splits merge in a
+    fixed order)."""
     c = _mla_case(cuda, *shape, pages=pages, seed=sum(shape))
     counters = ("launches", "int8_launches", "mla_launches",
                 "mla_int8_launches")
@@ -322,10 +325,12 @@ def test_paged_attention_mla_matches_plain(cuda, shape, pages):
     form = 3 if pages == "int8" else 2
     assert [y - x for x, y in zip(before, after)] == \
         [int(i == form) for i in range(4)]
+    again = _mla_run(c)
     ref = paged_attention_ref(c["q"], c["k"], None, c["tables"], c["pos"],
                               sm_scale=c["sm"], q2=c["q2"],
                               k2_pages=c["k2"], **c["scales"])
     torch.cuda.synchronize()
+    assert torch.equal(out, again)
     assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
     for i, n in enumerate(c["np_lens"]):
         torch.testing.assert_close(out[i, :n], ref[i, :n], rtol=2e-5,
@@ -400,6 +405,65 @@ def test_paged_attention_mla_split_follows_the_step(cuda, entries, pages):
         torch.testing.assert_close(out[i, :n], ref[i, :n], rtol=2e-5,
                                    atol=1e-5)
         assert not bool(out[i, n:].any())
+
+
+def test_paged_attention_mla_steady_decode_splits_the_walk(cuda):
+    """Steady decode at the serve's shape (one valid chunk entry a slot,
+    every slot 160 positions deep): the tensor-core kernel splits each
+    row tile's page walk (more than one split, planned on the card from
+    positions and lengths) and merges the splits inside the one launch;
+    against the plain version, rows past each length 0, and two launches
+    bit-identical, on bf16 and int8 pages."""
+    from repro_torch.kernels.paged_attention import mla_split_plan
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for pages in ("bfloat16", "int8"):
+        c = _mla_case(cuda, 8, 8, 128, 512, 64, 16, 10, pages=pages, seed=6)
+        c["np_tables"] = np.arange(80, dtype=np.int32).reshape(8, 10)
+        c["np_lens"] = np.ones(8, np.int32)
+        c["np_pos"] = np.full(8, 159, np.int32)
+        for key in ("tables", "lens", "pos"):
+            c[key] = torch.from_numpy(c["np_" + key]).to(cuda)
+        per, splits = mla_split_plan(c["np_pos"], c["np_lens"], 8, 128, 1,
+                                     16, 10, sms)
+        assert splits > 1 and per < 10
+        out, again = _mla_run(c), _mla_run(c)
+        ref = paged_attention_ref(c["q"], c["k"], None, c["tables"],
+                                  c["pos"], sm_scale=c["sm"], q2=c["q2"],
+                                  k2_pages=c["k2"], **c["scales"])
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        torch.testing.assert_close(out[:, :1], ref[:, :1], rtol=2e-5,
+                                   atol=1e-5)
+        assert not bool(out[:, 1:].any())
+
+
+@pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
+def test_paged_attention_mla_kernel_follows_the_pages(cuda, pages,
+                                                      monkeypatch):
+    """The page dtype alone picks the MLA kernel: f32 pages run the
+    CUDA-core kernel, bf16 and int8 pages the tensor-core kernel, never
+    the other (no fallback), whose query and p splits are the ones the
+    CPU emulation holds to the tolerance (tests/test_torch_mla.py)."""
+    from repro_torch.kernels import paged_attention as pa
+    calls = {"tc": 0, "cc": 0}
+
+    def counting(name, fn):
+        def run(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return run
+    monkeypatch.setattr(pa, "_launch_mla_tc",
+                        counting("tc", pa._launch_mla_tc))
+    monkeypatch.setattr(pa, "_launch_mla_cc",
+                        counting("cc", pa._launch_mla_cc))
+    c = _mla_case(cuda, 3, 4, 8, 64, 16, 4, 6, pages=pages, seed=12)
+    _mla_run(c)
+    torch.cuda.synchronize()
+    assert calls == ({"tc": 0, "cc": 1} if pages == "float32"
+                     else {"tc": 1, "cc": 0})
+    assert pa.mla_parts() == (pa.MLA_Q_PARTS, pa.MLA_P_PARTS)
+    assert pa.mla_row_tile(c["k"].dtype) == (32 if pages == "float32"
+                                             else 64)
 
 
 def test_flash_attention_deepseek_prefill_widths(cuda):

@@ -413,3 +413,88 @@ def test_serve_allocator_and_table_traces_equal(runs):
 
 def test_serve_ledger_breakdown_exact(runs):
     check_ledger_exact(runs)
+
+
+def _bf16_parts(x, n):
+    """x as n bf16 parts (each the previous remainder rounded): the
+    tensor-core MLA kernel's split of its f32 operands."""
+    parts, rest = [], x
+    for _ in range(n):
+        part = rest.to(torch.bfloat16).float()
+        parts.append(part)
+        rest = rest - part
+    return parts
+
+
+@pytest.mark.parametrize("pages", ["bfloat16", "int8"])
+@pytest.mark.parametrize("walk", ["depth 160", "steady decode"])
+def test_tensor_core_split_holds_the_card_tolerance(walk, pages):
+    """The arithmetic of the tensor-core MLA kernel, emulated in plain
+    torch at deepseek-v3's widths (rank 512, rope 64, 128 heads, a
+    160-key causal walk): q_eff and q_rope split into MLA_Q_PARTS bf16
+    parts against the exact bf16 keys (bf16 pages, or int8 codes with the
+    ckv and krope scales applied per key column in f32), f32 sums, an
+    online softmax over 16-key tiles, and p (times the ckv scale on int8
+    pages) split into MLA_P_PARTS parts against the exact values. It holds
+    the card tolerance, rtol 2e-5 / atol 1e-5 on the valid rows
+    (tests/test_torch_cuda.py), against the plain version. (Two parts of
+    q would leave up to ~2^-17 of sum |q||k| per score, by a rough bound
+    ~2e-4 in a logit at rank 576: the kernel takes three.)"""
+    from repro_torch.kernels.paged_attention import MLA_P_PARTS, MLA_Q_PARTS
+    from repro_torch.kernels.ref import paged_attention_ref
+    from repro_torch.models.attention import quantize_kv
+    b, c, h, rank, rope, bs, mb = 2, 8, 128, 512, 64, 16, 10
+    n_valid = 1 if walk == "steady decode" else c
+    rng = np.random.RandomState(17)
+    nb = b * mb
+    tables = torch.from_numpy(np.arange(nb, dtype=np.int32).reshape(b, mb))
+    pos = torch.full((b,), mb * bs - n_valid, dtype=torch.int32)
+    q = torch.from_numpy(rng.randn(b, c, h, rank).astype(np.float32))
+    q2 = torch.from_numpy(rng.randn(b, c, h, rope).astype(np.float32))
+    ckv = torch.from_numpy(rng.randn(nb + 1, bs, rank).astype(np.float32))
+    kr = torch.from_numpy(rng.randn(nb + 1, bs, rope).astype(np.float32))
+    sm = (128 + rope) ** -0.5
+    if pages == "int8":
+        kq, ks = quantize_kv(ckv)
+        k2q, k2s = quantize_kv(kr)
+        k, k2 = kq[:, :, None], k2q[:, :, None]
+        scales = dict(k_scales=ks[:, :, None], k2_scales=k2s[:, :, None])
+        s1, s2 = ks.float(), k2s.float()
+    else:
+        k, k2 = ckv.to(torch.bfloat16)[:, :, None], \
+            kr.to(torch.bfloat16)[:, :, None]
+        scales = {}
+        s1 = s2 = torch.ones(nb + 1, bs)
+    ref = paged_attention_ref(q, k, None, tables, pos, sm_scale=sm, q2=q2,
+                              k2_pages=k2, **scales)
+    for i in range(b):
+        pages_i = tables[i].long()
+        kc = k[pages_i, :, 0].float().reshape(mb * bs, rank)   # exact
+        k2c = k2[pages_i, :, 0].float().reshape(mb * bs, rope)
+        sc1 = s1[pages_i].reshape(-1)
+        sc2 = s2[pages_i].reshape(-1)
+        qe = q[i].reshape(c * h, rank)
+        q2e = q2[i].reshape(c * h, rope)
+        s_ckv = sum(p @ kc.T for p in _bf16_parts(qe, MLA_Q_PARTS))
+        s_rope = sum(p @ k2c.T for p in _bf16_parts(q2e, MLA_Q_PARTS))
+        scores = (s_ckv * sc1 + s_rope * sc2) * sm
+        depth = int(pos[i]) + torch.arange(c).repeat_interleave(h)
+        scores = torch.where(torch.arange(mb * bs)[None] <= depth[:, None],
+                             scores, torch.full_like(scores, -np.inf))
+        m = torch.full((c * h, 1), -np.inf)
+        l_sum = torch.zeros(c * h, 1)
+        acc = torch.zeros(c * h, rank)
+        for t0 in range(0, mb * bs, 16):
+            x = scores[:, t0:t0 + 16]
+            m_new = torch.maximum(m, x.amax(1, keepdim=True))
+            alpha = torch.where(m == -np.inf, torch.zeros_like(m),
+                                torch.exp(m - m_new))
+            p = torch.exp(x - m_new)
+            l_sum = l_sum * alpha + p.sum(1, keepdim=True)
+            pv = p * sc1[t0:t0 + 16]
+            acc = acc * alpha + sum(
+                part @ kc[t0:t0 + 16] for part in _bf16_parts(pv, MLA_P_PARTS))
+            m = m_new
+        got = (acc / l_sum).reshape(c, h, rank)
+        torch.testing.assert_close(got[:n_valid], ref[i, :n_valid],
+                                   rtol=2e-5, atol=1e-5)
