@@ -93,13 +93,13 @@
 //     exact bf16 once per block) serves the scores and, its ckv part, P.V;
 //   * products on mma.sync m16n8k16 (bf16 -> f32). The f32 queries stay
 //     f32 in shared memory and each fragment is split into three bf16
-//     parts (hi + mid + lo, ~2^-25 relative; two parts leave ~2^-17 of
-//     sum |q||k| per score, past the tolerance -- tests/test_torch_mla.py
-//     emulates the split); the keys are exact in bf16 (int8: |code| <=
-//     127). p is split into three parts too, as the GQA form splits it
-//     (two leave little margin on int8 pages). On int8 pages the ckv and
-//     krope terms are scaled per key column in f32 before they join, and
-//     the ckv scale folds into p before its split;
+//     parts (hi + mid + lo, ~2^-25 relative; two parts would leave up to
+//     ~2^-17 of sum |q||k| per score, by a rough bound past the tolerance
+//     -- tests/test_torch_mla.py emulates the split); the keys are exact
+//     in bf16 (int8: |code| <= 127). p is split into three parts too, as
+//     the GQA form splits it (two leave little margin on int8 pages). On
+//     int8 pages the ckv and krope terms are scaled per key column in f32
+//     before they join, and the ckv scale folds into p before its split;
 //   * why mma.sync and not wgmma: three bf16 parts of a 64 x 576 query
 //     tile are 221 KB, more than fits beside a key ring, so the A operand
 //     is split in registers either way, and the products are small (S is
@@ -116,10 +116,12 @@
 //   * one cooperative launch of one block per SM. Every block plans the
 //     step from positions and lengths (the same plan in each): the key
 //     tiles each live row tile walks, and `per` tiles a split -- at least
-//     work / SMs and 2, and the fewest that fit all of the step's (row
-//     tile, split) items on the SMs at once (or the whole walk, nothing
-//     split, when even that does not fit). Block i walks item i. The
-//     launch shape depends on the table's width alone;
+//     work / SMs, and the fewest that fit all of the step's (row tile,
+//     split) items on the SMs at once (or the whole walk, nothing split,
+//     when even that does not fit); a tile's splits share its tiles
+//     evenly. Block i walks item i (q rows and the first key tile in
+//     one cp.async group). The launch shape depends on the table's width
+//     alone;
 //   * the splits of a row tile merge inside the launch: each writes its
 //     partial (acc, max, sum), counts itself on the tile's ticket (zeroed
 //     by the wrapper for each launch), waits until every split has (they
@@ -1415,7 +1417,6 @@ constexpr int WARPS = 16;              // 4 row groups x 4 column quarters
 constexpr int THREADS = 32 * WARPS;
 constexpr int XW = 256;                // floats of a warp's score share
 constexpr int MAX_SPLITS = 16;         // bounds the partials' memory
-constexpr int MIN_TILES = 2;           // key tiles a split walks, at least
 constexpr int NQ = 3;                  // bf16 parts of the f32 queries
 constexpr int NP = 3;                  // bf16 parts of p
 constexpr int WSTR = MAX_SPLITS + 1;   // merge weights row: [split] den
@@ -1479,20 +1480,18 @@ __host__ __device__ inline int walk_keys(int tile, int pos0, int len, int C,
 // search it so (items(p): the step's items at p tiles a split, never
 // growing with p).
 // The least `per`: work / SMs (work: the key tiles all live row tiles
-// walk), at least MIN_TILES (each split's partials cost the merge
-// another read), no more splits than the partials hold, at most maxt.
+// walk), no more splits than the partials hold, at most maxt.
 __host__ __device__ inline int per_floor(int work, int maxt, int most,
                                          int sms) {
   int lo = (work + sms - 1) / sms;
   const int fit = (maxt + most - 1) / most;
   lo = lo > fit ? lo : fit;
-  lo = lo > MIN_TILES ? lo : MIN_TILES;
   return lo < maxt ? lo : maxt;
 }
 
 __host__ __device__ inline int max_splits(int MB, int bs) {
-  const int most = ((MB * bs + KT - 1) / KT + MIN_TILES - 1) / MIN_TILES;
-  return most < MAX_SPLITS ? most : MAX_SPLITS;
+  const int maxt = (MB * bs + KT - 1) / KT;
+  return maxt < MAX_SPLITS ? maxt : MAX_SPLITS;
 }
 
 // x0, x1 split into N bf16 pairs a[0..N)[f] (x0 in the low halves)
@@ -1639,29 +1638,12 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
     for (int j = j0 + tid; j <= j1; j += THREADS)
       ids[j - j0] = tables[(size_t)b * s.MB + j];
 
-    // [q | q2] rows of the tile -> shared as f32 (rows past R and
-    // columns past D1 + D2 zero); warp w stages rows w, w + 16, ...
-    {
-      const int c1 = D1 / 4, c2 = (D1 + D2) / 4, cpr = FT / 4;
-      for (int r = warp; r < RT; r += WARPS) {
-        const bool row_ok = r < rows;
-        const float* qr = row_ok ? q + head(r) * D1 : q;
-        const float* q2r = row_ok ? q2 + head(r) * D2 : q;
-        for (int c = lane; c < cpr; c += 32) {
-          const bool ok = row_ok && c < c2;
-          cp_async16(q_sh + r * QS + 4 * c,
-                     !ok ? q : (c < c1 ? qr + 4 * c : q2r + 4 * (c - c1)),
-                     ok);
-        }
-      }
-      cp_async_commit();
-    }
     __syncthreads();                   // the page ids
 
     // Tile n of the split -> stage n % NS, one key per warp: ckv at row
     // bytes [0, D1 ES), krope after it, zero to FT (bf16 swizzled for
     // ldmatrix; int8 codes as they are, converted below).
-    auto issue = [&](int n) {
+    auto issue = [&](int n, bool commit = true) {
       if (n < my_n) {
         unsigned char* dst = ring + (n % NS) * KT * RB;
         const int cpr = RB / 16, c1 = D1 * ES / 16;
@@ -1681,15 +1663,16 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
                   row * D2 * ES;
           }
           for (int c = lane; c < cpr; c += 32) {
-            const bool ok = key_ok && c < c2;
-            cp_async16(
-                dst + (kInt8 ? kk * RB + 16 * c : gtc::swb(kk, 16 * c, RB)),
-                !ok ? base : (c < c1 ? kr + 16 * c : k2r + 16 * (c - c1)),
-                ok);
+            unsigned char* d =
+                dst + (kInt8 ? kk * RB + 16 * c : gtc::swb(kk, 16 * c, RB));
+            if (key_ok && c < c2)
+              cp_async16(d, c < c1 ? kr + 16 * c : k2r + 16 * (c - c1));
+            else
+              *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
           }
         }
       }
-      cp_async_commit();               // empty groups keep the count
+      if (commit) cp_async_commit();   // empty groups keep the count
     };
     // int8: lane l < 16 holds the ckv scale of key l of tile n, lane
     // 16 + l its krope scale (0 past the split's keys: never loaded).
@@ -1724,13 +1707,32 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
       for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-    // NS - 1 tiles in flight ahead of the one computed.
+    // NS - 1 tiles in flight ahead of the one computed; the first one
+    // and the tile's [q | q2] rows (f32; rows past R and columns past
+    // D1 + D2 zero; warp w stages rows w, w + 16, ...) are one group.
+    issue(0, false);
+    {
+      const int c1 = D1 / 4, c2 = (D1 + D2) / 4, cpr = FT / 4;
+      for (int r = warp; r < RT; r += WARPS) {
+        const bool row_ok = r < rows;
+        const float* qr = row_ok ? q + head(r) * D1 : q;
+        const float* q2r = row_ok ? q2 + head(r) * D2 : q;
+        for (int c = lane; c < cpr; c += 32) {
+          float* dst = q_sh + r * QS + 4 * c;
+          if (row_ok && c < c2)
+            cp_async16(dst, c < c1 ? qr + 4 * c : q2r + 4 * (c - c1));
+          else
+            *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+      cp_async_commit();
+    }
 #pragma unroll
-    for (int n = 0; n < NS - 1; ++n) issue(n);
+    for (int n = 1; n < NS - 1; ++n) issue(n);
     float sc0 = scale_at(0), sc1 = scale_at(1);
 
     for (int n = 0; n < my_n; ++n) {
-      cp_async_wait<NS - 2>();         // q and tile n, this thread's part
+      cp_async_wait<NS - 2>();         // tile n (and q), this thread's part
       __syncthreads();                 // ... every thread's; tile n - 1 done
       issue(n + NS - 1);               // into the stage tile n - 1 left
       const float sc2 = scale_at(n + NS - 1);      // in flight meanwhile
@@ -1999,15 +2001,17 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
     }
     __syncthreads();
     {
+      // Warp w: rows w, w + 16, ... of the slice.
       const float4* st = reinterpret_cast<const float4*>(q_sh);
-      for (int i = tid; i < sr * D4; i += THREADS) {
-        const int r = i / D4;
-        float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int zz = 0; zz < nlive; ++zz)
-          gtc::fma4(wts[r * WSTR + zz], st[zz * sr * D4 + i], num);
-        const float d = wts[r * WSTR + MAX_SPLITS];
-        *reinterpret_cast<float4*>(out + head(ra + r) * D1 + 4 * (i % D4)) =
-            make_float4(num.x / d, num.y / d, num.z / d, num.w / d);
+      for (int r = warp; r < sr; r += WARPS) {
+        float4* o = reinterpret_cast<float4*>(out + head(ra + r) * D1);
+        const float d = 1.f / wts[r * WSTR + MAX_SPLITS];
+        for (int c = lane; c < D4; c += 32) {
+          float4 num = make_float4(0.f, 0.f, 0.f, 0.f);
+          for (int zz = 0; zz < nlive; ++zz)
+            gtc::fma4(wts[r * WSTR + zz], st[(zz * sr + r) * D4 + c], num);
+          o[c] = make_float4(num.x * d, num.y * d, num.z * d, num.w * d);
+        }
       }
     }
     __syncthreads();                   // shared memory is the next item's

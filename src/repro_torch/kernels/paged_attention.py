@@ -444,7 +444,7 @@ def _launch_mla_tc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
                                                      mb)
     out = torch.empty_like(q)
     part_acc = part_ml = tickets = out
-    if splits > 1:      # per-split partials, merged by the last block
+    if splits > 1:      # per-split partials, merged inside the launch
         part_acc = torch.empty((n_acc,), dtype=torch.float32, device=dev)
         part_ml = torch.empty((n_ml,), dtype=torch.float32, device=dev)
         # Zeroed on this launch's stream for this launch alone (as the
