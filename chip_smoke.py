@@ -856,7 +856,7 @@ def check_paged_mla(torch, np, dev):
     TC, CC = "paged MLA bf16 (tensor cores)", "paged MLA f32 (CUDA cores)"
     rows = []
     full = MLA_CASE[1]
-    cases = ((None, MLA_RAGGED, 8, None, False),
+    cases = (("ragged, mixed lengths", MLA_RAGGED, 8, None, False),
              ("decode", MLA_CASE, 7, 1, False),
              ("full chunk", MLA_CASE, 7, full, False),
              ("full chunk at depth 160", MLA_CASE, 7, full, True),
@@ -930,11 +930,10 @@ def check_paged_mla(torch, np, dev):
                      f"in {len(dead)} dead pages changed the output")
             zero = " rows past each length 0 |" if shape[2] % rt == 0 \
                 else ""
-            if label is not None:
-                serve_cases[label] = (c, k, k2, sc, run)
+            serve_cases[label] = (c, k, k2, sc, run)
             print(f"kernel paged_decode_attention mla {form} B,C,H,rank,"
                   f"rope,bs,MB={shape[:7]} lengths "
-                  f"{label or 'mixed'}: max_abs_err {err:.3e} (rtol "
+                  f"{label}: max_abs_err {err:.3e} (rtol "
                   f"2e-5 atol 1e-5, valid rows) | two launches "
                   f"bit-identical, both tensor-core |{zero}"
                   f" {len(dead)} dead pages "
