@@ -22,8 +22,8 @@ Phases, one line each (every failure exits non-zero):
             the card could take for the same work; the matmuls also at
             the prefill's M = 4,096 (per prefill beside per step); the
             MLA forms run the tensor-core kernel (two launches
-            bit-identical, no CUDA-core launch) and are timed beside PR
-            16's CUDA-core kernel on the same pages;
+            bit-identical, no CUDA-core launch), also on a 4,096-page
+            table;
 4. serve  — ``repro_torch.launch.serve`` at the full width of
             qwen3-0.6b (seeded random weights made on the card): the
             paged stream once for each of the paper's weight recipes
@@ -759,8 +759,9 @@ def _mla_pages(torch, c, form):
 
 def _time_mla(torch, c, k, k2, sc, run, form, counter, label):
     """B9 on case ``c`` (length pattern ``label``) timed per call: the
-    kernel, PR 16's CUDA-core kernel on the same pages, its plain version,
-    the library yardstick and the bound, printed and returned."""
+    kernel, its plain version, the library yardstick and the bound,
+    printed and returned; printed beside them, the split the kernel took
+    (as it wrote it back) and the tensor-core work its design does."""
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.paged_attention import paged_decode_attention
@@ -770,10 +771,9 @@ def _time_mla(torch, c, k, k2, sc, run, form, counter, label):
     rope = c["q2"].shape[-1]
     launches0 = getattr(paged_decode_attention, counter)
     t_k = time_ms(torch, [run], 200)
+    run()
+    per, items, most = pa.mla_last_plan()
     setattr(paged_decode_attention, counter, launches0)
-    t_16 = time_ms(torch, [lambda: pa._launch_mla_cc(
-        c["q"], c["q2"], k, k2, sc.get("k_scales"), sc.get("k2_scales"),
-        c["tables"], c["pos"], c["lens"], c["sm"])], 200)
     t_p = time_ms(torch, [lambda: paged_attention_ref(
         c["q"], k, None, c["tables"], c["pos"], sm_scale=c["sm"],
         q2=c["q2"], k2_pages=k2, **sc)], 20)
@@ -820,23 +820,102 @@ def _time_mla(torch, c, k, k2, sc, run, form, counter, label):
     b_ms, b_by = bound(nbytes, flops)
     nq, np_ = pa.mla_parts()
     tc_flops = 2.0 * H * depths * (nq * (rank + rope) + np_ * rank)
-    plan = pa.mla_split_plan(c["np_pos"], c["np_lens"], C, H, 1, c["bs"],
-                             c["tables"].shape[1],
-                             torch.cuda.get_device_properties(dev)
-                             .multi_processor_count)
     print(f"kernel paged_decode_attention mla {form} B={B} C={C} H={H} "
           f"rank={rank} rope={rope} bs={c['bs']} lengths {label}: kernel "
-          f"{t_k:.4f} ms (split: {plan[0]} key tiles of 16 a split) | PR "
-          f"16's CUDA-core kernel {t_16:.4f} ms | plain {t_p:.4f} ms | "
+          f"{t_k:.4f} ms (split, as the kernel wrote it: {per} key tiles "
+          f"of 16 a split, {items} items, at most {most} splits a row "
+          f"tile) | plain {t_p:.4f} ms | "
           f"library(SDPA f32 on the gathered view, K=[ckv|krope], V=ckv) "
           f"{t_l:.4f} ms | bound {b_ms:.5f} ms ({b_by}; {nbytes / 1e6:.2f} "
           f"MB, {flops / 1e9:.3f} GFLOP at the bf16 peak) | tensor-core "
           f"work done ({nq} q parts, {np_} p parts): {tc_flops / 1e9:.3f} "
           f"GFLOP, {tc_flops / BF16_FLOPS * 1e3:.5f} ms at the bf16 peak",
           flush=True)
-    return dict(ms=t_k, pr16_ms=t_16, plain_ms=t_p, library_ms=t_l,
-                bound_ms=b_ms, bound_by=b_by, tc_gflop=tc_flops / 1e9,
-                split_tiles=plan[0])
+    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def check_paged_mla_long_table(torch, np, dev, form):
+    """The MLA form at the serve's widths on a 4,096-page table (65,536
+    keys a slot; the kernel's shared memory does not grow with the
+    table's width): slot 0 decodes at the end of a 2,048-page walk
+    (32,768 keys, over pages 0..99 of the pool, reused), slots 1..3 own
+    short runs of pages 100..139. Against the plain version, two
+    launches bit-identical, dead pages filled with garbage changing no
+    bit, rows past each length 0; the split read back from the kernel
+    (more than one split of a row tile); timed per call."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.kernels.ref import paged_attention_ref
+    c = _mla_case(torch, np, dev, (4, 8, 128, 512, 64, 16, 40, 160), 11)
+    rng = np.random.RandomState(11)
+    mb, nb, bs = 4096, c["nb"], c["bs"]
+    tables = np.full((4, mb), nb, np.int32)
+    tables[0, :2048] = rng.randint(0, 100, size=2048)
+    owned = [2048, 17, 9, 3]
+    for i, o in enumerate(owned[1:], 1):
+        tables[i, :o] = 100 + rng.permutation(40)[:o]
+    lens = np.array([1, 8, 3, 8], np.int32)
+    pos = np.array([o * bs - n for o, n in zip(owned, lens)], np.int32)
+    t = lambda a: torch.from_numpy(a).to(dev)     # noqa: E731
+    c.update(tables=t(tables), pos=t(pos), lens=t(lens), np_tables=tables,
+             np_pos=pos, np_lens=lens)
+    k, k2, sc = _mla_pages(torch, c, form)
+    counter = "mla_launches" if form == "bf16" else "mla_int8_launches"
+
+    def run(k=k, k2=k2, sc=sc):
+        return paged_decode_attention(
+            c["q"], k, None, c["tables"], c["pos"], sm_scale=c["sm"],
+            lengths=c["lens"], q2=c["q2"], k2_pages=k2, **sc)
+    launches0 = getattr(paged_decode_attention, counter)
+    out = run()
+    per, items, most = pa.mla_last_plan()
+    again = run()
+    dead = torch.arange(140, nb + 1, device=dev)
+    k_d, k2_d = k.clone(), k2.clone()
+    sc_d = {n: v.clone() for n, v in sc.items()}
+    if form == "int8":
+        k_d[dead], k2_d[dead] = 127, -127
+        for v in sc_d.values():
+            v[dead] = float("nan")
+    else:
+        k_d[dead], k2_d[dead] = float("nan"), float("nan")
+    out2 = run(k=k_d, k2=k2_d, sc=sc_d)
+    ref = paged_attention_ref(c["q"], k, None, c["tables"], c["pos"],
+                              sm_scale=c["sm"], q2=c["q2"], k2_pages=k2,
+                              **sc)
+    torch.cuda.synchronize()
+    err = 0.0
+    for b in range(4):
+        n = int(lens[b])
+        o, r = out[b, :n], ref[b, :n]
+        if not bool(torch.isfinite(o).all()) or \
+                not torch.allclose(o, r, rtol=2e-5, atol=1e-5):
+            fail(f"paged_decode_attention mla {form}, 4,096-page table, slot "
+                 f"{b}: max_abs_err {float((o - r).abs().max()):.3e}")
+        if bool(out[b, n:].any()):
+            fail(f"paged_decode_attention mla {form}, 4,096-page table: rows "
+                 f"past slot {b}'s length are not 0")
+        err = max(err, float((o - r).abs().max()))
+    if not torch.equal(out, again):
+        fail(f"paged_decode_attention mla {form}, 4,096-page table: two "
+             "launches differ")
+    if not torch.equal(out, out2):
+        fail(f"paged_decode_attention mla {form}, 4,096-page table: garbage "
+             f"in {len(dead)} dead pages changed the output")
+    if most < 2:
+        fail(f"paged_decode_attention mla {form}, 4,096-page table: the "
+             f"32,768-key walk was not split ({per} key tiles a split)")
+    t_k = time_ms(torch, [run], 50)
+    setattr(paged_decode_attention, counter, launches0)
+    print(f"kernel paged_decode_attention mla {form} 4,096-page table "
+          f"(slot 0 decoding 32,768 keys deep): max_abs_err {err:.3e} "
+          f"(rtol 2e-5 atol 1e-5) | split, as the kernel wrote it: {per} "
+          f"key tiles of 16 a split, {items} items, at most {most} splits "
+          f"a row tile | two launches bit-identical | {len(dead)} dead "
+          f"pages garbage: output bit-identical | rows past each length 0 "
+          f"| kernel {t_k:.4f} ms per call", flush=True)
+    return dict(max_abs_err=err, ms_per_call=t_k)
 
 
 def check_paged_mla(torch, np, dev):
@@ -846,9 +925,9 @@ def check_paged_mla(torch, np, dev):
     slot with one valid chunk entry (steady decode: the page walk split
     finely), with full chunks (an all-prefill step: fewer splits), with
     full chunks at the deepest position (depth 160: one split) and mixed
-    lengths. Each serve-shape pattern is timed per call; the rows'
-    numbers are the mixed pattern's per step (4 MLA layers). Returns the
-    two forms' kernel rows."""
+    lengths. Each case is timed per call; the rows' numbers are the
+    serve shape's mixed pattern per step (4 MLA layers). Returns the two
+    forms' kernel rows."""
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.ref import paged_attention_ref
@@ -953,7 +1032,8 @@ def check_paged_mla(torch, np, dev):
             max_abs_err=worst, ms=n * t["ms"], plain_ms=n * t["plain_ms"],
             bound_ms=n * t["bound_ms"], bound_by=t["bound_by"],
             library_ms=n * t["library_ms"],
-            per_call=timed))
+            per_call=timed,
+            long_table=check_paged_mla_long_table(torch, np, dev, form)))
     return rows
 
 

@@ -92,14 +92,18 @@
 //     16-key tile [ckv | krope] (bf16, swizzled; int8 codes turned into
 //     exact bf16 once per block) serves the scores and, its ckv part, P.V;
 //   * products on mma.sync m16n8k16 (bf16 -> f32). The f32 queries stay
-//     f32 in shared memory and each fragment is split into three bf16
-//     parts (hi + mid + lo, ~2^-25 relative; two parts would leave up to
-//     ~2^-17 of sum |q||k| per score, by a rough bound past the tolerance
-//     -- tests/test_torch_mla.py emulates the split); the keys are exact
-//     in bf16 (int8: |code| <= 127). p is split into three parts too, as
-//     the GQA form splits it (two leave little margin on int8 pages). On
-//     int8 pages the ckv and krope terms are scaled per key column in f32
-//     before they join, and the ckv scale folds into p before its split;
+//     f32 in shared memory and each fragment is split into NQ = 3 bf16
+//     parts (hi + mid + lo, ~2^-25 relative); the keys are exact in bf16
+//     (int8: |code| <= 127). p is split into NP = 3 parts too, as the GQA
+//     form splits it. tests/test_torch_mla.py emulates the split at
+//     deepseek-v3's widths: on its seeded inputs two parts of q and of p
+//     already hold the card tolerance (0.81 of it at worst), three and
+//     three use 0.17 of it; three are kept for the margin that the card's
+//     order of summation and harder inputs need (a rough bound puts two
+//     parts of q at up to ~2^-17 of sum |q||k| per score, ~2e-4 in a
+//     logit). On int8 pages the ckv and krope terms are scaled per key
+//     column in f32 before they join, and the ckv scale folds into p
+//     before its split;
 //   * why mma.sync and not wgmma: three bf16 parts of a 64 x 576 query
 //     tile are 221 KB, more than fits beside a key ring, so the A operand
 //     is split in registers either way, and the products are small (S is
@@ -109,10 +113,17 @@
 //     quarter of the score's features for its 16 rows, the four shares
 //     are pooled through shared memory and summed in one fixed order (so
 //     the four warps hold the same S and run the same softmax), and each
-//     warp owns 128 output columns (64 f32 accumulators a thread);
+//     warp owns D1 / 4 output columns (rank 512: 64 f32 accumulators a
+//     thread). Built for the ported configurations' ranks, 512 and 32
+//     (deepseek-v3 reduced: 8 columns a warp, an odd count of 8-column
+//     tiles);
 //   * shared memory: the q tile 64 x (576 + 8) f32 (149.5 KB), a 3-stage
 //     ring of key tiles (55 KB; int8 27.6 KB + an 18 KB conversion
-//     buffer), score shares 16 KB: one block per SM;
+//     buffer), score shares 16 KB: one block per SM. It does not grow
+//     with the table's width: each warp reads its key's page id from the
+//     table in global memory a tile before it stages the page (only the
+//     step's item list, one int per 64-row tile, and the slots'
+//     positions grow with the step);
 //   * one cooperative launch of one block per SM. Every block plans the
 //     step from positions and lengths (the same plan in each): the key
 //     tiles each live row tile walks, and `per` tiles a split -- at least
@@ -121,7 +132,8 @@
 //     when even that does not fit); a tile's splits share its tiles
 //     evenly. Block i walks item i (q rows and the first key tile in
 //     one cp.async group). The launch shape depends on the table's width
-//     alone;
+//     alone. Block 0 writes the plan it took to a 3-int output, which
+//     the wrapper keeps (mla_last_plan);
 //   * the splits of a row tile merge inside the launch: each writes its
 //     partial (acc, max, sum), counts itself on the tile's ticket (zeroed
 //     by the wrapper for each launch), waits until every split has (they
@@ -133,11 +145,11 @@
 //     0; keys past a walk's end are zero-filled, never loaded, and pages
 //     past last_live are never touched, so garbage in dead pages changes
 //     no bit;
-//   * what holds it back (PERF.md section 6): a split block moves ~0.5 MB
-//     (the 147 KB q tile, its pages, a 128 KB partial written and read
-//     back, its output rows) through one SM's share of the memory
-//     system, and splitting the f32 queries costs ALU on every key tile;
-//     the tensor cores are not the limit.
+//   * what holds it back, by estimate (no committed per-stage profile;
+//     PERF.md section 6): a split block moves ~0.5 MB (the 147 KB q tile,
+//     its pages, a 128 KB partial written and read back, its output rows)
+//     through one SM's share of the memory system, and splitting the f32
+//     queries costs ALU on every key tile.
 //
 // f32 pages (on no serving path): the CUDA-core kernel,
 // paged_attention_mla_kernel (entry point paged_attention_mla), whose f32
@@ -149,7 +161,6 @@
 // the splits in split order.
 #include <math.h>
 #include <type_traits>
-#include <vector>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -1004,23 +1015,10 @@ struct MlaShape {
   int KS;                              // staged row stride (floats)
 };
 
-// 4 consecutive page elements -> f32 (16-byte f32, 8-byte bf16, 4-byte
-// int8 loads; the wrapper checks the alignment).
+// 4 consecutive f32 (one 16-byte load; the wrapper checks the
+// alignment).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]), c = __bfloat1622float2(h[1]);
-  return make_float4(a.x, a.y, c.x, c.y);
-}
-__device__ __forceinline__ float4 load4(const int8_t* p) {
-  const char4 c = *reinterpret_cast<const char4*>(p);
-  return make_float4(to_float(static_cast<int8_t>(c.x)),
-                     to_float(static_cast<int8_t>(c.y)),
-                     to_float(static_cast<int8_t>(c.z)),
-                     to_float(static_cast<int8_t>(c.w)));
 }
 
 // The tile a block works on, and whether any of its rows is valid.
@@ -1088,14 +1086,11 @@ __device__ __forceinline__ MlaSplit mla_split(const MlaShape& s,
   return MlaSplit{per, (s.MB + per - 1) / per};
 }
 
-template <typename TKV>
 __global__ void __launch_bounds__(THREADS, 2)
 paged_attention_mla_kernel(const float* __restrict__ q,
                            const float* __restrict__ q2,
-                           const TKV* __restrict__ k_pages,
-                           const TKV* __restrict__ k2_pages,
-                           const __half* __restrict__ k_scales,
-                           const __half* __restrict__ k2_scales,
+                           const float* __restrict__ k_pages,
+                           const float* __restrict__ k2_pages,
                            const int* __restrict__ tables,
                            const int* __restrict__ positions,
                            const int* __restrict__ lengths,
@@ -1193,19 +1188,8 @@ paged_attention_mla_kernel(const float* __restrict__ q,
         for (int u = 0; u < MLA_PAGE_LOADS; ++u) {
           if (t0 + u >= t_end) break;
           const size_t row = (page * bs + t0 + u) * s.Hkv + tl.hkv;
-          float sc = 1.f;
-          if (c4 < W1) {
-            buf[u] = load4(k_pages + row * D1 + 4 * c4);
-            if constexpr (std::is_same<TKV, int8_t>::value)
-              sc = __half2float(k_scales[row]);
-          } else {
-            buf[u] = load4(k2_pages + row * D2 + 4 * (c4 - W1));
-            if constexpr (std::is_same<TKV, int8_t>::value)
-              sc = __half2float(k2_scales[row]);
-          }
-          if constexpr (std::is_same<TKV, int8_t>::value) {
-            buf[u].x *= sc; buf[u].y *= sc; buf[u].z *= sc; buf[u].w *= sc;
-          }
+          buf[u] = c4 < W1 ? load4(k_pages + row * D1 + 4 * c4)
+                           : load4(k2_pages + row * D2 + 4 * (c4 - W1));
         }
 #pragma unroll
         for (int u = 0; u < MLA_PAGE_LOADS; ++u) {
@@ -1371,12 +1355,11 @@ paged_attention_mla_merge(const float* __restrict__ part_acc,
       make_float4(num.x / d, num.y / d, num.z / d, num.w / d);
 }
 
-template <typename TKV>
-int launch_mla(const float* q, const float* q2, const void* kp,
-               const void* k2p, const __half* ks, const __half* k2s,
-               const int* tables, const int* positions, const int* lengths,
-               float* out, float* part_acc, float* part_ml, MlaShape sh,
-               float sm_scale, size_t smem, cudaStream_t st) {
+int launch_mla(const float* q, const float* q2, const float* kp,
+               const float* k2p, const int* tables, const int* positions,
+               const int* lengths, float* out, float* part_acc,
+               float* part_ml, MlaShape sh, float sm_scale, size_t smem,
+               cudaStream_t st) {
   if (smem > 48 * 1024) {
     static const cudaError_t opt_in = [] {
       int dev = 0, limit = 0;
@@ -1385,7 +1368,7 @@ int launch_mla(const float* q, const float* q2, const void* kp,
         e = cudaDeviceGetAttribute(
             &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
       if (e == cudaSuccess)
-        e = cudaFuncSetAttribute(paged_attention_mla_kernel<TKV>,
+        e = cudaFuncSetAttribute(paged_attention_mla_kernel,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  limit);
       return e;
@@ -1393,9 +1376,9 @@ int launch_mla(const float* q, const float* q2, const void* kp,
     if (opt_in != cudaSuccess) return static_cast<int>(opt_in);
   }
   const dim3 grid(sh.B * sh.Hkv * sh.row_tiles, sh.splits);
-  paged_attention_mla_kernel<TKV><<<grid, THREADS, smem, st>>>(
-      q, q2, static_cast<const TKV*>(kp), static_cast<const TKV*>(k2p), ks,
-      k2s, tables, positions, lengths, out, part_acc, part_ml, sh, sm_scale);
+  paged_attention_mla_kernel<<<grid, THREADS, smem, st>>>(
+      q, q2, kp, k2p, tables, positions, lengths, out, part_acc, part_ml, sh,
+      sm_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || sh.splits == 1) return static_cast<int>(err);
   const dim3 merge_grid(sh.B * sh.Hkv * sh.row_tiles, MLA_RT);
@@ -1435,22 +1418,21 @@ __host__ __device__ constexpr int feat_width(int D1, int D2) {
 }
 
 // Shared-memory layout of one block (bytes); FT = feat_width, ES = bytes
-// of a page element, U = units, B = slots. After a walk, the merge
-// stages the partials where the q rows and the ring were, and their
-// (max, sum) rows and weights in xch.
+// of a page element, U = units, B = slots: it does not grow with the
+// table's width (page ids are read from the table in global memory).
+// After a walk, the merge stages the partials where the q rows and the
+// ring were, and their (max, sum) rows and weights in xch.
 struct Layout {
-  int q, ring, conv, xch, ids, off, pl, red, total;
+  int q, ring, conv, xch, off, pl, red, total;
 };
 
-__host__ __device__ inline Layout layout(int FT, int ES, int MB, int U,
-                                         int B) {
+__host__ __device__ inline Layout layout(int FT, int ES, int U, int B) {
   Layout L{};
   L.q = 0;                                        // [RT][FT + 8] f32
   L.ring = gtc::align128(RT * (FT + 8) * 4);      // NS x [KT][FT] pages
   L.conv = L.ring + NS * KT * FT * ES;            // int8: [KT][FT] bf16
   L.xch = L.conv + (ES == 1 ? KT * FT * 2 : 0);   // [WARPS][XW] f32
-  L.ids = L.xch + WARPS * XW * 4;                 // a split's page ids
-  L.off = L.ids + gtc::align128((MB + 2) * 4);    // [U + 1] first items
+  L.off = L.xch + WARPS * XW * 4;                 // [U + 1] first items
   L.pl = L.off + gtc::align128((U + 1) * 4);      // [B] positions, lengths
   L.red = L.pl + gtc::align128(2 * B * 4);        // the step's per
   L.total = L.red + 16;
@@ -1460,7 +1442,7 @@ __host__ __device__ inline Layout layout(int FT, int ES, int MB, int U,
 // Keys the walk of row tile `tile` of a slot must cover: the deepest
 // causal depth among its rows of valid chunk entries; 0 when every row
 // lies past max(len, 1) (garbage by contract: the tile reads no page).
-__host__ __device__ inline int walk_keys(int tile, int pos0, int len, int C,
+__device__ __forceinline__ int walk_keys(int tile, int pos0, int len, int C,
                                          int G, int MB, int bs) {
   const int len1 = len > 1 ? len : 1;
   const int r0 = tile * RT;
@@ -1476,12 +1458,11 @@ __host__ __device__ inline int walk_keys(int tile, int pos0, int len, int C,
 // after all of them are written, so all items of a step must run at
 // once: per is the fewest tiles, from per_floor up, whose items fit the
 // SMs, or the whole walk (one split a tile, nothing merged) when even
-// that needs more. Both the kernel and paged_attention_mla_tc_plan
-// search it so (items(p): the step's items at p tiles a split, never
-// growing with p).
-// The least `per`: work / SMs (work: the key tiles all live row tiles
-// walk), no more splits than the partials hold, at most maxt.
-__host__ __device__ inline int per_floor(int work, int maxt, int most,
+// that needs more (a binary search: the step's items at p tiles a split
+// never grow with p). The least `per`: work / SMs (work: the key tiles
+// all live row tiles walk), no more splits than the partials hold, at
+// most maxt.
+__device__ __forceinline__ int per_floor(int work, int maxt, int most,
                                          int sms) {
   int lo = (work + sms - 1) / sms;
   const int fit = (maxt + most - 1) / most;
@@ -1508,12 +1489,14 @@ __device__ __forceinline__ void split_into(float x0, float x1,
   }
 }
 
-// The launch: one block per SM. Each block plans the step, then walks
-// the items i = blockIdx.x, i + gridDim.x, ... of the step's list (split
-// z of live row tile u, in (u, z) order), then writes the row tiles
-// u = blockIdx.x, ... whose rows are all garbage as 0. Warp w of a
-// block: rows 16 (w % 4) .. + 15 of the tile, output columns D1 / 4 *
-// (w / 4) .. + D1 / 4, and a quarter of the score's features.
+// The launch: one block per SM. Each block plans the step (block 0
+// writes the plan it took to plan_out: key tiles a split, the step's
+// items, the most splits of a row tile), then walks the items
+// i = blockIdx.x, i + gridDim.x, ... of the step's list (split z of live
+// row tile u, in (u, z) order), then writes the row tiles u = blockIdx.x,
+// ... whose rows are all garbage as 0. Warp w of a block: rows 16 (w % 4)
+// .. + 15 of the tile, output columns D1 / 4 * (w / 4) .. + D1 / 4, and
+// a quarter of the score's features.
 template <typename TKV, int D1>
 __global__ void __launch_bounds__(THREADS, 1)
 paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
@@ -1526,20 +1509,21 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
                     const int* __restrict__ lengths, float* __restrict__ out,
                     float* __restrict__ part_acc,
                     float* __restrict__ part_ml, int* __restrict__ tickets,
-                    Shape s, float sm_scale) {
+                    int* __restrict__ plan_out, Shape s, float sm_scale) {
   constexpr bool kInt8 = sizeof(TKV) == 1;
   constexpr int ES = sizeof(TKV);
   constexpr int QC = D1 / 4;           // output columns of a warp
   constexpr int NT = QC / 8;           // ... in 8-column tiles
+  static_assert(D1 % 32 == 0, "a warp's columns are whole 8-column tiles");
+  static_assert(KT == WARPS, "one key of a tile a warp");
   constexpr int D4 = D1 / 4;           // float4s of an output row
   extern __shared__ __align__(128) unsigned char sm[];
   const int D2 = s.D2, bs = s.bs, U = s.units;
   const int FT = feat_width(D1, D2), QS = FT + 8, RB = FT * ES;
-  const Layout lay = layout(FT, ES, s.MB, U, s.B);
+  const Layout lay = layout(FT, ES, U, s.B);
   float* q_sh = reinterpret_cast<float*>(sm + lay.q);
   unsigned char* ring = sm + lay.ring;
   float* xch = reinterpret_cast<float*>(sm + lay.xch);
-  int* ids = reinterpret_cast<int*>(sm + lay.ids);
   int* off = reinterpret_cast<int*>(sm + lay.off);
   int* red = reinterpret_cast<int*>(sm + lay.red);  // [2][WARPS], flag
   const int G = s.H / s.Hkv, R = s.C * G;
@@ -1580,8 +1564,15 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
       for (int u = ub; u < ue; ++u) n += (off[u] + mid - 1) / mid;
       if (warp_sum(n) <= (int)gridDim.x) hi = mid; else per = mid + 1;
     }
-    int items = 0;                     // this lane's units' splits
-    for (int u = ub; u < ue; ++u) items += (off[u] + per - 1) / per;
+    int items = 0, most = 0;           // this lane's units' splits
+    for (int u = ub; u < ue; ++u) {
+      const int n = (off[u] + per - 1) / per;
+      items += n;
+      most = max(most, n);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      most = max(most, __shfl_xor_sync(0xffffffffu, most, o));
     int incl = items;                  // inclusive scan over the lanes
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -1598,6 +1589,11 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
     if (lane == 0) {
       off[U] = total;
       red[0] = per;
+      if (blockIdx.x == 0) {
+        plan_out[0] = per;
+        plan_out[1] = total;
+        plan_out[2] = most;
+      }
     }
   }
   __syncthreads();
@@ -1629,59 +1625,56 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
     const int each = (ntile + nlive - 1) / nlive;
     const int t_begin = z * each;
     const int my_n = max(0, min(ntile, t_begin + each) - t_begin);
-    // Keys of this split: [key0, kend). Pages past it are never
+    // Keys of this split: [t_begin KT, kend). Pages past it are never
     // touched, and the keys of its last tile past it are zero-filled,
     // never loaded.
-    const int key0 = t_begin * KT;
     const int kend = min(wk, (t_begin + my_n) * KT);
-    const int j0 = key0 / bs, j1 = (kend - 1) / bs;
-    for (int j = j0 + tid; j <= j1; j += THREADS)
-      ids[j - j0] = tables[(size_t)b * s.MB + j];
 
-    __syncthreads();                   // the page ids
-
-    // Tile n of the split -> stage n % NS, one key per warp: ckv at row
-    // bytes [0, D1 ES), krope after it, zero to FT (bf16 swizzled for
-    // ldmatrix; int8 codes as they are, converted below).
-    auto issue = [&](int n, bool commit = true) {
+    // The page of key kk of tile n of the split, read from the table in
+    // global memory a tile before the page is (so its latency hides
+    // behind a tile's products); -1 past the split's keys (never read).
+    auto page_of = [&](int n, int kk) -> int {
+      const int key = (t_begin + n) * KT + kk;
+      return n < my_n && key < kend ? tables[(size_t)b * s.MB + key / bs]
+                                    : -1;
+    };
+    // Tile n of the split -> stage n % NS, key `warp` of it (on page
+    // `page`) by warp `warp`: ckv at row bytes [0, D1 ES), krope after
+    // it, zero to FT (bf16 swizzled for ldmatrix; int8 codes as they
+    // are, converted below).
+    auto issue = [&](int n, int page) {
       if (n < my_n) {
         unsigned char* dst = ring + (n % NS) * KT * RB;
         const int cpr = RB / 16, c1 = D1 * ES / 16;
         const int c2 = (D1 + D2) * ES / 16;
-        const unsigned char* base =
+        const int kk = warp, key = (t_begin + n) * KT + kk;
+        const unsigned char* kr =
             reinterpret_cast<const unsigned char*>(k_pages);
-        for (int kk = warp; kk < KT; kk += WARPS) {
-          const int key = (t_begin + n) * KT + kk;
-          const bool key_ok = key < kend;
-          const unsigned char* kr = base;
-          const unsigned char* k2r = base;
-          if (key_ok) {
-            const size_t row =
-                ((size_t)ids[key / bs - j0] * bs + key % bs) * s.Hkv + hkv;
-            kr = base + row * D1 * ES;
-            k2r = reinterpret_cast<const unsigned char*>(k2_pages) +
-                  row * D2 * ES;
-          }
-          for (int c = lane; c < cpr; c += 32) {
-            unsigned char* d =
-                dst + (kInt8 ? kk * RB + 16 * c : gtc::swb(kk, 16 * c, RB));
-            if (key_ok && c < c2)
-              cp_async16(d, c < c1 ? kr + 16 * c : k2r + 16 * (c - c1));
-            else
-              *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
-          }
+        const unsigned char* k2r = kr;
+        if (page >= 0) {
+          const size_t row = ((size_t)page * bs + key % bs) * s.Hkv + hkv;
+          kr += row * D1 * ES;
+          k2r = reinterpret_cast<const unsigned char*>(k2_pages) +
+                row * D2 * ES;
+        }
+        for (int c = lane; c < cpr; c += 32) {
+          unsigned char* d =
+              dst + (kInt8 ? kk * RB + 16 * c : gtc::swb(kk, 16 * c, RB));
+          if (page >= 0 && c < c2)
+            cp_async16(d, c < c1 ? kr + 16 * c : k2r + 16 * (c - c1));
+          else
+            *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
         }
       }
-      if (commit) cp_async_commit();   // empty groups keep the count
+      cp_async_commit();               // empty groups keep the count
     };
-    // int8: lane l < 16 holds the ckv scale of key l of tile n, lane
-    // 16 + l its krope scale (0 past the split's keys: never loaded).
-    auto scale_at = [&](int n) -> float {
+    // int8: lane l < 16 holds the ckv scale of key l of tile n (on page
+    // `page`, page_of(n, l)), lane 16 + l its krope scale (0 past the
+    // split's keys: never loaded).
+    auto scale_at = [&](int n, int page) -> float {
+      if (!kInt8 || page < 0 || (lane >= 16 && D2 == 0)) return 0.f;
       const int key = (t_begin + n) * KT + (lane & 15);
-      if (!kInt8 || n >= my_n || key >= kend || (lane >= 16 && D2 == 0))
-        return 0.f;
-      const size_t row =
-          ((size_t)ids[key / bs - j0] * bs + key % bs) * s.Hkv + hkv;
+      const size_t row = ((size_t)page * bs + key % bs) * s.Hkv + hkv;
       return __half2float((lane < 16 ? k_scales : k2_scales)[row]);
     };
 
@@ -1707,10 +1700,17 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
       for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-    // NS - 1 tiles in flight ahead of the one computed; the first one
-    // and the tile's [q | q2] rows (f32; rows past R and columns past
-    // D1 + D2 zero; warp w stages rows w, w + 16, ...) are one group.
-    issue(0, false);
+    // NS - 1 tiles in flight ahead of the one computed; the tile's
+    // [q | q2] rows (f32; rows past R and columns past D1 + D2 zero; warp
+    // w stages rows w, w + 16, ...) and the first one are one group. The
+    // first NS tiles' page ids (this warp's key's; int8: also lane
+    // l % 16's key's, for the scales) load while the q rows are issued.
+    int pk[NS], ps[NS];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      pk[n] = page_of(n, warp);
+      ps[n] = kInt8 ? page_of(n, lane & 15) : -1;
+    }
     {
       const int c1 = D1 / 4, c2 = (D1 + D2) / 4, cpr = FT / 4;
       for (int r = warp; r < RT; r += WARPS) {
@@ -1725,17 +1725,22 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
             *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
         }
       }
-      cp_async_commit();
+      issue(0, pk[0]);
     }
 #pragma unroll
-    for (int n = 1; n < NS - 1; ++n) issue(n);
-    float sc0 = scale_at(0), sc1 = scale_at(1);
+    for (int n = 1; n < NS - 1; ++n) issue(n, pk[n]);
+    static_assert(NS == 3, "two scales ahead of the tile computed");
+    float sc0 = scale_at(0, ps[0]), sc1 = scale_at(1, ps[1]);
+    // The pages of the next tile to issue.
+    int pk_next = pk[NS - 1], ps_next = ps[NS - 1];
 
     for (int n = 0; n < my_n; ++n) {
       cp_async_wait<NS - 2>();         // tile n (and q), this thread's part
       __syncthreads();                 // ... every thread's; tile n - 1 done
-      issue(n + NS - 1);               // into the stage tile n - 1 left
-      const float sc2 = scale_at(n + NS - 1);      // in flight meanwhile
+      issue(n + NS - 1, pk_next);      // into the stage tile n - 1 left
+      const float sc2 = scale_at(n + NS - 1, ps_next);  // in flight meanwhile
+      pk_next = page_of(n + NS, warp);
+      if constexpr (kInt8) ps_next = page_of(n + NS, lane & 15);
       const unsigned char* kb = ring + (n % NS) * KT * RB;
       if constexpr (kInt8) {
         // Codes -> bf16 (exact: |code| <= 127), once for the block.
@@ -1889,8 +1894,11 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
       for (int f = 0; f < 4; ++f)
         split_into<NP>(sp[f >> 1][(f & 1) * 2], sp[f >> 1][(f & 1) * 2 + 1],
                        pa, f);
+      // 16 columns an ldmatrix; with NT odd (D1 = 32 mod 64) the last
+      // one's second 8 columns (the next warp's, or krope's: inside FT)
+      // are loaded and not used.
 #pragma unroll
-      for (int vp = 0; vp < NT / 2; ++vp) {
+      for (int vp = 0; vp < (NT + 1) / 2; ++vp) {
         uint32_t vf[4];
         ldmatrix_x4_trans(
             vf, kb + gtc::swb((lane & 7) + 8 * ((lane >> 3) & 1),
@@ -1899,7 +1907,7 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
 #pragma unroll
         for (int i = NP - 1; i >= 0; --i) {
           mma_bf16(acc[2 * vp], pa[i], vf[0], vf[1]);
-          mma_bf16(acc[2 * vp + 1], pa[i], vf[2], vf[3]);
+          if (2 * vp + 1 < NT) mma_bf16(acc[2 * vp + 1], pa[i], vf[2], vf[3]);
         }
       }
       sc0 = sc1;
@@ -2037,10 +2045,10 @@ template <typename TKV, int D1>
 int launch(const float* q, const float* q2, const void* kp, const void* k2p,
            const __half* ks, const __half* k2s, const int* tables,
            const int* positions, const int* lengths, float* out,
-           float* part_acc, float* part_ml, int* tickets, Shape sh,
-           int blocks, float sm_scale, cudaStream_t st) {
-  const Layout lay = layout(feat_width(D1, sh.D2), (int)sizeof(TKV), sh.MB,
-                            sh.units, sh.B);
+           float* part_acc, float* part_ml, int* tickets, int* plan_out,
+           Shape sh, int blocks, float sm_scale, cudaStream_t st) {
+  const Layout lay =
+      layout(feat_width(D1, sh.D2), (int)sizeof(TKV), sh.units, sh.B);
   // Opt in to the card's whole per-block limit once per instantiation;
   // the wrapper has checked lay.total against that limit.
   static const cudaError_t opt_in = [] {
@@ -2071,8 +2079,8 @@ int launch(const float* q, const float* q2, const void* kp, const void* k2p,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, paged_mla_tc_kernel<TKV, D1>, q, q2,
       static_cast<const TKV*>(kp), static_cast<const TKV*>(k2p), ks, k2s,
-      tables, positions, lengths, out, part_acc, part_ml, tickets, sh,
-      sm_scale);
+      tables, positions, lengths, out, part_acc, part_ml, tickets, plan_out,
+      sh, sm_scale);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -2081,15 +2089,14 @@ int dispatch(const float* q, const float* q2, const void* kp,
              const void* k2p, const __half* ks, const __half* k2s,
              const int* tables, const int* positions, const int* lengths,
              float* out, float* part_acc, float* part_ml, int* tickets,
-             Shape sh, int blocks, float sm_scale, cudaStream_t st) {
+             int* plan_out, Shape sh, int blocks, float sm_scale,
+             cudaStream_t st) {
 #define REPRO_MLA_TC(RANK)                                                  \
   if (sh.D1 == RANK)                                                        \
   return launch<TKV, RANK>(q, q2, kp, k2p, ks, k2s, tables, positions,      \
-                           lengths, out, part_acc, part_ml, tickets, sh,    \
-                           blocks, sm_scale, st)
-  REPRO_MLA_TC(64);
-  REPRO_MLA_TC(128);
-  REPRO_MLA_TC(256);
+                           lengths, out, part_acc, part_ml, tickets,        \
+                           plan_out, sh, blocks, sm_scale, st)
+  REPRO_MLA_TC(32);
   REPRO_MLA_TC(512);
 #undef REPRO_MLA_TC
   return static_cast<int>(cudaErrorInvalidValue);
@@ -2225,10 +2232,9 @@ extern "C" int paged_attention_mla_splits(int MB) {
   return MB < MLA_MAX_SPLITS ? MB : MLA_MAX_SPLITS;
 }
 
-// q (B, C, H, D1) and q2 (B, C, H, D2) float32; k_pages (NP, bs, Hkv, D1)
-// and k2_pages (NP, bs, Hkv, D2), kv_dtype 0 = float32, 1 = bfloat16 or
-// 2 = int8 codes with k_scales/k2_scales fp16 (NP, bs, Hkv) scale pages
-// (null otherwise). out is float32 (B, C, H, D1). `splits` is the
+// MLA form on f32 pages (the CUDA-core kernel): q (B, C, H, D1) and q2
+// (B, C, H, D2), k_pages (NP, bs, Hkv, D1) and k2_pages (NP, bs, Hkv, D2),
+// all float32. out is float32 (B, C, H, D1). `splits` is the
 // launch's (paged_attention_mla_splits, or fewer); each step takes at
 // most that many, chosen from `lengths` on the card for `sms` SMs. With
 // splits > 1, part_acc holds B*Hkv*row_tiles*splits*32*D1 floats and
@@ -2236,9 +2242,7 @@ extern "C" int paged_attention_mla_splits(int MB) {
 // count). Returns the cudaError_t of the launches.
 extern "C" int paged_attention_mla(const void* q, const void* q2,
                                    const void* k_pages,
-                                   const void* k2_pages, int kv_dtype,
-                                   const void* k_scales,
-                                   const void* k2_scales, const void* tables,
+                                   const void* k2_pages, const void* tables,
                                    const void* positions, const void* lengths,
                                    void* out, void* part_acc, void* part_ml,
                                    int B, int C, int H, int Hkv, int D1,
@@ -2257,25 +2261,20 @@ extern "C" int paged_attention_mla(const void* q, const void* q2,
   float* o = static_cast<float*>(out);
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
-  const __half* ks = static_cast<const __half*>(k_scales);
-  const __half* k2s = static_cast<const __half*>(k2_scales);
-#define REPRO_MLA_LAUNCH(TKV)                                              \
-  return launch_mla<TKV>(qf, q2f, k_pages, k2_pages, ks, k2s, tb, ps, ln, o, \
-                         pa, pm, sh, sm_scale, smem, st)
-  if (kv_dtype == 2) REPRO_MLA_LAUNCH(int8_t);
-  if (kv_dtype == 1) REPRO_MLA_LAUNCH(__nv_bfloat16);
-  REPRO_MLA_LAUNCH(float);
-#undef REPRO_MLA_LAUNCH
+  return launch_mla(qf, q2f, static_cast<const float*>(k_pages),
+                    static_cast<const float*>(k2_pages), tb, ps, ln, o, pa, pm,
+                    sh, sm_scale, smem, st);
 }
 
 // MLA form on bf16 or int8 pages: the tensor-core kernel (mtc). Shared
-// bytes of one block (the wrapper checks them against the card's limit).
+// bytes of one block (the wrapper checks them against the card's limit);
+// they do not depend on the table's width.
 extern "C" long long paged_attention_mla_tc_smem(int B, int C, int H, int Hkv,
-                                                 int D1, int D2, int kv_dtype,
-                                                 int MB) {
+                                                 int D1, int D2,
+                                                 int kv_dtype) {
   const int units = B * Hkv * ((C * (H / Hkv) + mtc::RT - 1) / mtc::RT);
-  return mtc::layout(mtc::feat_width(D1, D2), kv_dtype == 2 ? 1 : 2, MB,
-                     units, B)
+  return mtc::layout(mtc::feat_width(D1, D2), kv_dtype == 2 ? 1 : 2, units,
+                     B)
       .total;
 }
 
@@ -2295,57 +2294,25 @@ extern "C" void paged_attention_mla_tc_scratch(int B, int C, int H, int Hkv,
   n[3] = merge ? units : 0;
 }
 
-// parts[0]: bf16 parts of the f32 queries, parts[1]: of p.
-extern "C" void paged_attention_mla_tc_parts(int* parts) {
-  parts[0] = mtc::NQ;
-  parts[1] = mtc::NP;
-}
-
-// The split the kernel takes for host copies of positions and lengths
-// (the same arithmetic as on the card, for `sms` SMs): plan[0] key tiles
-// (16 keys) of a split, plan[1] splits of the longest walk.
-extern "C" void paged_attention_mla_tc_plan(const int* positions,
-                                            const int* lengths, int B, int C,
-                                            int H, int Hkv, int bs, int MB,
-                                            int sms, int* plan) {
-  const int G = H / Hkv, row_tiles = (C * G + mtc::RT - 1) / mtc::RT;
-  const int U = B * Hkv * row_tiles;
-  std::vector<int> nt(U);
-  int work = 0;
-  for (int u = 0; u < U; ++u) {
-    const int b = u / row_tiles / Hkv;
-    nt[u] = (mtc::walk_keys(u % row_tiles, positions[b], lengths[b], C, G,
-                            MB, bs) + mtc::KT - 1) / mtc::KT;
-    work += nt[u];
-  }
-  const int maxt = (MB * bs + mtc::KT - 1) / mtc::KT;
-  int per = mtc::per_floor(work, maxt, mtc::max_splits(MB, bs), sms);
-  for (int hi = maxt; per < hi;) {
-    const int mid = (per + hi) / 2;
-    int n = 0;
-    for (int u = 0; u < U; ++u) n += (nt[u] + mid - 1) / mid;
-    if (n <= sms) hi = mid; else per = mid + 1;
-  }
-  plan[0] = per;
-  plan[1] = (maxt + per - 1) / per;
-}
-
-// q (B, C, H, D1) and q2 (B, C, H, D2) float32, D1 one of 64, 128, 256,
-// 512 and D2 % 16 == 0, D2 <= 256 (q2 and k2 null when D2 is 0);
-// k_pages (NP, bs, Hkv, D1) and k2_pages (NP, bs, Hkv, D2), kv_dtype 1 =
-// bfloat16 or 2 = int8 codes with k_scales/k2_scales fp16 (NP, bs, Hkv)
-// scale pages; all 16-byte aligned. out is float32 (B, C, H, D1).
-// `splits`, part_acc, part_ml and tickets as paged_attention_mla_tc_scratch
-// gives them (tickets zero when the launch starts). The launch is one
-// block per SM (`sms`); each step's split is chosen on the card from
-// positions and lengths. Returns the cudaError_t of the launch.
+// q (B, C, H, D1) and q2 (B, C, H, D2) float32, D1 32 or 512 (the ranks
+// of deepseek-v3 reduced and at full width) and D2 % 16 == 0, D2 <= 256
+// (q2 and k2 null when D2 is 0); k_pages (NP, bs, Hkv, D1) and k2_pages
+// (NP, bs, Hkv, D2), kv_dtype 1 = bfloat16 or 2 = int8 codes with
+// k_scales/k2_scales fp16 (NP, bs, Hkv) scale pages; all 16-byte aligned.
+// out is float32 (B, C, H, D1). `splits`, part_acc, part_ml and tickets
+// as paged_attention_mla_tc_scratch gives them (tickets zero when the
+// launch starts). The launch is one block per SM (`sms`); each step's
+// split is chosen on the card from positions and lengths, and written to
+// plan_out (3 ints: key tiles of 16 keys a split, the step's (row tile,
+// split) items, the most splits of a row tile). Returns the cudaError_t
+// of the launch.
 extern "C" int paged_attention_mla_tc(
     const void* q, const void* q2, const void* k_pages, const void* k2_pages,
     int kv_dtype, const void* k_scales, const void* k2_scales,
     const void* tables, const void* positions, const void* lengths,
-    void* out, void* part_acc, void* part_ml, void* tickets, int B, int C,
-    int H, int Hkv, int D1, int D2, int bs, int MB, int splits, int sms,
-    float sm_scale, void* stream) {
+    void* out, void* part_acc, void* part_ml, void* tickets, void* plan_out,
+    int B, int C, int H, int Hkv, int D1, int D2, int bs, int MB, int splits,
+    int sms, float sm_scale, void* stream) {
   if (D2 % 16 || D2 > mtc::MAX_D2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int row_tiles = (C * (H / Hkv) + mtc::RT - 1) / mtc::RT;
@@ -2361,14 +2328,16 @@ extern "C" int paged_attention_mla_tc(
   float* pa = static_cast<float*>(part_acc);
   float* pm = static_cast<float*>(part_ml);
   int* tk = static_cast<int*>(tickets);
+  int* pl = static_cast<int*>(plan_out);
   const __half* ks = static_cast<const __half*>(k_scales);
   const __half* k2s = static_cast<const __half*>(k2_scales);
   if (kv_dtype == 2)
     return mtc::dispatch<int8_t>(qf, q2f, k_pages, k2_pages, ks, k2s, tb, ps,
-                                 ln, o, pa, pm, tk, sh, sms, sm_scale, st);
+                                 ln, o, pa, pm, tk, pl, sh, sms, sm_scale,
+                                 st);
   if (kv_dtype == 1)
     return mtc::dispatch<__nv_bfloat16>(qf, q2f, k_pages, k2_pages, ks, k2s,
-                                        tb, ps, ln, o, pa, pm, tk, sh, sms,
-                                        sm_scale, st);
+                                        tb, ps, ln, o, pa, pm, tk, pl, sh,
+                                        sms, sm_scale, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -34,9 +34,11 @@ q_eff/q_rope (what ``mla_decode`` passes) and the page dtype alone picks
 its kernel: bf16 or int8 pages (every serving path) run the tensor-core
 kernel (``mma.sync`` on the queries split into three bf16 parts, one
 cooperative launch of one block per SM that plans the step's page-walk
-split and merges it; ``rank`` 64, 128, 256 or 512, ``rope`` a multiple
-of 16 up to 256); f32 pages, on no serving path, keep the CUDA-core
-kernel. There is no fallback from one to the other. Rows past a slot's
+split and merges it; ``rank`` 32 or 512, the ported configurations'
+(deepseek-v3 reduced and at full width), ``rope`` a multiple of 16 up
+to 256; its shared memory does not grow with the table's width); f32
+pages, on no serving path, keep the CUDA-core kernel. There is no
+fallback from one to the other. Rows past a slot's
 valid length are garbage by contract on every path; the MLA kernels
 write a row tile (``mla_row_tile``: 64 rows on bf16 or int8 pages, 32
 on f32 pages) whose rows all belong to chunk entries at or past
@@ -47,6 +49,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 
 import torch
 
@@ -57,16 +60,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {**_DTYPES, torch.int8: 2}
 MAX_HEAD_DIM = 256
 MAX_BLOCK_SIZE = 64
-# Load widths of the MLA CUDA-core kernel (4 elements at a time): the byte
-# alignment each q or page dtype needs.
-_ALIGN = {torch.float32: 16, torch.bfloat16: 8, torch.int8: 4}
-# MLA ranks (kv_lora_rank) the tensor-core MLA kernel is built for.
-MLA_TC_RANKS = (64, 128, 256, 512)
-# bf16 parts the tensor-core MLA kernel splits the f32 queries and p into
-# (csrc/paged_attention.cu mtc::NQ, mtc::NP; ``mla_parts`` reads them
-# from the built kernel).
-MLA_Q_PARTS = 3
-MLA_P_PARTS = 3
+# MLA ranks (kv_lora_rank) the tensor-core MLA kernel is built for:
+# deepseek-v3's 512, and its reduced configuration's 32.
+MLA_TC_RANKS = (32, 512)
 
 
 @functools.lru_cache(maxsize=None)
@@ -88,8 +84,8 @@ def _lib():
         [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)])
     lib.paged_attention_mla.restype = ctypes.c_int
     lib.paged_attention_mla.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 8
-        + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+        [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
+        + [ctypes.c_float, ctypes.c_void_p])
     lib.paged_attention_mla_splits.restype = ctypes.c_int
     lib.paged_attention_mla_splits.argtypes = [ctypes.c_int]
     lib.paged_attention_mla_smem.restype = ctypes.c_longlong
@@ -99,20 +95,13 @@ def _lib():
     lib.paged_attention_mla_max_d1.restype = ctypes.c_int
     lib.paged_attention_mla_tc.restype = ctypes.c_int
     lib.paged_attention_mla_tc.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 9
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 10
         + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
     lib.paged_attention_mla_tc_smem.restype = ctypes.c_longlong
-    lib.paged_attention_mla_tc_smem.argtypes = [ctypes.c_int] * 8
+    lib.paged_attention_mla_tc_smem.argtypes = [ctypes.c_int] * 7
     lib.paged_attention_mla_tc_scratch.restype = None
     lib.paged_attention_mla_tc_scratch.argtypes = (
         [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)])
-    lib.paged_attention_mla_tc_parts.restype = None
-    lib.paged_attention_mla_tc_parts.argtypes = [
-        ctypes.POINTER(ctypes.c_int)]
-    lib.paged_attention_mla_tc_plan.restype = None
-    lib.paged_attention_mla_tc_plan.argtypes = (
-        [ctypes.POINTER(ctypes.c_int)] * 2 + [ctypes.c_int] * 7
-        + [ctypes.POINTER(ctypes.c_int)])
     return lib
 
 
@@ -386,24 +375,31 @@ def mla_row_tile(pages_dtype: torch.dtype) -> int:
     return _lib().paged_attention_mla_row_tile(_KV_DTYPES[pages_dtype])
 
 
+@functools.lru_cache(maxsize=None)
 def mla_parts():
     """(bf16 parts of the f32 queries, bf16 parts of p) of the
-    tensor-core MLA kernel."""
-    parts = (ctypes.c_int * 2)()
-    _lib().paged_attention_mla_tc_parts(parts)
-    return tuple(parts)
+    tensor-core MLA kernel: ``mtc::NQ`` and ``mtc::NP``, read from its
+    source (their one definition), so a CPU emulation of the kernel's
+    arithmetic holds the counts the kernel is built with."""
+    src = (_build.CSRC / "paged_attention.cu").read_text()
+    return tuple(int(re.search(rf"constexpr int {n} = (\d+);", src).group(1))
+                 for n in ("NQ", "NP"))
 
 
-def mla_split_plan(positions, lengths, c, h, hkv, bs, mb, sms):
-    """(key tiles of 16 keys a split walks, splits) that the tensor-core
-    MLA kernel takes for these positions and lengths (host arrays) on a
-    card of ``sms`` SMs: the same arithmetic as on the card."""
-    pos = (ctypes.c_int * len(positions))(*[int(x) for x in positions])
-    lens = (ctypes.c_int * len(lengths))(*[int(x) for x in lengths])
-    plan = (ctypes.c_int * 2)()
-    _lib().paged_attention_mla_tc_plan(pos, lens, len(pos), c, h, hkv, bs,
-                                       mb, sms, plan)
-    return tuple(plan)
+# The plan the last tensor-core MLA launch took, on the card: (key tiles
+# of 16 keys a split, the step's (row tile, split) items, the most splits
+# of a row tile); see ``mla_last_plan``.
+_last_plan = None
+
+
+def mla_last_plan():
+    """The page-walk split the last tensor-core MLA launch took, as the
+    kernel wrote it (read back from the card): (key tiles of 16 keys a
+    split, the step's (row tile, split) items, the most splits of a row
+    tile)."""
+    if _last_plan is None:
+        raise RuntimeError("no tensor-core MLA launch yet")
+    return tuple(int(x) for x in _last_plan.tolist())
 
 
 @functools.lru_cache(maxsize=None)
@@ -417,10 +413,10 @@ def _mla_tc_scratch(b, c, h, hkv, d1, bs, mb):
 
 def _launch_mla_tc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
                    block_tables, positions, lengths, sm_scale):
-    """The tensor-core kernel (bf16 or int8 pages): one block per SM
-    walking the step's (64-row tile, page-walk split) items; the card
-    picks the split from positions and lengths, and the last split of a
-    tile to finish merges them inside the launch."""
+    """The tensor-core kernel (bf16 or int8 pages): one cooperative
+    launch of one block per SM walking the step's (64-row tile,
+    page-walk split) items; the card picks the split from positions and
+    lengths, and the splits of a tile merge inside the launch."""
     dev = q.device
     b, c, h, d1 = q.shape
     _, bs, hkv, _ = k_pages.shape
@@ -435,11 +431,11 @@ def _launch_mla_tc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
     lib = _lib()
     kv = _KV_DTYPES[k_pages.dtype]
     mb = block_tables.shape[1]
-    smem = lib.paged_attention_mla_tc_smem(b, c, h, hkv, d1, d2, kv, mb)
+    smem = lib.paged_attention_mla_tc_smem(b, c, h, hkv, d1, d2, kv)
     if smem > _smem_limit(dev):
-        raise ValueError(f"D={d1} + D2={d2} with {mb} pages a slot for "
-                         f"{b} x {c} x {h} rows needs {smem} B of shared "
-                         f"memory; the card allows {_smem_limit(dev)}")
+        raise ValueError(f"D={d1} + D2={d2} for {b} x {c} x {h} rows needs "
+                         f"{smem} B of shared memory; the card allows "
+                         f"{_smem_limit(dev)}")
     splits, n_acc, n_ml, n_tickets = _mla_tc_scratch(b, c, h, hkv, d1, bs,
                                                      mb)
     out = torch.empty_like(q)
@@ -450,6 +446,7 @@ def _launch_mla_tc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
         # Zeroed on this launch's stream for this launch alone (as the
         # GQA form's tickets).
         tickets = torch.zeros((n_tickets,), dtype=torch.int32, device=dev)
+    plan = torch.empty((3,), dtype=torch.int32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -457,12 +454,14 @@ def _launch_mla_tc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
             q.data_ptr(), ptr(q2), k_pages.data_ptr(), ptr(k2_pages), kv,
             ptr(k_scales), ptr(k2_scales), block_tables.data_ptr(),
             positions.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(), b,
-            c, h, hkv, d1, d2, bs, mb, splits, _sm_count(dev),
-            float(sm_scale), stream)
+            part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
+            plan.data_ptr(), b, c, h, hkv, d1, d2, bs, mb, splits,
+            _sm_count(dev), float(sm_scale), stream)
     if err:
         raise RuntimeError(f"paged_attention_mla_tc launch failed: "
                            f"cudaError {err}")
+    global _last_plan
+    _last_plan = plan
     return out
 
 
@@ -476,25 +475,24 @@ def _launch_mla_cc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
     b, c, h, d1 = q.shape
     _, bs, hkv, _ = k_pages.shape
     d2 = 0 if q2 is None else q2.shape[3]
+    if k_pages.dtype != torch.float32 or k_scales is not None:
+        raise TypeError(f"the CUDA-core MLA kernel takes f32 pages; got "
+                        f"{k_pages.dtype}")
     lib = _lib()
     if d1 % 4 or d2 % 4 or d1 > lib.paged_attention_mla_max_d1():
         raise ValueError(f"MLA widths D={d1}, D2={d2} must be multiples of "
                          f"4, D at most {lib.paged_attention_mla_max_d1()}")
-    for t in (q, q2, k_pages, k2_pages):
-        if t is not None and t.data_ptr() % _ALIGN[t.dtype]:
-            raise ValueError(f"{t.dtype} q and pages must be "
-                             f"{_ALIGN[t.dtype]}-byte aligned")
+    if not all(t.data_ptr() % 16 == 0
+               for t in (q, q2, k_pages, k2_pages) if t is not None):
+        raise ValueError("q, q2 and pages must be 16-byte aligned")
     smem = lib.paged_attention_mla_smem(d1, d2, bs)
     if smem > _smem_limit(dev):
         raise ValueError(f"D={d1} + D2={d2} at block_size {bs} needs {smem} "
                          f"B of shared memory; the card allows "
                          f"{_smem_limit(dev)}")
-    g = h // hkv
-    kv = _KV_DTYPES[k_pages.dtype]
-    rt = lib.paged_attention_mla_row_tile(kv)
-    row_tiles = -(-c * g // rt)
+    rt = lib.paged_attention_mla_row_tile(_KV_DTYPES[torch.float32])
+    row_tiles = -(-c * (h // hkv) // rt)
     mb = block_tables.shape[1]
-    sms = _sm_count(dev)
     splits = lib.paged_attention_mla_splits(mb)
     out = torch.empty_like(q)
     part_acc = part_ml = out
@@ -508,11 +506,11 @@ def _launch_mla_cc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.paged_attention_mla(
-            q.data_ptr(), ptr(q2), k_pages.data_ptr(), ptr(k2_pages), kv,
-            ptr(k_scales), ptr(k2_scales), block_tables.data_ptr(),
-            positions.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), b, c, h, hkv, d1, d2,
-            bs, mb, splits, sms, float(sm_scale), stream)
+            q.data_ptr(), ptr(q2), k_pages.data_ptr(), ptr(k2_pages),
+            block_tables.data_ptr(), positions.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), part_acc.data_ptr(),
+            part_ml.data_ptr(), b, c, h, hkv, d1, d2, bs, mb, splits,
+            _sm_count(dev), float(sm_scale), stream)
     if err:
         raise RuntimeError(f"paged_attention_mla launch failed: "
                            f"cudaError {err}")

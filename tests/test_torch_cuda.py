@@ -299,9 +299,11 @@ def _mla_run(c, k=None, k2=None, scales=None, q=None):
 # chunk 8, 128 heads, rank 512, rope 64, block 16, 10 blocks = 160
 # positions), a ragged one (rows not a multiple of the row tile: 64 rows
 # on bf16 and int8 pages, 32 on f32 pages; a chunk of 5, so a 64-row tile
-# spans chunk entries; block 64) and a small one (rank 64, rope 16).
+# spans chunk entries; block 64) and a small one at the reduced
+# deepseek-v3's widths (rank 32, rope 16: an output-column tile count
+# per warp that is odd).
 MLA_SHAPES = [(8, 8, 128, 512, 64, 16, 10), (3, 5, 20, 512, 64, 64, 3),
-              (3, 4, 8, 64, 16, 4, 6)]
+              (3, 4, 8, 32, 16, 4, 6)]
 
 
 @pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
@@ -370,7 +372,7 @@ def test_paged_attention_mla_dead_pages_and_garbage_rows(cuda, pages):
 def test_paged_attention_mla_refuses_bf16_queries(cuda):
     """The MLA kernel takes the f32 q_eff/q_rope that mla_decode passes;
     bf16 queries on the card are refused, and nothing is launched."""
-    c = _mla_case(cuda, 3, 4, 8, 64, 16, 4, 6, pages="bfloat16", seed=9)
+    c = _mla_case(cuda, 3, 4, 8, 32, 16, 4, 6, pages="bfloat16", seed=9)
     before = paged_decode_attention.mla_launches
     with pytest.raises(TypeError, match="float32 q"):
         _mla_run(c, q=c["q"].to(torch.bfloat16))
@@ -413,9 +415,9 @@ def test_paged_attention_mla_steady_decode_splits_the_walk(cuda):
     row tile's page walk (more than one split, planned on the card from
     positions and lengths) and merges the splits inside the one launch;
     against the plain version, rows past each length 0, and two launches
-    bit-identical, on bf16 and int8 pages."""
-    from repro_torch.kernels.paged_attention import mla_split_plan
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    bit-identical, on bf16 and int8 pages. The split is the one the
+    kernel wrote back (``mla_last_plan``)."""
+    from repro_torch.kernels.paged_attention import mla_last_plan
     for pages in ("bfloat16", "int8"):
         c = _mla_case(cuda, 8, 8, 128, 512, 64, 16, 10, pages=pages, seed=6)
         c["np_tables"] = np.arange(80, dtype=np.int32).reshape(8, 10)
@@ -423,10 +425,10 @@ def test_paged_attention_mla_steady_decode_splits_the_walk(cuda):
         c["np_pos"] = np.full(8, 159, np.int32)
         for key in ("tables", "lens", "pos"):
             c[key] = torch.from_numpy(c["np_" + key]).to(cuda)
-        per, splits = mla_split_plan(c["np_pos"], c["np_lens"], 8, 128, 1,
-                                     16, 10, sms)
-        assert splits > 1 and per < 10
-        out, again = _mla_run(c), _mla_run(c)
+        out = _mla_run(c)
+        per, items, most = mla_last_plan()
+        assert most > 1 and per < 10 and items >= 2 * most
+        again = _mla_run(c)
         ref = paged_attention_ref(c["q"], c["k"], None, c["tables"],
                                   c["pos"], sm_scale=c["sm"], q2=c["q2"],
                                   k2_pages=c["k2"], **c["scales"])
@@ -437,13 +439,69 @@ def test_paged_attention_mla_steady_decode_splits_the_walk(cuda):
         assert not bool(out[:, 1:].any())
 
 
+def _mla_long_table(c, mb=4096, seed=0):
+    """Case ``c`` (4 slots at the serve's widths) on a table 4,096 pages
+    wide (65,536 keys): slot 0 decodes at the end of a 2,048-page walk
+    (32,768 keys) over pages 0..99 of the pool, reused; slots 1..3 own
+    short runs of pages 100..139, the rest of each row null; pages
+    140..nb - 1 and the null page are dead."""
+    rng = np.random.RandomState(seed)
+    nb = c["nb"]
+    tables = np.full((4, mb), nb, np.int32)
+    tables[0, :2048] = rng.randint(0, 100, size=2048)
+    owned = [2048, 17, 9, 3]
+    for i, o in enumerate(owned[1:], 1):
+        tables[i, :o] = 100 + rng.permutation(40)[:o]
+    lens = np.array([1, 8, 3, 8], np.int32)
+    pos = np.array([o * c["bs"] - n for o, n in zip(owned, lens)], np.int32)
+    t = lambda a: torch.from_numpy(a).to(c["q"].device)     # noqa: E731
+    c.update(tables=t(tables), pos=t(pos), lens=t(lens), np_tables=tables,
+             np_pos=pos, np_lens=lens)
+    return c
+
+
+@pytest.mark.parametrize("pages", ["bfloat16", "int8"])
+def test_paged_attention_mla_long_table(cuda, pages):
+    """A 4,096-page table (65,536 keys a slot; the kernel's shared memory
+    does not grow with the table's width) with one slot decoding 32,768
+    keys deep: the walk split across blocks (more than one split of a
+    row tile, as the kernel wrote back) and merged in the launch, against
+    the plain version; two launches bit-identical; dead pages full of
+    garbage change no bit; rows past each length 0."""
+    from repro_torch.kernels.paged_attention import mla_last_plan
+    c = _mla_long_table(_mla_case(cuda, 4, 8, 128, 512, 64, 16, 40,
+                                  pages=pages, seed=21))
+    out = _mla_run(c)
+    per, items, most = mla_last_plan()
+    again = _mla_run(c)
+    dead = torch.arange(140, c["nb"] + 1, device=cuda)
+    k, k2 = c["k"].clone(), c["k2"].clone()
+    scales = {n: v.clone() for n, v in c["scales"].items()}
+    if pages == "int8":
+        k[dead], k2[dead] = 127, -127
+        for v in scales.values():
+            v[dead] = float("nan")
+    else:
+        k[dead], k2[dead] = float("nan"), float("nan")
+    out2 = _mla_run(c, k=k, k2=k2, scales=scales)
+    ref = paged_attention_ref(c["q"], c["k"], None, c["tables"], c["pos"],
+                              sm_scale=c["sm"], q2=c["q2"],
+                              k2_pages=c["k2"], **c["scales"])
+    torch.cuda.synchronize()
+    assert most > 1
+    assert torch.equal(out, again) and torch.equal(out, out2)
+    for i, n in enumerate(c["np_lens"]):
+        torch.testing.assert_close(out[i, :n], ref[i, :n], rtol=2e-5,
+                                   atol=1e-5)
+        assert not bool(out[i, n:].any())
+
+
 @pytest.mark.parametrize("pages", ["float32", "bfloat16", "int8"])
 def test_paged_attention_mla_kernel_follows_the_pages(cuda, pages,
                                                       monkeypatch):
     """The page dtype alone picks the MLA kernel: f32 pages run the
     CUDA-core kernel, bf16 and int8 pages the tensor-core kernel, never
-    the other (no fallback), whose query and p splits are the ones the
-    CPU emulation holds to the tolerance (tests/test_torch_mla.py)."""
+    the other (no fallback)."""
     from repro_torch.kernels import paged_attention as pa
     calls = {"tc": 0, "cc": 0}
 
@@ -456,12 +514,11 @@ def test_paged_attention_mla_kernel_follows_the_pages(cuda, pages,
                         counting("tc", pa._launch_mla_tc))
     monkeypatch.setattr(pa, "_launch_mla_cc",
                         counting("cc", pa._launch_mla_cc))
-    c = _mla_case(cuda, 3, 4, 8, 64, 16, 4, 6, pages=pages, seed=12)
+    c = _mla_case(cuda, 3, 4, 8, 32, 16, 4, 6, pages=pages, seed=12)
     _mla_run(c)
     torch.cuda.synchronize()
     assert calls == ({"tc": 0, "cc": 1} if pages == "float32"
                      else {"tc": 1, "cc": 0})
-    assert pa.mla_parts() == (pa.MLA_Q_PARTS, pa.MLA_P_PARTS)
     assert pa.mla_row_tile(c["k"].dtype) == (32 if pages == "float32"
                                              else 64)
 
