@@ -40,6 +40,20 @@ Phases, one line each (every failure exits non-zero):
             attention and matmul launch's route is counted (by dtype):
             a serve or prefill that reaches a CUDA-core (f32) kernel
             fails, as does any model-path attention launch that does;
+   prefix — the paper's system-evaluation serve: the same stream behind
+            a 256-token shared system prompt with ``--prefix-cache
+            --offload-policy --metrics-out --trace`` (telemetry on), for
+            qwen3-0.6b on bf16 and int8 pages and deepseek-v3 (4 layers)
+            on bf16 pages, each beside the same stream without the
+            cache, and the bf16 streams once more on the warm cache:
+            cold prefix hits of 256 tokens each, a hit for every warm
+            admission, exact launches per
+            step (the recipe's), the timeline closed against the ledger,
+            both exports valid, and tokens equal to the unshared run's
+            up to near-ties (the unshared run's logit rows are the
+            reference); the copy-on-write split itself on full-width
+            arenas of bf16, int8 and MLA pages (the copy equals its
+            source, the sibling's pages keep every bit);
 5. checks — per recipe, one full-width decode step (depth cut to 2
             layers) against the plain CPU path, and a shorter serve under
             torch.profiler; for q8_0 also a 2-layer prefill and a 2-layer
@@ -54,6 +68,7 @@ It imports nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -141,6 +156,15 @@ DEEPSEEK_INT8_LAUNCHES = {"matmul_q8_0": 29,
                           "paged_decode_attention_mla_int8": 4}
 DEEPSEEK_PREFILL_LAUNCHES = {"matmul_q8_0": 33, "flash_attention": 4}
 GRANITE_LAUNCHES = {"matmul_q8_0": 129, "paged_decode_attention": 32}
+# The prefix phase: the stream behind a shared system prompt of 16 full
+# blocks, with the Table-2 offload policy; the shared run adds the cache
+# and the telemetry exports. Each hit maps the whole system prompt.
+SHARED_PREFIX = 256
+PREFIX_FLAGS = ["--shared-prefix", str(SHARED_PREFIX), "--offload-policy"]
+# The near-tie rule (ROADMAP's North star): a request's tail may differ
+# from the reference run's only from a position where the reference's
+# top-2 logit gap is below this share of its max |logit|.
+LOGIT_TOL = 2.5e-2
 # B9 at the deepseek serve's decode shape: (B, C, H, rank, rope, bs, MB,
 # physical blocks), and a ragged one (rows not a multiple of the 64-row
 # tile, chunk 5, block 64).
@@ -1427,7 +1451,8 @@ def serve_recipe(torch, dev, serve, quant, extra=(), per_step=None,
     serve.reset_launches()
     engine, report, reqs = serve.run_stream(cfg, model, params, args, dev)
     launches = serve.launch_counts()
-    for line in serve.report_lines(engine, report, args.requests):
+    for line in serve.serve_report_lines(engine, report, args.requests,
+                                         launches=launches):
         print(f"{tag}: {line}", flush=True)
     steps = report.stats.steps
     if len(report.sequences) != len(reqs) or any(
@@ -1470,6 +1495,274 @@ def serve_batch(torch, dev, serve):
     del dense
     torch.cuda.empty_cache()
     return res
+
+
+@contextlib.contextmanager
+def recorded_logits(torch, serve):
+    """Record, for the serves run inside, the logit row each sampled
+    token was drawn from: yields (rows, index), rows[i] the i-th step's
+    (slots, vocab) f32 copy on the card (one copy kernel a step, a
+    PyTorch copy: no kernel counter moves), index[(rid, k)] = (step,
+    slot) of request rid's k-th token."""
+    from repro_torch.runtime import sampling
+    rows, index = [], {}
+    sample0, step0 = sampling.sample_slots, serve.ServingEngine._step_once
+
+    def sample(last, *a, **kw):
+        rows.append(last.to(torch.float32, copy=True))
+        return sample0(last, *a, **kw)
+
+    def step(self, *a, **kw):
+        before = {s: (q, q.tokens_out) for s, q in self.sched.active.items()}
+        step0(self, *a, **kw)
+        for s, (q, n0) in before.items():
+            if q.tokens_out > n0:
+                index[(q.rid, n0)] = (len(rows) - 1, s)
+    sampling.sample_slots = sample
+    serve.ServingEngine._step_once = step
+    try:
+        yield rows, index
+    finally:
+        sampling.sample_slots = sample0
+        serve.ServingEngine._step_once = step0
+
+
+def check_near_ties(torch, tag, ref, run) -> int:
+    """Hold the tokens of serve ``run`` against the reference serve
+    ``ref`` (each: report, logit rows, index) by the near-tie rule: a
+    request may part from the reference only where the reference's top-2
+    gap is below LOGIT_TOL of its max |logit|, onto a token it scored
+    within that of its best, and at most one request in four (or one in
+    eight of the near-tie positions) may. Also prints how far the two
+    runs' logit rows drift apart before each request's first divergence
+    (a share of max |logit|). Returns the number of requests exempted."""
+    rep, rows, index = ref
+    got, grows, gindex = run
+    keys = sorted(index)
+    stack = torch.stack([rows[i][s] for i, s in (index[k] for k in keys)])
+    tol = LOGIT_TOL * float(torch.stack([r.abs().max() for r in rows])
+                            .max())
+    top = stack.topk(2, dim=1).values
+    gaps = dict(zip(keys, (top[:, 0] - top[:, 1]).tolist()))
+    near = sum(g < tol for g in gaps.values())
+    exempt, same = [], []
+    for a, b in zip(rep.sequences, got.sequences):
+        if a.rid != b.rid or len(a.generated) != len(b.generated):
+            fail(f"{tag}: request {b.rid} does not match the reference")
+        diff = [k for k, (x, y) in enumerate(zip(a.generated, b.generated))
+                if x != y]
+        same += [(a.rid, j) for j in range(diff[0] if diff else
+                                           len(a.generated))]
+        if not diff:
+            continue
+        k = diff[0]
+        i, s = index[(a.rid, k)]
+        row = rows[i][s]
+        if gaps[(a.rid, k)] >= tol or float(row[b.generated[k]]) \
+                < float(row.max()) - tol:
+            fail(f"{tag}: request {a.rid} parts from the reference at "
+                 f"token {k} (top-2 gap {gaps[(a.rid, k)]:.4g}, tolerance "
+                 f"{tol:.4g}): {a.generated} vs {b.generated}")
+        exempt.append((a.rid, k))
+    if len(exempt) > max(len(rep.sequences) // 4, near // 8):
+        fail(f"{tag}: {len(exempt)} near-tie exemptions ({near} near-tie "
+             "positions)")
+    drift = max(float((rows[index[k][0]][index[k][1]]
+                       - grows[gindex[k][0]][gindex[k][1]]).abs().max())
+                for k in same) / (tol / LOGIT_TOL)
+    print(f"{tag}: tokens equal to the reference up to near-ties: "
+          f"{len(exempt)} of {len(rep.sequences)} requests exempted "
+          f"{exempt} ({near} of {len(keys)} positions are near-ties, "
+          f"tolerance {tol:.4g}); logit rows before the first divergence "
+          f"differ by at most {drift:.3e} of max|logit|", flush=True)
+    return len(exempt)
+
+
+def check_cow(torch, dev, serve) -> None:
+    """The copy-on-write split on the card, at full width: qwen3-0.6b's
+    arena on bf16 and on int8 pages (code and scale pages) and deepseek-v3's
+    (4 layers) on bf16 pages (latent and RoPE pages), 257 pages of 16
+    filled with seeded values. A cached prompt admitted again whole is
+    split at admission, a longer one shares its blocks, and a write range
+    over them splits both: every copy equals its source page in every
+    leaf, the sibling's pages keep every bit, and the next step uploads
+    the remapped table."""
+    import dataclasses
+    from repro_torch.runtime.kvcache import PagedKVArena, _leaves
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    for arch, kv in (("qwen3-0.6b", "none"), ("qwen3-0.6b", "int8"),
+                     ("deepseek-v3-671b", "none")):
+        cfg = serve.get_config(arch)
+        if arch.startswith("deepseek"):
+            cfg = dataclasses.replace(cfg, num_layers=DEEPSEEK_LAYERS)
+        arena = PagedKVArena(serve.build_model(cfg), num_slots=8,
+                             max_seq=416, block_size=16, num_blocks=256,
+                             prefix_cache=True, kv_quant=kv, device=dev)
+        for leaf in _leaves(arena.buffers):
+            if leaf.dtype == torch.int8:
+                leaf.copy_(torch.randint(-127, 128, leaf.shape, device=dev,
+                                         generator=gen, dtype=torch.int8))
+            else:
+                leaf.copy_(torch.randn(leaf.shape, device=dev,
+                                       generator=gen))
+        before = [x.clone() for x in _leaves(arena.buffers)]
+        prompt = list(range(1000, 1040))            # 2 full blocks + 8
+        arena.device_tables()
+        a, _, _ = arena.alloc_slot_prefix(prompt, 64)
+        arena.register_prefix(a, prompt)
+        b, hit_b, _ = arena.alloc_slot_prefix(prompt[:32], 8)
+        c, hit_c, _ = arena.alloc_slot_prefix(prompt + [7] * 8, 8)
+        split = arena.prepare_write(c, 0, 20)
+        tables, uploaded = arena.device_tables()
+        src, got_b, got_c = (arena.slot_blocks(x) for x in (a, b, c))
+        ok = (hit_b, hit_c, split, arena.cow_splits) == (31, 32, 2, 3) \
+            and uploaded and bool(torch.equal(
+                tables.cpu(), torch.from_numpy(arena.tables)))
+        for old, new in zip(before, _leaves(arena.buffers)):
+            ok = ok and bool(torch.equal(new[:, src], old[:, src])) \
+                and bool(torch.equal(new[:, got_c[:2]], old[:, src[:2]])) \
+                and bool(torch.equal(new[:, got_b[1]], old[:, src[1]]))
+        if not ok:
+            fail(f"copy-on-write {arch} kv={kv}: hits {hit_b}/{hit_c}, "
+                 f"splits {split} ({arena.cow_splits}), pages or table "
+                 "wrong")
+        print(f"copy-on-write {arch} kv={kv}: 3 splits over "
+              f"{len(before)} paged leaves, copies equal their sources, "
+              "the sibling's pages unchanged, table re-uploaded",
+              flush=True)
+        del arena, before
+    torch.cuda.empty_cache()
+
+
+def serve_prefix(torch, dev, serve, setup, per_step, label, card,
+                 argv=SERVE_ARGS, extra=(), warm=False):
+    """The paper's system-evaluation serve of ``argv`` (q8_0, plus
+    ``extra``) with ``setup``'s weights: the stream behind the shared
+    system prompt without the cache, then with ``--prefix-cache`` and the
+    telemetry exports (and, with ``warm``, the same stream again on the
+    warm cache of the same engine). Each run: every request complete with
+    in-vocab tokens, exact launches per step, the timeline closed against
+    the ledger; the shared runs: prefix hits of SHARED_PREFIX tokens
+    each (the cold one), both exports valid, tokens within the near-tie
+    rule of the unshared run. Returns {run: {kernel: launches}}."""
+    from repro_torch.runtime import telemetry
+    _, cfg, model, params = setup
+    ap = serve.build_parser()
+    out, res = {}, {}
+    export = ["--prefix-cache",
+              "--metrics-out", str(ROOT / "build" / f"serve_{label}.jsonl"),
+              "--trace", str(ROOT / "build" / f"serve_{label}.json")]
+    for run, flags in (("unshared", []), ("shared", export)):
+        args = ap.parse_args(list(argv) + list(extra) + PREFIX_FLAGS
+                             + flags + ["--quant", "q8_0"])
+        serve.validate_args(ap, args)
+        tag = f"prefix {label} {run}"
+        serve.reset_launches()
+        with recorded_logits(torch, serve) as (rows, index):
+            engine, report, reqs = serve.run_stream(cfg, model, params,
+                                                    args, dev)
+        launches = serve.launch_counts()
+        _prefix_lines(serve, tag, engine, report, args, card, launches)
+        out[tag] = check_launches(tag, launches, per_step,
+                                  report.stats.steps)
+        res[run] = (report, rows, index)
+        if warm and run == "shared":
+            tag = f"prefix {label} warm"
+            serve.reset_launches()
+            with recorded_logits(torch, serve) as (rows, index):
+                report = engine.serve(reqs, seed=args.seed)
+            launches = serve.launch_counts()
+            _prefix_lines(serve, tag, engine, report, args, card, launches)
+            out[tag] = check_launches(tag, launches, per_step,
+                                      report.stats.steps)
+            res["warm"] = (report, rows, index)
+    shared, unshared = res["shared"][0], res["unshared"][0]
+    st = shared.stats
+    # A cold hit maps exactly the system prompt; a warm run admits every
+    # request onto its own cached chain (at least the system prompt).
+    hits = [st.prefix_hits]
+    if st.prefix_hit_tokens != SHARED_PREFIX * st.prefix_hits:
+        fail(f"prefix {label}: {st.prefix_hits} hits of "
+             f"{st.prefix_hit_tokens} tokens (want {SHARED_PREFIX} each)")
+    if "warm" in res:
+        w = res["warm"][0].stats
+        hits.append(w.prefix_hits)
+        if w.prefix_hits != args.requests or \
+                w.prefix_hit_tokens < SHARED_PREFIX * w.prefix_hits:
+            fail(f"prefix {label} warm: {w.prefix_hits} hits of "
+                 f"{w.prefix_hit_tokens} tokens")
+    if not any(hits):
+        fail(f"prefix {label}: no prefix hit")
+    for run in ("shared", "warm"):
+        if run in res:
+            check_near_ties(torch, f"prefix {label} {run}", res["unshared"],
+                            res[run])
+    for name in ("jsonl", "json"):
+        path = ROOT / "build" / f"serve_{label}.{name}"
+        n = (telemetry.validate_metrics_jsonl if name == "jsonl" else
+             telemetry.validate_chrome_trace)(str(path))
+        print(f"prefix {label}: {path.relative_to(ROOT)} valid ({n} "
+              f"{'step events' if name == 'jsonl' else 'spans'})",
+              flush=True)
+    skipped = unshared.stats.prefill_tokens - st.prefill_tokens
+    print(f"prefix {label} on {card}: shared vs unshared tokens/s "
+          f"{shared.throughput_tok_s:.1f} vs {unshared.throughput_tok_s:.1f}"
+          f" | p50 step {shared.step_ms_percentile(50):.2f} vs "
+          f"{unshared.step_ms_percentile(50):.2f} ms | p90 step "
+          f"{shared.step_ms_percentile(90):.2f} vs "
+          f"{unshared.step_ms_percentile(90):.2f} ms | steps "
+          f"{st.steps} vs {unshared.stats.steps} | prefill tokens skipped "
+          f"{skipped} | hits {st.prefix_hits} ({st.prefix_hit_tokens} "
+          f"tokens) | CoW splits {st.cow_splits}"
+          + (f" | warm: hits {res['warm'][0].stats.prefix_hits} "
+             f"({res['warm'][0].stats.prefix_hit_tokens} tokens), CoW "
+             f"splits {res['warm'][0].stats.cow_splits}, tokens/s "
+             f"{res['warm'][0].throughput_tok_s:.1f}" if "warm" in res
+             else ""), flush=True)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def _prefix_lines(serve, tag, engine, report, args, card, launches) -> None:
+    """One prefix run's report, completion and ledger-closure checks and
+    its bottleneck share."""
+    for line in serve.serve_report_lines(engine, report, args.requests,
+                                         launches=launches):
+        print(f"{tag}: {line}", flush=True)
+    vocab = engine.model.cfg.vocab_size
+    if len(report.sequences) != args.requests or any(
+            len(s.generated) != args.gen
+            or not all(0 <= t < vocab for t in s.generated)
+            for s in report.sequences):
+        fail(f"{tag}: not every request completed with in-vocab tokens")
+    tl = report.timeline
+    if tl.ledger_delta_totals() != report.ledger.breakdown():
+        fail(f"{tag}: the timeline's ledger deltas do not close against "
+             "the ledger")
+    br = tl.bottleneck_report()
+    prompt = [e.wall_s for e in tl.events
+              if any(s[2] == "prefill" and s[3] for s in e.slots)]
+    decode = [e.wall_s for e in tl.events
+              if e.slots and not any(s[2] == "prefill" and s[3]
+                                     for s in e.slots)]
+    gaps = [b.t_start - a.t_end for a, b in zip(tl.events, tl.events[1:])]
+    med = lambda v: 1e3 * sorted(v)[len(v) // 2] if v else 0.0  # noqa: E731
+    print(f"{tag}: timeline: {len(prompt)} steps with prompt chunks "
+          f"(median {med(prompt):.2f} ms), {len(decode)} decode-only "
+          f"(median {med(decode):.2f} ms); host time between steps "
+          f"{1e3 * sum(gaps):.1f} ms in all (median {med(gaps):.3f} ms) of "
+          f"{1e3 * report.wall_s:.1f} ms serve wall", flush=True)
+    print(f"{tag} on {card}: {report.throughput_tok_s:.1f} tokens/s, p50 "
+          f"step {report.step_ms_percentile(50):.2f} ms, p90 step "
+          f"{report.step_ms_percentile(90):.2f} ms; timeline closed "
+          f"against the ledger over {len(tl.events)} events; "
+          f"transfer-bound steps {br.transfer_bound}/{br.steps} "
+          f"({100 * br.transfer_bound / max(br.steps, 1):.1f} %, modeled "
+          f"CGLA LOAD {br.load_s * 1e3:.2f} ms vs measured "
+          f"{br.exec_s * 1e3:.2f} ms); step compiles "
+          f"{report.step_compiles}", flush=True)
 
 
 def run_prefill(torch, dev, serve, repeats: int = 3, setup=None,
@@ -1755,6 +2048,18 @@ def main() -> None:
     by_serve["granite-moe"] = serve_recipe(
         torch, dev, serve, "q8_0", per_step=GRANITE_LAUNCHES,
         tag="serve granite-moe q8_0", argv=GRANITE_ARGS, setup=gr)
+    pf = recipe_setup(torch, dev, serve, "q8_0")
+    by_serve.update(serve_prefix(torch, dev, serve, pf,
+                                 RECIPE_LAUNCHES["q8_0"], "q8_0", card,
+                                 warm=True))
+    by_serve.update(serve_prefix(torch, dev, serve, pf, INT8_LAUNCHES,
+                                 "q8_0_kv-int8", card,
+                                 extra=["--kv-quant", "int8"]))
+    del pf
+    by_serve.update(serve_prefix(torch, dev, serve, ds, DEEPSEEK_LAUNCHES,
+                                 "deepseek-v3", card, argv=DEEPSEEK_ARGS,
+                                 warm=True))
+    check_cow(torch, dev, serve)
     print(f"chip_smoke: serves done at {time.perf_counter() - T0:.1f} s",
           flush=True)
     check_routes(routes, "the serves and prefills",

@@ -89,6 +89,13 @@ def build_all() -> Dict[str, Path]:
     return targets
 
 
+def loaded() -> int:
+    """How many kernel libraries this process has loaded (each built
+    first if stale): the engine's per-step ``compiles`` count is the
+    growth of this number during the step."""
+    return len(_libs)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built on first
     use, together with every other stale source)."""

@@ -4,15 +4,24 @@
 mode replays a stream of requests (Poisson or back-to-back arrivals)
 through the serving engine — on the paged arena with ``--block-size``
 (bf16 pages, or int8 pages with ``--kv-quant int8``), else on the
-contiguous slot arena — and reports completions, step time, throughput
-and the transfer ledger. ``build_stream`` is the JAX launcher's, so with
-the same ``--seed`` both serves see the same requests. Weights are
-random, made from ``--seed`` on the device.
+contiguous slot arena — with telemetry on, and reports completions, step
+time, throughput, the transfer ledger and the bottleneck attribution
+(``runtime/telemetry.py``'s ``serve_report_lines``). ``build_stream`` is
+the JAX launcher's, so with the same ``--seed`` both serves see the same
+requests. Weights are random, made from ``--seed`` on the device.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
       --quant q8_0 --slots 8 --chunk-size 8 --block-size 16 \
       --num-blocks 256 --requests 16 --prompt-len 128 --gen 32 \
       --arrival back2back [--kv-quant int8]
+
+The paper's system-evaluation serve adds a shared system prompt, the
+prefix cache with copy-on-write, the Table-2 offload policy and the
+telemetry exports (JSONL metrics, Perfetto/Chrome trace; check them with
+``python -m repro_torch.runtime.telemetry validate FILE...``):
+
+  ... --shared-prefix 256 --prefix-cache --offload-policy \
+      --metrics-out build/serve_q8_0.jsonl --trace build/serve_q8_0.json
 
 Batch mode (the lockstep ``Engine`` on the contiguous arena, kept for the
 paper's fixed [in:out] workload grid):
@@ -26,25 +35,30 @@ full width do not fit one card: ``--reduced`` for the CPU).
 
 The card is the default device. Without one the launcher exits with an
 error unless ``--device cpu`` asks for the plain CPU path explicitly.
-Flags whose feature is not ported yet are refused with the ROADMAP item
-that ports them.
+Flags whose feature is not ported yet (``--spec``, ``--dp/--tp``) are
+refused with the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from repro_torch.configs.registry import family_of, get_config
 from repro_torch.core import convert
+from repro_torch.core.imax_model import asic_28nm
+from repro_torch.core.offload import OffloadPolicy, model_kernel_calls
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ops import MATMUL_KERNELS
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.models.api import build_model
 from repro_torch.runtime.engine import Engine, ServingEngine
 from repro_torch.runtime.request import Request, SamplingParams
+from repro_torch.runtime.telemetry import serve_report_lines
 
 # Every hand-written kernel's wrapper, each with its ``launches`` count.
 KERNELS = tuple(w for w, _ in MATMUL_KERNELS.values()) + (
@@ -108,6 +122,19 @@ def build_stream(cfg, args, rng: np.random.RandomState):
     return reqs
 
 
+def offload_decisions(cfg, quant: str, seq: int, n_out: int):
+    """Static offload table (paper Table 2) applied to the live ledger so
+    host-resident kernels charge no DMA bytes."""
+    q = quant if quant != "none" else "fp16"
+    prefill = model_kernel_calls(cfg, q, seq, 1, decode=False)
+    decode = [dataclasses.replace(c, count=c.count * n_out)
+              for c in model_kernel_calls(cfg, q, seq, 1, decode=True)]
+    by_name = {}
+    for c in prefill + decode:
+        by_name.setdefault(c.name, []).append(c)
+    return OffloadPolicy(asic_28nm()).decide_table(prefill, by_name)
+
+
 def build_params(model, args, device, quantize: bool = True):
     """Seeded random weights at the config's widths, made on ``device``
     as the JAX launcher does (bf16 init, then — unless ``quantize`` is
@@ -121,20 +148,37 @@ def build_params(model, args, device, quantize: bool = True):
 
 
 def run_stream(cfg, model, params, args, device):
-    """Serve the stream; returns (engine, report, requests)."""
+    """Serve the stream with telemetry on and write the exports that
+    ``--metrics-out``/``--trace`` ask for; returns (engine, report,
+    requests)."""
     rng = np.random.RandomState(args.seed)
     reqs = build_stream(cfg, args, rng)
     max_seq = args.max_seq or (args.shared_prefix + args.prompt_len
                                + args.gen)
+    decisions = offload_decisions(cfg, args.quant, args.prompt_len,
+                                  args.gen) if args.offload_policy else None
     engine = ServingEngine(
         model, params, quant=args.quant, num_slots=args.slots,
-        max_seq=max_seq, chunk_size=args.chunk_size,
+        max_seq=max_seq, offload_decisions=decisions,
+        chunk_size=args.chunk_size,
         block_size=args.block_size or None,
         num_blocks=args.num_blocks or None,
-        paged_attn=args.paged_attn or "fused", kv_quant=args.kv_quant,
-        host_sampling=args.host_sampling, device=device)
+        paged_attn=args.paged_attn or "fused",
+        prefix_cache=args.prefix_cache, kv_quant=args.kv_quant,
+        host_sampling=args.host_sampling, telemetry=True, device=device)
     report = engine.serve(reqs, seed=args.seed)
+    write_exports(report.timeline, args)
     return engine, report, reqs
+
+
+def write_exports(timeline, args) -> None:
+    """Write the JSONL metrics (``--metrics-out``) and the Chrome/Perfetto
+    trace (``--trace``) of a served stream's timeline."""
+    for path, write in ((args.metrics_out, timeline.write_metrics_jsonl),
+                        (args.trace, timeline.write_chrome_trace)):
+        if path:
+            Path(path).parent.mkdir(parents=True, exist_ok=True)
+            write(path)
 
 
 def run_batch(cfg, model, dense_params, args, device):
@@ -166,31 +210,6 @@ def batch_lines(stats, args):
                                  for name, n in launch_counts().items())]
 
 
-def report_lines(engine, report, total_requests: int):
-    """The serve report: completions, steps, throughput, step time,
-    latency percentiles, the ledger and the kernels' launch counts."""
-    st = report.stats
-    lat = report.latency_percentiles()
-    lines = [
-        f"completed {len(report.sequences)}/{total_requests} requests | "
-        f"steps {st.steps} | preemptions {report.sched.preemptions} | "
-        f"mean occupancy {report.sched.mean_occupancy:.2f}",
-        f"tokens: prompt {st.prefill_tokens} generated {st.decode_tokens} | "
-        f"throughput {report.throughput_tok_s:.1f} tok/s | "
-        f"p50 step {report.step_ms_percentile(50):.2f} ms "
-        f"p90 step {report.step_ms_percentile(90):.2f} ms",
-        f"latency p50 {lat[50]*1e3:.1f} ms p90 {lat[90]*1e3:.1f} ms "
-        f"p99 {lat[99]*1e3:.1f} ms | arena {st.cache_bytes/1e6:.1f} MB "
-        f"peak resident {st.peak_resident_bytes/1e6:.1f} MB | "
-        f"paged KV reads {st.paged_kv_read_bytes/1e6:.1f} MB",
-    ]
-    lines += report.ledger.summary_lines(
-        {"prefill": st.prefill_s, "decode": st.decode_s})
-    lines.append("kernels: " + " | ".join(
-        f"{name} launches {n}" for name, n in launch_counts().items()))
-    return lines
-
-
 def validate_args(ap, args) -> None:
     """Fail fast on flags whose feature is not ported, or that do not
     combine — never silently measure a different configuration. The
@@ -198,20 +217,29 @@ def validate_args(ap, args) -> None:
     refused = [
         (args.spec != "off" or args.spec_k is not None
          or args.spec_draft_model, "--spec is ROADMAP A12"),
-        (args.prefix_cache or args.shared_prefix, "--prefix-cache and "
-                                                  "--shared-prefix are "
-                                                  "ROADMAP A13"),
         (args.dp * args.tp != 1, "--dp/--tp are ROADMAP A17"),
-        (getattr(args, "metrics_out", None) or getattr(args, "trace", None),
-         "--metrics-out/--trace (telemetry) are ROADMAP A11"),
-        (getattr(args, "offload_policy", False),
-         "--offload-policy needs the IMAX model, ROADMAP A21"),
     ]
     for bad, why in refused:
         if bad:
             ap.error(f"not ported to repro_torch: {why}")
     if args.num_blocks and not args.block_size:
         ap.error("--num-blocks requires --block-size (paged arena)")
+    if args.prefix_cache:
+        if not args.block_size:
+            ap.error("--prefix-cache requires the paged arena "
+                     "(--block-size): sharing works at block granularity")
+        if args.mode != "stream":
+            ap.error("--prefix-cache requires --mode stream")
+        fam = family_of(args.arch)
+        if fam in ("ssm", "hybrid"):
+            ap.error(f"--prefix-cache is unsupported for the {fam!r} "
+                     f"family ({args.arch}): recurrent state is not "
+                     "addressable by token-block chains")
+        if fam in ("encdec", "vlm"):
+            ap.error(f"--prefix-cache is unsupported for the {fam!r} "
+                     f"family ({args.arch}): prompt KV depends on "
+                     "per-request encoder/vision conditioning, so equal "
+                     "token prefixes do not imply equal pages")
     if args.kv_quant != "none":
         if not args.block_size:
             ap.error("--kv-quant requires the paged arena (--block-size): "
@@ -232,6 +260,14 @@ def validate_args(ap, args) -> None:
                      f"({args.arch}): cross-attention KV is written by "
                      "the one-time encoder pass, which bypasses the "
                      "quantize-on-insert path")
+    if args.shared_prefix < 0:
+        ap.error("--shared-prefix must be >= 0")
+    # getattr: callers may validate partial Namespaces without the
+    # export flags.
+    if (getattr(args, "metrics_out", None) or getattr(args, "trace", None)) \
+            and args.mode != "stream":
+        ap.error("--metrics-out/--trace require --mode stream (telemetry "
+                 "instruments the continuous-batching step loop)")
     if args.paged_attn and not args.block_size:
         ap.error(f"--paged-attn {args.paged_attn} requires a paged arena "
                  "(--block-size); the contiguous slot arena has no block "
@@ -316,9 +352,16 @@ def main(argv=None) -> None:
     print(f"arch={cfg.name} quant={args.quant} device={device} "
           f"stream={args.requests} reqs ({args.arrival}) slots={args.slots} "
           f"{where} prefill=chunked[{engine.chunk_size}] gen={args.gen}")
-    for line in report_lines(engine, report, args.requests):
+    for line in serve_report_lines(engine, report, args.requests,
+                                   launches=launch_counts()):
         print(f"  {line}")
     print(f"  first request tokens: {report.sequences[0].generated[:8]}")
+    if args.metrics_out:
+        print(f"  metrics: wrote {len(report.timeline.events)} step "
+              f"events to {args.metrics_out}")
+    if args.trace:
+        print(f"  trace: wrote Perfetto/Chrome trace to {args.trace} "
+              f"(open at https://ui.perfetto.dev)")
     sys.stdout.flush()
 
 

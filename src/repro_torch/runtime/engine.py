@@ -19,10 +19,15 @@ The step runs eagerly (no jit): its kernels launch on the card's current
 stream, the arena's pages are written in place, and the sampled tokens
 are read to the host after every step — the engine's one sync point.
 
+Prefix sharing (``prefix_cache=True``, paged arena): admission maps the
+longest cached chain of full prompt blocks onto existing pages and
+fast-forwards the sequence past them; before every step a copy-on-write
+barrier splits any shared block the step would write. Telemetry
+(``telemetry=True``) records a ``StepTimeline`` per run, host-side only.
+
 Not ported yet, refused by the constructor with the ROADMAP item that
-ports them: speculative decoding (A12), the prefix cache (A13), serving
-meshes (A17) and the ssm/hybrid/encdec/vlm families (A16). Telemetry's
-StepTimeline is A11.
+ports them: speculative decoding (A12), serving meshes (A17) and the
+ssm/hybrid/encdec/vlm families (A16).
 """
 from __future__ import annotations
 
@@ -34,12 +39,14 @@ import numpy as np
 import torch
 
 from repro_torch.core import convert
+from repro_torch.kernels import _build
 from repro_torch.models.api import ModelAPI
 from repro_torch.runtime import sampling
 from repro_torch.runtime.kvcache import KV_QUANT_MODES, KVArena, PagedKVArena
 from repro_torch.runtime.request import (Request, SamplingParams, SeqState,
                                          Sequence)
 from repro_torch.runtime.scheduler import Scheduler, SchedulerStats
+from repro_torch.runtime.telemetry import StepTimeline
 from repro_torch.runtime.transfers import TransferLedger, TransferReport
 
 
@@ -54,8 +61,13 @@ class GenStats:
     decode_tokens: int = 0          # tokens emitted by decode steps
     cache_bytes: int = 0
     peak_resident_bytes: float = 0.0    # max arena bytes pinned by live seqs
+    resident_bytes_sum: float = 0.0     # per-step resident-bytes accumulator
+    live_tokens_sum: int = 0            # per-step live-cache-token accumulator
     steps: int = 0                  # unified steps executed
     paged_kv_read_bytes: float = 0.0    # fused-kernel KV page reads
+    prefix_hits: int = 0            # admissions that mapped a cached prefix
+    prefix_hit_tokens: int = 0      # prompt positions served from shared pages
+    cow_splits: int = 0             # copy-on-write block splits this run
     step_s: List[float] = dataclasses.field(default_factory=list)
     transfers: Optional[TransferReport] = None
 
@@ -64,6 +76,14 @@ class GenStats:
         """Decode-phase throughput: decode-emitted tokens over the decode
         share of the step wall time."""
         return self.decode_tokens / self.decode_s if self.decode_s else 0.0
+
+    @property
+    def resident_bytes_per_token(self) -> float:
+        """Mean arena bytes *reserved* per live cache token over the run —
+        the slot arena pins max_seq per sequence, the paged arena pins
+        ceil(len/block)*block."""
+        return self.resident_bytes_sum / self.live_tokens_sum \
+            if self.live_tokens_sum else 0.0
 
 
 @dataclasses.dataclass
@@ -75,6 +95,11 @@ class ServeReport:
     sched: SchedulerStats
     wall_s: float = 0.0             # serve() wall time, admission included
     ledger: Optional[TransferLedger] = None
+    # Kernel libraries built or loaded during the engine's steps (the
+    # port's analogue of the JAX step's jit compilations; 0 once warm).
+    step_compiles: int = 0
+    # Telemetry StepTimeline (engine telemetry=True).
+    timeline: Optional[StepTimeline] = None
 
     def latency_percentiles(self, qs=(50, 90, 99)) -> Dict[int, float]:
         """Request-latency percentiles (seconds) over finished sequences."""
@@ -113,12 +138,28 @@ class ServingEngine:
                  spec: str = "off", prefix_cache: bool = False,
                  kv_quant: str = "none", mesh=None,
                  offload_decisions: Optional[Dict[str, bool]] = None,
-                 host_sampling: bool = False,
+                 host_sampling: bool = False, telemetry: bool = False,
                  cache_dtype=torch.bfloat16, device="cuda"):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if paged_attn not in ("fused", "ref"):
             raise ValueError(f"unknown paged_attn {paged_attn!r}")
+        if prefix_cache:
+            if block_size is None:
+                raise ValueError("prefix_cache requires the paged arena "
+                                 "(set block_size)")
+            if model.cfg.family in RECURRENT_FAMILIES:
+                raise ValueError(
+                    f"prefix_cache is unsupported for the "
+                    f"{model.cfg.family!r} family: recurrent state is not "
+                    "addressable by token-block chains")
+            if model.cfg.family in ("encdec", "vlm"):
+                raise ValueError(
+                    f"prefix_cache is unsupported for the "
+                    f"{model.cfg.family!r} family: prompt KV depends on "
+                    "per-request conditioning (encoder frames / vision "
+                    "embeddings), so equal token chains do not imply "
+                    "equal pages")
         if kv_quant not in KV_QUANT_MODES:
             raise ValueError(f"unknown kv_quant mode {kv_quant!r} "
                              f"(choose from {KV_QUANT_MODES})")
@@ -144,8 +185,6 @@ class ServingEngine:
                     "quantize-on-insert path")
         refusals = [
             (spec != "off", "speculative decoding is ROADMAP A12"),
-            (prefix_cache, "the prefix cache and copy-on-write are "
-                           "ROADMAP A13"),
             (mesh is not None, "serving meshes are ROADMAP A17"),
             (model.cfg.family not in ("dense", "moe"),
              f"the {model.cfg.family!r} family is ROADMAP A16"),
@@ -167,9 +206,16 @@ class ServingEngine:
         self.cache_dtype = cache_dtype
         self.device = torch.device(device)
         self._block_size, self._num_blocks = block_size, num_blocks
+        self.prefix_cache = prefix_cache
         self._ledger_kw = dict(decisions=offload_decisions,
                                host_sampling=host_sampling,
                                kv_quant=kv_quant)
+        # Telemetry: when enabled, serve() builds a StepTimeline per run
+        # (host-side only: no device sync, no kernel launch).
+        self.telemetry = telemetry
+        self._timeline: Optional[StepTimeline] = None
+        self._run_cow0 = 0
+        self._step_compiles = 0
         self._fresh_arena_sched()
 
     # ------------------------------------------------------------------
@@ -180,15 +226,19 @@ class ServingEngine:
                                       block_size=self._block_size,
                                       num_blocks=self._num_blocks,
                                       dtype=self.cache_dtype,
+                                      prefix_cache=self.prefix_cache,
                                       kv_quant=self.kv_quant,
                                       device=self.device)
         else:
             self.arena = KVArena(self.model, self.num_slots, self.max_seq,
                                  dtype=self.cache_dtype, device=self.device)
         self.sched = Scheduler(self.num_slots, self.max_seq)
+        # rid -> (hit_tokens, resident_growth_blocks) recorded by the
+        # admission gate, consumed by _admit_chunked after seq.admit().
+        self._pending_prefix: Dict[int, tuple] = {}
 
     def reset(self) -> None:
-        """Fresh arena and scheduler: serve() runs are independent."""
+        """Fresh arena (dropping the prefix cache) and scheduler."""
         self._fresh_arena_sched()
 
     # ------------------------------------------------------------------
@@ -198,22 +248,43 @@ class ServingEngine:
         (reservation then follows chunk progress)."""
         if not self.paged:
             return self.arena.alloc()
+        if self.prefix_cache:
+            got = self.arena.alloc_slot_prefix(seq.req.tokens,
+                                               self.chunk_size)
+            if got is None:
+                return None
+            slot, hit, growth = got
+            self._pending_prefix[seq.rid] = (hit, growth)
+            return slot
         first = min(seq.req.prompt_len, self.chunk_size)
         return self.arena.alloc_slot(self.arena.blocks_needed(first))
 
-    def _admit_chunked(self, seq: Sequence, ledger: TransferLedger) -> None:
+    def _admit_chunked(self, seq: Sequence, stats: GenStats,
+                       ledger: TransferLedger) -> None:
         """Chunked admission: no prefill pass. Reset the slot's constant
         state leaves; on the paged arena the admission's blocks are
         charged as cache growth (the contiguous arena charges growth per
-        fed token instead)."""
+        fed token instead). A prefix-cache hit recorded by the admission
+        gate fast-forwards the sequence past the shared prompt positions
+        — their KV already sits in mapped pages, so they are neither
+        streamed nor recomputed, and only newly resident blocks are
+        charged as cache growth."""
         self.arena.reset_slot(seq.slot)
+        hit, growth_blocks = self._pending_prefix.pop(seq.rid, (0, None))
         if self.paged:
-            growth_blocks = len(self.arena.slot_blocks(seq.slot))
+            if growth_blocks is None:
+                growth_blocks = len(self.arena.slot_blocks(seq.slot))
             ledger.charge_cache_growth(
                 "prefill", growth_blocks * self.arena.block_bytes())
+        if hit:
+            seq.apply_prefix_hit(hit)
+            stats.prefix_hits += 1
+            stats.prefix_hit_tokens += hit
+            ledger.record_prefix_hit(hit)
 
     def _preempt(self, seq: Sequence) -> None:
-        """Recompute-preemption: reclaim the victim's slot and blocks and
+        """Recompute-preemption: reclaim the victim's slot and blocks (a
+        decref per block — pages shared with siblings stay resident) and
         push it back to the queue head."""
         slot = self.sched.preempt(seq)
         self.arena.free(slot)
@@ -222,7 +293,10 @@ class ServingEngine:
         """Grow each active sequence's block table to cover its next feed,
         oldest-first; on allocator exhaustion preempt the youngest active
         sequence and retry (age order guarantees the oldest sequence can
-        always run alone, so the stream never deadlocks)."""
+        always run alone, so the stream never deadlocks). With the prefix
+        cache, the copy-on-write barrier follows: every shared block the
+        coming write range maps to is split before the step launches, so
+        the step's page insert never writes a page a sibling reads."""
         by_age = sorted(self.sched.active.values(),
                         key=lambda s: s.admit_seq)
         for seq in by_age:
@@ -242,6 +316,19 @@ class ServingEngine:
                 if fresh:
                     ledger.charge_cache_growth(
                         phase, fresh * self.arena.block_bytes())
+                if not self.prefix_cache:
+                    break
+                # A fresh copy is arena growth like any other block.
+                cow = self.arena.prepare_write(slot, seq.position, bound)
+                if cow is None:
+                    victim = self.sched.preempt_victim()
+                    self._preempt(victim)
+                    if victim is seq:
+                        break                   # evicted ourselves: skip step
+                    continue
+                if cow:
+                    ledger.charge_cache_growth(
+                        phase, cow * self.arena.block_bytes())
                 break
 
     def _sampling_vectors(self, seqs: Dict[int, Sequence]):
@@ -262,7 +349,8 @@ class ServingEngine:
                    ledger: TransferLedger, t0: float) -> None:
         """One unified (slots, chunk) step: prompt chunks and decode
         feedback tokens ride the same shape. Token timestamps are read
-        after the step's host sync."""
+        after the step's host sync; the telemetry record (if on) is built
+        on the host after it too."""
         ns, C = self.num_slots, self.chunk_size
         feeds = self.sched.plan_feeds(C, self.step_token_budget)
         tokens = np.zeros((ns, C), np.int32)
@@ -283,6 +371,7 @@ class ServingEngine:
         temps, top_ks, top_ps = self._sampling_vectors(self.sched.active)
 
         t_step = time.perf_counter()
+        libs0 = _build.loaded()
         dev = self.device
         put = lambda a: torch.from_numpy(a).to(dev)     # noqa: E731
         dev_tables = None
@@ -303,6 +392,8 @@ class ServingEngine:
         nxt_host = nxt.cpu().numpy()          # blocks until step completes
         t_end = time.perf_counter()
         now = t_end - t0
+        dcomp = _build.loaded() - libs0
+        self._step_compiles += dcomp
 
         pre_toks = sum(n for s, n in feeds.items()
                        if self.sched.active[s].state is SeqState.PREFILL)
@@ -315,41 +406,106 @@ class ServingEngine:
         stats.decode_s += dt * (1.0 - frac)
         ledger.charge_step_weights(prefill_frac=frac)
 
-        stats.peak_resident_bytes = max(stats.peak_resident_bytes,
-                                        self.arena.resident_bytes())
+        resident = self.arena.resident_bytes()
+        stats.peak_resident_bytes = max(stats.peak_resident_bytes, resident)
+        stats.resident_bytes_sum += resident
+        stats.live_tokens_sum += int(sum(
+            s.position + feeds[slot]
+            for slot, s in self.sched.active.items()))
         if self.paged:
             stats.paged_kv_read_bytes += self._paged_reads(pos0, lens) \
                 * self.arena.block_bytes()
         # The contiguous arena grows by token, the paged one by block (at
         # reservation).
         tok_bytes = 0.0 if self.paged else self.arena.token_bytes()
+        tl = self._timeline
+        slot_mix = [] if tl is not None else None
         for slot, seq in list(self.sched.active.items()):
             n = feeds[slot]
             if seq.state is SeqState.PREFILL:
                 if n == 0:
+                    if slot_mix is not None:      # deferred: fed nothing
+                        slot_mix.append((slot, seq.rid, "prefill", 0, 0))
                     continue                  # budget-starved this step
                 stats.prefill_tokens += n
                 ledger.charge_chunk("prefill", n, seq.fed + n)
                 if tok_bytes:
                     ledger.charge_cache_growth("prefill", n * tok_bytes)
+                first_tok = 0
                 if seq.feed_chunk(n):
                     seq.start_decode()        # this chunk sampled token 0
+                    if self.prefix_cache:
+                        # Prefill complete: positions [0, prompt_len) are
+                        # all written, decode writes land strictly past
+                        # them — publish the full prompt blocks.
+                        self.arena.register_prefix(seq.slot,
+                                                   seq.req.tokens)
                     ledger.charge_sampled()
                     seq.record_token(int(nxt_host[slot]), now)
                     stats.decode_tokens += 1
+                    first_tok = 1
+                    if tl is not None:
+                        tl.on_token(seq.rid, now, ttft_s=seq.ttft_s)
+                        if seq.done:
+                            tl.on_done(seq.rid, seq.latency_s)
+                if slot_mix is not None:
+                    slot_mix.append((slot, seq.rid, "prefill", n,
+                                     first_tok))
             else:
                 ledger.charge_chunk("decode", 1, int(pos0[slot]) + 1)
                 r = 0
                 if not seq.done:              # generation budget left
+                    first = seq.t_first_token is None
                     seq.record_token(int(nxt_host[slot]), now)
                     r = 1
+                    if tl is not None:
+                        tl.on_token(seq.rid, now,
+                                    ttft_s=seq.ttft_s if first else None)
+                if tl is not None and seq.done:
+                    tl.on_done(seq.rid, seq.latency_s)
                 if tok_bytes:
                     ledger.charge_cache_growth("decode", r * tok_bytes)
                 ledger.charge_sampled(r, logit_rows=1)
                 stats.decode_tokens += r
+                if slot_mix is not None:
+                    slot_mix.append((slot, seq.rid, "decode", 1, r))
         stats.steps += 1
         self.sched.record_step()
+        if tl is not None:
+            self._record_step(tl, stats, slot_mix, resident, dcomp,
+                              t_step - t0, now)
         self.sched.retire(self.arena.free)
+
+    def _record_step(self, tl: StepTimeline, stats: GenStats, slot_mix,
+                     resident: float, compiles: int, t_start: float,
+                     t_end: float) -> None:
+        """Close the step's telemetry event with the JAX engine's counter
+        keys: cumulative run-relative values, which the timeline diffs
+        into per-step deltas. The speculative counters stay 0 until
+        speculative decoding is ported (ROADMAP A12)."""
+        counters = {
+            "steps": float(stats.steps),
+            "prefill_tokens": float(stats.prefill_tokens),
+            "decode_tokens": float(stats.decode_tokens),
+            "spec_proposed": 0.0,
+            "spec_accepted": 0.0,
+            "spec_rolled_back": 0.0,
+            "prefix_hits": float(stats.prefix_hits),
+            "prefix_hit_tokens": float(stats.prefix_hit_tokens),
+            "cow_splits": float(self.arena.cow_splits - self._run_cow0)
+            if self.paged else 0.0,
+            "preemptions": float(self.sched.stats.preemptions),
+            "deferred_feeds": float(self.sched.stats.deferred_feeds),
+            "prefill_chunks": float(self.sched.stats.prefill_chunks),
+            "paged_kv_read_bytes": stats.paged_kv_read_bytes,
+        }
+        tl.record_step(
+            t_start=t_start, t_end=t_end,
+            occupancy=len(self.sched.active), compiles=compiles,
+            counters=counters,
+            gauges={"resident_bytes": float(resident),
+                    "queue_len": float(len(self.sched.queue))},
+            slots=slot_mix)
 
     def _paged_reads(self, pos0: np.ndarray, lens: np.ndarray) -> int:
         """Pages the step's attention reads, for the KV read counter."""
@@ -376,10 +532,12 @@ class ServingEngine:
         """Run a request stream to completion. ``realtime``: honor
         ``arrival_s`` offsets against the wall clock (sleep while idle);
         False replays arrivals against the virtual step clock only.
-        Each run gets a fresh scheduler; the arena's page storage is
-        reused (its tables are empty between runs)."""
+        Each run gets a fresh scheduler; the arena is reused (its tables
+        are empty between runs), so with ``prefix_cache`` the pages one
+        run published are hit by the next. ``reset()`` drops them."""
         if self.sched.stats.steps or self.sched.finished:
             self.sched = Scheduler(self.num_slots, self.max_seq)
+            self._pending_prefix.clear()
         for r in requests if self.paged else ():
             # Last cache write lands at position prompt+gen-2 (the final
             # sampled token is returned, never inserted), so peak demand
@@ -396,6 +554,21 @@ class ServingEngine:
         stats = GenStats()
         ledger = TransferLedger(self.model.cfg, self.quant,
                                 **self._ledger_kw)
+        # The arena (and its prefix cache) outlives serve() runs, so
+        # per-run CoW counts are deltas.
+        cow0 = self.arena.cow_splits if self.paged else 0
+        self._run_cow0 = cow0
+        tl = None
+        if self.telemetry:
+            # Detached again by finalize() before the report is built.
+            tl = StepTimeline(
+                ledger,
+                meta={"arch": self.model.cfg.name, "quant": self.quant,
+                      "slots": self.num_slots, "chunk": self.chunk_size,
+                      "dp": 1, "tp": 1, "spec": "off",
+                      "kv_quant": self.kv_quant, "paged": self.paged})
+            self._timeline = tl
+            self.sched.telemetry = tl
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         t0 = time.perf_counter()
@@ -407,7 +580,7 @@ class ServingEngine:
                 # admissions take them (may preempt-to-queue).
                 self._reserve_blocks(ledger)
             for seq in self.sched.admit(self._try_admit, now):
-                self._admit_chunked(seq, ledger)
+                self._admit_chunked(seq, stats, ledger)
             if not self.sched.active:
                 if self.sched.queue:
                     continue    # preempted/starved: blocks freed, re-admit
@@ -422,13 +595,20 @@ class ServingEngine:
             self._step_once(gen, stats, ledger, t0)
 
         wall = time.perf_counter() - t0
+        if tl is not None:
+            tl.finalize(wall)
+            self._timeline = None
+            self.sched.telemetry = None
         stats.cache_bytes = self.arena.nbytes()
+        if self.paged:
+            stats.cow_splits = self.arena.cow_splits - cow0
         stats.transfers = TransferReport.from_ledger(ledger)
         order = {r.rid: i for i, r in enumerate(requests)}
         seqs = sorted(self.sched.finished, key=lambda s: order[s.rid])
         return ServeReport(stats=stats, sequences=seqs,
                            sched=self.sched.stats, wall_s=wall,
-                           ledger=ledger)
+                           ledger=ledger,
+                           step_compiles=self._step_compiles, timeline=tl)
 
 
 class Engine:

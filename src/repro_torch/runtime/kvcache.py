@@ -23,11 +23,17 @@ changes a tensor shape: the tables ride into the step as a
 With ``kv_quant="int8"`` every paged leaf stores int8 code pages plus
 fp16 scale pages (``page_layout``).
 
-Not ported yet: the prefix cache and copy-on-write with the refcounted
-allocator (ROADMAP A13) and speculative rollback (A12).
+With ``prefix_cache=True`` the allocator is refcounted and slots may map
+the same full prompt blocks (``PrefixCache``, copy-on-write before any
+write lands on a shared page). The split's page copy is one indexed
+copy per paged leaf on the device, plain PyTorch (the JAX package's is
+an XLA scatter, not a Pallas kernel).
+
+Not ported yet: speculative rollback (ROADMAP A12).
 """
 from __future__ import annotations
 
+import hashlib
 import heapq
 from typing import Dict, List, Optional, Tuple
 
@@ -82,7 +88,10 @@ def cache_nbytes(tree) -> int:
 
 class _FreeHeap:
     """Min-heap free list with O(log n) alloc/free and a membership set
-    guarding double-frees."""
+    guarding double-frees. ``remove`` takes a *specific* member out of
+    the free list (prefix-cache resurrection of a freed-but-still-cached
+    block) by lazy deletion: the heap entry stays behind and is skipped
+    at pop when no longer in the set."""
 
     def __init__(self, n: int):
         self.n = n
@@ -91,6 +100,9 @@ class _FreeHeap:
 
     def __len__(self) -> int:
         return len(self._free_set)
+
+    def __contains__(self, i: int) -> bool:
+        return i in self._free_set
 
     def pop(self) -> Optional[int]:
         while self._heap:
@@ -106,13 +118,26 @@ class _FreeHeap:
         heapq.heappush(self._heap, i)
         self._free_set.add(i)
 
+    def remove(self, i: int) -> None:
+        if i not in self._free_set:
+            raise ValueError(f"not free: {i}")
+        self._free_set.discard(i)
+
 
 class BlockAllocator:
-    """Free-list allocator over ``num_blocks`` physical KV blocks of
-    ``block_size`` tokens each. All-or-nothing multi-block allocation (an
-    admission either gets its whole reservation or stays queued). Blocks
-    are exclusively owned: the refcounted sharing of the JAX package
-    comes with the prefix cache (ROADMAP A13)."""
+    """Refcounted free-list allocator over ``num_blocks`` physical KV
+    blocks of ``block_size`` tokens each, copied from the JAX package.
+    All-or-nothing multi-block allocation (an admission either gets its
+    whole reservation or stays queued).
+
+    Refcount lifecycle (prefix sharing): ``alloc`` hands out blocks at
+    refcount 1; ``share`` takes an extra reference on a block another
+    table already maps (or resurrects a refcount-0 block straight out of
+    the free list — its page contents are still intact); ``free`` is a
+    *decref* — a block returns to the free list only when its last
+    reference drops. A refcount-0 block keeps its page contents until
+    ``alloc`` reissues it, at which point the ``on_alloc`` hook fires so
+    the prefix cache can drop the stale entry."""
 
     def __init__(self, num_blocks: int, block_size: int):
         if num_blocks < 1 or block_size < 1:
@@ -122,33 +147,139 @@ class BlockAllocator:
         self.num_blocks = num_blocks
         self.block_size = block_size
         self._free = _FreeHeap(num_blocks)
+        self._ever_used: set = set()
+        self.reissues = 0               # allocations of a previously-freed block
+        self.refcounts: List[int] = [0] * num_blocks
+        self.on_alloc = None            # callback(block) on (re)issue
 
+    # -- queries ---------------------------------------------------------
     @property
     def free_blocks(self) -> int:
-        """Blocks currently on the free list."""
+        """Blocks currently on the free list (refcount 0)."""
         return len(self._free)
 
     @property
     def used_blocks(self) -> int:
-        """Blocks held by a sequence."""
+        """Blocks held by at least one reference."""
         return self.num_blocks - len(self._free)
 
     def blocks_for(self, tokens: int) -> int:
         """Blocks needed to cover ``tokens`` cache positions."""
         return max(1, -(-int(tokens) // self.block_size))
 
+    # -- lifecycle -------------------------------------------------------
     def alloc(self, n: int) -> Optional[List[int]]:
         """Claim ``n`` blocks (lowest ids first) or None if < n are free."""
         if n < 0:
             raise ValueError(f"bad alloc count: {n}")
         if n > len(self._free):
             return None
-        return [self._free.pop() for _ in range(n)]
+        out = [self._free.pop() for _ in range(n)]
+        self.reissues += sum(1 for b in out if b in self._ever_used)
+        self._ever_used.update(out)
+        for b in out:
+            self.refcounts[b] = 1
+            if self.on_alloc is not None:
+                self.on_alloc(b)
+        return out
+
+    def share(self, blocks: List[int]) -> None:
+        """Take one extra reference per block. A live block (refcount
+        >= 1) is simply increffed; a refcount-0 block still sitting in
+        the free list (freed but cached, contents intact) is resurrected
+        — pulled out of the free list with its page untouched."""
+        for b in blocks:
+            if not (0 <= b < self.num_blocks):
+                raise ValueError(f"bad share: {b}")
+            if self.refcounts[b] == 0:
+                self._free.remove(b)
+            self.refcounts[b] += 1
 
     def free(self, blocks: List[int]) -> None:
-        """Return ``blocks`` to the free list."""
+        """Drop one reference per block (decref). The block rejoins the
+        free list only at refcount 0; its page contents are left intact
+        so a prefix-cache entry can resurrect it until reissue."""
         for b in blocks:
-            self._free.push(b)
+            if not (0 <= b < self.num_blocks) or self.refcounts[b] <= 0:
+                raise ValueError(f"bad free: {b}")
+            self.refcounts[b] -= 1
+            if self.refcounts[b] == 0:
+                self._free.push(b)
+
+
+class PrefixCache:
+    """Host-side map from hashed token-block *chains* to physical pages,
+    copied from the JAX package.
+
+    Key for chain block ``i`` is the running SHA-256 over all prompt
+    tokens in blocks ``0..i`` — so a key identifies a full prefix, not a
+    bag of tokens, and lookup is a walk from the root that stops at the
+    first miss. Only **full** blocks are ever registered: the trailing
+    partial block of a live sequence is written by the step's page insert
+    and must stay exclusively owned.
+
+    The cache holds no references of its own — an entry over a
+    refcount-0 block is a *resurrection candidate*, not pinned memory.
+    Eviction is implicit: when the allocator reissues a freed block, the
+    ``invalidate_block`` hook drops its entry. Entries are 1:1 with
+    blocks, so the cache can never exceed ``num_blocks`` entries."""
+
+    def __init__(self, block_size: int):
+        self.block_size = block_size
+        self._by_key: Dict[bytes, int] = {}
+        self._by_block: Dict[int, bytes] = {}
+        self.hits = 0          # block-level lookup hits at admission
+        self.misses = 0        # full prompt blocks that missed
+        self.evictions = 0     # entries dropped on block reissue
+
+    def __len__(self) -> int:
+        return len(self._by_key)
+
+    def keys_for(self, tokens, nfull: int) -> List[bytes]:
+        """Chain digests for the first ``nfull`` full blocks of a prompt."""
+        h = hashlib.sha256()
+        keys: List[bytes] = []
+        toks = np.asarray(tokens, np.int64)
+        for i in range(nfull):
+            h.update(toks[i * self.block_size:(i + 1) * self.block_size]
+                     .tobytes())
+            keys.append(h.digest())
+        return keys
+
+    def lookup(self, keys: List[bytes]) -> List[int]:
+        """Longest cached chain prefix: physical blocks for consecutive
+        key hits from the root, stopping at the first miss."""
+        out: List[int] = []
+        for k in keys:
+            b = self._by_key.get(k)
+            if b is None:
+                break
+            out.append(b)
+        return out
+
+    def is_cached(self, block: int) -> bool:
+        """Whether ``block`` currently backs a published cache entry."""
+        return block in self._by_block
+
+    def register(self, key: bytes, block: int) -> bool:
+        """Publish ``key -> block``; no-op if the key is already mapped
+        (first writer wins — siblings sharing that entry already point at
+        the published page). Returns True if a new entry was added."""
+        if key in self._by_key:
+            return False
+        stale = self._by_block.pop(block, None)
+        if stale is not None:               # block re-published under a new chain
+            del self._by_key[stale]
+        self._by_key[key] = block
+        self._by_block[block] = key
+        return True
+
+    def invalidate_block(self, block: int) -> None:
+        """Allocator reissued ``block`` — its cached contents are gone."""
+        key = self._by_block.pop(block, None)
+        if key is not None:
+            del self._by_key[key]
+            self.evictions += 1
 
 
 class KVArena:
@@ -248,14 +379,26 @@ class PagedKVArena:
     exhaustion — the engine preempts), ``free_slot`` returns everything
     to the free lists.
 
+    With ``prefix_cache=True`` blocks are refcounted and distinct slots
+    MAY alias *full prompt blocks* (copy-on-write prefix sharing):
+    ``alloc_slot_prefix`` maps a cached prompt prefix onto existing
+    physical pages, ``register_prefix`` publishes a finished prefill's
+    full blocks, and ``prepare_write`` splits any shared block before a
+    write can land on it — so the step's page insert stays free of
+    collisions by invariant: every position a step writes maps to an
+    exclusively owned (refcount-1) block. On the card an index-put with
+    duplicate targets is nondeterministic, so a missed split would
+    corrupt a sibling's page silently.
+
     With ``kv_quant="int8"`` every paged leaf is ``{"q": int8 code
     pages, "s": fp16 scale pages}`` (quantize-on-insert in the decode
-    step, dequantization in the fused kernel)."""
+    step, dequantization in the fused kernel); a split copies the scale
+    pages with the code pages."""
 
     def __init__(self, model: ModelAPI, num_slots: int, max_seq: int,
                  block_size: int, num_blocks: Optional[int] = None,
-                 dtype=torch.bfloat16, kv_quant: str = "none",
-                 device="cuda"):
+                 dtype=torch.bfloat16, prefix_cache: bool = False,
+                 kv_quant: str = "none", device="cuda"):
         if not (1 <= block_size <= max_seq):
             raise ValueError(f"block_size {block_size} outside [1, {max_seq}]")
         if kv_quant not in KV_QUANT_MODES:
@@ -298,6 +441,11 @@ class PagedKVArena:
                               np.int32)
         self._slot_blocks: List[List[int]] = [[] for _ in range(num_slots)]
         self._dev_tables: Optional[torch.Tensor] = None   # upload cache
+        self.cow_splits = 0             # copy-on-write block splits
+        self.prefix_cache: Optional[PrefixCache] = None
+        if prefix_cache:
+            self.prefix_cache = PrefixCache(block_size)
+            self.allocator.on_alloc = self.prefix_cache.invalidate_block
 
     # -- queries ---------------------------------------------------------
     def page_layout(self) -> dict:
@@ -360,6 +508,127 @@ class PagedKVArena:
         self._dev_tables = None
         return slot
 
+    def alloc_slot_prefix(self, prompt_tokens,
+                          chunk: int) -> Optional[Tuple[int, int, int]]:
+        """Admission with prefix-cache matching: map the longest cached
+        full-block chain of ``prompt_tokens`` onto existing physical
+        pages (shared, increffed) and allocate fresh blocks only for the
+        rest of the first feed. All-or-nothing like ``alloc_slot``.
+
+        Returns ``(slot, hit_tokens, resident_growth_blocks)`` or None.
+        ``hit_tokens`` prompt positions already hold valid KV — the
+        engine skips feeding them. At least one prompt token is always
+        re-fed (its logits seed sampling): when the *whole* prompt is
+        cached, the last chain block is split copy-on-write at admission
+        — position ``len - 1`` will be rewritten by that feed, and a
+        shared page must never be written. ``resident_growth_blocks``
+        counts blocks that newly became resident (fresh + resurrected;
+        shares of live blocks are free)."""
+        pc = self.prefix_cache
+        if pc is None:
+            raise ValueError("arena built without prefix_cache")
+        if self.free_slots == 0:
+            return None
+        L = len(prompt_tokens)
+        nfull = L // self.block_size
+        keys = pc.keys_for(prompt_tokens, nfull)
+        shared = pc.lookup(keys)
+        cow_src: Optional[int] = None
+        if shared and len(shared) * self.block_size >= L:
+            cow_src = shared[-1]        # fully cached: split the last block
+            shared = shared[:-1]
+        hit_blocks = len(shared) + (cow_src is not None)
+        h = (L - 1) if cow_src is not None else len(shared) * self.block_size
+        take = shared + ([cow_src] if cow_src is not None else [])
+        used0 = self.allocator.used_blocks
+        self.allocator.share(take)      # hold refs while we allocate/copy
+        need = self.blocks_needed(h + min(L - h, chunk))
+        fresh = self.allocator.alloc(need - hit_blocks
+                                     + (cow_src is not None))
+        if fresh is None:
+            self.allocator.free(take)   # roll the shares back
+            return None
+        if cow_src is not None:
+            dst = fresh[0]
+            self._copy_pages([cow_src], [dst])
+            self.allocator.free([cow_src])
+            self.cow_splits += 1
+            blocks = shared + [dst] + fresh[1:]
+        else:
+            blocks = shared + fresh
+        slot = self._free_slots.pop()
+        self._slot_blocks[slot] = blocks
+        self.tables[slot] = self.null_block
+        self.tables[slot, :len(blocks)] = blocks
+        self._dev_tables = None
+        pc.hits += hit_blocks
+        pc.misses += nfull - hit_blocks
+        return slot, h, self.allocator.used_blocks - used0
+
+    def register_prefix(self, slot: int, prompt_tokens) -> int:
+        """Publish ``slot``'s full prompt blocks into the prefix cache
+        (called when prefill completes — positions [0, prompt_len) are
+        all written and decode writes land strictly past them). The
+        trailing partial block is never registered: it keeps taking
+        per-step writes and must stay exclusively owned. Idempotent —
+        chains already published (by this sequence's own cache hit, or a
+        sibling's earlier prefill) are skipped. Returns new entries."""
+        pc = self.prefix_cache
+        if pc is None:
+            return 0
+        nfull = len(prompt_tokens) // self.block_size
+        owned = self._slot_blocks[slot]
+        added = 0
+        for i, key in enumerate(pc.keys_for(prompt_tokens, nfull)):
+            if i >= len(owned):
+                break
+            added += pc.register(key, owned[i])
+        return added
+
+    def prepare_write(self, slot: int, start: int,
+                      count: int) -> Optional[int]:
+        """Copy-on-write barrier: make every block that positions
+        ``[start, start + count)`` map to exclusively owned before the
+        step writes there. Shared blocks (refcount > 1) are split —
+        pages copied to fresh blocks on the device, the table remapped
+        (the device table is dropped, so the next step uploads the new
+        one), the shared reference dropped. Returns the number of blocks
+        split (0 when nothing in range is shared) or None on allocator
+        exhaustion (the caller preempts a victim and retries). The JAX
+        package pads the copy to a static width to keep one compilation;
+        the eager copy here needs no pad."""
+        if count <= 0 or self.prefix_cache is None:
+            return 0
+        bs = self.block_size
+        owned = self._slot_blocks[slot]
+        b0 = start // bs
+        b1 = min((start + count - 1) // bs, len(owned) - 1)
+        cow = [(i, owned[i]) for i in range(b0, b1 + 1)
+               if self.allocator.refcounts[owned[i]] > 1]
+        if not cow:
+            return 0
+        fresh = self.allocator.alloc(len(cow))
+        if fresh is None:
+            return None
+        self._copy_pages([old for _, old in cow], fresh)
+        for j, (i, _) in enumerate(cow):
+            owned[i] = fresh[j]
+            self.tables[slot, i] = fresh[j]
+        self.allocator.free([old for _, old in cow])   # drop shared refs
+        self._dev_tables = None
+        self.cow_splits += len(cow)
+        return len(cow)
+
+    def _copy_pages(self, src: List[int], dst: List[int]) -> None:
+        """Copy physical pages ``src[i] -> dst[i]`` in every paged leaf
+        (K and V, int8 codes and scales, MLA's latent and RoPE pages):
+        one gather and one indexed copy per leaf, on the leaf's device.
+        ``dst`` blocks are fresh, so the copy has no duplicate target."""
+        s = torch.tensor(src, dtype=torch.long, device=self.device)
+        d = torch.tensor(dst, dtype=torch.long, device=self.device)
+        for leaf in _leaves(self.buffers):
+            leaf.index_copy_(1, d, leaf.index_select(1, s))
+
     def ensure(self, slot: int, tokens: int) -> Optional[int]:
         """Grow ``slot``'s table to cover ``tokens`` positions. Returns
         the number of newly allocated blocks, or None on exhaustion (the
@@ -377,8 +646,9 @@ class PagedKVArena:
         return len(fresh)
 
     def free_slot(self, slot: int) -> None:
-        """Release ``slot``: its blocks back to the allocator, its table
-        row reset to the null sentinel, the slot freed."""
+        """Release ``slot``: decref its blocks (a page shared with a
+        sibling stays resident), reset its table row to the null
+        sentinel, free the slot."""
         self.allocator.free(self._slot_blocks[slot])
         self._slot_blocks[slot] = []
         self.tables[slot] = self.null_block

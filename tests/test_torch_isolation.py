@@ -9,8 +9,9 @@ fallback, no kernel build on the CPU path.
   int8 pages, and its prefill, so every kernel wrapper; the MLA + MoE
   deepseek-v3 and the MoE granite-moe too) never calls the kernel build
   step (``_build``); every wrapper's library has a source.
-* Architectures and families not ported yet are refused, naming their
-  ROADMAP item.
+* Architectures, families and serve flags not ported yet are refused,
+  naming their ROADMAP item; the flags ported since (the prefix cache,
+  the offload policy, the telemetry exports) serve on the CPU.
 * Without a card and without ``--device cpu``, the serve launcher exits
   with an error instead of running on the CPU.
 """
@@ -48,6 +49,7 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v]\n"
+        "print(' '.join(names))\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,
@@ -55,6 +57,10 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                               "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 20      # the whole package
+    names = out.stdout.split()
+    for mod in ("repro_torch.core.imax_model", "repro_torch.runtime.telemetry",
+                "repro_torch.runtime.kvcache", "repro_torch.launch.serve"):
+        assert mod in names
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -143,14 +149,31 @@ def test_serve_refuses_to_fall_back_to_cpu(capsys):
     assert "--device cpu" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv", [
-    ["--spec", "ngram"], ["--prefix-cache"], ["--shared-prefix", "4"],
-    ["--dp", "2"], ["--offload-policy"], ["--trace", "t.json"]])
+@pytest.mark.parametrize("argv", [["--spec", "ngram"], ["--dp", "2"]])
 def test_serve_refuses_unported_features(argv, capsys):
     with pytest.raises(SystemExit):
         serve.main(["--reduced", "--device", "cpu", "--block-size", "4"]
                    + argv)
     assert "ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--prefix-cache"], ["--shared-prefix", "4"], ["--offload-policy"],
+    ["--trace", "t.json"]])
+def test_serve_accepts_ported_features(argv, capsys, tmp_path):
+    """The flags refused until the prefix cache (A13), the IMAX offload
+    model (A21a) and telemetry (A11) were ported: the reduced CPU serve
+    takes each one and finishes its stream."""
+    argv = [str(tmp_path / a) if a.endswith(".json") else a for a in argv]
+    serve.main(["--reduced", "--device", "cpu", "--block-size", "4",
+                "--quant", "q8_0", "--requests", "3", "--prompt-len", "8",
+                "--gen", "3", "--arrival", "back2back"] + argv)
+    out = capsys.readouterr().out
+    assert "completed 3/3" in out and "bottleneck:" in out
+    if "--prefix-cache" in argv:
+        assert "prefix cache:" in out
+    if "--trace" in argv:
+        assert (tmp_path / "t.json").exists()
 
 
 def test_engine_and_registry_refusals_name_the_roadmap():
@@ -162,7 +185,6 @@ def test_engine_and_registry_refusals_name_the_roadmap():
         family="hybrid"))
     for m, kw, item in ((model, dict(block_size=None, spec="ngram"), "A12"),
                         (model, dict(block_size=4, spec="ngram"), "A12"),
-                        (model, dict(block_size=4, prefix_cache=True), "A13"),
                         (hybrid, dict(block_size=4), "A16"),
                         (model, dict(block_size=4, mesh=object()), "A17")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

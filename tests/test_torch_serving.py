@@ -99,10 +99,11 @@ def jax_logit_rows(jeng, run):
     return out, jrow, scale[0]
 
 
-def serve_both(quant, engine=ENGINE, arch="qwen3-0.6b", **kw):
-    """The same stream through the JAX engine and the port's on the CPU,
-    with the same weights (reduced ``arch``) and engine arguments (``kw``
-    to both)."""
+def serve_both(quant, engine=ENGINE, arch="qwen3-0.6b", args=ARGS, **kw):
+    """The same stream (``build_stream`` of ``args``) through the JAX
+    engine and the port's on the CPU, with the same weights (reduced
+    ``arch``) and engine arguments (``kw`` to both). The engines come back
+    too (``jeng``, ``teng``), still traced, for a second serve."""
     cfg = ASSIGNED[arch].reduced()
     jmodel = jbuild(cfg)
     jparams = jax.jit(lambda key: jconvert.quantize_params(
@@ -111,8 +112,8 @@ def serve_both(quant, engine=ENGINE, arch="qwen3-0.6b", **kw):
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), tcfg,
                               device="cpu")
 
-    jreqs = jserve.build_stream(cfg, ARGS, np.random.RandomState(0))
-    treqs = tserve.build_stream(tcfg, ARGS, np.random.RandomState(0))
+    jreqs = jserve.build_stream(cfg, args, np.random.RandomState(0))
+    treqs = tserve.build_stream(tcfg, args, np.random.RandomState(0))
 
     jtrace, ttrace = [], []
     jeng = JaxEngine(jmodel, jparams, quant=quant, cache_dtype=jnp.float32,
@@ -128,7 +129,7 @@ def serve_both(quant, engine=ENGINE, arch="qwen3-0.6b", **kw):
     trep = teng.serve(treqs, seed=0, realtime=False)
     return dict(jreqs=jreqs, treqs=treqs, jrep=jrep, trep=trep,
                 jtrace=jtrace, ttrace=ttrace, jrow=jrow, scale=scale,
-                gen=ARGS.gen)
+                gen=args.gen, jeng=jeng, teng=teng)
 
 
 @pytest.fixture(scope="module", params=["q8_0", "q3_k_s"])
