@@ -54,6 +54,21 @@ Phases, one line each (every failure exits non-zero):
             reference); the copy-on-write split itself on full-width
             arenas of bf16, int8 and MLA pages (the copy equals its
             source, the sibling's pages keep every bit);
+   spec   — speculative decoding: the stream with ``--spec ngram
+            --spec-k 4`` on bf16 and int8 pages and for deepseek-v3 (4
+            layers), each beside the same stream without it, then
+            qwen3-1.7b drafted by qwen3-0.6b (``--spec draft``) beside
+            qwen3-1.7b alone, a self-draft of qwen3-0.6b, and a spec
+            serve behind the shared system prompt with the prefix cache:
+            proposals accepted and rolled back, exact launches per verify
+            step and per draft pass, every block returned, tokens equal
+            to the plain run's up to near-ties (deepseek-v3's MoE
+            capacity dispatch couples a token to its step's rows: its
+            partings beyond the rule are printed), the self-draft
+            accepting at least 90 %, every rollback leaving shared and
+            cached pages bit-equal; and the rollback itself on
+            full-width arenas of bf16, int8 and MLA pages (bit-identical
+            to never inserting the rejected rows);
 5. checks — per recipe, one full-width decode step (depth cut to 2
             layers) against the plain CPU path, and a shorter serve under
             torch.profiler; for q8_0 also a 2-layer prefill and a 2-layer
@@ -172,6 +187,16 @@ MLA_CASE = (8, 8, 128, 512, 64, 16, 10, 256)
 MLA_RAGGED = (3, 5, 20, 512, 64, 64, 3, 12)
 # deepseek-v3's MLA prefill attention: (B, S, H, D, Dv) bf16, causal.
 FLASH_MLA = (8, 512, 128, 192, 128)
+# The spec phase: the stream above with prompt-lookup speculation (k = 4),
+# and qwen3-1.7b drafted by qwen3-0.6b (the JAX launcher's draft example),
+# each beside the same stream without it. Every spec step is a verify
+# step, so the recipes' launches per step hold; a draft pass launches the
+# draft's 197 linears (qwen3-0.6b's, like qwen3-1.7b's: 28 layers x 7 and
+# the lm_head) and no attention kernel (its arena is contiguous).
+SPEC_FLAGS = ["--spec", "ngram", "--spec-k", "4"]
+DRAFT_ARGS = ["--arch", "qwen3-1.7b"] + SERVE_ARGS[2:]
+DRAFT_FLAGS = ["--spec", "draft", "--spec-draft-model", "qwen3-0.6b"]
+DRAFT_PASS_LAUNCHES = {"matmul_q8_0": 197}
 
 
 def within_one_ulp(torch, out, ref32, rtol: float, atol: float) -> bool:
@@ -1499,35 +1524,48 @@ def serve_batch(torch, dev, serve):
 
 @contextlib.contextmanager
 def recorded_logits(torch, serve):
-    """Record, for the serves run inside, the logit row each sampled
-    token was drawn from: yields (rows, index), rows[i] the i-th step's
-    (slots, vocab) f32 copy on the card (one copy kernel a step, a
-    PyTorch copy: no kernel counter moves), index[(rid, k)] = (step,
-    slot) of request rid's k-th token."""
+    """Record, for the serves run inside, the logit row each emitted
+    token was chosen from: yields (rows, index), rows[i] the i-th step's
+    (slots, rows, vocab) f32 copy on the card (one copy kernel a step, a
+    PyTorch copy: no kernel counter moves) — the sampled row of each slot
+    (rows = 1), or with speculation every fed row the verification head
+    read (rows = chunk) — and index[(rid, k)] = (step, slot, row) of
+    request rid's k-th token: row ``lengths - 1`` of the chunk that
+    finished its prompt, row t for the t-th token a verify step emitted
+    (after t accepted proposals)."""
     from repro_torch.runtime import sampling
+    from repro_torch.runtime.request import SeqState
     rows, index = [], {}
-    sample0, step0 = sampling.sample_slots, serve.ServingEngine._step_once
+    sample0, verify0 = sampling.sample_slots, sampling.verify_slots
+    step0 = serve.ServingEngine._step_once
 
     def sample(last, *a, **kw):
-        rows.append(last.to(torch.float32, copy=True))
+        rows.append(last[:, None].to(torch.float32, copy=True))
         return sample0(last, *a, **kw)
 
+    def verify(logits, *a, **kw):
+        rows.append(logits.to(torch.float32, copy=True))
+        return verify0(logits, *a, **kw)
+
     def step(self, *a, **kw):
-        before = {s: (q, q.tokens_out) for s, q in self.sched.active.items()}
+        before = {s: (q, q.tokens_out, q.fed, q.state is SeqState.PREFILL)
+                  for s, q in self.sched.active.items()}
         step0(self, *a, **kw)
-        for s, (q, n0) in before.items():
-            if q.tokens_out > n0:
-                index[(q.rid, n0)] = (len(rows) - 1, s)
-    sampling.sample_slots = sample
+        for s, (q, n0, f0, prefill) in before.items():
+            for t in range(q.tokens_out - n0):
+                j = t if not prefill else \
+                    q.fed - f0 - 1 if self.spec != "off" else 0
+                index[(q.rid, n0 + t)] = (len(rows) - 1, s, j)
+    sampling.sample_slots, sampling.verify_slots = sample, verify
     serve.ServingEngine._step_once = step
     try:
         yield rows, index
     finally:
-        sampling.sample_slots = sample0
+        sampling.sample_slots, sampling.verify_slots = sample0, verify0
         serve.ServingEngine._step_once = step0
 
 
-def check_near_ties(torch, tag, ref, run) -> int:
+def check_near_ties(torch, tag, ref, run, strict=True) -> int:
     """Hold the tokens of serve ``run`` against the reference serve
     ``ref`` (each: report, logit rows, index) by the near-tie rule: a
     request may part from the reference only where the reference's top-2
@@ -1535,17 +1573,21 @@ def check_near_ties(torch, tag, ref, run) -> int:
     within that of its best, and at most one request in four (or one in
     eight of the near-tie positions) may. Also prints how far the two
     runs' logit rows drift apart before each request's first divergence
-    (a share of max |logit|). Returns the number of requests exempted."""
+    (a share of max |logit|). ``strict=False`` (an MoE model, whose
+    capacity dispatch couples a token to the other rows of its step)
+    prints the requests that part beyond the rule instead of failing.
+    Returns the number of requests exempted."""
     rep, rows, index = ref
     got, grows, gindex = run
     keys = sorted(index)
-    stack = torch.stack([rows[i][s] for i, s in (index[k] for k in keys)])
+    stack = torch.stack([rows[i][s, j] for i, s, j in
+                         (index[k] for k in keys)])
     tol = LOGIT_TOL * float(torch.stack([r.abs().max() for r in rows])
                             .max())
     top = stack.topk(2, dim=1).values
     gaps = dict(zip(keys, (top[:, 0] - top[:, 1]).tolist()))
     near = sum(g < tol for g in gaps.values())
-    exempt, same = [], []
+    exempt, same, beyond = [], [], []
     for a, b in zip(rep.sequences, got.sequences):
         if a.rid != b.rid or len(a.generated) != len(b.generated):
             fail(f"{tag}: request {b.rid} does not match the reference")
@@ -1556,26 +1598,35 @@ def check_near_ties(torch, tag, ref, run) -> int:
         if not diff:
             continue
         k = diff[0]
-        i, s = index[(a.rid, k)]
-        row = rows[i][s]
+        i, s, j = index[(a.rid, k)]
+        row = rows[i][s, j]
         if gaps[(a.rid, k)] >= tol or float(row[b.generated[k]]) \
                 < float(row.max()) - tol:
-            fail(f"{tag}: request {a.rid} parts from the reference at "
-                 f"token {k} (top-2 gap {gaps[(a.rid, k)]:.4g}, tolerance "
-                 f"{tol:.4g}): {a.generated} vs {b.generated}")
+            msg = (f"{tag}: request {a.rid} parts from the reference at "
+                   f"token {k} (top-2 gap {gaps[(a.rid, k)]:.4g}, tolerance"
+                   f" {tol:.4g}): {a.generated} vs {b.generated}")
+            if strict:
+                fail(msg)
+            print(f"{msg} -- beyond the near-tie rule (MoE capacity)",
+                  flush=True)
+            beyond.append((a.rid, k))
+            continue
         exempt.append((a.rid, k))
-    if len(exempt) > max(len(rep.sequences) // 4, near // 8):
+    if strict and len(exempt) > max(len(rep.sequences) // 4, near // 8):
         fail(f"{tag}: {len(exempt)} near-tie exemptions ({near} near-tie "
              "positions)")
-    drift = max(float((rows[index[k][0]][index[k][1]]
-                       - grows[gindex[k][0]][gindex[k][1]]).abs().max())
-                for k in same) / (tol / LOGIT_TOL)
-    print(f"{tag}: tokens equal to the reference up to near-ties: "
+    row_of = lambda r, ix, k: r[ix[k][0]][ix[k][1], ix[k][2]]  # noqa: E731
+    drift = max(float((row_of(rows, index, k) - row_of(grows, gindex, k))
+                      .abs().max()) for k in same) / (tol / LOGIT_TOL)
+    print(f"{tag}: tokens equal to the reference up to near-ties"
+          + (" except MoE-capacity partings" if beyond else "") + ": "
           f"{len(exempt)} of {len(rep.sequences)} requests exempted "
           f"{exempt} ({near} of {len(keys)} positions are near-ties, "
-          f"tolerance {tol:.4g}); logit rows before the first divergence "
+          f"tolerance {tol:.4g})"
+          + (f", {len(beyond)} part beyond the rule {beyond}" if beyond
+             else "") + "; logit rows before the first divergence "
           f"differ by at most {drift:.3e} of max|logit|", flush=True)
-    return len(exempt)
+    return len(exempt) + len(beyond)
 
 
 def check_cow(torch, dev, serve) -> None:
@@ -1635,6 +1686,327 @@ def check_cow(torch, dev, serve) -> None:
     torch.cuda.empty_cache()
 
 
+def _serve_recorded(torch, dev, serve, setup, argv, tag, card, draft=None):
+    """One serve of ``argv`` (q8_0, telemetry on) with ``setup``'s
+    weights and its logit rows recorded: the report, the completion and
+    timeline-closure checks, and every block back in the allocator.
+    Returns (engine, (report, rows, index), {kernel: launches})."""
+    _, cfg, model, params = setup
+    ap = serve.build_parser()
+    args = ap.parse_args(list(argv) + ["--quant", "q8_0"])
+    serve.validate_args(ap, args)
+    serve.reset_launches()
+    with recorded_logits(torch, serve) as (rows, index):
+        engine, report, _ = serve.run_stream(cfg, model, params, args, dev,
+                                             draft=draft)
+    launches = serve.launch_counts()
+    _run_lines(serve, tag, engine, report, args, card, launches)
+    alloc = engine.arena.allocator
+    if alloc.free_blocks != engine.arena.num_blocks:
+        fail(f"{tag}: {alloc.used_blocks} blocks still held after the "
+             "stream")
+    return engine, (report, rows, index), launches
+
+
+def _spec_summary(tag, card, plain, spec, launches) -> None:
+    """The spec run's end-to-end numbers beside the plain run's."""
+    p, q = plain.stats, spec.stats
+    print(f"{tag} on {card}: spec vs plain: steps {q.steps} vs {p.steps} |"
+          f" steps/token {q.steps_per_token:.3f} vs "
+          f"{p.steps_per_token:.3f} | accept {q.spec_accepted}/"
+          f"{q.spec_proposed} ({100 * q.spec_accept_rate:.1f} %) | rolled "
+          f"back {q.spec_rolled_back} tokens | tokens/s "
+          f"{spec.throughput_tok_s:.1f} vs {plain.throughput_tok_s:.1f} | "
+          f"p50 step {spec.step_ms_percentile(50):.2f} vs "
+          f"{plain.step_ms_percentile(50):.2f} ms | kernel launches/step "
+          f"{sum(launches.values()) / max(q.steps, 1):.1f}", flush=True)
+
+
+def serve_spec(torch, dev, serve, setup, per_step, label, card,
+               argv=SERVE_ARGS, extra=(), strict=True):
+    """The stream ``argv`` (plus ``extra``) with ``--spec ngram --spec-k
+    4`` beside the same stream without it: the spec run proposes and
+    rolls back, launches exactly ``per_step`` per verify step, returns
+    every block, and its tokens equal the plain run's up to near-ties
+    (MoE: ``strict=False``, check_near_ties). Returns ({run: {kernel:
+    launches}}, the plain run's recorded result)."""
+    tag, out = f"spec {label}", {}
+    _, plain, launches = _serve_recorded(
+        torch, dev, serve, setup, list(argv) + list(extra), f"{tag} plain",
+        card)
+    out[f"{tag} plain"] = check_launches(f"{tag} plain", launches, per_step,
+                                         plain[0].stats.steps)
+    _, run, launches = _serve_recorded(
+        torch, dev, serve, setup, list(argv) + list(extra) + SPEC_FLAGS,
+        f"{tag} ngram", card)
+    st = run[0].stats
+    if not (st.spec_proposed > 0 and st.spec_rolled_back > 0):
+        fail(f"{tag} ngram: proposed {st.spec_proposed}, rolled back "
+             f"{st.spec_rolled_back}: the accept or rollback path never ran")
+    out[f"{tag} ngram"] = check_launches(f"{tag} ngram", launches, per_step,
+                                         st.steps)
+    check_near_ties(torch, f"{tag} ngram", plain, run, strict=strict)
+    _spec_summary(tag, card, plain[0], run[0], launches)
+    return out, plain
+
+
+def _check_draft_launches(tag, engine, report, launches, per_step):
+    """A draft serve's launches: ``per_step`` per verify step plus
+    DRAFT_PASS_LAUNCHES per draft pass, exactly."""
+    steps, passes = report.stats.steps, engine._proposer.passes
+    want = {k: per_step.get(k, 0) * steps
+            + DRAFT_PASS_LAUNCHES.get(k, 0) * passes for k in launches}
+    if launches != want:
+        fail(f"{tag}: launches {launches} != {want} for {steps} verify "
+             f"steps and {passes} draft passes")
+    print(f"{tag}: kernels launched {launches} over {steps} verify steps "
+          f"({per_step} each) and {passes} draft passes in "
+          f"{engine._proposer.steps} rounds ({DRAFT_PASS_LAUNCHES} each)",
+          flush=True)
+    return {k: n for k, n in launches.items() if n}
+
+
+def serve_draft(torch, dev, serve, pf, plain06, card):
+    """``--arch qwen3-1.7b --spec draft --spec-draft-model qwen3-0.6b``
+    beside qwen3-1.7b without it (its 197 + 28 launches a step confirmed
+    from the plain run's counters first; random weights: near-0 accept,
+    verification and heavy rollback), then a self-draft of qwen3-0.6b
+    (``pf``, the draft is the target) beside its plain run ``plain06``:
+    at least 90 % of proposals accepted and steps per token well under
+    the plain run's. Tokens equal up to near-ties in both. Returns {run:
+    {kernel: launches}}."""
+    out, per_step = {}, RECIPE_LAUNCHES["q8_0"]
+    big = recipe_setup(torch, dev, serve, "q8_0", argv=DRAFT_ARGS)
+    tag = "spec qwen3-1.7b"
+    _, plain, launches = _serve_recorded(torch, dev, serve, big, DRAFT_ARGS,
+                                         f"{tag} plain", card)
+    out[f"{tag} plain"] = check_launches(f"{tag} plain", launches, per_step,
+                                         plain[0].stats.steps)
+    args = serve.build_parser().parse_args(DRAFT_ARGS + DRAFT_FLAGS
+                                           + ["--quant", "q8_0"])
+    draft = serve.build_draft(args, dev)
+    eng, run, launches = _serve_recorded(
+        torch, dev, serve, big, DRAFT_ARGS + DRAFT_FLAGS, f"{tag} draft",
+        card, draft=draft)
+    out[f"{tag} draft"] = _check_draft_launches(f"{tag} draft", eng, run[0],
+                                                launches, per_step)
+    check_near_ties(torch, f"{tag} draft", plain, run)
+    _spec_summary(tag, card, plain[0], run[0], launches)
+    dt = run[0].stats.draft_transfers
+    moved = {d: sum(v.get(d, 0.0) for v in dt.phase_totals.values())
+             for d in ("h2d", "d2h")}
+    print(f"{tag} draft account: {moved['h2d'] / 1e6:.1f} MB h2d, "
+          f"{moved['d2h'] / 1e6:.3f} MB d2h, weight stream "
+          f"{dt.weight_stream_bytes / 1e9:.2f} GB over "
+          f"{eng._proposer.passes} passes (modeled)", flush=True)
+    del big, draft, eng, plain, run
+    torch.cuda.empty_cache()
+
+    tag = "spec qwen3-0.6b self-draft"
+    _, _, model, params = pf
+    eng, run, launches = _serve_recorded(
+        torch, dev, serve, pf, SERVE_ARGS + DRAFT_FLAGS, tag, card,
+        draft=(model, params))
+    out[tag] = _check_draft_launches(tag, eng, run[0], launches, per_step)
+    st, pst = run[0].stats, plain06[0].stats
+    if st.spec_accept_rate < 0.9 or \
+            st.steps_per_token > 0.75 * pst.steps_per_token:
+        fail(f"{tag}: accepted {st.spec_accepted}/{st.spec_proposed}, "
+             f"steps/token {st.steps_per_token:.3f} (plain "
+             f"{pst.steps_per_token:.3f})")
+    check_near_ties(torch, tag, plain06, run)
+    _spec_summary(tag, card, plain06[0], run[0], launches)
+    return out
+
+
+def serve_spec_prefix(torch, dev, serve, pf, card):
+    """A speculative serve behind the shared system prompt with the
+    prefix cache (qwen3 q8_0, bf16 pages): every rollback leaves every
+    shared (refcount > 1) or cached page of its slot's table bit-equal
+    (each call's pages copied before and compared after), launches stay
+    the recipe's per step, every block returns, and the timeline closes
+    against the ledger."""
+    from repro_torch.runtime.kvcache import PagedKVArena, _leaves
+    tag = "spec prefix q8_0"
+    rollback0 = PagedKVArena.rollback
+    seen = {"calls": 0, "pages": 0, "in_range": 0}
+
+    def rollback(self, slot, start, count, width):
+        pc, rc = self.prefix_cache, self.allocator.refcounts
+        blocks = [b for b in self.slot_blocks(slot)
+                  if rc[b] > 1 or pc.is_cached(b)]
+        idx = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        snap = [leaf.index_select(1, idx) for leaf in _leaves(self.buffers)]
+        touched = {self.tables[slot, p // self.block_size]
+                   for p in range(start, start + count)}
+        dropped = rollback0(self, slot, start, count, width)
+        if not all(bool(torch.equal(leaf.index_select(1, idx), x))
+                   for leaf, x in zip(_leaves(self.buffers), snap)):
+            fail(f"{tag}: a rollback of slot {slot} changed a shared or "
+                 "cached page")
+        seen["calls"] += 1
+        seen["pages"] += len(blocks)
+        seen["in_range"] += len(touched & set(blocks))
+        return dropped
+    PagedKVArena.rollback = rollback
+    try:
+        eng, run, launches = _serve_recorded(
+            torch, dev, serve, pf, SERVE_ARGS + PREFIX_FLAGS
+            + ["--prefix-cache"] + SPEC_FLAGS, tag, card)
+    finally:
+        PagedKVArena.rollback = rollback0
+    st = run[0].stats
+    if not (st.spec_rolled_back and seen["pages"]):
+        fail(f"{tag}: rolled back {st.spec_rolled_back}, shared or cached "
+             f"pages checked {seen['pages']}")
+    res = check_launches(tag, launches, RECIPE_LAUNCHES["q8_0"], st.steps)
+    print(f"{tag} on {card}: {seen['calls']} rollbacks left "
+          f"{seen['pages']} shared or cached pages of their tables "
+          f"bit-equal ({seen['in_range']} of them in a rolled-back range);"
+          f" hits {st.prefix_hits} ({st.prefix_hit_tokens} tokens), accept "
+          f"{st.spec_accepted}/{st.spec_proposed}, steps {st.steps}, "
+          f"steps/token {st.steps_per_token:.3f}, tokens/s "
+          f"{run[0].throughput_tok_s:.1f}", flush=True)
+    return {tag: res}
+
+
+def _insert_rows(torch, arena, vals, pos0, lens):
+    """Write a chunk of K/V rows into every paged leaf and layer of
+    ``arena`` through the decode step's own page insert (the step's
+    routing over the block table; quantize-on-insert on int8 pages):
+    ``vals[(group, key)]`` (slots, width, features...) bf16, row b's
+    first ``lens[b]`` entries at ``pos0[b] + i``."""
+    from repro_torch.models import attention as attn
+    tables = arena.device_tables()[0]
+    t = lambda a: torch.tensor(a, dtype=torch.int32,  # noqa: E731
+                               device=arena.device)
+    for name, group in arena.buffers.items():
+        for key, leaf in group.items():
+            codes = leaf["q"] if isinstance(leaf, dict) else leaf
+            new = vals[(name, key)]
+            _, rows, offs, valid = attn._routing(
+                t(pos0), tables, t(lens), codes.shape[1], codes.shape[2],
+                new.shape[1])
+            for i in range(codes.shape[0]):
+                if isinstance(leaf, dict):
+                    attn._paged_insert_quant({k: v[i] for k, v in
+                                              leaf.items()}, new, rows,
+                                             offs, valid)
+                else:
+                    attn._write(leaf[i], new, rows, offs, valid)
+
+
+def check_rollback(torch, dev, serve) -> None:
+    """Speculative rollback on the card, at full width: qwen3-0.6b's
+    arena on bf16 and int8 pages and deepseek-v3's (4 layers) on bf16
+    pages (latent and RoPE pages), 257 pages of 16, 8 slots. Each slot's
+    prompt rows, then a verify chunk of 1 + k rows of which it keeps r,
+    go through the decode step's page insert with seeded values; rolling
+    back the rejected m - r leaves every page but the null page (garbage
+    by contract), the tables, the slots' blocks and the free list
+    bit-identical to an arena that only ever took the r rows. Then, on a
+    prefix-cache arena filled with seeded values, a rollback over a page
+    a sibling shares and one over a cached page leave both untouched,
+    zero the slot's own rejected positions and trim its table."""
+    import dataclasses
+    from repro_torch.runtime.kvcache import PagedKVArena, _leaves
+    C = 8
+    prompt = [13, 30, 15, 16, 1, 47, 8, 20]
+    fed = [5, 8, 1, 4, 8, 3, 6, 2]            # 1 + k rows a slot verifies
+    kept = [2, 8, 1, 1, 3, 1, 6, 1]           # accepted + 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    for arch, kv in (("qwen3-0.6b", "none"), ("qwen3-0.6b", "int8"),
+                     ("deepseek-v3-671b", "none")):
+        cfg = serve.get_config(arch)
+        if arch.startswith("deepseek"):
+            cfg = dataclasses.replace(cfg, num_layers=DEEPSEEK_LAYERS)
+        model = serve.build_model(cfg)
+        mk = lambda **kw: PagedKVArena(  # noqa: E731
+            model, num_slots=8, max_seq=416, block_size=16, num_blocks=256,
+            kv_quant=kv, device=dev, **kw)
+        a, b = mk(), mk()
+        vals = {}
+        for name, group in a.buffers.items():
+            for key, leaf in group.items():
+                codes = leaf["q"] if isinstance(leaf, dict) else leaf
+                vals[(name, key)] = [torch.randn(
+                    (8, w) + tuple(codes.shape[3:]), generator=gen,
+                    device=dev).to(torch.bfloat16) for w in (48, C)]
+        chunk = lambda i: {k: v[i] for k, v in vals.items()}  # noqa: E731
+        for x in (a, b):
+            for s in range(8):
+                if x.alloc_slot(x.blocks_needed(prompt[s])) != s:
+                    fail(f"rollback {arch}: admission of slot {s} failed")
+            _insert_rows(torch, x, chunk(0), [0] * 8, prompt)
+            for s in range(8):
+                x.ensure(s, prompt[s] + kept[s])
+        # The verify chunk's extra blocks are allocated last, so both
+        # arenas hold the same blocks for the kept rows.
+        for s in range(8):
+            a.ensure(s, prompt[s] + fed[s])
+        held = sum(len(a.slot_blocks(s)) for s in range(8))
+        _insert_rows(torch, a, chunk(1), prompt, fed)
+        _insert_rows(torch, b, chunk(1), prompt, kept)
+        nb = a.null_block
+        differ = not all(bool(torch.equal(x[:, :nb], y[:, :nb])) for x, y in
+                         zip(_leaves(a.buffers), _leaves(b.buffers)))
+        dropped = sum(a.rollback(s, prompt[s] + kept[s], fed[s] - kept[s],
+                                 C) for s in range(8))
+        same = all(bool(torch.equal(x[:, :nb], y[:, :nb])) for x, y in
+                   zip(_leaves(a.buffers), _leaves(b.buffers)))
+        ok = differ and same and (a.tables == b.tables).all() \
+            and [a.slot_blocks(s) for s in range(8)] == \
+            [b.slot_blocks(s) for s in range(8)] \
+            and a.allocator.free_blocks == b.allocator.free_blocks \
+            and dropped == held - sum(len(b.slot_blocks(s))
+                                      for s in range(8)) > 0
+        if not ok:
+            fail(f"rollback {arch} kv={kv}: the arena after rollback is not "
+                 f"the arena that never took the rejected rows (differed "
+                 f"before {differ}, equal after {same}, dropped {dropped})")
+        del a, b, vals
+
+        arena = mk(prefix_cache=True)
+        for leaf in _leaves(arena.buffers):
+            if leaf.dtype == torch.int8:
+                leaf.copy_(torch.randint(-127, 128, leaf.shape, device=dev,
+                                         generator=gen, dtype=torch.int8))
+            else:
+                leaf.copy_(torch.randn(leaf.shape, device=dev,
+                                       generator=gen))
+        before = [x.clone() for x in _leaves(arena.buffers)]
+        toks = list(range(1000, 1032))              # 2 full blocks
+        sa, _, _ = arena.alloc_slot_prefix(toks, 64)
+        arena.register_prefix(sa, toks)
+        sb, hit, _ = arena.alloc_slot_prefix(toks, 64)  # root shared
+        arena.ensure(sb, 40)
+        root, cached = arena.slot_blocks(sa)
+        _, copy, third = arena.slot_blocks(sb)
+        drops = (arena.rollback(sb, 8, 32, C), arena.rollback(sa, 16, 16, C))
+        rc = arena.allocator.refcounts
+        ok = hit == 31 and drops == (2, 1) and rc[root] == 2 \
+            and rc[cached] == 0 and arena.prefix_cache.is_cached(cached)
+        for old, new in zip(before, _leaves(arena.buffers)):
+            ok = ok and bool(torch.equal(new[:, [root, cached]],
+                                         old[:, [root, cached]])) \
+                and not bool(new[:, copy].any()) \
+                and not bool(new[:, third, :8].any()) \
+                and bool(torch.equal(new[:, third, 8:], old[:, third, 8:]))
+        if not ok:
+            fail(f"rollback {arch} kv={kv} over shared and cached pages: "
+                 f"hit {hit}, dropped {drops}, refcounts {rc[root]}/"
+                 f"{rc[cached]}, or a page wrong")
+        print(f"rollback {arch} kv={kv}: {dropped} blocks trimmed over 8 "
+              f"slots, every page (null page aside) bit-identical to the "
+              f"arena that never took the rejected rows over "
+              f"{len(before)} paged leaves; the shared root and the cached "
+              "page untouched by rollbacks over them, the slot's own "
+              "rejected positions zeroed", flush=True)
+        del arena, before
+    torch.cuda.empty_cache()
+
+
 def serve_prefix(torch, dev, serve, setup, per_step, label, card,
                  argv=SERVE_ARGS, extra=(), warm=False):
     """The paper's system-evaluation serve of ``argv`` (q8_0, plus
@@ -1663,7 +2035,7 @@ def serve_prefix(torch, dev, serve, setup, per_step, label, card,
             engine, report, reqs = serve.run_stream(cfg, model, params,
                                                     args, dev)
         launches = serve.launch_counts()
-        _prefix_lines(serve, tag, engine, report, args, card, launches)
+        _run_lines(serve, tag, engine, report, args, card, launches)
         out[tag] = check_launches(tag, launches, per_step,
                                   report.stats.steps)
         res[run] = (report, rows, index)
@@ -1673,7 +2045,7 @@ def serve_prefix(torch, dev, serve, setup, per_step, label, card,
             with recorded_logits(torch, serve) as (rows, index):
                 report = engine.serve(reqs, seed=args.seed)
             launches = serve.launch_counts()
-            _prefix_lines(serve, tag, engine, report, args, card, launches)
+            _run_lines(serve, tag, engine, report, args, card, launches)
             out[tag] = check_launches(tag, launches, per_step,
                                       report.stats.steps)
             res["warm"] = (report, rows, index)
@@ -1725,9 +2097,10 @@ def serve_prefix(torch, dev, serve, setup, per_step, label, card,
     return out
 
 
-def _prefix_lines(serve, tag, engine, report, args, card, launches) -> None:
-    """One prefix run's report, completion and ledger-closure checks and
-    its bottleneck share."""
+def _run_lines(serve, tag, engine, report, args, card, launches) -> None:
+    """One telemetry run's report, completion and ledger-closure checks
+    (the draft proposer's account too, with one) and its bottleneck
+    share."""
     for line in serve.serve_report_lines(engine, report, args.requests,
                                          launches=launches):
         print(f"{tag}: {line}", flush=True)
@@ -1741,6 +2114,18 @@ def _prefix_lines(serve, tag, engine, report, args, card, launches) -> None:
     if tl.ledger_delta_totals() != report.ledger.breakdown():
         fail(f"{tag}: the timeline's ledger deltas do not close against "
              "the ledger")
+    draft = getattr(engine._proposer, "ledger", None)
+    if draft is not None:
+        tot = {}
+        for e in tl.events:
+            for k, v in e.draft_delta.items():
+                tot[k] = tot.get(k, 0.0) + v
+        want = {(p, c, d): v for p, cats in draft.breakdown().items()
+                for c, dirs in cats.items() for d, v in dirs.items()}
+        if tot.keys() != want.keys() or any(
+                abs(tot[k] - v) > 1e-9 * abs(v) for k, v in want.items()):
+            fail(f"{tag}: the timeline's draft deltas do not close against "
+                 "the draft ledger")
     br = tl.bottleneck_report()
     prompt = [e.wall_s for e in tl.events
               if any(s[2] == "prefill" and s[3] for s in e.slots)]
@@ -2055,13 +2440,26 @@ def main() -> None:
     by_serve.update(serve_prefix(torch, dev, serve, pf, INT8_LAUNCHES,
                                  "q8_0_kv-int8", card,
                                  extra=["--kv-quant", "int8"]))
-    del pf
     by_serve.update(serve_prefix(torch, dev, serve, ds, DEEPSEEK_LAUNCHES,
                                  "deepseek-v3", card, argv=DEEPSEEK_ARGS,
                                  warm=True))
     check_cow(torch, dev, serve)
-    print(f"chip_smoke: serves done at {time.perf_counter() - T0:.1f} s",
-          flush=True)
+    t_spec = time.perf_counter()
+    runs, plain06 = serve_spec(torch, dev, serve, pf, RECIPE_LAUNCHES["q8_0"],
+                               "q8_0", card)
+    by_serve.update(runs)
+    by_serve.update(serve_spec(torch, dev, serve, pf, INT8_LAUNCHES,
+                               "q8_0_kv-int8", card,
+                               extra=["--kv-quant", "int8"])[0])
+    by_serve.update(serve_spec_prefix(torch, dev, serve, pf, card))
+    by_serve.update(serve_draft(torch, dev, serve, pf, plain06, card))
+    del pf, plain06
+    by_serve.update(serve_spec(torch, dev, serve, ds, DEEPSEEK_LAUNCHES,
+                               "deepseek-v3", card, argv=DEEPSEEK_ARGS,
+                               strict=False)[0])
+    check_rollback(torch, dev, serve)
+    print(f"chip_smoke: spec phase took {time.perf_counter() - t_spec:.1f} s"
+          f"; serves done at {time.perf_counter() - T0:.1f} s", flush=True)
     check_routes(routes, "the serves and prefills",
                  ("flash", "paged GQA", "paged MLA", "matmul"))
     for quant in RECIPE_LAUNCHES:

@@ -23,6 +23,16 @@ telemetry exports (JSONL metrics, Perfetto/Chrome trace; check them with
   ... --shared-prefix 256 --prefix-cache --offload-policy \
       --metrics-out build/serve_q8_0.jsonl --trace build/serve_q8_0.json
 
+Speculative decoding (propose k tokens per decoding slot, verify them in
+ONE unified step): ``--spec ngram`` is the model-free prompt-lookup
+proposer; ``--spec draft`` runs a small draft model over its own
+contiguous arena, with its own ledger account (weights from ``--seed`` +
+17, quantized with the serve's recipe). The report's speculative line
+gives the accept rate, the rolled-back tokens and steps per token:
+
+  ... --spec ngram --spec-k 4 [--kv-quant int8]
+  ... --arch qwen3-1.7b --spec draft --spec-draft-model qwen3-0.6b
+
 Batch mode (the lockstep ``Engine`` on the contiguous arena, kept for the
 paper's fixed [in:out] workload grid):
 
@@ -35,8 +45,8 @@ full width do not fit one card: ``--reduced`` for the CPU).
 
 The card is the default device. Without one the launcher exits with an
 error unless ``--device cpu`` asks for the plain CPU path explicitly.
-Flags whose feature is not ported yet (``--spec``, ``--dp/--tp``) are
-refused with the ROADMAP item that ports them.
+Flags whose feature is not ported yet (``--dp/--tp``) are refused with
+the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -147,16 +157,33 @@ def build_params(model, args, device, quantize: bool = True):
     return params
 
 
-def run_stream(cfg, model, params, args, device):
+def build_draft(args, device):
+    """Draft model + params for ``--spec draft``: ``--reduced`` follows
+    the target's, the weights come from ``--seed`` + 17, are made on
+    ``device`` and are quantized with the serve's recipe (so the draft's
+    ledger account charges the same recipe)."""
+    dcfg = get_config(args.spec_draft_model)
+    if args.reduced:
+        dcfg = dcfg.reduced()
+    dmodel = build_model(dcfg)
+    draft_args = argparse.Namespace(seed=args.seed + 17, quant=args.quant)
+    return dmodel, build_params(dmodel, draft_args, device)
+
+
+def run_stream(cfg, model, params, args, device, draft=None):
     """Serve the stream with telemetry on and write the exports that
     ``--metrics-out``/``--trace`` ask for; returns (engine, report,
-    requests)."""
+    requests). ``draft``: the (model, params) of ``--spec draft``'s
+    draft, else ``build_draft`` makes them."""
     rng = np.random.RandomState(args.seed)
     reqs = build_stream(cfg, args, rng)
     max_seq = args.max_seq or (args.shared_prefix + args.prompt_len
                                + args.gen)
     decisions = offload_decisions(cfg, args.quant, args.prompt_len,
                                   args.gen) if args.offload_policy else None
+    if args.spec == "draft" and draft is None:
+        draft = build_draft(args, device)
+    draft_model, draft_params = draft or (None, None)
     engine = ServingEngine(
         model, params, quant=args.quant, num_slots=args.slots,
         max_seq=max_seq, offload_decisions=decisions,
@@ -164,6 +191,8 @@ def run_stream(cfg, model, params, args, device):
         block_size=args.block_size or None,
         num_blocks=args.num_blocks or None,
         paged_attn=args.paged_attn or "fused",
+        spec=args.spec, spec_k=args.spec_k or 4,
+        spec_draft_model=draft_model, spec_draft_params=draft_params,
         prefix_cache=args.prefix_cache, kv_quant=args.kv_quant,
         host_sampling=args.host_sampling, telemetry=True, device=device)
     report = engine.serve(reqs, seed=args.seed)
@@ -214,14 +243,8 @@ def validate_args(ap, args) -> None:
     """Fail fast on flags whose feature is not ported, or that do not
     combine — never silently measure a different configuration. The
     combination checks are the JAX launcher's."""
-    refused = [
-        (args.spec != "off" or args.spec_k is not None
-         or args.spec_draft_model, "--spec is ROADMAP A12"),
-        (args.dp * args.tp != 1, "--dp/--tp are ROADMAP A17"),
-    ]
-    for bad, why in refused:
-        if bad:
-            ap.error(f"not ported to repro_torch: {why}")
+    if args.dp * args.tp != 1:
+        ap.error("not ported to repro_torch: --dp/--tp are ROADMAP A17")
     if args.num_blocks and not args.block_size:
         ap.error("--num-blocks requires --block-size (paged arena)")
     if args.prefix_cache:
@@ -272,6 +295,39 @@ def validate_args(ap, args) -> None:
         ap.error(f"--paged-attn {args.paged_attn} requires a paged arena "
                  "(--block-size); the contiguous slot arena has no block "
                  "tables to attend through")
+    if args.spec == "off":
+        if args.spec_k is not None:
+            ap.error("--spec-k requires --spec {ngram,draft}")
+        if args.spec_draft_model:
+            ap.error("--spec-draft-model requires --spec draft")
+    if args.spec == "draft":
+        if not args.spec_draft_model:
+            ap.error("--spec draft requires --spec-draft-model (e.g. "
+                     "qwen3-0.6b); use --spec ngram for model-free "
+                     "drafting")
+        dfam = family_of(args.spec_draft_model)
+        if dfam in ("ssm", "hybrid", "encdec", "vlm"):
+            ap.error(f"--spec-draft-model {args.spec_draft_model} "
+                     f"({dfam!r} family) cannot draft: recurrent state "
+                     "cannot roll back, and encoder/vision conditioning "
+                     "cannot be supplied to a draft pass — use a "
+                     "decoder-only draft model")
+    if args.spec == "ngram" and args.spec_draft_model:
+        ap.error("--spec-draft-model is only used by --spec draft")
+    if args.spec != "off":
+        if args.mode != "stream":
+            ap.error("--spec requires --mode stream (the lockstep batch "
+                     "path has no proposer/verifier)")
+        fam = family_of(args.arch)
+        if fam in ("ssm", "hybrid"):
+            ap.error(f"--spec is unsupported for the {fam!r} family "
+                     f"({args.arch}): rejected tokens advance the "
+                     "recurrent state, which cannot be rolled back")
+        if args.spec_k is not None and args.spec_k < 1:
+            ap.error(f"--spec-k must be >= 1, got {args.spec_k}")
+        if args.chunk_size < 2:
+            ap.error("--spec needs --chunk-size >= 2 (one committed-token "
+                     "lane plus at least one proposal lane)")
 
 
 def resolve_device(ap, args) -> torch.device:

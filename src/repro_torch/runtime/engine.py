@@ -25,9 +25,19 @@ fast-forwards the sequence past them; before every step a copy-on-write
 barrier splits any shared block the step would write. Telemetry
 (``telemetry=True``) records a ``StepTimeline`` per run, host-side only.
 
+Speculative decoding (``spec={"ngram","draft"}``): the unified step
+doubles as the *verifier*. A decoding slot feeds its committed token plus
+up to k proposed tokens (prompt-lookup n-grams, or a small draft model
+with its own arena and ledger account — ``runtime/speculative.py``);
+``sampling.verify_slots`` reads every fed position's logits for the
+per-slot accept lengths and the one token emitted past the accepted
+prefix, and the rejected suffix is rolled back in place (KV positions
+zeroed, paged table tails trimmed). Proposal lanes are funded from the
+step's leftover token budget and shrink with a per-slot accept-rate EMA.
+
 Not ported yet, refused by the constructor with the ROADMAP item that
-ports them: speculative decoding (A12), serving meshes (A17) and the
-ssm/hybrid/encdec/vlm families (A16).
+ports them: serving meshes (A17) and the ssm/hybrid/encdec/vlm families
+(A16).
 """
 from __future__ import annotations
 
@@ -41,7 +51,7 @@ import torch
 from repro_torch.core import convert
 from repro_torch.kernels import _build
 from repro_torch.models.api import ModelAPI
-from repro_torch.runtime import sampling
+from repro_torch.runtime import sampling, speculative
 from repro_torch.runtime.kvcache import KV_QUANT_MODES, KVArena, PagedKVArena
 from repro_torch.runtime.request import (Request, SamplingParams, SeqState,
                                          Sequence)
@@ -68,8 +78,25 @@ class GenStats:
     prefix_hits: int = 0            # admissions that mapped a cached prefix
     prefix_hit_tokens: int = 0      # prompt positions served from shared pages
     cow_splits: int = 0             # copy-on-write block splits this run
+    spec_proposed: int = 0          # proposal lanes fed to the verifier
+    spec_accepted: int = 0          # proposal lanes accepted
+    spec_rolled_back: int = 0       # rejected KV positions rolled back
     step_s: List[float] = dataclasses.field(default_factory=list)
     transfers: Optional[TransferReport] = None
+    draft_transfers: Optional[TransferReport] = None  # spec="draft" account
+
+    @property
+    def steps_per_token(self) -> float:
+        """Unified steps per generated token — the transfer-amortization
+        ratio: the linear weights stream once per step, so accepted
+        speculative tokens push it below plain decode's 1 per token."""
+        return self.steps / self.decode_tokens if self.decode_tokens else 0.0
+
+    @property
+    def spec_accept_rate(self) -> float:
+        """Accepted fraction of proposed speculative tokens."""
+        return self.spec_accepted / self.spec_proposed \
+            if self.spec_proposed else 0.0
 
     @property
     def decode_tok_per_s(self) -> float:
@@ -119,10 +146,6 @@ class ServeReport:
         return self.stats.decode_tokens / self.wall_s if self.wall_s else 0.0
 
 
-# Families whose cache holds recurrent state rather than per-position KV.
-RECURRENT_FAMILIES = ("ssm", "hybrid")
-
-
 class ServingEngine:
     """Continuous-batching executor over the paged KV arena, or the
     contiguous slot arena when ``block_size`` is None."""
@@ -135,7 +158,9 @@ class ServingEngine:
                  block_size: Optional[int] = None,
                  num_blocks: Optional[int] = None,
                  paged_attn: str = "fused",
-                 spec: str = "off", prefix_cache: bool = False,
+                 spec: str = "off", spec_k: int = 4,
+                 spec_draft_model: Optional[ModelAPI] = None,
+                 spec_draft_params=None, prefix_cache: bool = False,
                  kv_quant: str = "none", mesh=None,
                  offload_decisions: Optional[Dict[str, bool]] = None,
                  host_sampling: bool = False, telemetry: bool = False,
@@ -144,11 +169,40 @@ class ServingEngine:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if paged_attn not in ("fused", "ref"):
             raise ValueError(f"unknown paged_attn {paged_attn!r}")
+        if spec not in speculative.SPEC_MODES:
+            raise ValueError(f"unknown spec mode {spec!r} (choose from "
+                             f"{speculative.SPEC_MODES})")
+        if spec != "off":
+            if model.cfg.family in speculative.RECURRENT_FAMILIES:
+                raise ValueError(
+                    f"speculative decoding is unsupported for the "
+                    f"{model.cfg.family!r} family: rejected tokens have "
+                    "advanced the recurrent state, which cannot be rolled "
+                    "back without recomputation")
+            if chunk_size < 2:
+                raise ValueError("speculative decoding needs chunk_size "
+                                 ">= 2 (one committed-token lane plus at "
+                                 "least one proposal lane)")
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+        if spec == "draft":
+            if spec_draft_model is None or spec_draft_params is None:
+                raise ValueError("spec='draft' requires spec_draft_model "
+                                 "and spec_draft_params")
+            if spec_draft_model.cfg.vocab_size != model.cfg.vocab_size:
+                raise ValueError(
+                    f"draft vocab {spec_draft_model.cfg.vocab_size} != "
+                    f"target vocab {model.cfg.vocab_size}: proposal ids "
+                    "would not be target token ids")
+            if model.cfg.family == "encdec":
+                raise ValueError("spec='draft' supports decoder-only "
+                                 "families (the draft has no encoder "
+                                 "frames to condition on)")
         if prefix_cache:
             if block_size is None:
                 raise ValueError("prefix_cache requires the paged arena "
                                  "(set block_size)")
-            if model.cfg.family in RECURRENT_FAMILIES:
+            if model.cfg.family in speculative.RECURRENT_FAMILIES:
                 raise ValueError(
                     f"prefix_cache is unsupported for the "
                     f"{model.cfg.family!r} family: recurrent state is not "
@@ -170,7 +224,7 @@ class ServingEngine:
                     "quantize-on-insert and in-kernel dequant live on the "
                     "paged block-table path; the contiguous slot arena "
                     "has no quantized read path")
-            if model.cfg.family in RECURRENT_FAMILIES:
+            if model.cfg.family in speculative.RECURRENT_FAMILIES:
                 raise ValueError(
                     f"kv_quant is unsupported for the "
                     f"{model.cfg.family!r} family: recurrent state is a "
@@ -184,7 +238,6 @@ class ServingEngine:
                     "encoder pass (write_prefill), which bypasses the "
                     "quantize-on-insert path")
         refusals = [
-            (spec != "off", "speculative decoding is ROADMAP A12"),
             (mesh is not None, "serving meshes are ROADMAP A17"),
             (model.cfg.family not in ("dense", "moe"),
              f"the {model.cfg.family!r} family is ROADMAP A16"),
@@ -205,6 +258,17 @@ class ServingEngine:
         self.kv_quant = kv_quant
         self.cache_dtype = cache_dtype
         self.device = torch.device(device)
+        self.spec = spec
+        self.spec_k = min(spec_k, self.chunk_size - 1) if spec != "off" \
+            else 0
+        self._spec_ctrl = speculative.SpecController(k_max=self.spec_k) \
+            if spec != "off" else None
+        self._proposer = speculative.make_proposer(
+            spec, draft_model=spec_draft_model,
+            draft_params=spec_draft_params, num_slots=num_slots,
+            max_seq=max_seq, chunk=self.chunk_size, quant=quant,
+            cache_dtype=cache_dtype, device=self.device) \
+            if spec != "off" else None
         self._block_size, self._num_blocks = block_size, num_blocks
         self.prefix_cache = prefix_cache
         self._ledger_kw = dict(decisions=offload_decisions,
@@ -270,6 +334,7 @@ class ServingEngine:
         streamed nor recomputed, and only newly resident blocks are
         charged as cache growth."""
         self.arena.reset_slot(seq.slot)
+        self._reset_spec(seq.slot)
         hit, growth_blocks = self._pending_prefix.pop(seq.rid, (0, None))
         if self.paged:
             if growth_blocks is None:
@@ -285,9 +350,23 @@ class ServingEngine:
     def _preempt(self, seq: Sequence) -> None:
         """Recompute-preemption: reclaim the victim's slot and blocks (a
         decref per block — pages shared with siblings stay resident) and
-        push it back to the queue head."""
+        push it back to the queue head. Speculative per-slot state is
+        reset here too, not only at slot reuse: a preempted-then-
+        readmitted sequence restarts from clean speculation state,
+        whichever slot it lands in."""
         slot = self.sched.preempt(seq)
+        self._reset_spec(slot)
         self.arena.free(slot)
+
+    def _reset_spec(self, slot: int) -> None:
+        """Drop ``slot``'s speculation state: the accept-rate EMA and, for
+        the draft proposer, its mirrored draft-arena slot."""
+        if self._proposer is None:
+            return
+        reset = getattr(self._proposer, "reset_slot", None)
+        if reset is not None:
+            reset(slot)
+        self._spec_ctrl.reset(slot)
 
     def _reserve_blocks(self, ledger: TransferLedger) -> None:
         """Grow each active sequence's block table to cover its next feed,
@@ -305,7 +384,7 @@ class ServingEngine:
                 continue                        # preempted by an earlier turn
             phase = "prefill" if seq.state is SeqState.PREFILL else "decode"
             while True:
-                bound = seq.next_feed(self.chunk_size)
+                bound = self._next_feed_bound(seq)
                 fresh = self.arena.ensure(slot, seq.position + bound)
                 if fresh is None:
                     victim = self.sched.preempt_victim()
@@ -331,6 +410,50 @@ class ServingEngine:
                         phase, cow * self.arena.block_bytes())
                 break
 
+    def _next_feed_bound(self, seq: Sequence) -> int:
+        """Upper bound on the tokens ``seq`` feeds next step — what block
+        reservation must cover. A speculating decode slot may feed its
+        committed token plus up to its current proposal depth; lanes that
+        end up trimmed or unfilled leave blocks reserved one step early
+        (reclaimed by the rollback tail trim or sequence growth)."""
+        base = seq.next_feed(self.chunk_size)
+        if self.spec != "off" and seq.state is SeqState.DECODE:
+            return base + self._spec_depth(seq)
+        return base
+
+    def _spec_depth(self, seq: Sequence) -> int:
+        """Proposal lanes this sequence wants: the controller's adaptive
+        depth, capped so speculation never proposes past the sequence's
+        own generation budget (the final token is always sampled by a
+        plain lane)."""
+        rem = seq.req.max_new_tokens - seq.tokens_out
+        return max(0, min(self._spec_ctrl.depth(seq.slot),
+                          rem - 1, self.chunk_size - 1))
+
+    def _plan_step(self):
+        """The step's feeds and proposals: ``plan_feeds`` (speculative
+        lanes funded last), then the proposer over the budget-granted
+        lanes. Lanes the proposer could not fill are zero-value evidence:
+        they decay the depth EMA, so a slot with no matchable suffix stops
+        reserving speculative blocks it never uses."""
+        C = self.chunk_size
+        if self.spec == "off":
+            return self.sched.plan_feeds(C, self.step_token_budget), {}
+        desires = {slot: d for slot, seq in self.sched.active.items()
+                   if seq.state is SeqState.DECODE
+                   and (d := self._spec_depth(seq)) > 0}
+        feeds = self.sched.plan_feeds(C, self.step_token_budget, desires)
+        grants = {s: feeds[s] - 1 for s in desires if feeds[s] > 1}
+        proposals: Dict[int, np.ndarray] = {}
+        if grants:
+            proposals = self._proposer.propose(self.sched.active, grants)
+            for slot, g in grants.items():
+                got = proposals.get(slot)
+                unfilled = g - (0 if got is None else int(got.size))
+                if unfilled > 0:
+                    self._spec_ctrl.update(slot, unfilled, 0)
+        return feeds, proposals
+
     def _sampling_vectors(self, seqs: Dict[int, Sequence]):
         """Per-slot temperature/top_k/top_p arrays (engine defaults fill
         request-level unset values)."""
@@ -352,19 +475,27 @@ class ServingEngine:
         after the step's host sync; the telemetry record (if on) is built
         on the host after it too."""
         ns, C = self.num_slots, self.chunk_size
-        feeds = self.sched.plan_feeds(C, self.step_token_budget)
+        spec_on = self.spec != "off"
+        feeds, proposals = self._plan_step()
         tokens = np.zeros((ns, C), np.int32)
         pos0 = np.zeros((ns,), np.int32)
         lens = np.zeros((ns,), np.int32)
+        prop_lens = np.zeros((ns,), np.int32)
         active = np.zeros((ns,), bool)
         for slot, seq in self.sched.active.items():
             n = feeds[slot]
             if seq.state is SeqState.PREFILL:
                 tokens[slot, :n] = seq.req.tokens[seq.fed:seq.fed + n]
             else:
+                # [last_committed, p_1, ..., p_k]
                 tokens[slot, 0] = seq.next_token
-                n = 1
-                feeds[slot] = n
+                props = proposals.get(slot)
+                if props is not None and props.size:
+                    kp = min(int(props.size), n - 1)
+                    tokens[slot, 1:1 + kp] = props[:kp]
+                    prop_lens[slot] = kp
+                n = 1 + int(prop_lens[slot])  # actual feed may undershoot
+                feeds[slot] = n               # the plan (lanes unfilled)
             pos0[slot] = seq.position
             lens[slot] = n
             active[slot] = True
@@ -379,17 +510,27 @@ class ServingEngine:
             dev_tables, uploaded = self.arena.device_tables()
             if uploaded:        # dirty tables only: admission/growth/preempt
                 ledger.charge("decode", "tables", "h2d", uploaded)
-        lens_t = put(lens)
+        lens_t, tokens_t = put(lens), put(tokens)
         logits, _ = self.model.decode_step(
-            self.params, put(tokens), put(pos0), self.arena.buffers,
+            self.params, tokens_t, put(pos0), self.arena.buffers,
             quant=self.quant, block_tables=dev_tables, lengths=lens_t,
             paged_impl=self.paged_attn)
-        idx = torch.clamp(lens_t.to(torch.long) - 1, min=0)
-        last = logits[torch.arange(ns, device=dev), idx]           # (B, V)
-        nxt = sampling.sample_slots(
-            last, gen, put(temps), put(active), top_k=put(top_ks),
-            top_p=put(top_ps), stochastic=bool(np.any(temps > 0)))
-        nxt_host = nxt.cpu().numpy()          # blocks until step completes
+        head = dict(top_k=put(top_ks), top_p=put(top_ps),
+                    stochastic=bool(np.any(temps > 0)))
+        if spec_on:
+            # The verify step IS the chunked step with the verification
+            # head; zero proposals degenerate to plain sampling.
+            nxt, acc = sampling.verify_slots(
+                logits, tokens_t, gen, put(temps), put(active),
+                prop_lens=put(prop_lens), lengths=lens_t, **head)
+            # One read-back: blocks until the step completes.
+            nxt_host, acc_host = torch.stack([nxt, acc]).cpu().numpy()
+        else:
+            idx = torch.clamp(lens_t.to(torch.long) - 1, min=0)
+            last = logits[torch.arange(ns, device=dev), idx]       # (B, V)
+            nxt = sampling.sample_slots(last, gen, put(temps), put(active),
+                                        **head)
+            nxt_host = nxt.cpu().numpy()      # blocks until step completes
         t_end = time.perf_counter()
         now = t_end - t0
         dcomp = _build.loaded() - libs0
@@ -452,12 +593,24 @@ class ServingEngine:
                     slot_mix.append((slot, seq.rid, "prefill", n,
                                      first_tok))
             else:
-                ledger.charge_chunk("decode", 1, int(pos0[slot]) + 1)
+                m = n                         # 1 committed + kp proposals
+                kp = int(prop_lens[slot])
+                ledger.charge_chunk("decode", m, int(pos0[slot]) + m)
+                emitted = [int(nxt_host[slot])]
+                if kp:
+                    a = min(int(acc_host[slot]), kp)
+                    emitted = [int(t) for t in tokens[slot, 1:1 + a]] \
+                        + emitted
+                    stats.spec_proposed += kp
+                    stats.spec_accepted += a
+                    self._spec_ctrl.update(slot, kp, a)
                 r = 0
-                if not seq.done:              # generation budget left
+                for t in emitted:
+                    if seq.done:
+                        break                 # generation budget exhausted
                     first = seq.t_first_token is None
-                    seq.record_token(int(nxt_host[slot]), now)
-                    r = 1
+                    seq.record_token(t, now)
+                    r += 1
                     if tl is not None:
                         tl.on_token(seq.rid, now,
                                     ttft_s=seq.ttft_s if first else None)
@@ -465,10 +618,19 @@ class ServingEngine:
                     tl.on_done(seq.rid, seq.latency_s)
                 if tok_bytes:
                     ledger.charge_cache_growth("decode", r * tok_bytes)
-                ledger.charge_sampled(r, logit_rows=1)
+                # Host sampling would drain every fed lane's logit row
+                # (rejected lanes included): charge the full feed width.
+                ledger.charge_sampled(r, logit_rows=m)
                 stats.decode_tokens += r
+                if m > r:
+                    # Rejected-suffix rollback: zero KV positions
+                    # [pos0 + r, pos0 + m) and (paged) trim the table.
+                    self.arena.rollback(slot, int(pos0[slot]) + r, m - r,
+                                        C)
+                    stats.spec_rolled_back += m - r
                 if slot_mix is not None:
-                    slot_mix.append((slot, seq.rid, "decode", 1, r))
+                    slot_mix.append((slot, seq.rid,
+                                     "verify" if kp else "decode", m, r))
         stats.steps += 1
         self.sched.record_step()
         if tl is not None:
@@ -481,15 +643,15 @@ class ServingEngine:
                      t_end: float) -> None:
         """Close the step's telemetry event with the JAX engine's counter
         keys: cumulative run-relative values, which the timeline diffs
-        into per-step deltas. The speculative counters stay 0 until
-        speculative decoding is ported (ROADMAP A12)."""
+        into per-step deltas (``draft_steps``: the draft proposer's
+        rounds, with a proposer)."""
         counters = {
             "steps": float(stats.steps),
             "prefill_tokens": float(stats.prefill_tokens),
             "decode_tokens": float(stats.decode_tokens),
-            "spec_proposed": 0.0,
-            "spec_accepted": 0.0,
-            "spec_rolled_back": 0.0,
+            "spec_proposed": float(stats.spec_proposed),
+            "spec_accepted": float(stats.spec_accepted),
+            "spec_rolled_back": float(stats.spec_rolled_back),
             "prefix_hits": float(stats.prefix_hits),
             "prefix_hit_tokens": float(stats.prefix_hit_tokens),
             "cow_splits": float(self.arena.cow_splits - self._run_cow0)
@@ -499,6 +661,9 @@ class ServingEngine:
             "prefill_chunks": float(self.sched.stats.prefill_chunks),
             "paged_kv_read_bytes": stats.paged_kv_read_bytes,
         }
+        if self._proposer is not None:
+            counters["draft_steps"] = float(
+                getattr(self._proposer, "steps", 0))
         tl.record_step(
             t_start=t_start, t_end=t_end,
             occupancy=len(self.sched.active), compiles=compiles,
@@ -551,6 +716,9 @@ class ServingEngine:
                     f"could never finish even running alone")
         for r in requests:
             self.sched.submit(r)
+        reset_run = getattr(self._proposer, "reset_run", None)
+        if reset_run is not None:
+            reset_run()             # fresh draft ledger per serve run
         stats = GenStats()
         ledger = TransferLedger(self.model.cfg, self.quant,
                                 **self._ledger_kw)
@@ -560,12 +728,15 @@ class ServingEngine:
         self._run_cow0 = cow0
         tl = None
         if self.telemetry:
-            # Detached again by finalize() before the report is built.
+            # Built AFTER the proposer's reset_run, so the draft tap lands
+            # on this run's fresh draft ledger; detached again by
+            # finalize() before the report is built.
             tl = StepTimeline(
                 ledger,
+                draft_ledger=getattr(self._proposer, "ledger", None),
                 meta={"arch": self.model.cfg.name, "quant": self.quant,
                       "slots": self.num_slots, "chunk": self.chunk_size,
-                      "dp": 1, "tp": 1, "spec": "off",
+                      "dp": 1, "tp": 1, "spec": self.spec,
                       "kv_quant": self.kv_quant, "paged": self.paged})
             self._timeline = tl
             self.sched.telemetry = tl
@@ -603,6 +774,9 @@ class ServingEngine:
         if self.paged:
             stats.cow_splits = self.arena.cow_splits - cow0
         stats.transfers = TransferReport.from_ledger(ledger)
+        draft_ledger = getattr(self._proposer, "ledger", None)
+        if draft_ledger is not None:
+            stats.draft_transfers = TransferReport.from_ledger(draft_ledger)
         order = {r.rid: i for i, r in enumerate(requests)}
         seqs = sorted(self.sched.finished, key=lambda s: order[s.rid])
         return ServeReport(stats=stats, sequences=seqs,

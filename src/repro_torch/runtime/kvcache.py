@@ -29,7 +29,13 @@ write lands on a shared page). The split's page copy is one indexed
 copy per paged leaf on the device, plain PyTorch (the JAX package's is
 an XLA scatter, not a Pallas kernel).
 
-Not ported yet: speculative rollback (ROADMAP A12).
+Speculative rollback (``rollback`` on both arenas) erases the KV a
+verification step inserted for rejected proposals, so the arena is
+bit-identical to never having inserted them; the paged arena also trims
+its table tail back to the surviving prefix. It zeroes only the valid
+(page, offset) pairs, with one index-put per leaf (plain PyTorch; the
+JAX package pads the pairs to a static width with null-page lanes to
+keep one compilation, and jits an XLA scatter).
 """
 from __future__ import annotations
 
@@ -356,6 +362,22 @@ class KVArena:
         """Arena bytes reserved by live sequences: a slot pins a full
         max_seq stripe from admission to completion."""
         return self.used_slots * self.slot_bytes()
+
+    # -- speculative rollback -------------------------------------------
+    def rollback(self, slot: int, start: int, count: int,
+                 width: int) -> None:
+        """Erase cache positions ``[start, start + count)`` of ``slot`` —
+        the KV a verification step inserted for *rejected* proposal
+        tokens — so the arena is bit-identical to never having inserted
+        them (future reads are masked by kv_len anyway; the contract is
+        checked differentially). Positions past ``max_seq`` were never
+        written. ``width`` is the JAX signature's static window (the
+        engine's chunk size); the eager fill needs none."""
+        if count <= 0:
+            return
+        lo, hi = min(start, self.max_seq), min(start + count, self.max_seq)
+        for leaf in _leaves(self.buffers):
+            leaf[:, slot, lo:hi] = 0
 
 
 def _arena_insert(arena: Dict, prefill_cache: Dict, slot: int) -> None:
@@ -695,3 +717,48 @@ class PagedKVArena:
         """Bytes pinned by live sequences right now (allocated blocks at
         block granularity)."""
         return self.allocator.used_blocks * self.block_bytes()
+
+    # -- speculative rollback -------------------------------------------
+    def rollback(self, slot: int, start: int, count: int,
+                 width: int) -> int:
+        """Erase cache positions ``[start, start + count)`` of ``slot``
+        after a verification step rejected them: zero the page contents
+        those positions map to through the (pre-trim) block table — every
+        paged leaf: K/V, int8 codes and their scale pages, MLA's latent
+        and RoPE pages — then trim the table tail: blocks wholly past the
+        surviving prefix are decreffed back to the allocator and their
+        entries reset to the null block, so resident bytes track the
+        *accepted* length. Returns the number of blocks dropped.
+
+        A position whose block is shared (refcount > 1) or published in
+        the prefix cache is not zeroed: siblings and future hits read
+        that page, and a cached page's contents *are* its chain's KV. The
+        tail trim still decrefs such a block. Only the valid (page,
+        offset) pairs are zeroed, one index-put per leaf; they are
+        distinct, so the put has no duplicate target. ``width`` is the
+        JAX signature's static pad width; the eager put needs none."""
+        if count <= 0:
+            return 0
+        bs = self.block_size
+        pos = np.arange(start, start + count)
+        blk = self.tables[slot, pos // bs]
+        pc = self.prefix_cache
+        zeroable = np.asarray(
+            [b != self.null_block and self.allocator.refcounts[b] == 1
+             and (pc is None or not pc.is_cached(b)) for b in blk], bool)
+        if zeroable.any():
+            put = lambda a: torch.from_numpy(  # noqa: E731
+                a[zeroable].astype(np.int64)).to(self.device)
+            phys, offs = put(blk), put(pos % bs)
+            for leaf in _leaves(self.buffers):
+                leaf[:, phys, offs] = 0
+        keep = self.blocks_needed(start) if start else 0
+        owned = self._slot_blocks[slot]
+        if len(owned) <= keep:
+            return 0
+        tail = owned[keep:]
+        self.allocator.free(tail)
+        del owned[keep:]
+        self.tables[slot, keep:] = self.null_block
+        self._dev_tables = None
+        return len(tail)

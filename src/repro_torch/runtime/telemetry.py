@@ -760,14 +760,14 @@ def serve_report_lines(engine, report,
     """Every report line for a finished serve run, from ONE place.
 
     The JAX package's lines — scheduler/occupancy, paged-arena,
-    prefix-cache, timing, latency-percentile (telemetry histograms when
-    available, finished-sequence lists otherwise), ledger LOAD-vs-EXEC
-    and bottleneck attribution — plus the port's step-time percentiles,
-    its paged KV read counter and, when ``launches`` ({kernel: launches}
-    of the run) is given, the kernels' launch counts. The speculative
-    and serving-mesh lines come with those features (ROADMAP A12, A17).
-    ``total_requests`` defaults to the finished-sequence count (a serve
-    run drains its stream)."""
+    prefix-cache, speculative (with the draft account), timing,
+    latency-percentile (telemetry histograms when available,
+    finished-sequence lists otherwise), ledger LOAD-vs-EXEC and
+    bottleneck attribution — plus the port's step-time percentiles, its
+    paged KV read counter and, when ``launches`` ({kernel: launches} of
+    the run) is given, the kernels' launch counts. The serving-mesh line
+    comes with serving meshes (ROADMAP A17). ``total_requests`` defaults
+    to the finished-sequence count (a serve run drains its stream)."""
     st = report.stats
     sched = report.sched
     total = total_requests if total_requests is not None \
@@ -797,6 +797,22 @@ def serve_report_lines(engine, report,
             f"admissions hit | {st.prefix_hit_tokens} prompt tokens "
             f"from shared pages | {st.cow_splits} CoW splits | "
             f"{len(pc)} cached chains ({pc.evictions} evicted)")
+    if engine.spec != "off":
+        lines.append(
+            f"speculative[{engine.spec} k={engine.spec_k}]: "
+            f"accept {st.spec_accepted}/{st.spec_proposed} "
+            f"({st.spec_accept_rate * 100:.0f}%) | rolled back "
+            f"{st.spec_rolled_back} tok | steps/token "
+            f"{st.steps_per_token:.3f} | weight-stream/token "
+            f"{st.transfers.weight_stream_bytes_per_token / 1e6:.3f} MB"
+            f" | lanes trimmed {sched.spec_lanes_trimmed}")
+        if st.draft_transfers is not None:
+            prop = engine._proposer
+            lines.append(
+                f"draft account: "
+                f"{st.draft_transfers.bytes_per_token / 1e6:.3f}"
+                f" MB/proposal ({prop.steps} draft steps, {prop.passes} "
+                "draft passes)")
     lines.append(
         f"prefill {st.prefill_s * 1e3:.1f} ms ({st.prefill_tokens} tok)"
         f" | decode {st.decode_s * 1e3:.1f} ms ({st.decode_tokens} tok, "

@@ -11,7 +11,8 @@ fallback, no kernel build on the CPU path.
   step (``_build``); every wrapper's library has a source.
 * Architectures, families and serve flags not ported yet are refused,
   naming their ROADMAP item; the flags ported since (the prefix cache,
-  the offload policy, the telemetry exports) serve on the CPU.
+  the offload policy, the telemetry exports, speculative decoding) serve
+  on the CPU.
 * Without a card and without ``--device cpu``, the serve launcher exits
   with an error instead of running on the CPU.
 """
@@ -149,7 +150,7 @@ def test_serve_refuses_to_fall_back_to_cpu(capsys):
     assert "--device cpu" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv", [["--spec", "ngram"], ["--dp", "2"]])
+@pytest.mark.parametrize("argv", [["--dp", "2"]])
 def test_serve_refuses_unported_features(argv, capsys):
     with pytest.raises(SystemExit):
         serve.main(["--reduced", "--device", "cpu", "--block-size", "4"]
@@ -159,11 +160,12 @@ def test_serve_refuses_unported_features(argv, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["--prefix-cache"], ["--shared-prefix", "4"], ["--offload-policy"],
-    ["--trace", "t.json"]])
+    ["--trace", "t.json"], ["--spec", "ngram"]])
 def test_serve_accepts_ported_features(argv, capsys, tmp_path):
     """The flags refused until the prefix cache (A13), the IMAX offload
-    model (A21a) and telemetry (A11) were ported: the reduced CPU serve
-    takes each one and finishes its stream."""
+    model (A21a), telemetry (A11) and speculative decoding (A12) were
+    ported: the reduced CPU serve takes each one and finishes its
+    stream."""
     argv = [str(tmp_path / a) if a.endswith(".json") else a for a in argv]
     serve.main(["--reduced", "--device", "cpu", "--block-size", "4",
                 "--quant", "q8_0", "--requests", "3", "--prompt-len", "8",
@@ -174,6 +176,8 @@ def test_serve_accepts_ported_features(argv, capsys, tmp_path):
         assert "prefix cache:" in out
     if "--trace" in argv:
         assert (tmp_path / "t.json").exists()
+    if "--spec" in argv:
+        assert "speculative[ngram k=4]:" in out
 
 
 def test_engine_and_registry_refusals_name_the_roadmap():
@@ -183,9 +187,7 @@ def test_engine_and_registry_refusals_name_the_roadmap():
     from repro_torch.runtime.engine import ServingEngine
     hybrid = types.SimpleNamespace(cfg=types.SimpleNamespace(
         family="hybrid"))
-    for m, kw, item in ((model, dict(block_size=None, spec="ngram"), "A12"),
-                        (model, dict(block_size=4, spec="ngram"), "A12"),
-                        (hybrid, dict(block_size=4), "A16"),
+    for m, kw, item in ((hybrid, dict(block_size=4), "A16"),
                         (model, dict(block_size=4, mesh=object()), "A17")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             ServingEngine(m, {}, device="cpu", **kw)
