@@ -23,7 +23,8 @@ Phases, one line each (every failure exits non-zero):
             the prefill's M = 4,096 (per prefill beside per step); the
             MLA forms run the tensor-core kernel (two launches
             bit-identical, no CUDA-core launch), also on a 4,096-page
-            table;
+            table; matmul_q8_0 also at mamba2's and jamba's projection
+            widths, B1 at jamba's G = 4 and B7 at its prefill;
 4. serve  — ``repro_torch.launch.serve`` at the full width of
             qwen3-0.6b (seeded random weights made on the card): the
             paged stream once for each of the paper's weight recipes
@@ -69,6 +70,12 @@ Phases, one line each (every failure exits non-zero):
             cached pages bit-equal; and the rollback itself on
             full-width arenas of bf16, int8 and MLA pages (bit-identical
             to never inserting the rejected rows);
+   recurrent — (run first, before any profiler session) mamba2-1.3b
+            at full width and depth (48 SSD layers) and jamba-v0.1-52b at
+            full width over one 8-layer period (Mamba + attention + MoE):
+            ``--mode batch``, the stream (q8_0, bf16 pages beside
+            per-slot SSM state) and an 8 x 512 prefill each, with exact
+            launches per step and prefill;
 5. checks — per recipe, one full-width decode step (depth cut to 2
             layers) against the plain CPU path, and a shorter serve under
             torch.profiler; for q8_0 also a 2-layer prefill and a 2-layer
@@ -76,7 +83,13 @@ Phases, one line each (every failure exits non-zero):
             cut to its 2 dense MLA layers (bf16 and int8 pages) and
             granite-moe cut to 2 MoE layers against the CPU path, the
             deepseek-v3 MoE layer's device time and transient memory,
-            and a profiled serve of each;
+            and a profiled serve of each; the recurrent models'
+            profiled prefills (the SSD's device ms), mamba2's two 2-layer
+            steps on per-slot state against the CPU path and its padded
+            chunk
+            bit-exact on the card, jamba's block-0 mamba, attention (B1
+            at G = 4) and MoE layers against the CPU path, and a
+            profiled serve of each (the phase's seconds printed);
 6. the ``kernels`` JSON line, then the device JSON line, last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -198,6 +211,37 @@ DRAFT_ARGS = ["--arch", "qwen3-1.7b"] + SERVE_ARGS[2:]
 DRAFT_FLAGS = ["--spec", "draft", "--spec-draft-model", "qwen3-0.6b"]
 DRAFT_PASS_LAUNCHES = {"matmul_q8_0": 197}
 
+# The recurrent phase: the same stream (q8_0, bf16 pages) for mamba2 (SSD,
+# attention-free) at full width and depth, and jamba (Mamba + attention +
+# MoE) at full width over one 8-layer period (32 layers cut to 8: one of
+# each layer kind; the full depth does not fit one card), then --mode
+# batch and an 8 x 512 prefill of each.
+MAMBA_ARGS = ["--arch", "mamba2-1.3b"] + SERVE_ARGS[2:]
+JAMBA_ARGS = ["--arch", "jamba-v0.1-52b"] + SERVE_ARGS[2:]
+JAMBA_LAYERS = 8
+# Per step (and per prefill): mamba2's 48 x (in_proj, out_proj) and its
+# tied lm_head, no attention; jamba's 7 mamba layers x 2, the attention
+# layer's q/k/v/o, 4 dense SwiGLUs x 3 and the lm_head (the MoE experts
+# run on torch.bmm), and one attention (paged on the stream's arena, flash
+# in the prefill, plain PyTorch on the batch's contiguous arena).
+MAMBA_LAUNCHES = {"matmul_q8_0": 97}
+JAMBA_LAUNCHES = {"matmul_q8_0": 31, "paged_decode_attention": 1}
+MAMBA_PREFILL_LAUNCHES = {"matmul_q8_0": 97}
+JAMBA_PREFILL_LAUNCHES = {"matmul_q8_0": 31, "flash_attention": 1}
+# matmul_q8_0 at their projections' widths (label, N, K, launches a step).
+RECURRENT_LINEARS = [
+    ("mamba2 in_proj", 8512, 2048, 48), ("mamba2 out_proj", 2048, 4096, 48),
+    ("mamba2 lm_head", 50280, 2048, 1),
+    ("jamba in_proj", 16544, 4096, 7), ("jamba out_proj", 4096, 8192, 7),
+    ("jamba lm_head", 65536, 4096, 1)]
+# jamba's prefill attention: (B, S, H, Hkv, D) bf16, causal.
+FLASH_JAMBA = (8, 512, 32, 8, 128)
+# (label, serve argv, depth cut, launches per step, per prefill)
+RECURRENT = (("mamba2", MAMBA_ARGS, None, MAMBA_LAUNCHES,
+              MAMBA_PREFILL_LAUNCHES),
+             ("jamba", JAMBA_ARGS, JAMBA_LAYERS, JAMBA_LAUNCHES,
+              JAMBA_PREFILL_LAUNCHES))
+
 
 def within_one_ulp(torch, out, ref32, rtol: float, atol: float) -> bool:
     """bf16 ``out`` is an f32 result rounded once: within one bf16 ulp
@@ -298,25 +342,8 @@ def check_matmul(torch, dev, name):
                   f"{err:.3e} (tol {tol:.3e}), bf16 out = f32 out rounded",
                   flush=True)
             continue
-        wbytes = sum(p.numel() * p.element_size() for p in planes.values())
-        copies = max(1, min(48, math.ceil(150e6 / wbytes)))
-        cps = [planes] + [{k2: v.clone() for k2, v in planes.items()}
-                          for _ in range(copies - 1)]
-        wf = [dequantize(p) for p in cps]
-        xf = x.float()
-        iters = 20 if n * k > 1e8 else 100
-        launches0 = wrapper.launches
-        bf16 = torch.bfloat16               # the serving layers' form
-        t_k = time_ms(torch, [lambda p=p: wrapper(
-            x, *[p[q] for q in layout], out_dtype=bf16, **kw) for p in cps],
-            iters)
-        wrapper.launches = launches0         # timing launches do not count
-        t_p = time_ms(torch, [lambda p=p: matmul_ref(x, p, fmt, **kw).to(
-            bf16) for p in cps], iters)
-        t_l = time_ms(torch, [lambda wq=wq: torch.matmul(xf, wq.T)
-                              for wq in wf], iters)
-        nbytes = wbytes + x.numel() * 2 + m * n * 2
-        flops = 2.0 * m * n * k
+        t_k, t_p, t_l, nbytes, flops = _time_matmul(
+            torch, name, x, planes, dequantize)
         b_ms, b_by = bound(nbytes, flops)
         print(f"kernel {name} {shape} M={m} N={n} K={k}: max_abs_err "
               f"{err:.3e} (tol {tol:.3e}), bf16 out = f32 out rounded | "
@@ -327,7 +354,6 @@ def check_matmul(torch, dev, name):
                        ("bytes", nbytes), ("flops", flops)):
             totals[key] += count * v
         per_step += count
-        del cps, wf
     b_ms, b_by = bound(totals["bytes"], totals["flops"])
     prefill, err = time_matmul_prefill(torch, dev, name)
     worst = max(worst, err)
@@ -347,6 +373,148 @@ def check_matmul(torch, dev, name):
     if name in OFF_MAIN_PATH:
         row["main_path"] = False
     return row
+
+
+def _time_matmul(torch, name, x, planes, dequantize):
+    """(kernel ms, plain ms, library ms, bytes, flops) of one matmul of
+    the bf16 rows ``x`` (M, K) by ``planes`` (N, K), the kernel giving
+    the serving layers' bf16 output; the calls cycle through enough
+    copies of the weights (up to 150 MB) that they stream from HBM, not
+    from the 50 MB L2. Timing launches do not count."""
+    from repro_torch.kernels.ops import MATMUL_KERNELS
+    from repro_torch.kernels.ref import matmul_ref
+    fmt = MATMULS[name][0]
+    wrapper, layout = MATMUL_KERNELS[fmt]
+    kw = {"approx_cvt53": True} if name in OFF_MAIN_PATH else {}
+    (m, k), n = x.shape, next(iter(planes.values())).shape[0]
+    wbytes = sum(p.numel() * p.element_size() for p in planes.values())
+    copies = max(1, min(48, math.ceil(150e6 / wbytes)))
+    cps = [planes] + [{k2: v.clone() for k2, v in planes.items()}
+                      for _ in range(copies - 1)]
+    wf = [dequantize(p) for p in cps]
+    xf = x.float()
+    iters = 20 if n * k > 1e8 else 100
+    launches0 = wrapper.launches
+    bf16 = torch.bfloat16               # the serving layers' form
+    t_k = time_ms(torch, [lambda p=p: wrapper(
+        x, *[p[q] for q in layout], out_dtype=bf16, **kw) for p in cps],
+        iters)
+    wrapper.launches = launches0         # timing launches do not count
+    t_p = time_ms(torch, [lambda p=p: matmul_ref(x, p, fmt, **kw).to(
+        bf16) for p in cps], iters)
+    t_l = time_ms(torch, [lambda wq=wq: torch.matmul(xf, wq.T)
+                          for wq in wf], iters)
+    del cps, wf
+    return t_k, t_p, t_l, wbytes + x.numel() * 2 + m * n * 2, \
+        2.0 * m * n * k
+
+
+def time_matmul_recurrent(torch, dev):
+    """matmul_q8_0 at the recurrent models' projection widths
+    (RECURRENT_LINEARS) at the step's M = 64 — N tails off the 128-wide
+    tile (8,512, 50,280) and K 8,192 — against the plain version (2e-5
+    of the output's scale, bf16 output the f32 one rounded), timed beside
+    the plain version and cuBLAS f32 with the bound. Returns {shape:
+    numbers} and each model's per-step totals of these shapes."""
+    from repro_torch.core.quant import dequant, pack
+    from repro_torch.kernels.ops import MATMUL_KERNELS
+    from repro_torch.kernels.ref import matmul_ref
+    wrapper, layout = MATMUL_KERNELS["q8_0"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    out, steps = {}, {}
+    for shape, n, k, count in RECURRENT_LINEARS:
+        m = M_STEP
+        x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+        planes = pack.quantize(
+            torch.randn((n, k), generator=gen, device=dev) * 0.02, "q8_0")
+        args = [planes[p] for p in layout]
+        y = wrapper(x, *args)
+        y16 = wrapper(x, *args, out_dtype=torch.bfloat16)
+        ref = matmul_ref(x, planes, "q8_0")
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        tol = 2e-5 * max(1.0, float(ref.abs().max()))
+        if not bool(torch.isfinite(y).all()) or err > tol \
+                or not torch.equal(y16, y.to(torch.bfloat16)):
+            fail(f"matmul_q8_0 {shape} ({m}x{n}x{k}): max_abs_err "
+                 f"{err:.3e} > {tol:.3e}, or the bf16 output is not the "
+                 "f32 result rounded")
+        del y, y16, ref
+        t_k, t_p, t_l, nbytes, flops = _time_matmul(
+            torch, "matmul_q8_0", x, planes, dequant.DEQUANTIZERS["q8_0"])
+        b_ms, b_by = bound(nbytes, flops)
+        print(f"kernel matmul_q8_0 {shape} M={m} N={n} K={k}: max_abs_err "
+              f"{err:.3e} (tol {tol:.3e}), bf16 out = f32 out rounded | "
+              f"bf16-out kernel {t_k:.4f} ms | plain {t_p:.4f} ms | "
+              f"library(torch.matmul f32, pre-dequantized) {t_l:.4f} ms | "
+              f"bound {b_ms:.4f} ms ({b_by}) | x{count} per step", flush=True)
+        out[shape] = dict(m=m, n=n, k=k, per_step=count, max_abs_err=err,
+                          ms=t_k, plain_ms=t_p, library_ms=t_l,
+                          bound_ms=b_ms, bound_by=b_by)
+        model = shape.split()[0]
+        tot = steps.setdefault(model, dict(ms=0.0, plain_ms=0.0,
+                                           library_ms=0.0, bytes=0.0,
+                                           flops=0.0))
+        for key, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                       ("bytes", nbytes), ("flops", flops)):
+            tot[key] += count * v
+        del x, planes, args
+    for model, tot in steps.items():
+        b_ms, b_by = bound(tot.pop("bytes"), tot.pop("flops"))
+        tot.update(bound_ms=b_ms, bound_by=b_by)
+        print(f"kernel matmul_q8_0 {model}'s recurrent projections and "
+              f"lm_head per step: kernel {tot['ms']:.4f} ms | plain "
+              f"{tot['plain_ms']:.4f} ms | library {tot['library_ms']:.4f} "
+              f"ms | bound {b_ms:.4f} ms ({b_by})", flush=True)
+    torch.cuda.empty_cache()
+    return dict(shapes=out, per_step=steps)
+
+
+def time_flash_jamba(torch, dev):
+    """flash_attention at jamba's prefill widths (FLASH_JAMBA: H 32, Hkv
+    8, D 128, 8 x 512, bf16, causal) against attention_ref, timed beside
+    the plain version and SDPA with the bound (one attention layer a
+    prefill). Returns those numbers (an extra key of the flash row)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    b, s, h, hkv, d = FLASH_JAMBA
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    out = flash_attention(q, k, v, causal=True)
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=True)
+    torch.cuda.synchronize()
+    err = float((out.float() - ref).abs().max())
+    if not bool(torch.isfinite(out.float()).all()) or \
+            not within_one_ulp(torch, out, ref, 1e-4, 1e-4):
+        fail(f"flash_attention jamba prefill widths: max_abs_err {err:.3e}")
+    del ref
+    launches0 = flash_attention.launches
+    t_k = time_ms(torch, [lambda: flash_attention(q, k, v, causal=True)],
+                  20)
+    flash_attention.launches = launches0
+    t_p = time_ms(torch, [lambda: attention_ref(q, k, v, causal=True)], 5)
+    qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    t_l = time_ms(torch, [lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, is_causal=True, enable_gqa=True)], 20)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    flops = 4.0 * b * h * d * (s * (s + 1) // 2)
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"kernel flash_attention jamba prefill bf16 B={b} S={s} H={h} "
+          f"Hkv={hkv} D={d} causal: max_abs_err {err:.3e} (rtol/atol 1e-4 "
+          f"of the f32 plain version + one bf16 ulp) | kernel {t_k:.4f} ms "
+          f"| plain {t_p:.4f} ms | library(SDPA is_causal, enable_gqa) "
+          f"{t_l:.4f} ms | bound {b_ms:.5f} ms ({b_by}) | x1 per prefill",
+          flush=True)
+    del q, k, v, qh, kh, vh, out
+    torch.cuda.empty_cache()
+    return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err, per_prefill=1)
 
 
 def time_matmul_prefill(torch, dev, name):
@@ -529,7 +697,10 @@ def check_paged_attention(torch, np, dev):
                 replaces="src/repro/kernels/paged_attention.py:156",
                 max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
                 bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l,
-                ms_per_call=t_k, granite=time_paged_granite(torch, np, dev),
+                ms_per_call=t_k,
+                granite=time_paged_widths(torch, np, dev, "granite-moe", 24,
+                                          64, 32),
+                jamba=time_paged_widths(torch, np, dev, "jamba", 32, 128, 1),
                 long_table=check_paged_long_table(torch, np, dev))
 
 
@@ -605,13 +776,16 @@ def check_paged_long_table(torch, np, dev):
     return dict(max_abs_err=errs, ms_per_call=t_k, splits=depth)
 
 
-def time_paged_granite(torch, np, dev):
-    """The GQA form at granite-moe's decode widths (H = 24, Hkv = 8,
-    D = 64: 24 query rows of a kv-head, two 16-row tiles), bf16, against
-    the plain version, timed per call and per step (32 layers)."""
+def time_paged_widths(torch, np, dev, label, H, D, per_step):
+    """The GQA form at another model's decode widths (Hkv = 8: H = 24,
+    D = 64 is granite-moe's G = 3 in two 16-row tiles; H = 32, D = 128
+    is jamba's G = 4), bf16, against the plain version, timed per call
+    and per step (``per_step`` attention layers) beside the plain version
+    and SDPA on the gathered view, with the bound."""
+    import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.ref import paged_attention_ref
-    c = _paged_case(torch, np, dev, torch.bfloat16, H=24, D=64)
+    c = _paged_case(torch, np, dev, torch.bfloat16, H=H, D=D)
     args = (c["q"], c["kp"], c["vp"], c["tables"], c["pos"])
     out = paged_decode_attention(*args, sm_scale=c["sm"], lengths=c["lens"])
     ref = paged_attention_ref(*args, sm_scale=c["sm"])
@@ -621,7 +795,7 @@ def time_paged_granite(torch, np, dev):
         n = int(c["np_lens"][b])
         o, r = out[b, :n].float(), ref[b, :n].float()
         if not torch.allclose(o, r, rtol=2 ** -7, atol=1e-3):
-            fail(f"paged_decode_attention granite widths slot {b}: "
+            fail(f"paged_decode_attention {label} widths slot {b}: "
                  f"max_abs_err {float((o - r).abs().max()):.3e}")
         err = max(err, float((o - r).abs().max()))
     launches0 = paged_decode_attention.launches
@@ -631,17 +805,28 @@ def time_paged_granite(torch, np, dev):
     t_p = time_ms(torch, [lambda: paged_attention_ref(
         *args, sm_scale=c["sm"])], 50)
     B, C, H, D = c["q"].shape
+    G = H // 8
+    kv = [x[c["tables"].long()].flatten(1, 2).repeat_interleave(G, dim=2)
+          .transpose(1, 2).contiguous() for x in (c["kp"], c["vp"])]
+    depth = c["pos"].long()[:, None] + torch.arange(C, device=dev) + 1
+    mask = (torch.arange(kv[0].shape[2], device=dev)[None, None, :]
+            < depth[:, :, None])[:, None]             # (B, 1, C, S)
+    qh = c["q"].transpose(1, 2).contiguous()
+    t_l = time_ms(torch, [lambda: F.scaled_dot_product_attention(
+        qh, kv[0], kv[1], attn_mask=mask, scale=c["sm"])], 200)
     _, keys = _live_pages(c)
     nbytes = keys * 8 * D * 2 * 2 + 2 * c["q"].numel() * 2 \
         + c["tables"].numel() * 4 + 2 * B * 4
-    b_ms, b_by = bound(nbytes, keys * 8 * (C * 3) * 4 * D)
-    print(f"kernel paged_decode_attention bf16 granite-moe widths B={B} "
-          f"C={C} H={H} Hkv=8 D={D}: max_abs_err {err:.3e} (rtol 2^-7 atol "
-          f"1e-3) | kernel {t_k:.4f} ms | plain {t_p:.4f} ms | bound "
-          f"{b_ms:.5f} ms ({b_by}) | per step x32: kernel {32 * t_k:.4f} "
-          "ms", flush=True)
-    return dict(ms_per_call=t_k, plain_ms=t_p, bound_ms=b_ms,
-                max_abs_err=err)
+    b_ms, b_by = bound(nbytes, keys * 8 * (C * G) * 4 * D)
+    print(f"kernel paged_decode_attention bf16 {label} widths B={B} "
+          f"C={C} H={H} Hkv=8 D={D} (G={G}): max_abs_err {err:.3e} (rtol "
+          f"2^-7 atol 1e-3) | kernel {t_k:.4f} ms | plain {t_p:.4f} ms | "
+          f"library(SDPA on gathered view) {t_l:.4f} ms | bound "
+          f"{b_ms:.5f} ms ({b_by}) | per step x{per_step}: kernel "
+          f"{per_step * t_k:.4f} ms", flush=True)
+    return dict(ms_per_call=t_k, plain_ms=t_p, library_ms=t_l,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                per_step=per_step)
 
 
 def _live_pages(c):
@@ -1149,7 +1334,8 @@ def check_flash(torch, dev):
                 max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
                 bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l,
                 ms_per_call=t_k,
-                deepseek_prefill=check_flash_mla(torch, dev))
+                deepseek_prefill=check_flash_mla(torch, dev),
+                jamba_prefill=time_flash_jamba(torch, dev))
 
 
 def check_flash_mla(torch, dev):
@@ -1338,20 +1524,43 @@ def profile_prefill(torch, model, params, tokens, cfg) -> None:
     """Where a prefill's time goes: one more ``model.prefill`` under
     torch.profiler, device busy against its wall time and the heaviest
     kernels (after the timed prefills and their launch check)."""
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import ssm
+    ssd0 = ssm.ssd_chunked
+
+    def ssd(*a, **kw):                  # the SSD's device time, as a range
+        with record_function("ssd_chunked"):
+            return ssd0(*a, **kw)
+    ssm.ssd_chunked = ssd
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.prefill(params, {"tokens": tokens}, quant="q8_0")
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model.prefill(params, {"tokens": tokens}, quant="q8_0")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ssm.ssd_chunked = ssd0
     events, dev_us = _device_events(torch, prof)
+    # The range's device-side copy spans its kernels: not a kernel itself.
+    ranges = [e for e in events if e.key == "ssd_chunked"]
+    events = [e for e in events if e.key != "ssd_chunked"]
     tag = f"profile prefill {cfg.name}:"
     if not events:
         print(f"{tag} the profiler recorded no device time (not measured)",
               flush=True)
         return
+    if cfg.ssm is not None:
+        host = [e for e in prof.key_averages() if e.key == "ssd_chunked"
+                and e.device_type == torch.autograd.DeviceType.CPU]
+        span = sum(dev_us(e) for e in ranges) / 1e3
+        inside = sum(getattr(e, "device_time_total",
+                             getattr(e, "cuda_time_total", 0.0))
+                     for e in host) / 1e3
+        print(f"{tag} ssd_chunked: {sum(e.count for e in host)} calls, "
+              f"device time of its kernels {inside:.2f} ms (device span "
+              f"of the range {span:.2f} ms)", flush=True)
     busy_ms = sum(dev_us(e) for e in events) / 1e3
     print(f"{tag} wall {wall_ms:.1f} ms (under the profiler), device busy "
           f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%)", flush=True)
@@ -1438,6 +1647,13 @@ def recipe_setup(torch, dev, serve, quant, argv=SERVE_ARGS,
     return args, cfg, model, params
 
 
+def _shapes(tree):
+    """The shape tuples of a nested dict of tensors (a cache's layout)."""
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    return tuple(tree.shape)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1492,31 +1708,32 @@ def serve_recipe(torch, dev, serve, quant, extra=(), per_step=None,
     return out
 
 
-def serve_batch(torch, dev, serve):
+def serve_batch(torch, dev, serve, arch="qwen3-0.6b", layers=None,
+                per_step=BATCH_LAUNCHES, tag="serve batch"):
     """``serve --mode batch --prompt-len 128 --gen 32 --batch 8`` at full
-    width (q8_0; the lockstep Engine quantizes the dense weights): every
-    token in vocab, exact launches per step, no attention kernel (the
-    contiguous arena attends in plain PyTorch, as the JAX package's XLA
-    does)."""
-    argv = ["--mode", "batch", "--prompt-len", "128", "--gen", "32",
-            "--batch", "8"]
+    width (q8_0; the lockstep Engine quantizes the dense weights; depth
+    cut to ``layers`` if given): every token in vocab, exact launches per
+    step, no attention kernel (the contiguous arena attends in plain
+    PyTorch, as the JAX package's XLA does)."""
+    argv = ["--arch", arch, "--mode", "batch", "--prompt-len", "128",
+            "--gen", "32", "--batch", "8"]
     args, cfg, model, dense = recipe_setup(torch, dev, serve, "q8_0",
-                                           argv=argv, quantize=False)
+                                           argv=argv, quantize=False,
+                                           layers=layers)
     serve.reset_launches()
     t0 = time.perf_counter()
     out, stats = serve.run_batch(cfg, model, dense, args, dev)
     wall = time.perf_counter() - t0
     launches = serve.launch_counts()
     for line in serve.batch_lines(stats, args):
-        print(f"serve batch: {line}", flush=True)
-    print(f"serve batch: {stats.steps} steps in {wall:.2f} s (quantization "
+        print(f"{tag}: {line}", flush=True)
+    print(f"{tag}: {stats.steps} steps in {wall:.2f} s (quantization "
           f"stage included), p50 step {1e3 * sorted(stats.step_s)[len(stats.step_s) // 2]:.2f} ms",
           flush=True)
     if out.shape != (args.batch, args.gen) or not (
             (out >= 0) & (out < cfg.vocab_size)).all():
-        fail(f"serve batch: tokens {out.shape} not all in vocab")
-    res = check_launches("serve batch", launches, BATCH_LAUNCHES,
-                         stats.steps)
+        fail(f"{tag}: tokens {out.shape} not all in vocab")
+    res = check_launches(tag, launches, per_step, stats.steps)
     del dense
     torch.cuda.empty_cache()
     return res
@@ -2150,18 +2367,25 @@ def _run_lines(serve, tag, engine, report, args, card, launches) -> None:
           f"{report.step_compiles}", flush=True)
 
 
-def run_prefill(torch, dev, serve, repeats: int = 3, setup=None,
-                per_prefill=PREFILL_LAUNCHES):
-    """``model.prefill`` of 8 x 512 seeded tokens at full width (q8_0),
-    ``repeats`` times: finite last-token logits and caches of the
-    expected shapes, exact launches per prefill, prefill tokens/s.
-    ``setup``: a ``recipe_setup`` to reuse (default: qwen3-0.6b's)."""
-    _, cfg, model, params = setup or recipe_setup(torch, dev, serve, "q8_0")
-    b, s = PREFILL_SHAPE
+def _prefill_tokens(torch, dev, cfg):
+    """The 8 x 512 seeded prompt of ``run_prefill``."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
-    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
-                           device=dev, dtype=torch.int32)
+    return torch.randint(0, cfg.vocab_size, PREFILL_SHAPE, generator=gen,
+                         device=dev, dtype=torch.int32)
+
+
+def run_prefill(torch, dev, serve, repeats: int = 3, setup=None,
+                per_prefill=PREFILL_LAUNCHES, profile=True):
+    """``model.prefill`` of 8 x 512 seeded tokens at full width (q8_0),
+    ``repeats`` times: finite last-token logits and caches of the
+    expected shapes, exact launches per prefill, prefill tokens/s; then
+    one more under the profiler unless ``profile`` is False (a profiler
+    session slows the process's later launches). ``setup``: a
+    ``recipe_setup`` to reuse (default: qwen3-0.6b's)."""
+    _, cfg, model, params = setup or recipe_setup(torch, dev, serve, "q8_0")
+    b, s = PREFILL_SHAPE
+    tokens = _prefill_tokens(torch, dev, cfg)
     serve.reset_launches()
     times = []
     for _ in range(repeats):
@@ -2173,12 +2397,10 @@ def run_prefill(torch, dev, serve, repeats: int = 3, setup=None,
         times.append(time.perf_counter() - t0)
     launches = serve.launch_counts()
     want = model.cache_shapes(b, s)
-    got = {n: {k: tuple(v.shape) for k, v in leaves.items()}
-           for n, leaves in cache.items()}
+    got = _shapes(cache)
     if logits.shape != (b, 1, cfg.vocab_size) or not bool(
             torch.isfinite(logits.float()).all()) or got != want or not all(
-            bool(torch.isfinite(v.float()).all())
-            for leaves in cache.values() for v in leaves.values()):
+            bool(torch.isfinite(v.float()).all()) for v in _leaves(cache)):
         fail(f"prefill {cfg.name}: logits {tuple(logits.shape)} / caches "
              f"{got} (want {want}) wrong or not finite")
     best = min(times)
@@ -2188,7 +2410,8 @@ def run_prefill(torch, dev, serve, repeats: int = 3, setup=None,
           f"included in the list); caches {got}", flush=True)
     res = check_launches(f"prefill {cfg.name}", launches, per_prefill,
                          repeats)
-    profile_prefill(torch, model, params, tokens, cfg)
+    if profile:
+        profile_prefill(torch, model, params, tokens, cfg)
     del cache
     if setup is None:
         del params
@@ -2252,18 +2475,20 @@ def time_moe_layer(torch, dev, cfg, params) -> None:
           flush=True)
 
 
-def check_moe_vs_cpu(torch, dev, cfg, params) -> None:
+def check_moe_vs_cpu(torch, dev, cfg, params, lp=None,
+                     label="deepseek-v3 layer 3") -> None:
     """deepseek-v3's full-width MoE layer (layer 3: 256 experts, top-8,
-    capacity 4 per expert at 64 rows, so assignments drop) on the card
-    against the CPU plain path, same weights and the same 8 x 8 rows as
-    ``time_moe_layer``: which token fills every (expert, capacity) slot
-    and which slots every token reads must be identical (a changed drop
-    is another function), and the outputs agree within two bf16 ulps of
-    the largest |out| (one for each rounding that another summation order
-    can move across a boundary: the combine's and the shared expert's
-    add)."""
+    capacity 4 per expert at 64 rows, so assignments drop), or the MoE
+    FFN ``lp`` of another model, on the card against the CPU plain path,
+    same weights and the same 8 x 8 rows as ``time_moe_layer``: which
+    token fills every (expert, capacity) slot and which slots every token
+    reads must be identical (a changed drop is another function), and the
+    outputs agree within two bf16 ulps of the largest |out| (one for each
+    rounding that another summation order can move across a boundary:
+    the combine's and the shared expert's add)."""
     from repro_torch.models import moe
-    lp = params["layers1"][0]["ffn"]
+    if lp is None:
+        lp = params["layers1"][0]["ffn"]
     gen = torch.Generator(device=dev)
     gen.manual_seed(10)
     x = torch.randn((8, 8, cfg.d_model), generator=gen,
@@ -2282,7 +2507,7 @@ def check_moe_vs_cpu(torch, dev, cfg, params) -> None:
     e = cfg.moe
     dropped = int((s_r == e.num_experts * cap).sum())
     if not torch.equal(d_a, d_r) or not torch.equal(s_a, s_r):
-        fail(f"deepseek-v3 MoE layer: the card's dispatch differs from the "
+        fail(f"{label} MoE: the card's dispatch differs from the "
              f"CPU's in {int((d_a != d_r).sum())} expert slots and "
              f"{int((s_a != s_r).sum())} token slots")
     scale = float(o_r.abs().max())
@@ -2290,9 +2515,9 @@ def check_moe_vs_cpu(torch, dev, cfg, params) -> None:
     ulp = 2.0 ** (int(torch.frexp(o_r.abs().max()).exponent) - 8)
     err = float((o_a - o_r).abs().max())
     if not bool(torch.isfinite(o_a).all()) or err > 2 * ulp:
-        fail(f"deepseek-v3 MoE layer card vs CPU: max_abs_err {err:.3e} vs "
+        fail(f"{label} MoE card vs CPU: max_abs_err {err:.3e} vs "
              f"2 bf16 ulps of max|out| {scale:.3e}: {2 * ulp:.3e}")
-    print(f"moe check: deepseek-v3 layer 3 on 64 rows, card vs CPU plain: "
+    print(f"moe check: {label} on 64 rows, card vs CPU plain: "
           f"dispatch identical ({e.num_experts} experts x capacity {cap}, "
           f"{64 * e.num_experts_per_tok - dropped} assignments kept, "
           f"{dropped} dropped); output max_abs_err {err:.3e} (bound 2 bf16 "
@@ -2318,6 +2543,253 @@ def check_moe_models(torch, dev, serve, ds, gr) -> None:
     check_step_vs_cpu(torch, dev, params, cfg, "q8_0")
     profile_serve(torch, serve, cfg, model, params, dev, "q8_0",
                   arena=GRANITE_ARGS[:-8], label="granite-moe q8_0")
+
+
+def serve_recurrent(torch, dev, serve):
+    """The recurrent phase's timed runs, before any profiler session: for
+    mamba2 (48 layers) and jamba (8 layers), ``--mode batch`` (dense
+    weights, quantized by the lockstep Engine), then the stream and the
+    8 x 512 prefill (not profiled here) on one setup, each with its exact
+    launches; each model's weights are dropped before the next.
+    Returns {run: launches}."""
+    t0 = time.perf_counter()
+    runs = {}
+    for label, argv, layers, per_step, per_prefill in RECURRENT:
+        runs[f"{label} batch"] = serve_batch(
+            torch, dev, serve, arch=argv[1], layers=layers,
+            per_step={"matmul_q8_0": per_step["matmul_q8_0"]},
+            tag=f"serve {label} batch")
+        setup = recipe_setup(torch, dev, serve, "q8_0", argv=argv,
+                             layers=layers)
+        runs[label] = serve_recipe(torch, dev, serve, "q8_0",
+                                   per_step=per_step,
+                                   tag=f"serve {label} q8_0", argv=argv,
+                                   setup=setup)
+        runs[f"{label} prefill"] = run_prefill(
+            torch, dev, serve, repeats=2, setup=setup,
+            per_prefill=per_prefill, profile=False)
+        del setup
+        torch.cuda.empty_cache()
+    print(f"chip_smoke: recurrent serves took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return runs
+
+
+def _paged_arena(model, d):
+    """A 2-slot paged arena of ``model`` on device ``d`` (16-key blocks,
+    64 positions; SSM state per slot in the arena's dtypes), both slots
+    admitted with their whole reservation."""
+    from repro_torch.runtime.kvcache import PagedKVArena
+    arena = PagedKVArena(model, 2, 64, block_size=16, device=d)
+    for _ in range(2):
+        arena.alloc_slot(arena.blocks_needed(64))
+    return arena
+
+
+def _close(a, r, rel=1e-2):
+    """max |a - r| and whether it is within ``rel`` of max |r|."""
+    err = float((a - r).abs().max())
+    return err, err <= rel * float(r.abs().max())
+
+
+def check_mamba_steps_vs_cpu(torch, dev, params, cfg) -> None:
+    """mamba2 at full width cut to 2 layers: two consecutive chunked
+    decode steps (lengths 8/3, then 8/1: the second reads the state the
+    first left) on a paged arena (the state per slot, conv window bf16,
+    SSM state f32), the card's kernels against the plain CPU path, same
+    weights: valid rows' logits of both steps within 1e-2 x max|logit|
+    (check_step_vs_cpu's bound: bf16 activations, another summation
+    order), and the first layer's state within 1e-2 of its largest
+    magnitude. The second layer's state is held through the second
+    step's logits, which read it: its inputs already differ by bf16
+    ulps, and each token's decay exp(-dt) compounds the dt's rounding
+    over the chunk, so alone it has no tighter bound than the logits'
+    (its error is printed)."""
+    import dataclasses
+    from repro_torch.models.api import build_model
+    model = build_model(dataclasses.replace(cfg, num_layers=2))
+    cut = _cut_to_two(params, model)
+    rng = torch.Generator().manual_seed(14)
+    i32 = torch.int32
+    steps = [(torch.randint(0, cfg.vocab_size, (2, 8), generator=rng,
+                            dtype=i32), torch.tensor([0, 0], dtype=i32),
+              torch.tensor([8, 3], dtype=i32)),
+             (torch.randint(0, cfg.vocab_size, (2, 8), generator=rng,
+                            dtype=i32), torch.tensor([8, 3], dtype=i32),
+              torch.tensor([8, 1], dtype=i32))]
+    out = {}
+    for d in ("cpu", dev):
+        arena = _paged_arena(model, d)
+        tables, _ = arena.device_tables()
+        w = _to(cut, d)
+        logits = []
+        for tok, pos, lens in steps:
+            lg, _ = model.decode_step(w, tok.to(d), pos.to(d), arena.buffers,
+                                      quant="q8_0", block_tables=tables,
+                                      lengths=lens.to(d))
+            logits.append(lg.float().cpu())
+        out[str(d)] = (logits, {k: (v.dtype, v.float().cpu())
+                                for k, v in arena.buffers["layers0"].items()})
+        del w
+    (la, sa), (lr, sr) = out[str(dev)], out["cpu"]
+    parts = []
+    for i, (a, r) in enumerate(zip(la, lr)):
+        lens = steps[i][2]
+        errs = [_close(a[b, :int(n)], r[b, :int(n)]) for b, n in
+                enumerate(lens)]
+        err = max(e for e, _ in errs)
+        if a.shape != (2, 8, cfg.vocab_size) or not bool(
+                torch.isfinite(a).all()) or not all(ok for _, ok in errs):
+            fail(f"mamba2 2-layer step {i} card vs CPU: logits "
+                 f"max_abs_err {err:.3e} vs max|logit| "
+                 f"{float(r.abs().max()):.3e}")
+        parts.append(f"step {i} logits {err:.3e} (max|logit| "
+                     f"{float(r.abs().max()):.3e})")
+    for k in ("conv", "ssm"):
+        (dt_a, a), (dt_r, r) = sa[k], sr[k]
+        err, ok = _close(a[0], r[0])
+        want = torch.float32 if k == "ssm" else torch.bfloat16
+        if not ok or dt_a != dt_r or dt_a != want:
+            fail(f"mamba2 2-layer steps: layer 0 {k} state {dt_a} "
+                 f"max_abs_err {err:.3e} vs max|state| "
+                 f"{float(r[0].abs().max()):.3e}")
+        parts.append(f"{k} state ({str(dt_a).split('.')[-1]}) layer 0 "
+                     f"{err:.3e} (max {float(r[0].abs().max()):.3e}), "
+                     f"layer 1 {float((a[1] - r[1]).abs().max()):.3e} (max "
+                     f"{float(r[1].abs().max()):.3e}, not bounded)")
+    print(f"step check: full-width mamba2 q8_0, 2 layers, two chunked steps "
+          f"on per-slot state, card kernels vs CPU plain: "
+          f"{', '.join(parts)} (bound 1e-2 x max|.|)", flush=True)
+
+
+def check_padding_on_card(torch, dev, params, cfg) -> None:
+    """On the card, mamba2's first mixer over a chunk whose rows end
+    early (lengths 8, 3, 0): the idle row's state stays bit-equal to the
+    state before the step, and the short row's state is bit-equal to a
+    3-wide chunk of the same in_proj rows (the recurrence reads no
+    padding)."""
+    from repro_torch.models import layers, ssm
+    lp = params["layers0"][0]["ssm"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    sh = ssm.ssm_cache_shape(cfg, 3)
+    state = {"conv": torch.randn(sh["conv"], generator=gen,
+                                 device=dev).to(torch.bfloat16),
+             "ssm": torch.randn(sh["ssm"], generator=gen, device=dev) * 0.1}
+    u = torch.randn((3, 8, cfg.d_model), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    lens = torch.tensor([8, 3, 0], device=dev)
+    clone = lambda: {k: v.clone() for k, v in state.items()}  # noqa: E731
+    full, gated, short = clone(), clone(), clone()
+    ssm.ssm_decode(lp, cfg, u, full, fmt="q8_0", lengths=lens)
+    rows = layers.linear_apply(lp["in_proj"], u, "q8_0")
+    ssm._recur(lp, cfg, rows, gated, lens)
+    ssm._recur(lp, cfg, rows[:, :3], short, None)
+    torch.cuda.synchronize()
+    for k in ("conv", "ssm"):
+        if not torch.equal(full[k][2], state[k][2]):
+            fail(f"mamba2 padded chunk on the card: the idle row's {k} "
+                 "state moved")
+        if not torch.equal(gated[k][1], short[k][1]) or \
+                not torch.equal(full[k], gated[k]):
+            fail(f"mamba2 padded chunk on the card: the short row's {k} "
+                 "state is not the 3-wide chunk's")
+    print("padding check: mamba2 layer 0 on the card, lengths 8/3/0: the "
+          "idle row's conv and SSM state bit-equal to before the step, the "
+          "short row's bit-equal to a 3-wide chunk's", flush=True)
+
+
+def check_jamba_layers_vs_cpu(torch, dev, cfg, params) -> None:
+    """jamba at full width, layer by layer (a 2-layer cut holds no
+    attention layer: it sits at offset 4): block 0's sub0 (mamba mixer,
+    dense FFN) on per-slot state and sub4 (GQA, dense FFN) on bf16 pages
+    — B1's tensor-core kernel at G = 4, D = 128, one launch — each one
+    chunked decode step (lengths 8/3) on the card against the plain CPU
+    path, same weights and inputs: valid rows within 1e-2 x max|out| and
+    the state / pages written within 1e-2 of their scale (bf16
+    activations in another summation order); then sub1's MoE FFN by
+    ``check_moe_vs_cpu``."""
+    from repro_torch.kernels.paged_attention import paged_decode_attention
+    from repro_torch.models import lm, ssm
+    t0 = time.perf_counter()
+    blk = params["blocks"][0]
+    gen = torch.Generator().manual_seed(16)
+    B, C, bf16 = 2, 8, torch.bfloat16
+    h = torch.randn((B, C, cfg.d_model), generator=gen).to(bf16)
+    pos = torch.tensor([0, 5], dtype=torch.int32)
+    lens = torch.tensor([8, 3], dtype=torch.int32)
+    tables = torch.tensor([[3, 1, 8, 8], [0, 2, 8, 8]], dtype=torch.int32)
+    sh = ssm.ssm_cache_shape(cfg, B)
+    state = {"conv": torch.randn(sh["conv"], generator=gen).to(bf16),
+             "ssm": torch.randn(sh["ssm"], generator=gen) * 0.1}
+    page = (9, 16, cfg.num_kv_heads, cfg.resolved_head_dim())
+    pages = {k: torch.randn(page, generator=gen).to(bf16) for k in "kv"}
+    for sub, mixer, cache in (("sub0", "ssm", state), ("sub4", "gqa", pages)):
+        got = {}
+        for d in ("cpu", dev):
+            c = {k: v.clone().to(d) for k, v in cache.items()}
+            lp = _to(blk[sub], "cpu") if d == "cpu" else blk[sub]
+            n0 = paged_decode_attention.launches
+            y = lm.layer_decode(
+                lp, cfg, h.to(d), pos.to(d), c, mixer=mixer, ffn="dense",
+                fmt="q8_0", lengths=lens.to(d),
+                block_tables=tables.to(d) if mixer == "gqa" else None)
+            launched = paged_decode_attention.launches - n0
+            got[str(d)] = (y.float().cpu(), {k: v.float().cpu()
+                                             for k, v in c.items()})
+            del lp
+        if mixer == "gqa" and launched != 1:
+            fail(f"jamba attention layer: {launched} paged attention "
+                 "launches on the card, not 1")
+        (a, ca), (r, cr) = got[str(dev)], got["cpu"]
+        errs = [_close(a[b, :int(n)], r[b, :int(n)]) for b, n in
+                enumerate(lens)]
+        err = max(e for e, _ in errs)
+        parts = [f"output {err:.3e} (max|out| {float(r.abs().max()):.3e})"]
+        ok = all(o for _, o in errs) and bool(torch.isfinite(a).all())
+        for k in ca:
+            e, o = _close(ca[k], cr[k])
+            ok = ok and o
+            parts.append(f"{k} {e:.3e} (max {float(cr[k].abs().max()):.3e})")
+        if not ok:
+            fail(f"jamba block 0 {sub} ({mixer}) card vs CPU: "
+                 f"{', '.join(parts)}")
+        print(f"layer check: full-width jamba block 0 {sub} ({mixer}, "
+              f"dense FFN) q8_0, one chunked step (lengths 8/3), card vs "
+              f"CPU plain: {', '.join(parts)} (bound 1e-2 x max|.| each)"
+              + (f" | B1 at G = {cfg.num_heads // cfg.num_kv_heads}, D = "
+                 f"{cfg.resolved_head_dim()}: 1 launch" if mixer == "gqa"
+                 else ""), flush=True)
+    check_moe_vs_cpu(torch, dev, cfg, params, lp=blk["sub1"]["ffn"],
+                     label="jamba block 0 sub1")
+    print(f"layer checks: jamba took {time.perf_counter() - t0:.1f} s with "
+          "the CPU copies", flush=True)
+
+
+def check_recurrent(torch, dev, serve) -> None:
+    """The recurrent phase's checks, after every timed serve, on the same
+    seeded weights made again: the profiled prefill of each model (the
+    SSD's device ms), mamba2's 2-layer steps against the CPU path and its
+    padded chunk on the card, jamba's layers against the CPU path, and a
+    profiled serve of each."""
+    t0 = time.perf_counter()
+    for label, argv, layers, _, _ in RECURRENT:
+        _, cfg, model, params = recipe_setup(torch, dev, serve, "q8_0",
+                                             argv=argv, layers=layers)
+        profile_prefill(torch, model, params,
+                        _prefill_tokens(torch, dev, cfg), cfg)
+        if label == "mamba2":
+            check_mamba_steps_vs_cpu(torch, dev, params, cfg)
+            check_padding_on_card(torch, dev, params, cfg)
+        else:
+            check_jamba_layers_vs_cpu(torch, dev, cfg, params)
+        profile_serve(torch, serve, cfg, model, params, dev, "q8_0",
+                      arena=argv[:-8],
+                      label=f"{label} ({cfg.num_layers} layers) q8_0")
+        del params, model
+        torch.cuda.empty_cache()
+    print(f"chip_smoke: recurrent checks took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def record_routes(torch, mla_only=False):
@@ -2400,6 +2872,8 @@ def main() -> None:
           f" -> {', '.join(p.name for p in libs.values())}", flush=True)
 
     kernels = [check_matmul(torch, dev, name) for name in MATMULS]
+    kernels[list(MATMULS).index("matmul_q8_0")]["recurrent"] = \
+        time_matmul_recurrent(torch, dev)
     kernels.append(check_paged_attention(torch, np, dev))
     kernels.append(check_paged_int8(torch, np, dev))
     kernels.append(check_flash(torch, dev))
@@ -2410,6 +2884,11 @@ def main() -> None:
     from repro_torch.launch import serve
     routes = record_routes(torch)
     by_serve = {}
+    # The recurrent phase's timed runs come first: its mamba2 step makes
+    # ~6,800 launches, the most exposed to a profiler session's slowdown.
+    t_rec = time.perf_counter()
+    by_serve.update(serve_recurrent(torch, dev, serve))
+    t_rec = time.perf_counter() - t_rec
     for quant in RECIPE_LAUNCHES:
         by_serve[quant] = serve_recipe(torch, dev, serve, quant)
     by_serve["q8_0 kv-int8"] = serve_recipe(
@@ -2466,6 +2945,11 @@ def main() -> None:
         check_recipe(torch, dev, serve, quant)
     check_moe_models(torch, dev, serve, ds, gr)
     del ds, gr
+    t0 = time.perf_counter()
+    check_recurrent(torch, dev, serve)
+    print(f"chip_smoke: recurrent phase took "
+          f"{t_rec + time.perf_counter() - t0:.1f} s (serves and checks)",
+          flush=True)
 
     check_routes({k: v for k, v in routes.items() if "matmul" not in k},
                  "the model paths' attention (serves, prefills, checks)",

@@ -1,8 +1,9 @@
 """Architecture registry for the port: ``--arch <id>`` resolution.
 
-The dense qwen3 family (the paper's own evaluation models) and the two
-MoE models, deepseek-v3 (MLA + MoE) and granite-moe (GQA + MoE), are
-ported. Every other architecture of ``repro`` waits for the ROADMAP item
+The dense qwen3 family (the paper's own evaluation models), the two
+MoE models, deepseek-v3 (MLA + MoE) and granite-moe (GQA + MoE), and the
+recurrent families, mamba2 (SSD, attention-free) and jamba (Mamba +
+attention + MoE), are ported. Every other architecture of ``repro`` waits for the ROADMAP item
 that ports its layers; asking for one names that item.
 """
 from __future__ import annotations
@@ -12,13 +13,15 @@ from typing import Dict
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.deepseek_v3_671b import CONFIG as _deepseek_v3
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite_moe
+from repro_torch.configs.jamba_v0_1_52b import CONFIG as _jamba
+from repro_torch.configs.mamba2_1_3b import CONFIG as _mamba2
 from repro_torch.configs.qwen3_0_6b import CONFIG as _qwen3_0_6b
 from repro_torch.configs.qwen3_1_7b import CONFIG as _qwen3_1_7b
 from repro_torch.configs.qwen3_8b import CONFIG as _qwen3_8b
 
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in [_qwen3_0_6b, _qwen3_1_7b, _qwen3_8b, _deepseek_v3,
-                        _granite_moe]
+                        _granite_moe, _mamba2, _jamba]
 }
 
 # Architectures of the JAX package not ported yet -> the ROADMAP item
@@ -27,10 +30,8 @@ PENDING: Dict[str, str] = {
     "llama3.2-3b": "ROADMAP A20 (remaining dense configs)",
     "qwen2-72b": "ROADMAP A20 (remaining dense configs: qkv bias)",
     "llama3-405b": "ROADMAP A20 (remaining dense configs)",
-    "qwen2-vl-2b": "ROADMAP A16 (vlm M-RoPE path)",
-    "jamba-v0.1-52b": "ROADMAP A16 (ssm/hybrid)",
-    "whisper-small": "ROADMAP A16 (encdec)",
-    "mamba2-1.3b": "ROADMAP A16 (ssm)",
+    "qwen2-vl-2b": "ROADMAP A16b (vlm: M-RoPE, qkv bias)",
+    "whisper-small": "ROADMAP A16c (encdec: cross attention)",
 }
 
 
@@ -38,8 +39,7 @@ PENDING: Dict[str, str] = {
 # checks, which refuse some combinations by family).
 PENDING_FAMILY: Dict[str, str] = {
     "llama3.2-3b": "dense", "qwen2-72b": "dense", "llama3-405b": "dense",
-    "qwen2-vl-2b": "vlm", "jamba-v0.1-52b": "hybrid",
-    "whisper-small": "encdec", "mamba2-1.3b": "ssm",
+    "qwen2-vl-2b": "vlm", "whisper-small": "encdec",
 }
 
 

@@ -5,7 +5,8 @@ the JAX package's parameters into the port's layout.
 ``repro.core.convert.quantize_params``: every linear/embedding weight is
 quantized per the recipe, norms stay high precision (paper §III.B), the
 MoE router is kept unquantized (rounded to bf16, as the JAX stage does),
-and an MoE expert bank (E, out, in) is quantized row by row into (E, out,
+the SSM mixer's conv taps, A_log, D and dt_bias stay f32 (only its
+in/out projections are quantized), and an MoE expert bank (E, out, in) is quantized row by row into (E, out,
 packed) planes. Rows are quantized ``_ROW_ELEMS`` elements at a time, so
 a bank or an embedding never needs an f32 copy of itself.
 
@@ -13,7 +14,8 @@ a bank or an embedding never needs an f32 copy of itself.
 arrays* (the caller does the ``np.asarray``; this module never imports
 JAX) and returns the port's tree on ``device``: each ``jax.vmap``-stacked
 layer group (``repro.models.lm.lm_init``) becomes a list of per-layer
-dicts. bf16 leaves travel as their uint16 bit pattern, because
+dicts (jamba's ``blocks`` group: a list of ``{"sub0": ..., "sub7": ...}``
+block dicts). bf16 leaves travel as their uint16 bit pattern, because
 ``torch.from_numpy`` rejects ``ml_dtypes.bfloat16``.
 """
 from __future__ import annotations
@@ -28,9 +30,10 @@ from repro_torch.core.quant import pack
 from repro_torch.core.quant.formats import RECIPES
 from repro_torch.models.lm import layer_groups
 
-_NORM_KEYS = {"mixer_norm", "ffn_norm", "final_norm", "q_norm", "k_norm"}
+_NORM_KEYS = {"mixer_norm", "ffn_norm", "final_norm", "q_norm", "k_norm",
+              "norm"}
 _EMBED_KEYS = {"embed", "lm_head"}
-_RAW_KEYS = {"router"}
+_RAW_KEYS = {"conv_w", "conv_b", "A_log", "D", "dt_bias", "router"}
 # Weight elements quantized at a time (block quantization only touches
 # the last axis, so row grouping does not change the planes).
 _ROW_ELEMS = 1 << 26

@@ -39,9 +39,12 @@ paper's fixed [in:out] workload grid):
   PYTHONPATH=src python -m repro_torch.launch.serve --mode batch \
       --quant q8_0 --prompt-len 128 --gen 32 --batch 8
 
-``--arch`` takes the ported configs: qwen3-0.6b/1.7b/8b, and the MoE
+``--arch`` takes the ported configs: qwen3-0.6b/1.7b/8b, the MoE
 models granite-moe-3b-a800m and deepseek-v3-671b (MLA; its 61 layers at
-full width do not fit one card: ``--reduced`` for the CPU).
+full width do not fit one card: ``--reduced`` for the CPU), and the
+recurrent families mamba2-1.3b (SSD) and jamba-v0.1-52b (Mamba +
+attention + MoE; its 32 layers at full width do not fit one card either),
+which refuse ``--spec``, ``--prefix-cache`` and ``--kv-quant``.
 
 The card is the default device. Without one the launcher exits with an
 error unless ``--device cpu`` asks for the plain CPU path explicitly.
@@ -100,8 +103,8 @@ def reset_launches() -> None:
 
 
 def make_extras(cfg, batch: int):
-    """Per-request frontend stubs: dense and moe models take none
-    (vlm/encdec stubs come with ROADMAP A16)."""
+    """Per-request frontend stubs: the ported families take none (the vlm
+    and encdec stubs come with ROADMAP A16b and A16c)."""
     return {}
 
 

@@ -1,5 +1,5 @@
-"""Unified model API subset: ``build_model(cfg) -> ModelAPI``, dense and
-moe families.
+"""Unified model API subset: ``build_model(cfg) -> ModelAPI``, the dense,
+moe, ssm and hybrid families.
 
 Ported from ``repro.models.api``: ``init`` / ``forward`` / ``prefill`` /
 ``decode_step`` / ``cache_shapes`` / ``paged_cache_shapes``. The train
@@ -26,34 +26,63 @@ class ModelAPI:
     decode_step: Callable             # (params, token, position, cache, **o)
     cache_shapes: Callable            # (batch, seq) -> shape tree
 
+    def state_leaves(self, num_slots: int):
+        """The cache tree with True at each constant-size *state* leaf (SSM
+        conv window and recurrent state) and False at each leaf whose
+        extent follows the sequence length (attention K/V, MLA latents):
+        ``cache_shapes`` probed at two lengths, as the JAX package's
+        arenas and ``paged_cache_shapes`` probe it."""
+        return _map2(lambda a, b: a == b, self.cache_shapes(num_slots, 160),
+                     self.cache_shapes(num_slots, 224))
+
     def paged_cache_shapes(self, num_slots: int, num_physical: int,
                            block_size: int, kv_quant: str = "none"):
-        """Paged-arena storage layout: ``{group: {"k": (layers,
-        num_physical, block_size, Hkv, D), "v": ...}}`` (MLA: ``{"ckv":
-        (layers, num_physical, block_size, kv_lora_rank), "krope": ...}``)
-        — every leaf of a dense or moe model follows the sequence length,
-        so every leaf is paged (``num_physical`` includes the arena's
-        trailing null page).
-        ``kv_quant="int8"``: each leaf becomes ``{"q": page shape (int8
-        codes), "s": page shape minus the feature axis (fp16 scales)}``,
-        the JAX package's ``paged_decode_specs`` layout."""
+        """Paged-arena storage layout: the leaves that follow the sequence
+        length become pages — ``{"k": (layers, num_physical, block_size,
+        Hkv, D), "v": ...}`` (MLA: ``{"ckv": (layers, num_physical,
+        block_size, kv_lora_rank), "krope": ...}``; ``num_physical``
+        includes the arena's trailing null page) — and the constant-size
+        state leaves keep per-slot storage ``(layers, num_slots, ...)``
+        (SSM ``{"conv", "ssm"}``). Detection probes ``cache_shapes`` at two
+        lengths and pages exactly the leaves whose sequence axis moved, as
+        the JAX package does.
+        ``kv_quant="int8"``: each paged leaf becomes ``{"q": page shape
+        (int8 codes), "s": page shape minus the feature axis (fp16
+        scales)}``, the JAX package's ``paged_decode_specs`` layout."""
         if kv_quant not in ("none", "int8"):
             raise ValueError(f"unknown kv_quant {kv_quant!r}")
-        out = {}
-        for name, shapes in self.cache_shapes(num_slots, 160).items():
-            out[name] = {}
-            for k, s in shapes.items():
-                page = (s[0], num_physical, block_size) + s[3:]
-                out[name][k] = page if kv_quant == "none" else \
-                    {"q": page, "s": page[:-1]}
-        return out
+        s_a, s_b = 160, 224      # probe lengths; avoid constant-dim collisions
+
+        def pick(sa, sb):
+            if sa == sb:
+                return sa
+            diff = [i for i, (x, y) in enumerate(zip(sa, sb)) if x != y]
+            assert diff == [2] and sa[2] == s_a, \
+                f"unsupported cache layout for paging: {sa} vs {sb}"
+            page = (sa[0], num_physical, block_size) + sa[3:]
+            return page if kv_quant == "none" else \
+                {"q": page, "s": page[:-1]}
+        return _map2(pick, self.cache_shapes(num_slots, s_a),
+                     self.cache_shapes(num_slots, s_b))
+
+
+def _map2(fn, ta, tb):
+    """``fn`` over the paired leaves (shape tuples) of two nested dicts."""
+    if isinstance(ta, dict):
+        return {k: _map2(fn, ta[k], tb[k]) for k in ta}
+    return fn(ta, tb)
+
+
+# Families of the JAX package not ported yet -> the ROADMAP item.
+PENDING_FAMILIES = {"vlm": "ROADMAP A16b (vlm: M-RoPE, qkv bias)",
+                    "encdec": "ROADMAP A16c (encdec: cross attention)"}
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family in PENDING_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported to repro_torch yet "
-            "(ssm/hybrid/encdec/vlm: ROADMAP A16)")
+            f"family {cfg.family!r} is not ported to repro_torch yet: "
+            f"{PENDING_FAMILIES[cfg.family]}")
     return ModelAPI(
         cfg=cfg,
         init=functools.partial(_lm_init_kw, cfg),

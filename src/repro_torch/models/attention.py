@@ -39,7 +39,7 @@ D = nope + rope, Dv = v_head_dim; decode absorbs kv_b into the query and
 output sides and attends the latents in place (the MLA form of
 ``kernels.paged_attention``, or the gather / contiguous plain paths).
 
-Cross attention is not ported yet (ROADMAP A16).
+Cross attention is not ported yet (ROADMAP A16c).
 """
 from __future__ import annotations
 

@@ -1,23 +1,26 @@
-"""Decoder-only LM assembly, dense and moe families, ported from
-``repro.models.lm``.
+"""Decoder-only LM assembly, ported from ``repro.models.lm``: the dense
+and moe families and the recurrent ones, ssm (mamba2) and hybrid (jamba).
 
 Parameters are plain dicts of tensors. The JAX package stacks each layer
 group along a leading axis and scans over it (``jax.lax.scan``); here a
 group is a Python list of per-layer dicts and every pass is a Python
-loop over the layer index. The KV caches keep the stacked layout
-``{group: {"k": (layers, ...), "v": ...}}`` (MLA: ``{"ckv", "krope"}``)
-— paged (layers, NP, bs, ...), with ``{"q", "s"}`` dicts on an int8
-arena, or contiguous (layers, B, S, ...) — and layer ``i`` writes in
-place through the view ``cache[group]["k"][i]``. ``lm_prefill`` returns
-its caches in the same stacked layout.
+loop over the layer index. jamba's period-8 pattern is one group,
+``"blocks"``, whose entries are dicts of 8 distinct sub-layers
+``sub0..sub7`` (the JAX package's layout). The caches keep the stacked
+layout ``{group: {"k": (layers, ...), "v": ...}}`` (MLA: ``{"ckv",
+"krope"}``; an SSM layer: ``{"conv", "ssm"}``; jamba: ``{"blocks":
+{"sub{i}": ...}}``) — attention leaves paged (layers, NP, bs, ...), with
+``{"q", "s"}`` dicts on an int8 arena, or contiguous (layers, B, S,
+...); SSM state leaves per slot (layers, B, ...) on either arena — and
+layer ``i`` writes in place through the view ``cache[group][leaf][i]``.
+``lm_prefill`` returns its caches in the same stacked layout.
 
-Embeddings come from plain tokens only: M-RoPE, vision and encoder
-inputs wait for ROADMAP A16.
+Embeddings come from plain tokens only: M-RoPE and vision inputs wait
+for ROADMAP A16b, encoder inputs for A16c.
 
-Ported layer kinds: the GQA and MLA mixers, the dense SwiGLU and the MoE
-FFN (the dense and moe families: qwen3, granite-moe, deepseek-v3, whose
-first ``first_dense_layers`` FFNs are dense at ``dense_d_ff``). SSM,
-hybrid, enc-dec and vlm wait for ROADMAP A16.
+Ported layer kinds: the GQA, MLA and SSM (mamba2) mixers; the dense
+SwiGLU, the MoE FFN and no FFN (mamba2). deepseek-v3's first
+``first_dense_layers`` FFNs are dense at ``dense_d_ff``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.layers import Params
 
 
@@ -72,20 +75,37 @@ def layer_groups(cfg: ModelConfig):
     return groups
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    for _, _, subs in layer_groups(cfg):
-        for mixer, ffn in subs:
-            if mixer not in ("gqa", "mla") or ffn not in ("dense", "moe"):
-                raise NotImplementedError(
-                    f"{cfg.name}: the ({mixer}, {ffn}) layer is not ported "
-                    "(ssm/hybrid/encdec/vlm are ROADMAP A16)")
+def _has_attention(cfg: ModelConfig) -> bool:
+    return any(mixer != "ssm" for _, _, subs in layer_groups(cfg)
+               for mixer, _ in subs)
+
+
+def _group_layers(group_params, subs, group_cache=None):
+    """The layers of one group in order: (params, mixer, ffn, cache view
+    or None) — a plain group's entries, or each block's sub-layers
+    ``sub0..`` for jamba's hybrid group. The cache view is layer ``i``'s
+    slice of the group's stacked leaves."""
+    for i, lp in enumerate(group_params):
+        for j, (mixer, ffn) in enumerate(subs):
+            sub = lp if len(subs) == 1 else lp[f"sub{j}"]
+            view = None
+            if group_cache is not None:
+                leaves = group_cache if len(subs) == 1 \
+                    else group_cache[f"sub{j}"]
+                view = {k: _layer_leaf(v, i) for k, v in leaves.items()}
+            yield sub, mixer, ffn, view
 
 
 def layer_init(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str,
                fmt: str) -> Params:
     p: Params = {"mixer_norm": layers.rmsnorm_init(cfg.d_model, gen.device)}
-    p["attn"] = (attn.mla_init if mixer == "mla" else attn.gqa_init)(
-        gen, cfg, fmt)
+    if mixer == "ssm":
+        p["ssm"] = ssm.ssm_init(gen, cfg, fmt)
+    else:
+        p["attn"] = (attn.mla_init if mixer == "mla" else attn.gqa_init)(
+            gen, cfg, fmt)
+    if ffn == "none":
+        return p
     p["ffn_norm"] = layers.rmsnorm_init(cfg.d_model, gen.device)
     if ffn == "moe":
         p["ffn"] = moe.moe_init(gen, cfg, fmt)
@@ -100,7 +120,6 @@ def layer_init(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str,
 def lm_init(gen: torch.Generator, cfg: ModelConfig,
             quant: str = "none") -> Params:
     """Random parameters on ``gen.device`` from the generator's stream."""
-    _check_ported(cfg)
     recipe = layers.recipe_for(quant)
     fmt_lin, fmt_emb = recipe["linear"], recipe["embed"]
     params: Params = {
@@ -109,9 +128,15 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig,
         "final_norm": layers.rmsnorm_init(cfg.d_model, gen.device),
     }
     for name, count, subs in layer_groups(cfg):
-        (mixer, ffn), = subs
-        params[name] = [layer_init(gen, cfg, mixer, ffn, fmt_lin)
-                        for _ in range(count)]
+        if len(subs) == 1:
+            (mixer, ffn), = subs
+            params[name] = [layer_init(gen, cfg, mixer, ffn, fmt_lin)
+                            for _ in range(count)]
+        else:
+            params[name] = [{f"sub{j}": layer_init(gen, cfg, mixer, ffn,
+                                                   fmt_lin)
+                             for j, (mixer, ffn) in enumerate(subs)}
+                            for _ in range(count)]
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.linear_init(
             gen, cfg.d_model, cfg.vocab_size, fmt_emb)
@@ -120,7 +145,9 @@ def lm_init(gen: torch.Generator, cfg: ModelConfig,
 
 def _ffn(p: Params, cfg: ModelConfig, h: torch.Tensor, ffn: str, fmt: str):
     """Pre-norm FFN residual: (h + FFN(norm(h)), the MoE aux loss or None
-    for a dense FFN)."""
+    for a dense FFN); h itself for a layer without FFN (mamba2)."""
+    if ffn == "none":
+        return h, None
     hn = layers.rmsnorm_apply(p["ffn_norm"], h, cfg.norm_eps)
     if ffn == "moe":
         y, aux = moe.moe_apply(p["ffn"], cfg, hn, fmt=fmt)
@@ -138,11 +165,16 @@ def layer_apply(p: Params, cfg: ModelConfig, h: torch.Tensor, rope, *,
 
 def layer_prefill(p: Params, cfg: ModelConfig, h: torch.Tensor, rope, *,
                   mixer: str, ffn: str, fmt: str):
-    """Full-sequence layer that also returns its cache ({"k", "v"}, or
-    MLA's {"ckv", "krope"}). Returns (h, cache, aux loss or None)."""
+    """Full-sequence layer that also returns its cache ({"k", "v"}, MLA's
+    {"ckv", "krope"}, or the SSM's final {"conv", "ssm"} state). Returns
+    (h, cache, aux loss or None)."""
     hn = layers.rmsnorm_apply(p["mixer_norm"], h, cfg.norm_eps)
-    prefill = attn.mla_prefill if mixer == "mla" else attn.gqa_prefill
-    mix, cache = prefill(p["attn"], cfg, hn, rope, fmt=fmt)
+    if mixer == "ssm":
+        mix, cache = ssm.ssm_apply(p["ssm"], cfg, hn, fmt=fmt,
+                                   return_state=True)
+    else:
+        prefill = attn.mla_prefill if mixer == "mla" else attn.gqa_prefill
+        mix, cache = prefill(p["attn"], cfg, hn, rope, fmt=fmt)
     h, aux = _ffn(p, cfg, h + mix, ffn, fmt)
     return h, cache, aux
 
@@ -153,12 +185,17 @@ def layer_decode(p: Params, cfg: ModelConfig, h: torch.Tensor,
                  lengths=None, paged_impl: str = "fused",
                  step: Optional[attn.PagedStep] = None) -> torch.Tensor:
     """Decode layer step over a chunk of C tokens; writes this layer's
-    pages in ``cache`` in place. Returns h."""
+    pages (or, for an SSM layer, its slots' state) in ``cache`` in place.
+    Returns h."""
     hn = layers.rmsnorm_apply(p["mixer_norm"], h, cfg.norm_eps)
-    decode = attn.mla_decode if mixer == "mla" else attn.gqa_decode
-    mix, _ = decode(p["attn"], cfg, hn, position, cache, fmt=fmt,
-                    block_tables=block_tables, lengths=lengths,
-                    paged_impl=paged_impl, step=step)
+    if mixer == "ssm":
+        mix, _ = ssm.ssm_decode(p["ssm"], cfg, hn, cache, fmt=fmt,
+                                lengths=lengths)
+    else:
+        decode = attn.mla_decode if mixer == "mla" else attn.gqa_decode
+        mix, _ = decode(p["attn"], cfg, hn, position, cache, fmt=fmt,
+                        block_tables=block_tables, lengths=lengths,
+                        paged_impl=paged_impl, step=step)
     return _ffn(p, cfg, h + mix, ffn, fmt)[0]
 
 
@@ -171,18 +208,21 @@ def _lm_head(params, cfg: ModelConfig, h, quant: str):
 
 def _embed_tokens(params, cfg: ModelConfig, batch: Dict, quant: str):
     """(h, rope): the batch's token embeddings in bf16 and the RoPE
-    tables of its (B, S) positions. Only ``batch["tokens"]`` is read; vision and
-    encoder inputs are ROADMAP A16."""
+    tables of its (B, S) positions (None without attention). Only
+    ``batch["tokens"]`` is read; vision inputs and M-RoPE are ROADMAP
+    A16b, encoder inputs A16c."""
     extra = set(batch) - {"tokens", "labels"}
     if extra or cfg.mrope:
         raise NotImplementedError(
-            f"inputs {sorted(extra)} / M-RoPE are ROADMAP A16; the port "
-            "embeds plain tokens only")
+            f"inputs {sorted(extra)} / M-RoPE are ROADMAP A16b (vlm) and "
+            "A16c (encdec); the port embeds plain tokens only")
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = layers.embedding_lookup(params["embed"], tokens,
                                 layers.recipe_for(quant)["embed"],
                                 torch.bfloat16, width=cfg.d_model)
+    if not _has_attention(cfg):
+        return h, None
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     return h, attn.rope_tables(cfg, positions)
 
@@ -195,8 +235,7 @@ def lm_forward(params, cfg: ModelConfig, batch: Dict, *, quant="none"):
     h, rope = _embed_tokens(params, cfg, batch, quant)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for name, _, subs in layer_groups(cfg):
-        (mixer, ffn), = subs
-        for lp in params[name]:
+        for lp, mixer, ffn, _ in _group_layers(params[name], subs):
             h, aux = layer_apply(lp, cfg, h, rope, mixer=mixer, ffn=ffn,
                                  fmt=fmt)
             if aux is not None:
@@ -208,20 +247,23 @@ def lm_forward(params, cfg: ModelConfig, batch: Dict, *, quant="none"):
 def lm_prefill(params, cfg: ModelConfig, batch: Dict, *, quant="none"):
     """Prefill: returns (last-token logits (B, 1, V), caches) with caches
     ``{group: {"k": (layers, B, S, Hkv, D), "v": ...}}`` (MLA:
-    ``{"ckv": (layers, B, S, rank), "krope": ...}``), the JAX package's
-    stacked layout."""
+    ``{"ckv": (layers, B, S, rank), "krope": ...}``; SSM: ``{"conv":
+    (layers, B, K-1, conv_dim), "ssm": (layers, B, H, N, P)}``; jamba:
+    ``{"blocks": {"sub{i}": ...}}``), the JAX package's stacked layout."""
     fmt = layers.recipe_for(quant)["linear"]
     h, rope = _embed_tokens(params, cfg, batch, quant)
     caches = {}
     for name, _, subs in layer_groups(cfg):
-        (mixer, ffn), = subs
-        per_layer = []
-        for lp in params[name]:
+        per_sub = [[] for _ in subs]
+        for n, (lp, mixer, ffn, _) in enumerate(_group_layers(params[name],
+                                                              subs)):
             h, c, _ = layer_prefill(lp, cfg, h, rope, mixer=mixer, ffn=ffn,
                                     fmt=fmt)
-            per_layer.append(c)
-        caches[name] = {k: torch.stack([c[k] for c in per_layer])
-                        for k in per_layer[0]}
+            per_sub[n % len(subs)].append(c)
+        stacked = [{k: torch.stack([c[k] for c in per_layer])
+                    for k in per_layer[0]} for per_layer in per_sub]
+        caches[name] = stacked[0] if len(subs) == 1 else \
+            {f"sub{j}": c for j, c in enumerate(stacked)}
     h = layers.rmsnorm_apply(params["final_norm"], h[:, -1:], cfg.norm_eps)
     return _lm_head(params, cfg, h, quant), caches
 
@@ -252,11 +294,11 @@ def lm_decode_step(params, cfg: ModelConfig, token: torch.Tensor,
                                 torch.bfloat16, width=cfg.d_model)
     step = None
     for name, count, subs in layer_groups(cfg):
-        (mixer, ffn), = subs
-        group = cache[name]
-        for i, lp in enumerate(params[name]):
-            layer_cache = {k: _layer_leaf(v, i) for k, v in group.items()}
-            if step is None:        # one routing/RoPE plan for all layers
+        for lp, mixer, ffn, layer_cache in _group_layers(
+                params[name], subs, cache[name]):
+            if step is None and mixer != "ssm":
+                # One routing/RoPE plan for all attention layers, from the
+                # first one's K (or latent) leaf; SSM layers need none.
                 step = attn.paged_step(cfg, position, block_tables, lengths,
                                        next(iter(layer_cache.values())),
                                        token.shape[1])
@@ -269,11 +311,23 @@ def lm_decode_step(params, cfg: ModelConfig, token: torch.Tensor,
 
 
 def lm_cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> Dict:
-    """Cache shapes per layer group (leading layer axis)."""
+    """Cache shapes per layer group (leading layer axis); jamba's group
+    holds one such dict per sub-layer."""
     out = {}
     for name, count, subs in layer_groups(cfg):
-        (mixer, _), = subs
-        shape = (attn.mla_cache_shape if mixer == "mla"
-                 else attn.gqa_cache_shape)(cfg, batch, seq)
-        out[name] = {k: (count,) + v for k, v in shape.items()}
+        shapes = []
+        for mixer, _ in subs:
+            shape = layer_cache_shape(cfg, mixer, batch, seq)
+            shapes.append({k: (count,) + v for k, v in shape.items()})
+        out[name] = shapes[0] if len(subs) == 1 else \
+            {f"sub{j}": s for j, s in enumerate(shapes)}
     return out
+
+
+def layer_cache_shape(cfg: ModelConfig, mixer: str, batch: int, seq: int):
+    """One layer's cache shapes (no layer axis)."""
+    if mixer == "gqa":
+        return attn.gqa_cache_shape(cfg, batch, seq)
+    if mixer == "mla":
+        return attn.mla_cache_shape(cfg, batch, seq)
+    return ssm.ssm_cache_shape(cfg, batch)

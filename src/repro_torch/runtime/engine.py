@@ -35,9 +35,14 @@ prefix, and the rejected suffix is rolled back in place (KV positions
 zeroed, paged table tails trimmed). Proposal lanes are funded from the
 step's leftover token budget and shrink with a per-slot accept-rate EMA.
 
+The recurrent families (mamba2, jamba) serve through the same step:
+their SSM state lives per slot beside the pages (``runtime/kvcache.py``)
+and admission zeroes it (``reset_slot``). They refuse speculation, the
+prefix cache and int8 pages, as the JAX engine does.
+
 Not ported yet, refused by the constructor with the ROADMAP item that
-ports them: serving meshes (A17) and the ssm/hybrid/encdec/vlm families
-(A16).
+ports them: serving meshes (A17) and the vlm and encdec families
+(A16b, A16c).
 """
 from __future__ import annotations
 
@@ -50,7 +55,7 @@ import torch
 
 from repro_torch.core import convert
 from repro_torch.kernels import _build
-from repro_torch.models.api import ModelAPI
+from repro_torch.models.api import PENDING_FAMILIES, ModelAPI
 from repro_torch.runtime import sampling, speculative
 from repro_torch.runtime.kvcache import KV_QUANT_MODES, KVArena, PagedKVArena
 from repro_torch.runtime.request import (Request, SamplingParams, SeqState,
@@ -239,8 +244,9 @@ class ServingEngine:
                     "quantize-on-insert path")
         refusals = [
             (mesh is not None, "serving meshes are ROADMAP A17"),
-            (model.cfg.family not in ("dense", "moe"),
-             f"the {model.cfg.family!r} family is ROADMAP A16"),
+            (model.cfg.family in PENDING_FAMILIES,
+             f"the {model.cfg.family!r} family is "
+             f"{PENDING_FAMILIES.get(model.cfg.family)}"),
         ]
         for refused, why in refusals:
             if refused:
@@ -553,7 +559,7 @@ class ServingEngine:
         stats.live_tokens_sum += int(sum(
             s.position + feeds[slot]
             for slot, s in self.sched.active.items()))
-        if self.paged:
+        if self.paged and self.arena.has_paged:
             stats.paged_kv_read_bytes += self._paged_reads(pos0, lens) \
                 * self.arena.block_bytes()
         # The contiguous arena grows by token, the paged one by block (at

@@ -23,6 +23,13 @@ changes a tensor shape: the tables ride into the step as a
 With ``kv_quant="int8"`` every paged leaf stores int8 code pages plus
 fp16 scale pages (``page_layout``).
 
+Constant-size *state* leaves (the SSM conv window and recurrent state of
+mamba2 and jamba) are not paged: both arenas keep them per slot,
+(layers, num_slots, ...), in the dtype the decode step emits
+(``step_leaf_dtypes``), and zero a slot's state at admission
+(``reset_slot``). A model with no paged leaf (mamba2) holds a degenerate
+one-block table per slot.
+
 With ``prefix_cache=True`` the allocator is refcounted and slots may map
 the same full prompt blocks (``PrefixCache``, copy-on-write before any
 write lands on a shared page). The split's page copy is one indexed
@@ -53,38 +60,50 @@ from repro_torch.models.attention import KV_QUANT_SCALE_DTYPE
 KV_QUANT_MODES = ("none", "int8")
 
 
-def _map(fn, tree):
-    """``fn`` over the leaves (shape tuples or tensors) of a nested dict."""
+def _items(tree, path=()) -> list:
+    """(key path, leaf) pairs of a nested dict, in key order."""
     if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        return [x for k in sorted(tree) for x in _items(tree[k], path + (k,))]
+    return [(path, tree)]
 
 
 def _leaves(tree) -> list:
     """Leaves of a nested dict, in key order."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in _leaves(tree[k])]
-    return [tree]
+    return [x for _, x in _items(tree)]
 
 
-def allocate(model: ModelAPI, batch: int, max_seq: int,
-             dtype=torch.bfloat16, device="cuda") -> Dict:
-    """Zero-filled cache tree sized for ``max_seq`` (the arena storage)."""
-    return _map(lambda s: torch.zeros(s, dtype=dtype, device=device),
-                model.cache_shapes(batch, max_seq))
+def _build(shapes, dtypes, device) -> Dict:
+    """Zero tensors of ``shapes`` (a nested dict of shape tuples), leaf i
+    in ``dtypes[i]`` (``_leaves`` order)."""
+    it = iter(dtypes)
+
+    def mk(node):
+        if isinstance(node, dict):
+            return {k: mk(node[k]) for k in sorted(node)}
+        return torch.zeros(node, dtype=next(it), device=device)
+    return mk(shapes)
+
+
+# The dtype the decode step hands back for each kind of state leaf, given
+# the arena's cache dtype: the conv window is the activations' (bf16)
+# joined with the stored window (``_causal_conv``'s concatenation), the
+# SSM state accumulates in f32.
+_STATE_DTYPES = {"conv": lambda dt: torch.promote_types(dt, torch.bfloat16),
+                 "ssm": lambda dt: torch.float32}
 
 
 def step_leaf_dtypes(model: ModelAPI, batch: int, max_seq: int, dtype,
                      const_flags: Tuple[bool, ...]) -> Tuple:
     """Per-leaf arena storage dtypes (leaf order). Seq-indexed KV leaves
-    store the requested cache ``dtype``. The JAX package probes the
-    decode step for the dtype its constant-size *state* leaves (SSM
-    state, enc-dec cross KV) come back in; the port has no such family
-    yet (ROADMAP A16), so it refuses them."""
-    if any(const_flags):
-        raise NotImplementedError("constant-size state leaves (ssm/hybrid/"
-                                  "encdec) are ROADMAP A16")
-    return tuple(dtype for _ in const_flags)
+    store the requested cache ``dtype``; constant-size *state* leaves
+    store what the decode step emits for them at fixed point — the JAX
+    package probes that with ``jax.eval_shape`` of one decode step; the
+    port states it per leaf kind (``_STATE_DTYPES``: the SSM state f32,
+    the conv window bf16 on a bf16 arena)."""
+    names = [path[-1] for path, _ in
+             _items(model.cache_shapes(batch, max_seq))]
+    return tuple(_STATE_DTYPES[n](dtype) if const else dtype
+                 for n, const in zip(names, const_flags))
 
 
 def cache_nbytes(tree) -> int:
@@ -303,15 +322,18 @@ class KVArena:
         self.dtype = dtype
         self.device = torch.device(device)
         self._free = _FreeHeap(num_slots)
-        # Leaves whose extent does not follow the sequence length carry
-        # state, not masked history (the JAX package's probe at two
-        # lengths); step_leaf_dtypes refuses them (ROADMAP A16).
-        ta = _leaves(model.cache_shapes(num_slots, 160))
-        tb = _leaves(model.cache_shapes(num_slots, 224))
-        step_leaf_dtypes(model, num_slots, max_seq, dtype,
-                         tuple(a == b for a, b in zip(ta, tb)))
-        self.buffers = allocate(model, num_slots, max_seq, dtype,
-                                self.device)
+        # Leaves whose extent does not follow the sequence length (SSM
+        # conv/recurrent state) carry state, not masked history —
+        # admission must zero them (the JAX package's probe at two
+        # lengths).
+        self._const_flags: Tuple[bool, ...] = tuple(
+            _leaves(model.state_leaves(num_slots)))
+        # Per-leaf storage dtypes: state leaves keep the dtype the decode
+        # step emits (f32 SSM state).
+        self.buffers = _build(model.cache_shapes(num_slots, max_seq),
+                              step_leaf_dtypes(model, num_slots, max_seq,
+                                               dtype, self._const_flags),
+                              self.device)
         self._nbytes = cache_nbytes(self.buffers)
 
     # -- slot lifecycle -------------------------------------------------
@@ -341,10 +363,11 @@ class KVArena:
         _arena_insert(self.buffers, prefill_cache, slot)
 
     def reset_slot(self, slot: int) -> None:
-        """The admission hook that zeroes a slot's constant-size state
-        leaves. Seq-indexed KV leaves are left alone (stale history is
-        masked by kv_len and rewritten before use), and state leaves are
-        refused at construction, so there is nothing to zero."""
+        """Zero ``slot``'s constant-size state leaves for a fresh chunked
+        admission. Seq-indexed KV leaves are left alone (stale history is
+        masked by kv_len and rewritten before use); a pure-attention
+        model has nothing to zero."""
+        _zero_const_leaves(self.buffers, slot, self._const_flags)
 
     def nbytes(self) -> int:
         """Total device bytes of the arena's cache storage."""
@@ -355,7 +378,9 @@ class KVArena:
         return self.nbytes() / self.num_slots
 
     def token_bytes(self) -> float:
-        """Cache bytes appended per generated token."""
+        """Cache bytes appended per generated token (exact for pure
+        seq-indexed KV; constant-size SSM states amortized over
+        max_seq)."""
         return self.slot_bytes() / self.max_seq
 
     def resident_bytes(self) -> float:
@@ -376,18 +401,26 @@ class KVArena:
         if count <= 0:
             return
         lo, hi = min(start, self.max_seq), min(start + count, self.max_seq)
-        for leaf in _leaves(self.buffers):
-            leaf[:, slot, lo:hi] = 0
+        for leaf, const in zip(_leaves(self.buffers), self._const_flags):
+            if not const:
+                leaf[:, slot, lo:hi] = 0
+
+
+def _zero_const_leaves(buffers: Dict, slot: int, const_flags) -> None:
+    """Zero the constant-size leaves of one arena slot in place (leaves
+    (layers, slots, ...)), so a fresh admission never sees its
+    predecessor's recurrent state."""
+    for leaf, const in zip(_leaves(buffers), const_flags):
+        if const:
+            leaf[:, slot].zero_()
 
 
 def _arena_insert(arena: Dict, prefill_cache: Dict, slot: int) -> None:
     """Write a B=1 prefill cache into arena slot ``slot`` in place: leaves
     are (L, B, S, ...), the prefill's (L, 1, P, ...) lands at (0, slot,
-    0, ...)."""
-    for name, leaves in arena.items():
-        for k, a in leaves.items():
-            c = prefill_cache[name][k]
-            a[:, slot:slot + 1, :c.shape[2]].copy_(c)
+    0, ...) (a state leaf's (L, 1, ...) fills the slot's state)."""
+    for a, c in zip(_leaves(arena), _leaves(prefill_cache)):
+        a[:, slot:slot + 1, :c.shape[2]].copy_(c)
 
 
 class PagedKVArena:
@@ -415,7 +448,11 @@ class PagedKVArena:
     With ``kv_quant="int8"`` every paged leaf is ``{"q": int8 code
     pages, "s": fp16 scale pages}`` (quantize-on-insert in the decode
     step, dequantization in the fused kernel); a split copies the scale
-    pages with the code pages."""
+    pages with the code pages.
+
+    Constant-size state leaves (SSM conv/recurrent state) are not paged:
+    they keep per-slot storage (layers, num_slots, ...) beside the pages,
+    and a model with no paged leaf holds a one-block table per slot."""
 
     def __init__(self, model: ModelAPI, num_slots: int, max_seq: int,
                  block_size: int, num_blocks: Optional[int] = None,
@@ -438,25 +475,39 @@ class PagedKVArena:
         self.dtype = dtype
         self.kv_quant = kv_quant
         self.device = torch.device(device)
+        state = _leaves(model.state_leaves(num_slots))
+        if kv_quant == "int8" and all(state):
+            raise ValueError(
+                "kv_quant requires paged (seq-indexed) KV leaves; "
+                "constant-size recurrent state has no per-position rows "
+                "to quantize independently")
         shapes = model.paged_cache_shapes(num_slots, num_blocks + 1,
                                           block_size, kv_quant=kv_quant)
-        self.buffers = {}
-        for name, group in shapes.items():
-            self.buffers[name] = {}
-            for k, s in group.items():
-                self.buffers[name][k] = {
-                    "q": torch.zeros(s["q"], dtype=torch.int8,
-                                     device=self.device),
-                    "s": torch.zeros(s["s"], dtype=KV_QUANT_SCALE_DTYPE,
-                                     device=self.device),
-                } if kv_quant == "int8" else torch.zeros(
-                    s, dtype=dtype, device=self.device)
-        leaves = _leaves(self.buffers)
+        # Per-leaf dtypes: state leaves store what the decode step emits
+        # (f32 SSM state); pages store the cache dtype, or on an int8
+        # arena int8 codes and fp16 scales ("q" sorts before "s").
+        kinds = step_leaf_dtypes(model, num_slots, max_seq, dtype,
+                                 tuple(state))
+        flags, dts = [], []
+        for const, dt in zip(state, kinds):
+            if kv_quant == "int8" and not const:
+                flags += [True, True]
+                dts += [torch.int8, KV_QUANT_SCALE_DTYPE]
+            else:
+                flags.append(not const)
+                dts.append(dt)
+        self._paged_flags: Tuple[bool, ...] = tuple(flags)
+        self.has_paged = any(flags)
+        self.buffers = _build(shapes, dts, self.device)
         self._nbytes = cache_nbytes(self.buffers)
-        # Bytes of one physical block across every layer's K and V (codes
-        # and scales alike on an int8 arena).
+        # Bytes of one physical block across every layer's paged leaves
+        # (codes and scales alike on an int8 arena), and of the per-slot
+        # state of all slots.
         self._block_bytes = float(sum(
-            t.numel() // t.shape[1] * t.element_size() for t in leaves))
+            t.numel() // t.shape[1] * t.element_size()
+            for t in self._paged_leaves()))
+        self._const_bytes = self._nbytes \
+            - self._block_bytes * (num_blocks + 1)
         self.allocator = BlockAllocator(num_blocks, block_size)
         self._free_slots = _FreeHeap(num_slots)
         self.tables = np.full((num_slots, self.max_blocks), self.null_block,
@@ -466,8 +517,19 @@ class PagedKVArena:
         self.cow_splits = 0             # copy-on-write block splits
         self.prefix_cache: Optional[PrefixCache] = None
         if prefix_cache:
+            if not self.has_paged:
+                raise ValueError(
+                    "prefix_cache requires paged (seq-indexed) KV leaves; "
+                    "constant-size recurrent state is not addressable by "
+                    "token-block chains")
             self.prefix_cache = PrefixCache(block_size)
             self.allocator.on_alloc = self.prefix_cache.invalidate_block
+
+    def _paged_leaves(self) -> list:
+        """The page tensors (layers, num_pages, block_size, ...), in leaf
+        order: every leaf but the per-slot state."""
+        return [t for t, f in zip(_leaves(self.buffers), self._paged_flags)
+                if f]
 
     # -- queries ---------------------------------------------------------
     def page_layout(self) -> dict:
@@ -495,8 +557,16 @@ class PagedKVArena:
         """Slots available for admission."""
         return len(self._free_slots)
 
+    @property
+    def used_slots(self) -> int:
+        """Slots hosting a live sequence."""
+        return self.num_slots - len(self._free_slots)
+
     def blocks_needed(self, tokens: int) -> int:
-        """Blocks covering ``tokens`` cache positions."""
+        """Blocks covering ``tokens`` cache positions (1 for a model with
+        no seq-indexed cache — the degenerate one-block table)."""
+        if not self.has_paged:
+            return 1
         return self.allocator.blocks_for(tokens)
 
     def slot_blocks(self, slot: int) -> List[int]:
@@ -596,7 +666,7 @@ class PagedKVArena:
         chains already published (by this sequence's own cache hit, or a
         sibling's earlier prefill) are skipped. Returns new entries."""
         pc = self.prefix_cache
-        if pc is None:
+        if pc is None or not self.has_paged:
             return 0
         nfull = len(prompt_tokens) // self.block_size
         owned = self._slot_blocks[slot]
@@ -619,7 +689,7 @@ class PagedKVArena:
         exhaustion (the caller preempts a victim and retries). The JAX
         package pads the copy to a static width to keep one compilation;
         the eager copy here needs no pad."""
-        if count <= 0 or self.prefix_cache is None:
+        if count <= 0 or self.prefix_cache is None or not self.has_paged:
             return 0
         bs = self.block_size
         owned = self._slot_blocks[slot]
@@ -648,7 +718,7 @@ class PagedKVArena:
         ``dst`` blocks are fresh, so the copy has no duplicate target."""
         s = torch.tensor(src, dtype=torch.long, device=self.device)
         d = torch.tensor(dst, dtype=torch.long, device=self.device)
-        for leaf in _leaves(self.buffers):
+        for leaf in self._paged_leaves():
             leaf.index_copy_(1, d, leaf.index_select(1, s))
 
     def ensure(self, slot: int, tokens: int) -> Optional[int]:
@@ -682,14 +752,17 @@ class PagedKVArena:
         self.free_slot(slot)
 
     def reset_slot(self, slot: int) -> None:
-        """``KVArena``'s admission hook: every leaf of a dense or moe
-        model is paged (masked history, not state), so there is nothing
-        to zero."""
+        """Zero ``slot``'s constant-size (non-paged) state leaves for a
+        fresh chunked admission — SSM conv/recurrent state carries state,
+        not masked history. Paged leaves are left alone (stale pages are
+        masked by kv_len and rewritten before use)."""
+        _zero_const_leaves(self.buffers, slot,
+                           tuple(not f for f in self._paged_flags))
 
     # -- storage ---------------------------------------------------------
     def write_prefill(self, prefill_cache: Dict, slot: int) -> None:
         """The JAX package scatters a prefill cache into a slot's blocks
-        only for the enc-dec admission pass (ROADMAP A16). An int8 arena
+        only for the enc-dec admission pass (ROADMAP A16c). An int8 arena
         refuses it for good: quantized serving feeds prompts through the
         chunked step (quantize-on-insert)."""
         if self.kv_quant != "none":
@@ -698,7 +771,7 @@ class PagedKVArena:
                 "cache into int8 pages; quantized serving feeds prompts "
                 "through the chunked step (quantize-on-insert)")
         raise NotImplementedError("the paged write_prefill serves the "
-                                  "enc-dec admission, ROADMAP A16")
+                                  "enc-dec admission, ROADMAP A16c")
 
     # -- byte accounting --------------------------------------------------
     def nbytes(self) -> int:
@@ -709,14 +782,23 @@ class PagedKVArena:
         """Bytes of paged storage backing one physical block."""
         return self._block_bytes
 
+    def const_bytes(self) -> float:
+        """Bytes of non-paged per-slot storage (SSM states), all slots."""
+        return self._const_bytes
+
     def token_bytes(self) -> float:
-        """Cache bytes appended per generated token."""
+        """Cache bytes appended per generated token (paged leaves only;
+        constant-size states are admission-time, not per-token)."""
+        if not self.has_paged:
+            return self.const_bytes() / max(self.num_slots, 1) / self.max_seq
         return self.block_bytes() / self.block_size
 
     def resident_bytes(self) -> float:
-        """Bytes pinned by live sequences right now (allocated blocks at
-        block granularity)."""
-        return self.allocator.used_blocks * self.block_bytes()
+        """Bytes pinned by live sequences right now: allocated blocks at
+        block granularity, plus the per-slot state of used slots."""
+        const_slot = self.const_bytes() / max(self.num_slots, 1)
+        return self.allocator.used_blocks * self.block_bytes() \
+            + self.used_slots * const_slot
 
     # -- speculative rollback -------------------------------------------
     def rollback(self, slot: int, start: int, count: int,
@@ -737,7 +819,7 @@ class PagedKVArena:
         offset) pairs are zeroed, one index-put per leaf; they are
         distinct, so the put has no duplicate target. ``width`` is the
         JAX signature's static pad width; the eager put needs none."""
-        if count <= 0:
+        if count <= 0 or not self.has_paged:
             return 0
         bs = self.block_size
         pos = np.arange(start, start + count)
@@ -750,7 +832,7 @@ class PagedKVArena:
             put = lambda a: torch.from_numpy(  # noqa: E731
                 a[zeroable].astype(np.int64)).to(self.device)
             phys, offs = put(blk), put(pos % bs)
-            for leaf in _leaves(self.buffers):
+            for leaf in self._paged_leaves():
                 leaf[:, phys, offs] = 0
         keep = self.blocks_needed(start) if start else 0
         owned = self._slot_blocks[slot]

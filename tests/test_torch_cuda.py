@@ -755,3 +755,96 @@ def test_paged_attention_bf16_q_refuses_f32_pages(cuda):
     with pytest.raises(TypeError, match="bf16 or int8 pages"):
         paged_decode_attention(q, kp, kp, idx, pos, sm_scale=1.0)
     assert paged_decode_attention.launches == before
+
+
+# --- The recurrent families at full width: the card's path (matmul
+# kernels, and B1 at jamba's G = 4) against the plain path on the CPU.
+
+def _to(tree, d):
+    if isinstance(tree, dict):
+        return {k: _to(v, d) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, d) for v in tree]
+    return tree.to(d)
+
+
+def test_mamba2_full_width_steps_match_cpu(cuda):
+    """mamba2-1.3b at full width cut to 2 layers (q8_0): two chunked
+    steps on a paged arena (the state per slot, SSM state f32; the second
+    step reads the state the first left), valid rows' logits within 1e-2
+    of max|logit| of the CPU path's (bf16 activations in another
+    summation order, as chip_smoke.py's step checks), and the first
+    layer's state within 1e-2 of its scale (the second layer's is held
+    through the second step's logits: see chip_smoke.py's
+    ``check_mamba_steps_vs_cpu``)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.convert import quantize_params
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime.kvcache import PagedKVArena
+    model = build_model(dataclasses.replace(get_config("mamba2-1.3b"),
+                                            num_layers=2))
+    params = quantize_params(model.init(
+        torch.Generator(device=cuda).manual_seed(0)), "q8_0")
+    gen = torch.Generator().manual_seed(1)
+    i32 = torch.int32
+    steps = [(torch.randint(0, model.cfg.vocab_size, (2, 8), generator=gen,
+                            dtype=i32), torch.tensor([0, 0], dtype=i32),
+              torch.tensor([8, 3], dtype=i32)),
+             (torch.randint(0, model.cfg.vocab_size, (2, 8), generator=gen,
+                            dtype=i32), torch.tensor([8, 3], dtype=i32),
+              torch.tensor([8, 1], dtype=i32))]
+    got = {}
+    for d in ("cpu", cuda):
+        arena = PagedKVArena(model, 2, 32, block_size=16, device=d)
+        for _ in range(2):
+            arena.alloc_slot(1)
+        tables, _ = arena.device_tables()
+        logits = [model.decode_step(
+            _to(params, d), tok.to(d), pos.to(d), arena.buffers,
+            quant="q8_0", block_tables=tables, lengths=lens.to(d))[0]
+            .float().cpu() for tok, pos, lens in steps]
+        got[str(d)] = (logits, {k: v.float().cpu() for k, v in
+                                arena.buffers["layers0"].items()})
+        assert arena.buffers["layers0"]["ssm"].dtype == torch.float32
+    (la, sa), (lr, sr) = got[str(cuda)], got["cpu"]
+    for a, r, (_, _, lens) in zip(la, lr, steps):
+        for b, n in enumerate(lens):
+            err = float((a[b, :n] - r[b, :n]).abs().max())
+            assert err <= 1e-2 * float(r.abs().max())
+    for k in sa:
+        assert float((sa[k][0] - sr[k][0]).abs().max()) <= \
+            1e-2 * float(sr[k][0].abs().max())
+
+
+def test_jamba_attention_layer_g4_matches_cpu(cuda):
+    """jamba's attention layer at full width (H 32, Hkv 8, D 128: B1's
+    tensor-core kernel at G = 4, one launch) with its dense FFN (q8_0),
+    one chunked step over bf16 pages: valid rows within 1e-2 of max|out|
+    of the CPU path's."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b"), num_layers=8)
+    lp = lm.layer_init(torch.Generator(device=cuda).manual_seed(0), cfg,
+                       "gqa", "dense", "q8_0")
+    gen = torch.Generator().manual_seed(2)
+    h = torch.randn((2, 8, cfg.d_model), generator=gen).to(torch.bfloat16)
+    pages = {k: torch.randn((9, 16, 8, 128), generator=gen).to(
+        torch.bfloat16) for k in "kv"}
+    pos = torch.tensor([0, 5], dtype=torch.int32)
+    lens = torch.tensor([8, 3], dtype=torch.int32)
+    tables = torch.tensor([[3, 1, 8, 8], [0, 2, 8, 8]], dtype=torch.int32)
+    got = {}
+    for d in ("cpu", cuda):
+        before = paged_decode_attention.launches
+        out = lm.layer_decode(_to(lp, d), cfg, h.to(d), pos.to(d),
+                              _to(pages, d), mixer="gqa", ffn="dense",
+                              fmt="q8_0", block_tables=tables.to(d),
+                              lengths=lens.to(d))
+        got[str(d)] = out.float().cpu()
+    assert paged_decode_attention.launches == before + 1
+    a, r = got[str(cuda)], got["cpu"]
+    for b, n in enumerate(lens):
+        assert float((a[b, :n] - r[b, :n]).abs().max()) <= \
+            1e-2 * float(r.abs().max())

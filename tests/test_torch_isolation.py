@@ -7,8 +7,9 @@ fallback, no kernel build on the CPU path.
   package in ``src/repro_torch`` or ``chip_smoke.py``.
 * The CPU path (a reduced model's decode step under every recipe and on
   int8 pages, and its prefill, so every kernel wrapper; the MLA + MoE
-  deepseek-v3 and the MoE granite-moe too) never calls the kernel build
-  step (``_build``); every wrapper's library has a source.
+  deepseek-v3, the MoE granite-moe and the recurrent mamba2 and jamba
+  too) never calls the kernel build step (``_build``); every wrapper's
+  library has a source.
 * Architectures, families and serve flags not ported yet are refused,
   naming their ROADMAP item; the flags ported since (the prefix cache,
   the offload policy, the telemetry exports, speculative decoding) serve
@@ -124,6 +125,31 @@ def test_cpu_moe_archs_never_build_kernels(monkeypatch, arch, kv_quant):
                              arch=arch)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-v0.1-52b"])
+def test_cpu_recurrent_archs_never_build_kernels(monkeypatch, arch):
+    """mamba2 and jamba: a chunked decode step over a paged arena (state
+    leaves per slot beside jamba's pages) and a prefill, q8_0."""
+    from repro_torch.core.convert import quantize_params
+    from repro_torch.runtime.kvcache import PagedKVArena
+    cfg, model, params = _refuse_builds(monkeypatch, arch)
+    params = quantize_params(params, "q8_0")
+    arena = PagedKVArena(model, 2, 16, block_size=4, device="cpu")
+    for _ in range(2):
+        arena.alloc_slot(arena.blocks_needed(3))
+    tables, _ = arena.device_tables()
+    logits, _ = model.decode_step(
+        params, torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32),
+        torch.tensor([0, 0], dtype=torch.int32), arena.buffers,
+        quant="q8_0", block_tables=tables,
+        lengths=torch.tensor([3, 1], dtype=torch.int32))
+    assert logits.shape == (2, 3, cfg.vocab_size)
+    assert bool(torch.isfinite(logits.float()).all())
+    logits, _ = model.prefill(
+        params, {"tokens": torch.tensor([[1, 2, 3, 4, 5]],
+                                        dtype=torch.int32)}, quant="q8_0")
+    assert bool(torch.isfinite(logits.float()).all())
+
+
 def test_cpu_prefill_never_builds_kernels(monkeypatch):
     cfg, model, params = _refuse_builds(monkeypatch)
     logits, cache = model.prefill(
@@ -181,13 +207,13 @@ def test_serve_accepts_ported_features(argv, capsys, tmp_path):
 
 
 def test_engine_and_registry_refusals_name_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        get_config("jamba-v0.1-52b")
+    with pytest.raises(NotImplementedError, match="ROADMAP A16c"):
+        get_config("whisper-small")
     model = build_model(get_config("qwen3-0.6b").reduced())
     from repro_torch.runtime.engine import ServingEngine
-    hybrid = types.SimpleNamespace(cfg=types.SimpleNamespace(
-        family="hybrid"))
-    for m, kw, item in ((hybrid, dict(block_size=4), "A16"),
+    encdec = types.SimpleNamespace(cfg=types.SimpleNamespace(
+        family="encdec"))
+    for m, kw, item in ((encdec, dict(block_size=4), "A16c"),
                         (model, dict(block_size=4, mesh=object()), "A17")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             ServingEngine(m, {}, device="cpu", **kw)
@@ -208,6 +234,15 @@ def test_pending_archs_are_refused(arch):
                               family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP A16"):
         build_model(cfg)
+
+
+@pytest.mark.parametrize("arch,family", [("mamba2-1.3b", "ssm"),
+                                         ("jamba-v0.1-52b", "hybrid")])
+def test_recurrent_archs_are_ported(arch, family):
+    """mamba2 (ssm) and jamba (hybrid) resolve and build, and leave the
+    pending list."""
+    assert arch not in PENDING and family_of(arch) == family
+    assert build_model(get_config(arch)).cfg.name == arch
 
 
 def test_moe_archs_are_ported():

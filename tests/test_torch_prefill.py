@@ -120,7 +120,7 @@ def test_forward_matches_jax(recipes, quant):
 
 def test_prefill_refuses_non_token_inputs(recipes):
     _, _, model, tparams = recipes("q8_0")
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(NotImplementedError, match="A16b"):
         model.prefill(tparams, {
             "tokens": torch.zeros((1, 4), dtype=torch.int32),
             "vision_embeds": torch.zeros((1, 2, 8))})

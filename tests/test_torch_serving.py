@@ -99,11 +99,13 @@ def jax_logit_rows(jeng, run):
     return out, jrow, scale[0]
 
 
-def serve_both(quant, engine=ENGINE, arch="qwen3-0.6b", args=ARGS, **kw):
+def serve_both(quant, engine=ENGINE, arch="qwen3-0.6b", args=ARGS,
+               cache_dtype="float32", **kw):
     """The same stream (``build_stream`` of ``args``) through the JAX
     engine and the port's on the CPU, with the same weights (reduced
-    ``arch``) and engine arguments (``kw`` to both). The engines come back
-    too (``jeng``, ``teng``), still traced, for a second serve."""
+    ``arch``), arena dtype and engine arguments (``kw`` to both). The
+    engines come back too (``jeng``, ``teng``), still traced, for a
+    second serve."""
     cfg = ASSIGNED[arch].reduced()
     jmodel = jbuild(cfg)
     jparams = jax.jit(lambda key: jconvert.quantize_params(
@@ -116,14 +118,16 @@ def serve_both(quant, engine=ENGINE, arch="qwen3-0.6b", args=ARGS, **kw):
     treqs = tserve.build_stream(tcfg, args, np.random.RandomState(0))
 
     jtrace, ttrace = [], []
-    jeng = JaxEngine(jmodel, jparams, quant=quant, cache_dtype=jnp.float32,
+    jeng = JaxEngine(jmodel, jparams, quant=quant,
+                     cache_dtype=jnp.dtype(cache_dtype),
                      **engine, **kw)
     _trace(jeng, jtrace)
     jrep, jrow, scale = jax_logit_rows(
         jeng, lambda: jeng.serve(jreqs, seed=0, realtime=False))
 
     teng = ServingEngine(build_model(tcfg), tparams, quant=quant,
-                         cache_dtype=torch.float32, device="cpu", **engine,
+                         cache_dtype=getattr(torch, cache_dtype),
+                         device="cpu", **engine,
                          **kw)
     _trace(teng, ttrace)
     trep = teng.serve(treqs, seed=0, realtime=False)
