@@ -24,7 +24,10 @@ Phases, one line each (every failure exits non-zero):
             MLA forms run the tensor-core kernel (two launches
             bit-identical, no CUDA-core launch), also on a 4,096-page
             table; matmul_q8_0 also at mamba2's and jamba's projection
-            widths, B1 at jamba's G = 4 and B7 at its prefill;
+            widths, B1 at jamba's G = 4 and B7 at its prefill, B1 at
+            whisper's G = 1 / D 64 and qwen2-vl's G = 6 / D 128, B7
+            non-causal at whisper's encoder and cross shapes and at
+            qwen2-vl's prefill;
 4. serve  — ``repro_torch.launch.serve`` at the full width of
             qwen3-0.6b (seeded random weights made on the card): the
             paged stream once for each of the paper's weight recipes
@@ -76,6 +79,14 @@ Phases, one line each (every failure exits non-zero):
             ``--mode batch``, the stream (q8_0, bf16 pages beside
             per-slot SSM state) and an 8 x 512 prefill each, with exact
             launches per step and prefill;
+   conditioned — (after the recurrent runs, before any profiler
+            session) whisper-small at full width and depth (12 encoder
+            + 12 decoder layers; the encoder pass at each admission, the
+            cross K/V a per-slot state) and qwen2-vl-2b (28 layers,
+            M-RoPE, a 256-token stub vision prefix, 256-512-token
+            prompts): ``--mode batch``, the stream and a prefill each,
+            with exact launches per step, per admission and per
+            prefill;
 5. checks — per recipe, one full-width decode step (depth cut to 2
             layers) against the plain CPU path, and a shorter serve under
             torch.profiler; for q8_0 also a 2-layer prefill and a 2-layer
@@ -89,7 +100,13 @@ Phases, one line each (every failure exits non-zero):
             chunk
             bit-exact on the card, jamba's block-0 mamba, attention (B1
             at G = 4) and MoE layers against the CPU path, and a
-            profiled serve of each (the phase's seconds printed);
+            profiled serve of each (the phase's seconds printed); the
+            CPU path of mamba2's 2-layer steps again with every in_proj
+            output moved one bf16 ulp, to show how far rounding alone
+            spreads each layer's state; whisper's and qwen2-vl's 2-layer
+            steps (whisper after its admission pass, qwen2-vl across the
+            vision/text boundary) against the CPU path and a profiled
+            serve of each;
 6. the ``kernels`` JSON line, then the device JSON line, last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -241,6 +258,43 @@ RECURRENT = (("mamba2", MAMBA_ARGS, None, MAMBA_LAUNCHES,
               MAMBA_PREFILL_LAUNCHES),
              ("jamba", JAMBA_ARGS, JAMBA_LAYERS, JAMBA_LAUNCHES,
               JAMBA_PREFILL_LAUNCHES))
+
+# The conditioned phase, at full width and depth (q8_0, bf16 pages, the
+# launcher's zero stub frames / vision embeddings): whisper-small (12
+# encoder + 12 decoder layers) on the stream above, and qwen2-vl-2b (28
+# layers) on 256-512-token prompts, so every prompt holds the whole
+# 256-token vision prefix and some text (320 blocks: no slot is
+# preempted); then --mode batch and a prefill of each.
+WHISPER_ARGS = ["--arch", "whisper-small"] + SERVE_ARGS[2:]
+QWEN2VL_ARGS = ["--arch", "qwen2-vl-2b"] + SERVE_ARGS[2:8] + [
+    "--num-blocks", "320", "--requests", "16", "--prompt-len", "512",
+    "--gen", "32", "--arrival", "back2back"]
+# Per step: whisper's 12 decoder layers x 8 linears (self q/k/v/o, cross
+# q/o, fc1/fc2) and the tied lm_head, one B1 a layer (a decode step's
+# cross attention is plain PyTorch, as the JAX package leaves it to XLA);
+# per admission, the encoder pass: 12 encoder layers x 6 linears, 12 x 2
+# cross K/V projections, one B7 a layer. qwen2-vl: 28 x 7 linears and the
+# tied lm_head, one B1 (G = 6) a layer.
+WHISPER_LAUNCHES = {"matmul_q8_0": 97, "paged_decode_attention": 12}
+WHISPER_ADMIT_LAUNCHES = {"matmul_q8_0": 96, "flash_attention": 12}
+QWEN2VL_LAUNCHES = {"matmul_q8_0": 197, "paged_decode_attention": 28}
+# Per prefill: whisper's encoder (72 linears, 12 B7), decoder (12 x 10
+# linears, 12 causal self and 12 non-causal cross B7) and lm_head over
+# 8 x 128 decoder tokens; qwen2-vl's 197 linears and 28 B7 over 8 x 512
+# tokens behind the vision prefix.
+WHISPER_PREFILL_LAUNCHES = {"matmul_q8_0": 193, "flash_attention": 36}
+QWEN2VL_PREFILL_LAUNCHES = {"matmul_q8_0": 197, "flash_attention": 28}
+# (label, serve argv, per step, per admission, per prefill, prefill shape)
+CONDITIONED = (("whisper", WHISPER_ARGS, WHISPER_LAUNCHES,
+                WHISPER_ADMIT_LAUNCHES, WHISPER_PREFILL_LAUNCHES, (8, 128)),
+               ("qwen2-vl", QWEN2VL_ARGS, QWEN2VL_LAUNCHES, None,
+                QWEN2VL_PREFILL_LAUNCHES, PREFILL_SHAPE))
+# B7 at the conditioned shapes: (label, B, Sq, Skv, H, Hkv, D, causal,
+# calls a prefill), bf16.
+FLASH_CONDITIONED = [
+    ("whisper encoder", 8, 1500, 1500, 12, 12, 64, False, 12),
+    ("whisper cross", 8, 128, 1500, 12, 12, 64, False, 12),
+    ("qwen2-vl prefill", 8, 512, 512, 12, 2, 128, True, 28)]
 
 
 def within_one_ulp(torch, out, ref32, rtol: float, atol: float) -> bool:
@@ -471,50 +525,65 @@ def time_matmul_recurrent(torch, dev):
     return dict(shapes=out, per_step=steps)
 
 
-def time_flash_jamba(torch, dev):
-    """flash_attention at jamba's prefill widths (FLASH_JAMBA: H 32, Hkv
-    8, D 128, 8 x 512, bf16, causal) against attention_ref, timed beside
-    the plain version and SDPA with the bound (one attention layer a
-    prefill). Returns those numbers (an extra key of the flash row)."""
+def time_flash_at(torch, dev, label, b, sq, skv, h, hkv, d, causal,
+                  per_prefill, seed=13):
+    """flash_attention at one model's prefill widths (bf16) against
+    attention_ref, timed beside the plain version and SDPA with the bound
+    (``per_prefill`` calls a prefill). Returns those numbers (an extra
+    key of the flash row)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import attention_ref
-    b, s, h, hkv, d = FLASH_JAMBA
     gen = torch.Generator(device=dev)
-    gen.manual_seed(13)
-    q = torch.randn((b, s, h, d), generator=gen, device=dev).to(
+    gen.manual_seed(seed)
+    q = torch.randn((b, sq, h, d), generator=gen, device=dev).to(
         torch.bfloat16)
-    k, v = (torch.randn((b, s, hkv, d), generator=gen, device=dev).to(
+    k, v = (torch.randn((b, skv, hkv, d), generator=gen, device=dev).to(
         torch.bfloat16) for _ in range(2))
-    out = flash_attention(q, k, v, causal=True)
-    ref = attention_ref(q.float(), k.float(), v.float(), causal=True)
+    out = flash_attention(q, k, v, causal=causal)
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=causal)
     torch.cuda.synchronize()
     err = float((out.float() - ref).abs().max())
     if not bool(torch.isfinite(out.float()).all()) or \
             not within_one_ulp(torch, out, ref, 1e-4, 1e-4):
-        fail(f"flash_attention jamba prefill widths: max_abs_err {err:.3e}")
+        fail(f"flash_attention {label} widths: max_abs_err {err:.3e}")
     del ref
     launches0 = flash_attention.launches
-    t_k = time_ms(torch, [lambda: flash_attention(q, k, v, causal=True)],
+    t_k = time_ms(torch, [lambda: flash_attention(q, k, v, causal=causal)],
                   20)
     flash_attention.launches = launches0
-    t_p = time_ms(torch, [lambda: attention_ref(q, k, v, causal=True)], 5)
+    t_p = time_ms(torch, [lambda: attention_ref(q, k, v, causal=causal)], 5)
     qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     t_l = time_ms(torch, [lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, is_causal=True, enable_gqa=True)], 20)
+        qh, kh, vh, is_causal=causal, enable_gqa=True)], 20)
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    flops = 4.0 * b * h * d * (s * (s + 1) // 2)
+    pairs = sq * (sq + 1) // 2 if causal else sq * skv  # visible (i, j)
+    flops = 4.0 * b * h * d * pairs
     b_ms, b_by = bound(nbytes, flops)
-    print(f"kernel flash_attention jamba prefill bf16 B={b} S={s} H={h} "
-          f"Hkv={hkv} D={d} causal: max_abs_err {err:.3e} (rtol/atol 1e-4 "
-          f"of the f32 plain version + one bf16 ulp) | kernel {t_k:.4f} ms "
-          f"| plain {t_p:.4f} ms | library(SDPA is_causal, enable_gqa) "
-          f"{t_l:.4f} ms | bound {b_ms:.5f} ms ({b_by}) | x1 per prefill",
-          flush=True)
+    print(f"kernel flash_attention {label} bf16 B={b} Sq={sq} Skv={skv} "
+          f"H={h} Hkv={hkv} D={d} causal={causal}: max_abs_err {err:.3e} "
+          f"(rtol/atol 1e-4 of the f32 plain version + one bf16 ulp) | "
+          f"kernel {t_k:.4f} ms | plain {t_p:.4f} ms | library(SDPA "
+          f"is_causal={causal}, enable_gqa) {t_l:.4f} ms | bound "
+          f"{b_ms:.5f} ms ({b_by}) | x{per_prefill} per prefill", flush=True)
     del q, k, v, qh, kh, vh, out
     torch.cuda.empty_cache()
     return dict(ms=t_k, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=err, per_prefill=1)
+                bound_by=b_by, max_abs_err=err, per_prefill=per_prefill)
+
+
+def time_flash_jamba(torch, dev):
+    """flash_attention at jamba's prefill widths (FLASH_JAMBA: H 32, Hkv
+    8, D 128, 8 x 512, bf16, causal; one attention layer a prefill)."""
+    b, s, h, hkv, d = FLASH_JAMBA
+    return time_flash_at(torch, dev, "jamba prefill", b, s, s, h, hkv, d,
+                         True, 1)
+
+
+def time_flash_conditioned(torch, dev):
+    """flash_attention at whisper's encoder and cross shapes (non-causal,
+    D 64, 1,500 keys) and qwen2-vl's prefill (G = 6): {label: numbers}."""
+    return {c[0]: time_flash_at(torch, dev, *c) for c in FLASH_CONDITIONED}
 
 
 def time_matmul_prefill(torch, dev, name):
@@ -583,12 +652,12 @@ def time_matmul_prefill(torch, dev, name):
     return dict(tot, bound_ms=b_ms, bound_by=b_by), worst
 
 
-def _paged_case(torch, np, dev, dtype, H=16, D=128, MB=16):
+def _paged_case(torch, np, dev, dtype, H=16, D=128, MB=16, Hkv=8):
     """Full-width paged attention operands: fragmented, permuted and
     partly null tables, mixed lengths, every slot active; qwen3-0.6b's
     heads by default (H = 16, Hkv = 8, D = 128), MB pages of 16 keys a
     slot (the serve's 256-key table by default)."""
-    B, C, Hkv, bs = 8, 8, 8, 16
+    B, C, bs = 8, 8, 16
     nb = max(256, B * MB)
     rng = np.random.RandomState(1)
     perm = rng.permutation(nb)
@@ -701,6 +770,10 @@ def check_paged_attention(torch, np, dev):
                 granite=time_paged_widths(torch, np, dev, "granite-moe", 24,
                                           64, 32),
                 jamba=time_paged_widths(torch, np, dev, "jamba", 32, 128, 1),
+                whisper=time_paged_widths(torch, np, dev, "whisper", 12, 64,
+                                          12, Hkv=12),
+                qwen2_vl=time_paged_widths(torch, np, dev, "qwen2-vl", 12,
+                                           128, 28, Hkv=2),
                 long_table=check_paged_long_table(torch, np, dev))
 
 
@@ -776,16 +849,18 @@ def check_paged_long_table(torch, np, dev):
     return dict(max_abs_err=errs, ms_per_call=t_k, splits=depth)
 
 
-def time_paged_widths(torch, np, dev, label, H, D, per_step):
+def time_paged_widths(torch, np, dev, label, H, D, per_step, Hkv=8):
     """The GQA form at another model's decode widths (Hkv = 8: H = 24,
     D = 64 is granite-moe's G = 3 in two 16-row tiles; H = 32, D = 128
-    is jamba's G = 4), bf16, against the plain version, timed per call
-    and per step (``per_step`` attention layers) beside the plain version
-    and SDPA on the gathered view, with the bound."""
+    is jamba's G = 4; whisper's H = Hkv = 12, D = 64 is G = 1; qwen2-vl's
+    H = 12 over Hkv = 2, D = 128 is G = 6), bf16, against the plain
+    version, timed per call and per step (``per_step`` attention layers)
+    beside the plain version and SDPA on the gathered view, with the
+    bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.ref import paged_attention_ref
-    c = _paged_case(torch, np, dev, torch.bfloat16, H=H, D=D)
+    c = _paged_case(torch, np, dev, torch.bfloat16, H=H, D=D, Hkv=Hkv)
     args = (c["q"], c["kp"], c["vp"], c["tables"], c["pos"])
     out = paged_decode_attention(*args, sm_scale=c["sm"], lengths=c["lens"])
     ref = paged_attention_ref(*args, sm_scale=c["sm"])
@@ -805,7 +880,7 @@ def time_paged_widths(torch, np, dev, label, H, D, per_step):
     t_p = time_ms(torch, [lambda: paged_attention_ref(
         *args, sm_scale=c["sm"])], 50)
     B, C, H, D = c["q"].shape
-    G = H // 8
+    G = H // Hkv
     kv = [x[c["tables"].long()].flatten(1, 2).repeat_interleave(G, dim=2)
           .transpose(1, 2).contiguous() for x in (c["kp"], c["vp"])]
     depth = c["pos"].long()[:, None] + torch.arange(C, device=dev) + 1
@@ -815,11 +890,11 @@ def time_paged_widths(torch, np, dev, label, H, D, per_step):
     t_l = time_ms(torch, [lambda: F.scaled_dot_product_attention(
         qh, kv[0], kv[1], attn_mask=mask, scale=c["sm"])], 200)
     _, keys = _live_pages(c)
-    nbytes = keys * 8 * D * 2 * 2 + 2 * c["q"].numel() * 2 \
+    nbytes = keys * Hkv * D * 2 * 2 + 2 * c["q"].numel() * 2 \
         + c["tables"].numel() * 4 + 2 * B * 4
-    b_ms, b_by = bound(nbytes, keys * 8 * (C * G) * 4 * D)
+    b_ms, b_by = bound(nbytes, keys * Hkv * (C * G) * 4 * D)
     print(f"kernel paged_decode_attention bf16 {label} widths B={B} "
-          f"C={C} H={H} Hkv=8 D={D} (G={G}): max_abs_err {err:.3e} (rtol "
+          f"C={C} H={H} Hkv={Hkv} D={D} (G={G}): max_abs_err {err:.3e} (rtol "
           f"2^-7 atol 1e-3) | kernel {t_k:.4f} ms | plain {t_p:.4f} ms | "
           f"library(SDPA on gathered view) {t_l:.4f} ms | bound "
           f"{b_ms:.5f} ms ({b_by}) | per step x{per_step}: kernel "
@@ -1335,7 +1410,8 @@ def check_flash(torch, dev):
                 bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l,
                 ms_per_call=t_k,
                 deepseek_prefill=check_flash_mla(torch, dev),
-                jamba_prefill=time_flash_jamba(torch, dev))
+                jamba_prefill=time_flash_jamba(torch, dev),
+                conditioned=time_flash_conditioned(torch, dev))
 
 
 def check_flash_mla(torch, dev):
@@ -1520,7 +1596,7 @@ def _device_events(torch, prof):
             and dev_us(e) > 0], dev_us
 
 
-def profile_prefill(torch, model, params, tokens, cfg) -> None:
+def profile_prefill(torch, model, params, batch, cfg) -> None:
     """Where a prefill's time goes: one more ``model.prefill`` under
     torch.profiler, device busy against its wall time and the heaviest
     kernels (after the timed prefills and their launch check)."""
@@ -1537,7 +1613,7 @@ def profile_prefill(torch, model, params, tokens, cfg) -> None:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            model.prefill(params, {"tokens": tokens}, quant="q8_0")
+            model.prefill(params, batch, quant="q8_0")
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
@@ -1662,24 +1738,32 @@ def _leaves(tree):
     return [tree]
 
 
-def check_launches(tag, launches, per_step, steps):
-    """Fail unless ``launches`` is exactly ``per_step`` x ``steps`` for
-    every kernel (0 for a kernel ``per_step`` does not name)."""
-    want = {name: per_step.get(name, 0) * steps for name in launches}
+def check_launches(tag, launches, per_step, steps, per_admit=None,
+                   admits=0):
+    """Fail unless ``launches`` is exactly ``per_step`` x ``steps`` (plus
+    ``per_admit`` x ``admits``: an enc-dec admission's encoder pass) for
+    every kernel (0 for a kernel neither names)."""
+    per_admit = per_admit or {}
+    want = {name: per_step.get(name, 0) * steps
+            + per_admit.get(name, 0) * admits for name in launches}
     if launches != want:
-        fail(f"{tag}: launches {launches} != {want} for {steps} steps")
+        fail(f"{tag}: launches {launches} != {want} for {steps} steps"
+             + (f" and {admits} admissions" if per_admit else ""))
     print(f"{tag}: kernels launched {launches} over {steps} "
-          f"({per_step} per step)", flush=True)
+          f"({per_step} per step)" + (
+              f" and {admits} admissions ({per_admit} each)"
+              if per_admit else ""), flush=True)
     return {name: n for name, n in launches.items() if n}
 
 
 def serve_recipe(torch, dev, serve, quant, extra=(), per_step=None,
-                 tag=None, argv=SERVE_ARGS, setup=None):
+                 tag=None, argv=SERVE_ARGS, setup=None, per_admit=None):
     """Serve the stream ``argv`` at full width under recipe ``quant``
     (plus the flags ``extra``) and assert the exact kernel launches per
-    step and every request complete; ``setup``: the ``recipe_setup`` of
-    ``argv`` to reuse (its weights are kept), else one is made and
-    dropped. Returns {kernel: launches in the serve}."""
+    step (and ``per_admit`` per admission) and every request complete;
+    ``setup``: the ``recipe_setup`` of ``argv`` to reuse (its weights are
+    kept), else one is made and dropped. Returns {kernel: launches in the
+    serve}."""
     tag = tag or f"serve {quant}"
     if setup is None:
         args, cfg, model, params = recipe_setup(
@@ -1702,19 +1786,20 @@ def serve_recipe(torch, dev, serve, quant, extra=(), per_step=None,
             for s in report.sequences):
         fail(f"{tag}: not every request completed with in-vocab tokens")
     out = check_launches(tag, launches, per_step or RECIPE_LAUNCHES[quant],
-                         steps)
+                         steps, per_admit, report.sched.admitted)
     del params, engine
     torch.cuda.empty_cache()
     return out
 
 
 def serve_batch(torch, dev, serve, arch="qwen3-0.6b", layers=None,
-                per_step=BATCH_LAUNCHES, tag="serve batch"):
+                per_step=BATCH_LAUNCHES, tag="serve batch", per_admit=None):
     """``serve --mode batch --prompt-len 128 --gen 32 --batch 8`` at full
     width (q8_0; the lockstep Engine quantizes the dense weights; depth
     cut to ``layers`` if given): every token in vocab, exact launches per
-    step, no attention kernel (the contiguous arena attends in plain
-    PyTorch, as the JAX package's XLA does)."""
+    step (and ``per_admit`` for each of the 8 admissions), no paged
+    attention kernel (the contiguous arena attends in plain PyTorch, as
+    the JAX package's XLA does)."""
     argv = ["--arch", arch, "--mode", "batch", "--prompt-len", "128",
             "--gen", "32", "--batch", "8"]
     args, cfg, model, dense = recipe_setup(torch, dev, serve, "q8_0",
@@ -1733,7 +1818,8 @@ def serve_batch(torch, dev, serve, arch="qwen3-0.6b", layers=None,
     if out.shape != (args.batch, args.gen) or not (
             (out >= 0) & (out < cfg.vocab_size)).all():
         fail(f"{tag}: tokens {out.shape} not all in vocab")
-    res = check_launches(tag, launches, per_step, stats.steps)
+    res = check_launches(tag, launches, per_step, stats.steps, per_admit,
+                         args.batch)
     del dense
     torch.cuda.empty_cache()
     return res
@@ -2367,32 +2453,44 @@ def _run_lines(serve, tag, engine, report, args, card, launches) -> None:
           f"{report.step_compiles}", flush=True)
 
 
-def _prefill_tokens(torch, dev, cfg):
-    """The 8 x 512 seeded prompt of ``run_prefill``."""
+def _prefill_batch(torch, dev, cfg, shape=PREFILL_SHAPE):
+    """The seeded prefill batch of ``run_prefill``: (B, S) tokens, and
+    the frontend inputs of a conditioned model, seeded random bf16:
+    whisper's (B, 1500, d) frames, qwen2-vl's (B, 256, d) vision
+    embeddings."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
-    return torch.randint(0, cfg.vocab_size, PREFILL_SHAPE, generator=gen,
-                         device=dev, dtype=torch.int32)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, shape,
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)}
+    extra = {"encdec": ("frames", cfg.encoder_seq_len),
+             "vlm": ("vision_embeds", min(cfg.vision_tokens, shape[1]))}
+    if cfg.family in extra:
+        key, n = extra[cfg.family]
+        batch[key] = torch.randn((shape[0], n, cfg.d_model), generator=gen,
+                                 device=dev).to(torch.bfloat16)
+    return batch
 
 
 def run_prefill(torch, dev, serve, repeats: int = 3, setup=None,
-                per_prefill=PREFILL_LAUNCHES, profile=True):
-    """``model.prefill`` of 8 x 512 seeded tokens at full width (q8_0),
+                per_prefill=PREFILL_LAUNCHES, profile=True,
+                shape=PREFILL_SHAPE):
+    """``model.prefill`` of ``shape`` (8 x 512) seeded tokens at full
+    width (q8_0; a conditioned model's frames or vision embeddings too),
     ``repeats`` times: finite last-token logits and caches of the
     expected shapes, exact launches per prefill, prefill tokens/s; then
     one more under the profiler unless ``profile`` is False (a profiler
     session slows the process's later launches). ``setup``: a
     ``recipe_setup`` to reuse (default: qwen3-0.6b's)."""
     _, cfg, model, params = setup or recipe_setup(torch, dev, serve, "q8_0")
-    b, s = PREFILL_SHAPE
-    tokens = _prefill_tokens(torch, dev, cfg)
+    b, s = shape
+    batch = _prefill_batch(torch, dev, cfg, shape)
     serve.reset_launches()
     times = []
     for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": tokens},
-                                      quant="q8_0")
+        logits, cache = model.prefill(params, batch, quant="q8_0")
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = serve.launch_counts()
@@ -2411,7 +2509,7 @@ def run_prefill(torch, dev, serve, repeats: int = 3, setup=None,
     res = check_launches(f"prefill {cfg.name}", launches, per_prefill,
                          repeats)
     if profile:
-        profile_prefill(torch, model, params, tokens, cfg)
+        profile_prefill(torch, model, params, batch, cfg)
     del cache
     if setup is None:
         del params
@@ -2617,20 +2715,41 @@ def check_mamba_steps_vs_cpu(torch, dev, params, cfg) -> None:
              (torch.randint(0, cfg.vocab_size, (2, 8), generator=rng,
                             dtype=i32), torch.tensor([8, 3], dtype=i32),
               torch.tensor([8, 1], dtype=i32))]
-    out = {}
-    for d in ("cpu", dev):
+    from repro_torch.models import layers
+
+    def run(d, nudge=False):
+        """Both steps on device ``d``: (logits, {leaf: (dtype, state)});
+        ``nudge``: every in_proj output moved one bf16 ulp up or down in
+        a seeded two thirds of its nonzero elements (the CPU run)."""
         arena = _paged_arena(model, d)
         tables, _ = arena.device_tables()
         w = _to(cut, d)
-        logits = []
-        for tok, pos, lens in steps:
-            lg, _ = model.decode_step(w, tok.to(d), pos.to(d), arena.buffers,
-                                      quant="q8_0", block_tables=tables,
-                                      lengths=lens.to(d))
-            logits.append(lg.float().cpu())
-        out[str(d)] = (logits, {k: (v.dtype, v.float().cpu())
-                                for k, v in arena.buffers["layers0"].items()})
-        del w
+        in_proj = {id(lp["ssm"]["in_proj"]) for lp in w["layers0"]}
+        lin0, g = layers.linear_apply, torch.Generator().manual_seed(17)
+
+        def nudged(p, x, fmt="none"):
+            y = lin0(p, x, fmt)
+            if id(p) not in in_proj:
+                return y
+            step = torch.randint(-1, 2, y.shape, generator=g,
+                                 dtype=torch.int16)
+            step = torch.where(y == 0, torch.zeros_like(step), step)
+            return (y.view(torch.int16) + step).view(torch.bfloat16)
+        if nudge:
+            layers.linear_apply = nudged
+        try:
+            logits = []
+            for tok, pos, lens in steps:
+                lg, _ = model.decode_step(w, tok.to(d), pos.to(d),
+                                          arena.buffers, quant="q8_0",
+                                          block_tables=tables,
+                                          lengths=lens.to(d))
+                logits.append(lg.float().cpu())
+        finally:
+            layers.linear_apply = lin0
+        return logits, {k: (v.dtype, v.float().cpu())
+                        for k, v in arena.buffers["layers0"].items()}
+    out = {str(d): run(d) for d in ("cpu", dev)}
     (la, sa), (lr, sr) = out[str(dev)], out["cpu"]
     parts = []
     for i, (a, r) in enumerate(zip(la, lr)):
@@ -2660,6 +2779,19 @@ def check_mamba_steps_vs_cpu(torch, dev, params, cfg) -> None:
     print(f"step check: full-width mamba2 q8_0, 2 layers, two chunked steps "
           f"on per-slot state, card kernels vs CPU plain: "
           f"{', '.join(parts)} (bound 1e-2 x max|.|)", flush=True)
+    # Does a rounding difference of the size the card makes spread the
+    # second layer's state as far on the CPU alone? The CPU path again,
+    # every in_proj output moved by one bf16 ulp.
+    _, sn = run("cpu", nudge=True)
+    gap = lambda x, k, i: float(  # noqa: E731
+        (x[k][1][i] - sr[k][1][i]).abs().max())
+    spread = [f"{k} layer {i} {gap(sn, k, i):.3e} (card vs CPU "
+              f"{gap(sa, k, i):.3e})" for k in ("conv", "ssm")
+              for i in range(2)]
+    print(f"state spread: full-width mamba2 q8_0, 2 layers, the CPU path "
+          f"with each in_proj output moved one bf16 ulp (up or down, a "
+          f"seeded 2/3 of its nonzero elements) vs the CPU path, after the "
+          f"same two steps: {', '.join(spread)}", flush=True)
 
 
 def check_padding_on_card(torch, dev, params, cfg) -> None:
@@ -2777,7 +2909,7 @@ def check_recurrent(torch, dev, serve) -> None:
         _, cfg, model, params = recipe_setup(torch, dev, serve, "q8_0",
                                              argv=argv, layers=layers)
         profile_prefill(torch, model, params,
-                        _prefill_tokens(torch, dev, cfg), cfg)
+                        _prefill_batch(torch, dev, cfg), cfg)
         if label == "mamba2":
             check_mamba_steps_vs_cpu(torch, dev, params, cfg)
             check_padding_on_card(torch, dev, params, cfg)
@@ -2789,6 +2921,123 @@ def check_recurrent(torch, dev, serve) -> None:
         del params, model
         torch.cuda.empty_cache()
     print(f"chip_smoke: recurrent checks took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def serve_conditioned(torch, dev, serve):
+    """The conditioned phase's timed runs, before any profiler session:
+    for whisper (12 + 12 layers) and qwen2-vl (28 layers), ``--mode
+    batch`` (the lockstep Engine on the contiguous arena), then the
+    stream and a prefill (8 x 128 decoder tokens over 1,500 frames; 8 x
+    512 tokens behind the vision prefix) on one setup, each with its
+    exact launches per step, per admission (whisper's encoder pass) and
+    per prefill. Returns {run: launches}."""
+    t0 = time.perf_counter()
+    runs = {}
+    for label, argv, per_step, per_admit, per_prefill, shape in CONDITIONED:
+        runs[f"{label} batch"] = serve_batch(
+            torch, dev, serve, arch=argv[1],
+            per_step={"matmul_q8_0": per_step["matmul_q8_0"]},
+            per_admit=per_admit, tag=f"serve {label} batch")
+        setup = recipe_setup(torch, dev, serve, "q8_0", argv=argv)
+        runs[label] = serve_recipe(torch, dev, serve, "q8_0",
+                                   per_step=per_step, per_admit=per_admit,
+                                   tag=f"serve {label} q8_0", argv=argv,
+                                   setup=setup)
+        runs[f"{label} prefill"] = run_prefill(
+            torch, dev, serve, repeats=2, setup=setup,
+            per_prefill=per_prefill, profile=False, shape=shape)
+        del setup
+        torch.cuda.empty_cache()
+    print(f"chip_smoke: conditioned serves took "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return runs
+
+
+def _cut_conditioned(params, cfg):
+    """(2-layer config, its weights from the full model's ``params``):
+    whisper keeps 2 encoder and 2 decoder layers, qwen2-vl 2 layers."""
+    import dataclasses
+    if cfg.family == "encdec":
+        cut = {k: v[:2] if k.endswith("_layers") else v
+               for k, v in params.items()}
+        return dataclasses.replace(cfg, num_layers=2, encoder_layers=2), cut
+    from repro_torch.models.api import build_model
+    small = dataclasses.replace(cfg, num_layers=2)
+    return small, _cut_to_two(params, build_model(small))
+
+
+def check_conditioned_step_vs_cpu(torch, dev, params, cfg) -> None:
+    """One full-width step with depth cut to 2 layers (whisper: 2 + 2),
+    q8_0, on bf16 pages: whisper's admission pass writes the cross K/V of
+    seeded frames into both slots first; qwen2-vl's second slot starts at
+    250, its chunk straddling the vision/text boundary (vision rows at
+    positions below 256). The card's kernels against the plain CPU path,
+    same weights: valid rows' logits within 1e-2 x max|logit|
+    (check_step_vs_cpu's bound)."""
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime.kvcache import PagedKVArena
+    small, cut = _cut_conditioned(params, cfg)
+    model = build_model(small)
+    vlm = cfg.family == "vlm"
+    rng = torch.Generator().manual_seed(16)
+    tok = torch.randint(0, cfg.vocab_size, (2, 8), generator=rng,
+                        dtype=torch.int32)
+    pos = torch.tensor([0, 250 if vlm else 5], dtype=torch.int32)
+    lens = torch.tensor([8, 3], dtype=torch.int32)
+    frames = torch.randn((1, cfg.encoder_seq_len, cfg.d_model),
+                         generator=rng).to(torch.bfloat16)
+    vis = torch.randn((2, 8, cfg.d_model), generator=rng).to(torch.bfloat16)
+    mask = (pos[:, None] + torch.arange(8)) < cfg.vision_tokens
+    out = {}
+    for d in ("cpu", dev):
+        arena = PagedKVArena(model, 2, 272, block_size=16, device=d)
+        for _ in range(2):
+            arena.alloc_slot(arena.blocks_needed(272))
+        w = _to(cut, d)
+        if not vlm:
+            for slot in range(2):
+                arena.write_prefill(model.encode_cross(
+                    w, frames.to(d), quant="q8_0"), slot)
+        extra = dict(embeds=vis.to(d), embeds_mask=mask.to(d)) if vlm \
+            else {}
+        tables, _ = arena.device_tables()
+        logits, _ = model.decode_step(w, tok.to(d), pos.to(d), arena.buffers,
+                                      quant="q8_0", block_tables=tables,
+                                      lengths=lens.to(d), **extra)
+        out[str(d)] = logits.float().cpu()
+        del w, arena
+    a, r = out[str(dev)], out["cpu"]
+    worst = max(float((a[b, :int(n)] - r[b, :int(n)]).abs().max())
+                for b, n in enumerate(lens))
+    scale = float(r.abs().max())
+    if a.shape != (2, 8, cfg.vocab_size) or not bool(
+            torch.isfinite(a).all()) or worst > 1e-2 * scale:
+        fail(f"{cfg.name} 2-layer step card vs CPU: max_abs_err "
+             f"{worst:.3e} vs max|logit| {scale:.3e}")
+    what = " (a chunk across the vision/text boundary)" if vlm else \
+        " (+ 2 encoder layers, cross K/V written by the admission pass)"
+    print(f"step check: full-width {cfg.name} q8_0, 2 layers{what}, card "
+          f"kernels vs CPU plain: logits {tuple(a.shape)} finite, "
+          f"max_abs_err {worst:.3e} (bound 1e-2 x max|logit| = "
+          f"{1e-2 * scale:.3e})", flush=True)
+
+
+def check_conditioned(torch, dev, serve) -> None:
+    """The conditioned phase's checks, after every timed serve, on the
+    same seeded weights made again: each model's 2-layer step against
+    the CPU path and a profiled serve of each."""
+    t0 = time.perf_counter()
+    for label, argv, _, _, _, _ in CONDITIONED:
+        _, cfg, model, params = recipe_setup(torch, dev, serve, "q8_0",
+                                             argv=argv)
+        check_conditioned_step_vs_cpu(torch, dev, params, cfg)
+        profile_serve(torch, serve, cfg, model, params, dev, "q8_0",
+                      arena=argv[:-8],
+                      label=f"{label} ({cfg.num_layers} layers) q8_0")
+        del params, model
+        torch.cuda.empty_cache()
+    print(f"chip_smoke: conditioned checks took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -2889,6 +3138,9 @@ def main() -> None:
     t_rec = time.perf_counter()
     by_serve.update(serve_recurrent(torch, dev, serve))
     t_rec = time.perf_counter() - t_rec
+    t_cond = time.perf_counter()
+    by_serve.update(serve_conditioned(torch, dev, serve))
+    t_cond = time.perf_counter() - t_cond
     for quant in RECIPE_LAUNCHES:
         by_serve[quant] = serve_recipe(torch, dev, serve, quant)
     by_serve["q8_0 kv-int8"] = serve_recipe(
@@ -2949,6 +3201,11 @@ def main() -> None:
     check_recurrent(torch, dev, serve)
     print(f"chip_smoke: recurrent phase took "
           f"{t_rec + time.perf_counter() - t0:.1f} s (serves and checks)",
+          flush=True)
+    t0 = time.perf_counter()
+    check_conditioned(torch, dev, serve)
+    print(f"chip_smoke: conditioned phase took "
+          f"{t_cond + time.perf_counter() - t0:.1f} s (serves and checks)",
           flush=True)
 
     check_routes({k: v for k, v in routes.items() if "matmul" not in k},

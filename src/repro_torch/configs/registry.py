@@ -1,10 +1,12 @@
 """Architecture registry for the port: ``--arch <id>`` resolution.
 
 The dense qwen3 family (the paper's own evaluation models), the two
-MoE models, deepseek-v3 (MLA + MoE) and granite-moe (GQA + MoE), and the
+MoE models, deepseek-v3 (MLA + MoE) and granite-moe (GQA + MoE), the
 recurrent families, mamba2 (SSD, attention-free) and jamba (Mamba +
-attention + MoE), are ported. Every other architecture of ``repro`` waits for the ROADMAP item
-that ports its layers; asking for one names that item.
+attention + MoE), and the conditioned ones, whisper (encoder-decoder)
+and qwen2-vl (M-RoPE, vision-embed merge), are ported. The remaining
+dense configs of ``repro`` wait for ROADMAP A20; asking for one names
+that item.
 """
 from __future__ import annotations
 
@@ -15,13 +17,15 @@ from repro_torch.configs.deepseek_v3_671b import CONFIG as _deepseek_v3
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite_moe
 from repro_torch.configs.jamba_v0_1_52b import CONFIG as _jamba
 from repro_torch.configs.mamba2_1_3b import CONFIG as _mamba2
+from repro_torch.configs.qwen2_vl_2b import CONFIG as _qwen2_vl
 from repro_torch.configs.qwen3_0_6b import CONFIG as _qwen3_0_6b
 from repro_torch.configs.qwen3_1_7b import CONFIG as _qwen3_1_7b
 from repro_torch.configs.qwen3_8b import CONFIG as _qwen3_8b
+from repro_torch.configs.whisper_small import CONFIG as _whisper
 
 ARCHS: Dict[str, ModelConfig] = {
     c.name: c for c in [_qwen3_0_6b, _qwen3_1_7b, _qwen3_8b, _deepseek_v3,
-                        _granite_moe, _mamba2, _jamba]
+                        _granite_moe, _mamba2, _jamba, _whisper, _qwen2_vl]
 }
 
 # Architectures of the JAX package not ported yet -> the ROADMAP item
@@ -30,8 +34,6 @@ PENDING: Dict[str, str] = {
     "llama3.2-3b": "ROADMAP A20 (remaining dense configs)",
     "qwen2-72b": "ROADMAP A20 (remaining dense configs: qkv bias)",
     "llama3-405b": "ROADMAP A20 (remaining dense configs)",
-    "qwen2-vl-2b": "ROADMAP A16b (vlm: M-RoPE, qkv bias)",
-    "whisper-small": "ROADMAP A16c (encdec: cross attention)",
 }
 
 
@@ -39,7 +41,6 @@ PENDING: Dict[str, str] = {
 # checks, which refuse some combinations by family).
 PENDING_FAMILY: Dict[str, str] = {
     "llama3.2-3b": "dense", "qwen2-72b": "dense", "llama3-405b": "dense",
-    "qwen2-vl-2b": "vlm", "whisper-small": "encdec",
 }
 
 

@@ -13,9 +13,9 @@ a bank or an embedding never needs an f32 copy of itself.
 ``params_from_jax`` takes the JAX package's parameter tree *as numpy
 arrays* (the caller does the ``np.asarray``; this module never imports
 JAX) and returns the port's tree on ``device``: each ``jax.vmap``-stacked
-layer group (``repro.models.lm.lm_init``) becomes a list of per-layer
-dicts (jamba's ``blocks`` group: a list of ``{"sub0": ..., "sub7": ...}``
-block dicts). bf16 leaves travel as their uint16 bit pattern, because
+layer group (``repro.models.lm.lm_init``; whisper's ``enc_layers`` and
+``dec_layers``) becomes a list of per-layer dicts (jamba's ``blocks``
+group: a list of ``{"sub0": ..., "sub7": ...}`` block dicts). bf16 leaves travel as their uint16 bit pattern, because
 ``torch.from_numpy`` rejects ``ml_dtypes.bfloat16``.
 """
 from __future__ import annotations
@@ -31,7 +31,8 @@ from repro_torch.core.quant.formats import RECIPES
 from repro_torch.models.lm import layer_groups
 
 _NORM_KEYS = {"mixer_norm", "ffn_norm", "final_norm", "q_norm", "k_norm",
-              "norm"}
+              "norm", "norm1", "norm2", "self_norm", "cross_norm",
+              "enc_norm", "dec_norm"}
 _EMBED_KEYS = {"embed", "lm_head"}
 _RAW_KEYS = {"conv_w", "conv_b", "A_log", "D", "dt_bias", "router"}
 # Weight elements quantized at a time (block quantization only touches
@@ -115,7 +116,11 @@ def params_from_jax(np_tree: Dict, cfg: ModelConfig, *,
     """The JAX package's parameter tree (numpy leaves) as the port's tree
     on ``device``: layer groups unstacked into lists of per-layer dicts,
     every other leaf converted as is."""
-    groups = {name: count for name, count, _ in layer_groups(cfg)}
+    if cfg.family == "encdec":
+        groups = {"enc_layers": cfg.encoder_layers,
+                  "dec_layers": cfg.num_layers}
+    else:
+        groups = {name: count for name, count, _ in layer_groups(cfg)}
     out = {}
     for key, node in np_tree.items():
         if key in groups:

@@ -44,7 +44,10 @@ models granite-moe-3b-a800m and deepseek-v3-671b (MLA; its 61 layers at
 full width do not fit one card: ``--reduced`` for the CPU), and the
 recurrent families mamba2-1.3b (SSD) and jamba-v0.1-52b (Mamba +
 attention + MoE; its 32 layers at full width do not fit one card either),
-which refuse ``--spec``, ``--prefix-cache`` and ``--kv-quant``.
+which refuse ``--spec``, ``--prefix-cache`` and ``--kv-quant``, and the
+conditioned families whisper-small (encoder-decoder, zero stub frames)
+and qwen2-vl-2b (M-RoPE, zero stub vision embeddings), which refuse
+``--prefix-cache`` (whisper also ``--kv-quant``).
 
 The card is the default device. Without one the launcher exits with an
 error unless ``--device cpu`` asks for the plain CPU path explicitly.
@@ -102,15 +105,26 @@ def reset_launches() -> None:
         setattr(paged_decode_attention, attr, 0)
 
 
-def make_extras(cfg, batch: int):
-    """Per-request frontend stubs: the ported families take none (the vlm
-    and encdec stubs come with ROADMAP A16b and A16c)."""
-    return {}
+def make_extras(cfg, batch: int, device="cpu"):
+    """Frontend stubs for ``batch`` requests, bf16 zeros on ``device``:
+    the vlm family's vision embeddings (batch, vision_tokens, d), the
+    encdec family's encoder frames (batch, encoder_seq_len, d); no entry
+    for the other families."""
+    extras = {}
+    if cfg.family == "vlm":
+        extras["vision_embeds"] = torch.zeros(
+            (batch, cfg.vision_tokens, cfg.d_model), dtype=torch.bfloat16,
+            device=device)
+    if cfg.family == "encdec":
+        extras["frames"] = torch.zeros(
+            (batch, cfg.encoder_seq_len, cfg.d_model), dtype=torch.bfloat16,
+            device=device)
+    return extras
 
 
-def build_stream(cfg, args, rng: np.random.RandomState):
+def build_stream(cfg, args, rng: np.random.RandomState, device="cpu"):
     """Request stream with randomized lengths + Poisson/back-to-back
-    arrival offsets."""
+    arrival offsets (frontend stubs made on ``device``)."""
     lo = max(args.prompt_len // 2, 2)
     samp = SamplingParams(temperature=args.temperature)
     shared = rng.randint(0, cfg.vocab_size, args.shared_prefix) \
@@ -121,7 +135,7 @@ def build_stream(cfg, args, rng: np.random.RandomState):
         L = int(rng.randint(lo, args.prompt_len + 1))
         if args.arrival == "poisson" and args.rate > 0:
             t += float(rng.exponential(1.0 / args.rate))
-        extras = make_extras(cfg, 1)
+        extras = make_extras(cfg, 1, device)
         tokens = rng.randint(0, cfg.vocab_size, L)
         if shared is not None:
             # system-prompt workload: every request opens with the same
@@ -179,7 +193,7 @@ def run_stream(cfg, model, params, args, device, draft=None):
     requests). ``draft``: the (model, params) of ``--spec draft``'s
     draft, else ``build_draft`` makes them."""
     rng = np.random.RandomState(args.seed)
-    reqs = build_stream(cfg, args, rng)
+    reqs = build_stream(cfg, args, rng, device)
     max_seq = args.max_seq or (args.shared_prefix + args.prompt_len
                                + args.gen)
     decisions = offload_decisions(cfg, args.quant, args.prompt_len,
@@ -224,8 +238,9 @@ def run_batch(cfg, model, dense_params, args, device):
                                device=device)
     prompt = np.random.RandomState(args.seed + 1).randint(
         0, cfg.vocab_size, (args.batch, args.prompt_len)).astype(np.int32)
+    extras = make_extras(cfg, args.batch, device)
     return engine.generate(prompt, args.gen, temperature=args.temperature,
-                           seed=args.seed)
+                           seed=args.seed, extras=extras or None)
 
 
 def batch_lines(stats, args):

@@ -1,20 +1,26 @@
-"""Unified model API subset: ``build_model(cfg) -> ModelAPI``, the dense,
-moe, ssm and hybrid families.
+"""Unified model API subset: ``build_model(cfg) -> ModelAPI``, every
+family of the JAX package: dense, moe, ssm, hybrid, vlm and encdec.
 
 Ported from ``repro.models.api``: ``init`` / ``forward`` / ``prefill`` /
-``decode_step`` / ``cache_shapes`` / ``paged_cache_shapes``. The train
-entry (``loss``) waits for ROADMAP A18.
+``decode_step`` / ``cache_shapes`` / ``paged_cache_shapes``, and for the
+encdec family ``encode_cross`` (the serving engine's admission-time
+encoder pass). The train entry (``loss``) waits for ROADMAP A18.
+
+Frontend inputs (stubs, as in the JAX package): the vlm family's
+``batch["vision_embeds"]`` (B, min(vision_tokens, S), d) and a decode
+step's ``embeds``/``embeds_mask``; the encdec family's
+``batch["frames"]`` (B, encoder_seq_len, d).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -25,10 +31,11 @@ class ModelAPI:
     prefill: Callable                 # (params, batch, **o) -> (logits, cache)
     decode_step: Callable             # (params, token, position, cache, **o)
     cache_shapes: Callable            # (batch, seq) -> shape tree
+    encode_cross: Optional[Callable] = None   # encdec: (params, frames, **o)
 
     def state_leaves(self, num_slots: int):
         """The cache tree with True at each constant-size *state* leaf (SSM
-        conv window and recurrent state) and False at each leaf whose
+        conv window and recurrent state, enc-dec cross K/V) and False at each leaf whose
         extent follows the sequence length (attention K/V, MLA latents):
         ``cache_shapes`` probed at two lengths, as the JAX package's
         arenas and ``paged_cache_shapes`` probe it."""
@@ -73,9 +80,9 @@ def _map2(fn, ta, tb):
     return fn(ta, tb)
 
 
-# Families of the JAX package not ported yet -> the ROADMAP item.
-PENDING_FAMILIES = {"vlm": "ROADMAP A16b (vlm: M-RoPE, qkv bias)",
-                    "encdec": "ROADMAP A16c (encdec: cross attention)"}
+# Families of the JAX package not ported yet -> the ROADMAP item: none
+# since the vlm (A16b) and encdec (A16c) families were ported.
+PENDING_FAMILIES: Dict[str, str] = {}
 
 
 def build_model(cfg: ModelConfig) -> ModelAPI:
@@ -83,6 +90,22 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported to repro_torch yet: "
             f"{PENDING_FAMILIES[cfg.family]}")
+    if cfg.family == "encdec":
+        return ModelAPI(
+            cfg=cfg,
+            init=lambda gen, quant="none": encdec.encdec_init(gen, cfg,
+                                                              quant),
+            forward=lambda params, batch, **kw: encdec.encdec_forward(
+                params, cfg, batch, **kw),
+            prefill=lambda params, batch, **kw: encdec.encdec_prefill(
+                params, cfg, batch, **kw),
+            decode_step=lambda params, token, position, cache, **kw:
+                encdec.encdec_decode_step(params, cfg, token, position,
+                                          cache, **kw),
+            cache_shapes=functools.partial(encdec.encdec_cache_shapes, cfg),
+            encode_cross=lambda params, frames, **kw:
+                encdec.encdec_encode_cross(params, cfg, frames, **kw),
+        )
     return ModelAPI(
         cfg=cfg,
         init=functools.partial(_lm_init_kw, cfg),

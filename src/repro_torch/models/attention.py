@@ -39,7 +39,11 @@ D = nope + rope, Dv = v_head_dim; decode absorbs kv_b into the query and
 output sides and attends the latents in place (the MLA form of
 ``kernels.paged_attention``, or the gather / contiguous plain paths).
 
-Cross attention is not ported yet (ROADMAP A16c).
+M-RoPE (qwen2-vl): ``rope_tables`` builds the (cos, sin) tables from
+(B, S, 3) position streams instead of (B, S) positions, and the same
+``rope_rotate`` applies them. Encoder-decoder cross attention (whisper)
+lives in ``models/encdec.py``: its prefill reaches ``chunked_attention``
+non-causal, its decode step the plain ``decode_attention``.
 """
 from __future__ import annotations
 
@@ -114,13 +118,20 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig, fmt: str = "none") -> Param
 
 
 def rope_tables(cfg: ModelConfig, positions: torch.Tensor):
-    """(cos, sin) RoPE tables for (B, S) ``positions``, shared by every
-    layer of a pass, at the model's rotary width (the head dim, or MLA's
+    """(cos, sin) RoPE tables for (B, S) ``positions`` — for an M-RoPE
+    model (B, S, 3) position streams — shared by every layer of a pass,
+    at the model's rotary width (the head dim, or MLA's
     ``qk_rope_head_dim``); None for a model without RoPE."""
     if cfg.rope_theta <= 0:
         return None
     width = cfg.mla.qk_rope_head_dim if cfg.mla is not None \
         else cfg.resolved_head_dim()
+    if cfg.mrope:
+        if positions.ndim != 3:
+            raise ValueError("an M-RoPE model takes (B, S, 3) positions, "
+                             f"got {tuple(positions.shape)}")
+        return layers.mrope_cos_sin(positions, width, cfg.rope_theta,
+                                    cfg.mrope_sections)
     return layers.rope_cos_sin(positions, width, cfg.rope_theta)
 
 
@@ -323,19 +334,24 @@ class PagedStep:
 
 def paged_step(cfg: ModelConfig, position: torch.Tensor,
                block_tables: Optional[torch.Tensor], lengths, pages,
-               width: int) -> PagedStep:
+               width: int, mrope=None) -> PagedStep:
     """The shared per-step routing and RoPE tables for a chunk of
     ``width`` entries per slot: ``pages`` is one layer's K leaf —
     (NP, bs, ...) pages (or their ``{"q", "s"}`` dict), or the contiguous
-    (B, S, ...) cache when ``block_tables`` is None."""
+    (B, S, ...) cache when ``block_tables`` is None. ``mrope``: for an
+    M-RoPE model, ``fn(cfg, pos_mat)`` giving the chunk's (B, C, 3)
+    position streams."""
     if block_tables is None:
         pos = decode_positions(position, pages.shape[0], width)
-        return PagedStep(pos, None, None, None, rope_tables(cfg, pos))
-    if isinstance(pages, dict):
-        pages = pages["q"]
-    pos, rows, offs, valid = _routing(position, block_tables, lengths,
-                                      pages.shape[0], pages.shape[1], width)
-    return PagedStep(pos, rows, offs, valid, rope_tables(cfg, pos))
+        rows = offs = valid = None
+    else:
+        if isinstance(pages, dict):
+            pages = pages["q"]
+        pos, rows, offs, valid = _routing(position, block_tables, lengths,
+                                          pages.shape[0], pages.shape[1],
+                                          width)
+    rope = rope_tables(cfg, pos if mrope is None else mrope(cfg, pos))
+    return PagedStep(pos, rows, offs, valid, rope)
 
 
 def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,

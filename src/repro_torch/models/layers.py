@@ -10,7 +10,7 @@ stay high precision, §III.B). Linear projections route through
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -80,6 +80,22 @@ def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return y.to(x.dtype)
 
 
+def layernorm_init(d: int, device) -> Params:
+    return {"g": torch.ones((d,), dtype=torch.float32, device=device),
+            "b": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm_apply(p: Params, x: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * g + b in f32 (population
+    variance), cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * p["g"] + p["b"]
+    return y.to(x.dtype)
+
+
 # ----------------------------------------------------------------------
 # Embedding (quantizable table; lookup is host-side gather + dequant)
 # ----------------------------------------------------------------------
@@ -132,7 +148,27 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     positions (B, S) int: cos repeated over both halves, sin negated on
     the first half."""
     freqs = rope_freqs(head_dim, theta, positions.device)   # (D/2,)
-    ang = positions[..., None].to(torch.float32) * freqs     # (B, S, D/2)
+    return _cos_sin(positions[..., None].to(torch.float32) * freqs)
+
+
+def mrope_cos_sin(positions_3d: torch.Tensor, head_dim: int, theta: float,
+                  sections: Tuple[int, ...]):
+    """Qwen2-VL M-RoPE tables for ``rope_rotate``: positions_3d (B, S, 3)
+    = (temporal, height, width); the D/2 rotary channels are split into
+    ``sections`` (summing to D/2), each rotated by its own position
+    stream (``repro.models.layers.apply_mrope``)."""
+    assert sum(sections) == head_dim // 2, (sections, head_dim)
+    dev = positions_3d.device
+    freqs = rope_freqs(head_dim, theta, dev)                 # (D/2,)
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=dev),
+        torch.tensor(sections, device=dev))                  # (D/2,)
+    pos = positions_3d.to(torch.float32)[..., sec_id]        # (B, S, D/2)
+    return _cos_sin(pos * freqs)
+
+
+def _cos_sin(ang: torch.Tensor):
+    """(cos, sin) tables (B, S, 1, D) of angles (B, S, D/2)."""
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
     return torch.cat([cos, cos], dim=-1), torch.cat([-sin, sin], dim=-1)
 
@@ -152,6 +188,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: (B, S, H, D); positions: (B, S) int."""
     return rope_rotate(x, *rope_cos_sin(positions, x.shape[-1], theta))
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, theta: float,
+                sections: Tuple[int, ...]) -> torch.Tensor:
+    """x: (B, S, H, D); positions_3d: (B, S, 3) int."""
+    return rope_rotate(x, *mrope_cos_sin(positions_3d, x.shape[-1], theta,
+                                         sections))
 
 
 # ----------------------------------------------------------------------

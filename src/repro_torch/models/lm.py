@@ -1,5 +1,6 @@
-"""Decoder-only LM assembly, ported from ``repro.models.lm``: the dense
-and moe families and the recurrent ones, ssm (mamba2) and hybrid (jamba).
+"""Decoder-only LM assembly, ported from ``repro.models.lm``: the dense,
+moe and vlm (qwen2-vl) families and the recurrent ones, ssm (mamba2) and
+hybrid (jamba).
 
 Parameters are plain dicts of tensors. The JAX package stacks each layer
 group along a leading axis and scans over it (``jax.lax.scan``); here a
@@ -15,8 +16,11 @@ layout ``{group: {"k": (layers, ...), "v": ...}}`` (MLA: ``{"ckv",
 layer ``i`` writes in place through the view ``cache[group][leaf][i]``.
 ``lm_prefill`` returns its caches in the same stacked layout.
 
-Embeddings come from plain tokens only: M-RoPE and vision inputs wait
-for ROADMAP A16b, encoder inputs for A16c.
+The vlm family (qwen2-vl) merges its stub vision embeddings ahead of
+the text tokens (``_embed_inputs``; a decode chunk takes them through
+``embeds``/``embeds_mask``) and rotates by M-RoPE position streams
+(``_mrope_positions`` at prefill, ``_mrope_decode_positions`` per
+decode chunk). The encoder-decoder family is ``models/encdec.py``.
 
 Ported layer kinds: the GQA, MLA and SSM (mamba2) mixers; the dense
 SwiGLU, the MoE FFN and no FFN (mamba2). deepseek-v3's first
@@ -206,24 +210,68 @@ def _lm_head(params, cfg: ModelConfig, h, quant: str):
     return layers.linear_apply(params["lm_head"], h, recipe["embed"])
 
 
-def _embed_tokens(params, cfg: ModelConfig, batch: Dict, quant: str):
-    """(h, rope): the batch's token embeddings in bf16 and the RoPE
-    tables of its (B, S) positions (None without attention). Only
-    ``batch["tokens"]`` is read; vision inputs and M-RoPE are ROADMAP
-    A16b, encoder inputs A16c."""
-    extra = set(batch) - {"tokens", "labels"}
-    if extra or cfg.mrope:
-        raise NotImplementedError(
-            f"inputs {sorted(extra)} / M-RoPE are ROADMAP A16b (vlm) and "
-            "A16c (encdec); the port embeds plain tokens only")
+def _mrope_positions(cfg: ModelConfig, batch: int, seq: int, device):
+    """Deterministic stub M-RoPE position grid (B, S, 3): vision tokens
+    get a (t=0, h, w) raster; text tokens advance temporally after the
+    image."""
+    v = min(cfg.vision_tokens, seq)
+    side = max(int(v ** 0.5), 1)
+    idx = torch.arange(seq, device=device)
+    is_vis = idx < v
+    txt = idx - v + side
+    t_pos = torch.where(is_vis, torch.zeros_like(idx), txt)
+    h_pos = torch.where(is_vis, idx // side, txt)
+    w_pos = torch.where(is_vis, idx % side, txt)
+    pos3 = torch.stack([t_pos, h_pos, w_pos], dim=-1)      # (S, 3)
+    return pos3[None].expand(batch, seq, 3)
+
+
+def _mrope_decode_positions(cfg: ModelConfig, pos_mat: torch.Tensor):
+    """(B, C, 3) M-RoPE positions for absolute positions ``pos_mat``
+    (B, C): vision positions (< vision_tokens) get the (t=0, h, w) raster,
+    text positions advance all three streams together — the mapping
+    ``_mrope_positions`` applies at prefill, evaluated pointwise so a
+    decode chunk can span the vision/text boundary."""
+    v = cfg.vision_tokens
+    side = max(int(v ** 0.5), 1)
+    is_vis = pos_mat < v
+    txt = pos_mat - v + side
+    t_pos = torch.where(is_vis, torch.zeros_like(pos_mat), txt)
+    h_pos = torch.where(is_vis, pos_mat // side, txt)
+    w_pos = torch.where(is_vis, pos_mat % side, txt)
+    return torch.stack([t_pos, h_pos, w_pos], dim=-1)
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch: Dict, quant: str):
+    """(h, rope): the batch's embeddings in bf16 — for the vlm family the
+    stub vision prefix ``batch["vision_embeds"]`` in place of the first
+    tokens' — and the RoPE tables of its positions (M-RoPE streams for
+    qwen2-vl; None without attention). An input the family does not
+    take is refused, not ignored."""
+    extra = set(batch) - {"tokens", "labels"} - (
+        {"vision_embeds"} if cfg.family == "vlm" else set())
+    if extra:
+        raise ValueError(f"{cfg.name} ({cfg.family} family) takes no "
+                         f"inputs {sorted(extra)}: only the vlm family "
+                         "merges vision_embeds")
     tokens = batch["tokens"]
     b, s = tokens.shape
     h = layers.embedding_lookup(params["embed"], tokens,
                                 layers.recipe_for(quant)["embed"],
                                 torch.bfloat16, width=cfg.d_model)
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        # Clip the vision prefix to the sequence being embedded: a
+        # sequence shorter than the vision grid must not widen past its
+        # position vectors.
+        v = min(batch["vision_embeds"].shape[1], s)
+        h = torch.cat([batch["vision_embeds"][:, :v].to(h.dtype),
+                       h[:, v:]], dim=1)
     if not _has_attention(cfg):
         return h, None
-    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    if cfg.mrope:
+        positions = _mrope_positions(cfg, b, s, tokens.device)
+    else:
+        positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     return h, attn.rope_tables(cfg, positions)
 
 
@@ -232,7 +280,7 @@ def lm_forward(params, cfg: ModelConfig, batch: Dict, *, quant="none"):
     (logits (B, S, V), aux_loss): the MoE layers' load-balance losses
     summed (0 for the dense family)."""
     fmt = layers.recipe_for(quant)["linear"]
-    h, rope = _embed_tokens(params, cfg, batch, quant)
+    h, rope = _embed_inputs(params, cfg, batch, quant)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for name, _, subs in layer_groups(cfg):
         for lp, mixer, ffn, _ in _group_layers(params[name], subs):
@@ -251,7 +299,7 @@ def lm_prefill(params, cfg: ModelConfig, batch: Dict, *, quant="none"):
     (layers, B, K-1, conv_dim), "ssm": (layers, B, H, N, P)}``; jamba:
     ``{"blocks": {"sub{i}": ...}}``), the JAX package's stacked layout."""
     fmt = layers.recipe_for(quant)["linear"]
-    h, rope = _embed_tokens(params, cfg, batch, quant)
+    h, rope = _embed_inputs(params, cfg, batch, quant)
     caches = {}
     for name, _, subs in layer_groups(cfg):
         per_sub = [[] for _ in subs]
@@ -278,7 +326,7 @@ def _layer_leaf(leaf, i: int):
 def lm_decode_step(params, cfg: ModelConfig, token: torch.Tensor,
                    position: torch.Tensor, cache: Dict, *, quant="none",
                    block_tables: Optional[torch.Tensor] = None, lengths=None,
-                   paged_impl="fused"):
+                   paged_impl="fused", embeds=None, embeds_mask=None):
     """token: (B, C) int — a chunk of consecutive tokens per slot;
     position: (B,) int base positions (chunk entry i sits at base + i);
     cache: the arena's buffers (written in place) — pages read through
@@ -287,11 +335,18 @@ def lm_decode_step(params, cfg: ModelConfig, token: torch.Tensor,
 
     ``lengths``: (B,) valid chunk entries per row — cache writes past a
     row's length are dropped, and its tail logits are garbage by contract
-    (the engine samples at index ``lengths - 1``)."""
+    (the engine samples at index ``lengths - 1``).
+
+    ``embeds``/``embeds_mask``: (B, C, d) / (B, C) — vlm chunked prefill:
+    positions flagged in the mask take the provided embedding (the stub
+    vision patches) instead of the token embedding."""
     recipe = layers.recipe_for(quant)
     fmt = recipe["linear"]
     h = layers.embedding_lookup(params["embed"], token, recipe["embed"],
                                 torch.bfloat16, width=cfg.d_model)
+    if embeds is not None:
+        h = torch.where(embeds_mask[..., None], embeds.to(h.dtype), h)
+    mrope = _mrope_decode_positions if cfg.mrope else None
     step = None
     for name, count, subs in layer_groups(cfg):
         for lp, mixer, ffn, layer_cache in _group_layers(
@@ -301,7 +356,7 @@ def lm_decode_step(params, cfg: ModelConfig, token: torch.Tensor,
                 # first one's K (or latent) leaf; SSM layers need none.
                 step = attn.paged_step(cfg, position, block_tables, lengths,
                                        next(iter(layer_cache.values())),
-                                       token.shape[1])
+                                       token.shape[1], mrope=mrope)
             h = layer_decode(lp, cfg, h, position, layer_cache, mixer=mixer,
                              ffn=ffn, fmt=fmt, block_tables=block_tables,
                              lengths=lengths, paged_impl=paged_impl,

@@ -40,9 +40,18 @@ their SSM state lives per slot beside the pages (``runtime/kvcache.py``)
 and admission zeroes it (``reset_slot``). They refuse speculation, the
 prefix cache and int8 pages, as the JAX engine does.
 
+The conditioned families serve through it too. An encdec (whisper)
+admission runs the encoder once (``model.encode_cross`` on the request's
+``extras["frames"]``) and writes the cross K/V into the slot's state
+leaves; the decoder prompt then streams through the step. A vlm
+(qwen2-vl) prompt's first ``vision_tokens`` positions take the
+request's ``extras["vision_embeds"]`` rows in place of their token
+embeddings (``_vision_override``, per prompt chunk). Both refuse the
+prefix cache, and encdec refuses int8 pages and the draft proposer, as
+the JAX engine does.
+
 Not ported yet, refused by the constructor with the ROADMAP item that
-ports them: serving meshes (A17) and the vlm and encdec families
-(A16b, A16c).
+ports them: serving meshes (A17).
 """
 from __future__ import annotations
 
@@ -55,7 +64,7 @@ import torch
 
 from repro_torch.core import convert
 from repro_torch.kernels import _build
-from repro_torch.models.api import PENDING_FAMILIES, ModelAPI
+from repro_torch.models.api import ModelAPI
 from repro_torch.runtime import sampling, speculative
 from repro_torch.runtime.kvcache import KV_QUANT_MODES, KVArena, PagedKVArena
 from repro_torch.runtime.request import (Request, SamplingParams, SeqState,
@@ -242,15 +251,9 @@ class ServingEngine:
                     "cross-attention KV is written by the one-time "
                     "encoder pass (write_prefill), which bypasses the "
                     "quantize-on-insert path")
-        refusals = [
-            (mesh is not None, "serving meshes are ROADMAP A17"),
-            (model.cfg.family in PENDING_FAMILIES,
-             f"the {model.cfg.family!r} family is "
-             f"{PENDING_FAMILIES.get(model.cfg.family)}"),
-        ]
-        for refused, why in refusals:
-            if refused:
-                raise NotImplementedError(f"not ported to repro_torch: {why}")
+        if mesh is not None:
+            raise NotImplementedError("not ported to repro_torch: serving "
+                                      "meshes are ROADMAP A17")
         self.model = model
         self.params = params
         self.quant = quant
@@ -284,6 +287,8 @@ class ServingEngine:
         # (host-side only: no device sync, no kernel launch).
         self.telemetry = telemetry
         self._timeline: Optional[StepTimeline] = None
+        self._vlm = model.cfg.family == "vlm"
+        self._encode_cross = model.encode_cross
         self._run_cow0 = 0
         self._step_compiles = 0
         self._fresh_arena_sched()
@@ -352,6 +357,23 @@ class ServingEngine:
             stats.prefix_hits += 1
             stats.prefix_hit_tokens += hit
             ledger.record_prefix_hit(hit)
+        if self._encode_cross is not None and seq.req.extras \
+                and "frames" in seq.req.extras:
+            # The one-time encoder pass, timed to its end as the JAX
+            # engine's (one sync per admission, none added to the step).
+            t0 = time.perf_counter()
+            frames = torch.as_tensor(seq.req.extras["frames"],
+                                     device=self.device)
+            cache = self._encode_cross(self.params, frames, quant=self.quant)
+            self.arena.write_prefill(cache, seq.slot)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            stats.prefill_s += time.perf_counter() - t0
+            ledger.charge("prefill", "acts", "h2d",
+                          frames.numel() * frames.element_size())
+            ledger.charge_cache_growth("prefill", sum(
+                t.numel() * t.element_size()
+                for t in cache["dec_layers"]["cross"].values()))
 
     def _preempt(self, seq: Sequence) -> None:
         """Recompute-preemption: reclaim the victim's slot and blocks (a
@@ -474,6 +496,37 @@ class ServingEngine:
             top_ps[slot] = sp.top_p if sp.top_p < 1.0 else self.top_p
         return temps, top_ks, top_ps
 
+    def _vision_override(self, feeds: Dict[int, int]):
+        """(embeds (slots, chunk, d) bf16, mask (slots, chunk), bytes), or
+        None when no prefilling vlm slot feeds a vision position this
+        step: positions [fed, fed + n) below the request's vision rows
+        take those rows instead of the token embedding. The bytes are
+        the rows' bf16 upload."""
+        ns, C = self.num_slots, self.chunk_size
+        embeds = mask = None
+        nbytes = 0
+        for slot, seq in self.sched.active.items():
+            if seq.state is not SeqState.PREFILL or not seq.req.extras:
+                continue
+            vis = seq.req.extras.get("vision_embeds")
+            if vis is None:
+                continue
+            vis = torch.as_tensor(vis)[0]                 # (V, d)
+            lo = seq.fed
+            hi = min(seq.fed + feeds.get(slot, 0), vis.shape[0])
+            if hi <= lo:
+                continue
+            if embeds is None:
+                embeds = torch.zeros((ns, C, vis.shape[1]),
+                                     dtype=torch.bfloat16, device=self.device)
+                mask = torch.zeros((ns, C), dtype=torch.bool,
+                                   device=self.device)
+            embeds[slot, :hi - lo] = vis[lo:hi].to(self.device,
+                                                   torch.bfloat16)
+            mask[slot, :hi - lo] = True
+            nbytes += (hi - lo) * vis.shape[1] * 2
+        return None if embeds is None else (embeds, mask, nbytes)
+
     def _step_once(self, gen: torch.Generator, stats: GenStats,
                    ledger: TransferLedger, t0: float) -> None:
         """One unified (slots, chunk) step: prompt chunks and decode
@@ -517,10 +570,15 @@ class ServingEngine:
             if uploaded:        # dirty tables only: admission/growth/preempt
                 ledger.charge("decode", "tables", "h2d", uploaded)
         lens_t, tokens_t = put(lens), put(tokens)
+        extra = {}
+        vision = self._vision_override(feeds) if self._vlm else None
+        if vision is not None:
+            extra = {"embeds": vision[0], "embeds_mask": vision[1]}
+            ledger.charge("prefill", "acts", "h2d", vision[2])
         logits, _ = self.model.decode_step(
             self.params, tokens_t, put(pos0), self.arena.buffers,
             quant=self.quant, block_tables=dev_tables, lengths=lens_t,
-            paged_impl=self.paged_attn)
+            paged_impl=self.paged_attn, **extra)
         head = dict(top_k=put(top_ks), top_p=put(top_ps),
                     stochastic=bool(np.any(temps > 0)))
         if spec_on:
@@ -831,9 +889,12 @@ class Engine:
 
     def generate(self, tokens, max_new_tokens: int, *,
                  temperature: float = 0.0, top_k: int = 0,
-                 top_p: float = 1.0, seed: int = 0):
-        """tokens: (B, S_prompt) int (numpy or tensor). Returns
-        (out_tokens (B, T) int32 numpy, stats)."""
+                 top_p: float = 1.0, seed: int = 0,
+                 extras: Optional[Dict] = None):
+        """tokens: (B, S_prompt) int (numpy or tensor); ``extras``: batched
+        frontend inputs ({"frames": (B, ...)} / {"vision_embeds": ...}),
+        row i going to request i. Returns (out_tokens (B, T) int32 numpy,
+        stats)."""
         toks = np.asarray(tokens.cpu() if isinstance(tokens, torch.Tensor)
                           else tokens)
         b, s_prompt = toks.shape
@@ -844,7 +905,9 @@ class Engine:
         samp = SamplingParams(temperature=temperature, top_k=top_k,
                               top_p=top_p, seed=seed)
         reqs = [Request(rid=i, tokens=toks[i], max_new_tokens=max_new_tokens,
-                        sampling=samp) for i in range(b)]
+                        sampling=samp,
+                        extras={k: v[i:i + 1] for k, v in extras.items()}
+                        if extras else None) for i in range(b)]
         try:
             report = eng.serve(reqs, seed=seed, realtime=False)
         finally:

@@ -24,11 +24,12 @@ With ``kv_quant="int8"`` every paged leaf stores int8 code pages plus
 fp16 scale pages (``page_layout``).
 
 Constant-size *state* leaves (the SSM conv window and recurrent state of
-mamba2 and jamba) are not paged: both arenas keep them per slot,
-(layers, num_slots, ...), in the dtype the decode step emits
-(``step_leaf_dtypes``), and zero a slot's state at admission
-(``reset_slot``). A model with no paged leaf (mamba2) holds a degenerate
-one-block table per slot.
+mamba2 and jamba, whisper's cross K/V) are not paged: both arenas keep
+them per slot, (layers, num_slots, ...), in the dtype the decode step
+emits (``step_leaf_dtypes``), and zero a slot's state at admission
+(``reset_slot``); whisper's admission then writes the encoder pass's
+cross K/V into the slot (``write_prefill``). A model with no paged leaf
+(mamba2) holds a degenerate one-block table per slot.
 
 With ``prefix_cache=True`` the allocator is refcounted and slots may map
 the same full prompt blocks (``PrefixCache``, copy-on-write before any
@@ -87,9 +88,16 @@ def _build(shapes, dtypes, device) -> Dict:
 # The dtype the decode step hands back for each kind of state leaf, given
 # the arena's cache dtype: the conv window is the activations' (bf16)
 # joined with the stored window (``_causal_conv``'s concatenation), the
-# SSM state accumulates in f32.
+# SSM state accumulates in f32, the enc-dec cross K/V pass through the
+# step unchanged (written once at admission, in the arena's dtype).
 _STATE_DTYPES = {"conv": lambda dt: torch.promote_types(dt, torch.bfloat16),
-                 "ssm": lambda dt: torch.float32}
+                 "ssm": lambda dt: torch.float32,
+                 "cross": lambda dt: dt}
+
+
+def _state_kind(path) -> str:
+    """The ``_STATE_DTYPES`` kind of a state leaf at key ``path``."""
+    return "cross" if "cross" in path else path[-1]
 
 
 def step_leaf_dtypes(model: ModelAPI, batch: int, max_seq: int, dtype,
@@ -99,8 +107,8 @@ def step_leaf_dtypes(model: ModelAPI, batch: int, max_seq: int, dtype,
     store what the decode step emits for them at fixed point — the JAX
     package probes that with ``jax.eval_shape`` of one decode step; the
     port states it per leaf kind (``_STATE_DTYPES``: the SSM state f32,
-    the conv window bf16 on a bf16 arena)."""
-    names = [path[-1] for path, _ in
+    the conv window bf16 on a bf16 arena, the cross K/V the arena's)."""
+    names = [_state_kind(path) for path, _ in
              _items(model.cache_shapes(batch, max_seq))]
     return tuple(_STATE_DTYPES[n](dtype) if const else dtype
                  for n, const in zip(names, const_flags))
@@ -761,17 +769,35 @@ class PagedKVArena:
 
     # -- storage ---------------------------------------------------------
     def write_prefill(self, prefill_cache: Dict, slot: int) -> None:
-        """The JAX package scatters a prefill cache into a slot's blocks
-        only for the enc-dec admission pass (ROADMAP A16c). An int8 arena
-        refuses it for good: quantized serving feeds prompts through the
-        chunked step (quantize-on-insert)."""
-        if self.kv_quant != "none":
+        """Scatter a B=1 prefill cache into ``slot``'s reserved blocks
+        (serving uses this only for the enc-dec admission-time encoder
+        pass): a paged leaf's (L, 1, P, ...) positions are re-blocked into
+        ``blocks_for(P)`` blocks — the slot's first blocks, the null page
+        past its reservation — and a state leaf's (L, 1, ...) fills the
+        slot's state. Positions past P within the last block are written
+        as zeros; the step rewrites every position before reading it."""
+        if self.kv_quant != "none" and self.has_paged:
             raise NotImplementedError(
                 "write_prefill cannot scatter an unquantized prefill "
                 "cache into int8 pages; quantized serving feeds prompts "
-                "through the chunked step (quantize-on-insert)")
-        raise NotImplementedError("the paged write_prefill serves the "
-                                  "enc-dec admission, ROADMAP A16c")
+                "through the chunked step (quantize-on-insert), and the "
+                "engine refuses the families that need this path")
+        for a, c, paged in zip(_leaves(self.buffers), _leaves(prefill_cache),
+                               self._paged_flags):
+            if not paged:
+                a[:, slot:slot + 1].copy_(c)
+                continue
+            bs = a.shape[2]
+            c2 = c[:, 0]                                  # (L, P, ...)
+            nbw = self.allocator.blocks_for(c2.shape[1])
+            ids = self._slot_blocks[slot][:nbw]
+            ids = ids + [self.null_block] * (nbw - len(ids))
+            want = nbw * bs
+            if c2.shape[1] < want:
+                c2 = torch.cat([c2, c2.new_zeros(
+                    (c2.shape[0], want - c2.shape[1]) + c2.shape[2:])], 1)
+            c2 = c2.reshape((c2.shape[0], nbw, bs) + c2.shape[2:])
+            a[:, torch.tensor(ids, device=a.device)] = c2.to(a.dtype)
 
     # -- byte accounting --------------------------------------------------
     def nbytes(self) -> int:

@@ -848,3 +848,127 @@ def test_jamba_attention_layer_g4_matches_cpu(cuda):
     for b, n in enumerate(lens):
         assert float((a[b, :n] - r[b, :n]).abs().max()) <= \
             1e-2 * float(r.abs().max())
+
+
+# --- The conditioned families at full width: B7 non-causal at whisper's
+# encoder and cross shapes, B1 at whisper's G = 1 / D = 64 and qwen2-vl's
+# G = 6 / D = 128, and a 2-layer step of each model against the CPU path.
+
+# (B, Sq, Skv, H, Hkv, D, causal): whisper's encoder over 1,500 frames,
+# its prefill's cross attention (128 decoder tokens over 1,500 frames),
+# and qwen2-vl's causal prefill (12 heads over 2 KV heads).
+FLASH_CONDITIONED = [(8, 1500, 1500, 12, 12, 64, False),
+                     (8, 128, 1500, 12, 12, 64, False),
+                     (8, 512, 512, 12, 2, 128, True)]
+
+
+@pytest.mark.parametrize("shape", FLASH_CONDITIONED,
+                         ids=["whisper-encoder", "whisper-cross",
+                              "qwen2-vl-prefill"])
+def test_flash_attention_conditioned_shapes(cuda, shape):
+    """bf16 through the tensor-core kernel at B7's 1e-4 of the f32 plain
+    version plus one bf16 ulp of the output, one launch a call."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    b, sq, skv, h, hkv, d, causal = shape
+    gen = torch.Generator(device=cuda).manual_seed(sq + skv)
+    q, k, v = (torch.randn((b, s, n, d), generator=gen,
+                           device=cuda).to(torch.bfloat16)
+               for s, n in ((sq, h), (skv, hkv), (skv, hkv)))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=causal)
+    torch.cuda.synchronize()
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    ulp = torch.where(ref == 0, torch.zeros_like(ref), ulp)
+    assert out.shape == (b, sq, h, d)
+    assert bool(((out.float() - ref).abs()
+                 <= ulp + 1e-4 + 1e-4 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("chunk", [1, 8])
+@pytest.mark.parametrize("heads", [(12, 12, 64), (12, 2, 128)],
+                         ids=["whisper-g1", "qwen2-vl-g6"])
+def test_paged_attention_conditioned_widths(cuda, heads, chunk):
+    """whisper's MHA decoder (G = 1, D = 64: C rows a kv-head) and
+    qwen2-vl's G = 6, D = 128 (48 rows at chunk 8, three 16-row tiles),
+    bf16 at block 16, twice."""
+    h, hkv, d = heads
+    _check_paged(cuda, chunk, "bfloat16", h=h, hkv=hkv, d=d, bs=16,
+                 launches=2)
+
+
+def _conditioned_step(cuda, arch):
+    """``arch`` at full width cut to 2 layers (whisper: 2 encoder and 2
+    decoder layers), q8_0: the admission pass (whisper: cross K/V of
+    random frames written into both slots) and one chunked step on bf16
+    pages (lengths 8 / 3 at bases 0 / 5; qwen2-vl: vision rows at
+    positions below 256, the second slot's chunk straddling the vision /
+    text boundary at base 250), on the CPU and on the card. Returns
+    {device: (logits, launches)}."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.convert import quantize_params
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    from repro_torch.runtime.kvcache import PagedKVArena
+    cfg = get_config(arch)
+    cut = dict(num_layers=2)
+    if cfg.family == "encdec":
+        cut["encoder_layers"] = 2
+    model = build_model(dataclasses.replace(cfg, **cut))
+    params = quantize_params(model.init(
+        torch.Generator(device=cuda).manual_seed(0)), "q8_0")
+    gen = torch.Generator().manual_seed(3)
+    tok = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen,
+                        dtype=torch.int32)
+    vlm = cfg.family == "vlm"
+    pos = torch.tensor([0, 250 if vlm else 5], dtype=torch.int32)
+    lens = torch.tensor([8, 3], dtype=torch.int32)
+    frames = torch.randn((1, cfg.encoder_seq_len, cfg.d_model),
+                         generator=gen).to(torch.bfloat16)
+    vis = torch.randn((2, 8, cfg.d_model), generator=gen).to(torch.bfloat16)
+    mask = (pos[:, None] + torch.arange(8)) < cfg.vision_tokens
+    got = {}
+    for d in ("cpu", cuda):
+        arena = PagedKVArena(model, 2, 272, block_size=16, device=d)
+        for _ in range(2):
+            arena.alloc_slot(arena.blocks_needed(272))
+        serve.reset_launches()
+        w = _to(params, d)
+        if not vlm:
+            for s in range(2):
+                arena.write_prefill(model.encode_cross(
+                    w, frames.to(d), quant="q8_0"), s)
+        extra = dict(embeds=vis.to(d), embeds_mask=mask.to(d)) if vlm \
+            else {}
+        tables, _ = arena.device_tables()
+        logits, _ = model.decode_step(w, tok.to(d), pos.to(d), arena.buffers,
+                                      quant="q8_0", block_tables=tables,
+                                      lengths=lens.to(d), **extra)
+        got[str(d)] = (logits.float().cpu(), serve.launch_counts())
+    return cfg, lens, got
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "qwen2-vl-2b"])
+def test_conditioned_full_width_step_matches_cpu(cuda, arch):
+    """Valid rows' logits within 1e-2 of max|logit| of the CPU path's
+    (chip_smoke.py's step-check bound: bf16 activations in another
+    summation order), every linear through matmul_q8_0 and every self
+    attention through paged_decode_attention on the card (whisper's
+    admission: 2 x (12 encoder + 4 cross K/V) linears and 2 x 2 flash
+    launches; the step: 2 x 8 linears, 2 paged launches and the
+    lm_head; qwen2-vl: 2 x 7 + 1 linears, 2 paged launches)."""
+    cfg, lens, got = _conditioned_step(cuda, arch)
+    (a, launches), (r, cpu_launches) = got[str(cuda)], got["cpu"]
+    assert not any(cpu_launches.values())
+    want = {"matmul_q8_0": 15, "paged_decode_attention": 2} \
+        if cfg.family == "vlm" else \
+        {"matmul_q8_0": 2 * 16 + 17, "paged_decode_attention": 2,
+         "flash_attention": 4}
+    assert {k: v for k, v in launches.items() if v} == want
+    assert a.shape == (2, 8, cfg.vocab_size) and bool(torch.isfinite(a).all())
+    for b, n in enumerate(lens):
+        assert float((a[b, :n] - r[b, :n]).abs().max()) <= \
+            1e-2 * float(r.abs().max())

@@ -7,9 +7,10 @@ fallback, no kernel build on the CPU path.
   package in ``src/repro_torch`` or ``chip_smoke.py``.
 * The CPU path (a reduced model's decode step under every recipe and on
   int8 pages, and its prefill, so every kernel wrapper; the MLA + MoE
-  deepseek-v3, the MoE granite-moe and the recurrent mamba2 and jamba
-  too) never calls the kernel build step (``_build``); every wrapper's
-  library has a source.
+  deepseek-v3, the MoE granite-moe, the recurrent mamba2 and jamba and
+  the conditioned whisper (encoder pass, cross attention) and qwen2-vl
+  (M-RoPE, vision merge) too) never calls the kernel build step
+  (``_build``); every wrapper's library has a source.
 * Architectures, families and serve flags not ported yet are refused,
   naming their ROADMAP item; the flags ported since (the prefix cache,
   the offload policy, the telemetry exports, speculative decoding) serve
@@ -20,7 +21,6 @@ fallback, no kernel build on the CPU path.
 import re
 import subprocess
 import sys
-import types
 from pathlib import Path
 
 import pytest
@@ -150,6 +150,42 @@ def test_cpu_recurrent_archs_never_build_kernels(monkeypatch, arch):
     assert bool(torch.isfinite(logits.float()).all())
 
 
+def test_cpu_conditioned_archs_never_build_kernels(monkeypatch):
+    """whisper: the admission encoder pass, a chunked decode step over
+    its pages and cross K/V, and a prefill; qwen2-vl: a decode step with
+    vision rows and a prefill with vision embeddings, q8_0."""
+    from repro_torch.core.convert import quantize_params
+    from repro_torch.runtime.kvcache import PagedKVArena
+    for arch in ("whisper-small", "qwen2-vl-2b"):
+        cfg, model, params = _refuse_builds(monkeypatch, arch)
+        params = quantize_params(params, "q8_0")
+        arena = PagedKVArena(model, 2, 16, block_size=4, device="cpu")
+        extra, batch = {}, {"tokens": torch.tensor([[1, 2, 3, 4, 5]],
+                                                   dtype=torch.int32)}
+        for s in range(2):
+            arena.alloc_slot(arena.blocks_needed(3))
+        if cfg.family == "encdec":
+            frames = torch.ones((1, cfg.encoder_seq_len, cfg.d_model))
+            for s in range(2):
+                arena.write_prefill(model.encode_cross(params, frames,
+                                                       quant="q8_0"), s)
+            batch["frames"] = frames
+        else:
+            extra = {"embeds": torch.ones((2, 3, cfg.d_model)),
+                     "embeds_mask": torch.ones((2, 3), dtype=torch.bool)}
+            batch["vision_embeds"] = torch.ones((1, 4, cfg.d_model))
+        tables, _ = arena.device_tables()
+        logits, _ = model.decode_step(
+            params, torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32),
+            torch.tensor([0, 0], dtype=torch.int32), arena.buffers,
+            quant="q8_0", block_tables=tables,
+            lengths=torch.tensor([3, 1], dtype=torch.int32), **extra)
+        assert logits.shape == (2, 3, cfg.vocab_size)
+        assert bool(torch.isfinite(logits.float()).all())
+        logits, _ = model.prefill(params, batch, quant="q8_0")
+        assert bool(torch.isfinite(logits.float()).all())
+
+
 def test_cpu_prefill_never_builds_kernels(monkeypatch):
     cfg, model, params = _refuse_builds(monkeypatch)
     logits, cache = model.prefill(
@@ -207,33 +243,27 @@ def test_serve_accepts_ported_features(argv, capsys, tmp_path):
 
 
 def test_engine_and_registry_refusals_name_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP A16c"):
-        get_config("whisper-small")
-    model = build_model(get_config("qwen3-0.6b").reduced())
+    """The dense configs still to port (A20) and serving meshes (A17);
+    every family builds (``PENDING_FAMILIES`` is empty)."""
+    from repro_torch.models.api import PENDING_FAMILIES
+    with pytest.raises(NotImplementedError, match="ROADMAP A20"):
+        get_config("llama3.2-3b")
+    assert PENDING_FAMILIES == {}
     from repro_torch.runtime.engine import ServingEngine
-    encdec = types.SimpleNamespace(cfg=types.SimpleNamespace(
-        family="encdec"))
-    for m, kw, item in ((encdec, dict(block_size=4), "A16c"),
-                        (model, dict(block_size=4, mesh=object()), "A17")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            ServingEngine(m, {}, device="cpu", **kw)
+    for arch in ("qwen3-0.6b", "whisper-small", "qwen2-vl-2b"):
+        model = build_model(get_config(arch).reduced())
+        with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+            ServingEngine(model, {}, device="cpu", block_size=4,
+                          mesh=object())
 
 
 @pytest.mark.parametrize("arch", sorted(PENDING))
 def test_pending_archs_are_refused(arch):
-    """Every architecture still to port names its ROADMAP item, and so
-    does ``build_model`` for its family (the dense ones only miss their
-    config)."""
+    """Every architecture still to port names its ROADMAP item (the dense
+    ones, A20, only miss their config: their family builds)."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)
-    family = family_of(arch)
-    if family == "dense":
-        return
-    import dataclasses
-    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
-                              family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP A16"):
-        build_model(cfg)
+    assert family_of(arch) == "dense"
 
 
 @pytest.mark.parametrize("arch,family", [("mamba2-1.3b", "ssm"),
@@ -243,6 +273,18 @@ def test_recurrent_archs_are_ported(arch, family):
     pending list."""
     assert arch not in PENDING and family_of(arch) == family
     assert build_model(get_config(arch)).cfg.name == arch
+
+
+@pytest.mark.parametrize("arch,family", [("whisper-small", "encdec"),
+                                         ("qwen2-vl-2b", "vlm")])
+def test_conditioned_archs_are_ported(arch, family):
+    """whisper (encdec) and qwen2-vl (vlm) resolve and build at full
+    width, and leave the pending lists; whisper's model has the
+    admission encoder pass."""
+    assert arch not in PENDING and family_of(arch) == family
+    model = build_model(get_config(arch))
+    assert model.cfg.name == arch
+    assert (model.encode_cross is not None) == (family == "encdec")
 
 
 def test_moe_archs_are_ported():

@@ -119,8 +119,10 @@ def test_forward_matches_jax(recipes, quant):
 
 
 def test_prefill_refuses_non_token_inputs(recipes):
+    """A dense model takes no vision embeddings (only the vlm family
+    merges them, ``test_torch_vlm.py``): refused, not ignored."""
     _, _, model, tparams = recipes("q8_0")
-    with pytest.raises(NotImplementedError, match="A16b"):
+    with pytest.raises(ValueError, match="vision_embeds"):
         model.prefill(tparams, {
             "tokens": torch.zeros((1, 4), dtype=torch.int32),
             "vision_embeds": torch.zeros((1, 2, 8))})
