@@ -27,7 +27,11 @@ Phases, one line each (every failure exits non-zero):
             widths, B1 at jamba's G = 4 and B7 at its prefill, B1 at
             whisper's G = 1 / D 64 and qwen2-vl's G = 6 / D 128, B7
             non-causal at whisper's encoder and cross shapes and at
-            qwen2-vl's prefill;
+            qwen2-vl's prefill; the dense configs' shapes: matmul_q8_0 at
+            K 16,384 / 29,568 / 53,248 and lm_heads of 128,256 and
+            152,064 rows, B1 at G = 3, 8, 16 and B8 at G = 16, B7 at
+            their 8 x 512 prefills; B7's backward (autograd) against
+            autograd of the plain version at G = 2 and 16, timed;
 4. serve  — ``repro_torch.launch.serve`` at the full width of
             qwen3-0.6b (seeded random weights made on the card): the
             paged stream once for each of the paper's weight recipes
@@ -87,6 +91,26 @@ Phases, one line each (every failure exits non-zero):
             prompts): ``--mode batch``, the stream and a prefill each,
             with exact launches per step, per admission and per
             prefill;
+   dense  — (after the conditioned runs, before any profiler session)
+            the remaining dense configs at full width (q8_0):
+            llama3.2-3b (28 layers, tied embeddings), qwen2-72b cut to
+            8 of 80 layers (qkv bias) and llama3-405b cut to 4 of 126
+            (128 heads over 8 kv-heads, G = 16): ``--mode batch``, the
+            stream (llama3-405b also on int8 pages) and an 8 x 512
+            prefill each, exact launches per step and prefill, and the
+            peak device memory;
+   train  — the paper's train -> quantize -> serve flow: the port's
+            trainer on full-width, full-depth qwen3-0.6b (bf16, 8 x 512
+            copy task) for 20 steps through ``ElasticRunner`` (the loss
+            falls below 0.9x its first value; step ms, train tokens/s),
+            exactly 28 flash launches a step (the attention's forward;
+            its backward is plain PyTorch) and no other kernel, 56 under
+            ``--remat full`` or 2 microbatches, int8 gradient
+            compression and ``dots_saveable`` too; a 2-layer cut's train
+            step against the CPU path; a failure injected at step 5
+            restored from a checkpoint; the trained weights quantized to
+            q8_0 serve the stream with 197 + 28 launches a step and a
+            2-layer step checked against the CPU path;
 5. checks — per recipe, one full-width decode step (depth cut to 2
             layers) against the plain CPU path, and a shorter serve under
             torch.profiler; for q8_0 also a 2-layer prefill and a 2-layer
@@ -106,7 +130,9 @@ Phases, one line each (every failure exits non-zero):
             spreads each layer's state; whisper's and qwen2-vl's 2-layer
             steps (whisper after its admission pass, qwen2-vl across the
             vision/text boundary) against the CPU path and a profiled
-            serve of each;
+            serve of each; the dense configs' steps (2 layers;
+            llama3-405b 1) against the CPU path and a profiled serve of
+            each;
 6. the ``kernels`` JSON line, then the device JSON line, last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -296,6 +322,52 @@ FLASH_CONDITIONED = [
     ("whisper cross", 8, 128, 1500, 12, 12, 64, False, 12),
     ("qwen2-vl prefill", 8, 512, 512, 12, 2, 128, True, 28)]
 
+# The dense phase: the three remaining dense configs at full width (q8_0,
+# bf16 pages), the stream above, --mode batch and an 8 x 512 prefill each.
+# llama3.2-3b runs whole (28 layers, tied embeddings); qwen2-72b (qkv
+# bias) is cut to 8 of its 80 layers and llama3-405b (128 heads over 8
+# kv-heads, G = 16) to 4 of 126 (full depth needs 74.6 and 427 GB of
+# q8_0 planes). Per step and per prefill: layers x 7 linears and the
+# lm_head (tied or not), one attention a layer; llama3-405b also serves
+# on int8 pages (B8 at G = 16). (label, depth cut or None, the step
+# check's depth, per step, per prefill, per step on int8 pages or None)
+DENSE = (("llama3.2-3b", None, 2,
+          {"matmul_q8_0": 197, "paged_decode_attention": 28},
+          {"matmul_q8_0": 197, "flash_attention": 28}, None),
+         ("qwen2-72b", 8, 2,
+          {"matmul_q8_0": 57, "paged_decode_attention": 8},
+          {"matmul_q8_0": 57, "flash_attention": 8}, None),
+         ("llama3-405b", 4, 1,
+          {"matmul_q8_0": 29, "paged_decode_attention": 4},
+          {"matmul_q8_0": 29, "flash_attention": 4},
+          {"matmul_q8_0": 29, "paged_decode_attention_int8": 4}))
+# matmul_q8_0 at the dense configs' new widths (label, N, K, launches a
+# step at the cut depth): K 16,384 and 53,248 (llama3-405b), 29,568
+# (qwen2-72b: its q8_0 scale row, 924 halves, is not 16-byte aligned),
+# and the lm_heads of 128,256 and 152,064 rows.
+DENSE_LINEARS = [
+    ("llama3-405b q/o", 16384, 16384, 8),
+    ("llama3-405b gate/up", 53248, 16384, 8),
+    ("llama3-405b down", 16384, 53248, 4),
+    ("llama3-405b lm_head", 128256, 16384, 1),
+    ("qwen2-72b gate/up", 29568, 8192, 16),
+    ("qwen2-72b down", 8192, 29568, 8),
+    ("qwen2-72b lm_head", 152064, 8192, 1)]
+# B1 (and B8) and B7 at the dense configs' groups: (label, H, Hkv,
+# attention layers a step or prefill), D = 128.
+DENSE_HEADS = [("llama3.2-3b", 24, 8, 28), ("qwen2-72b", 64, 8, 8),
+               ("llama3-405b", 128, 8, 4)]
+
+# The train phase: the trainer (train/*) on full-width, full-depth
+# qwen3-0.6b, bf16 weights (quant none), batch 8 x 512 of the copy task
+# over a pool of 2 batches, lr 3e-3; 28 B7 a step (forward; its backward
+# is plain PyTorch), twice that under --remat full (the forward runs
+# again in the backward) or with 2 microbatches; no matmul or paged
+# kernel (every linear is a bf16 product, as in the JAX package).
+TRAIN_SHAPE = (8, 512)
+TRAIN_STEPS = 20
+TRAIN_LAUNCHES = {"flash_attention": 28}
+
 
 def within_one_ulp(torch, out, ref32, rtol: float, atol: float) -> bool:
     """bf16 ``out`` is an f32 result rounded once: within one bf16 ulp
@@ -463,13 +535,15 @@ def _time_matmul(torch, name, x, planes, dequantize):
         2.0 * m * n * k
 
 
-def time_matmul_recurrent(torch, dev):
-    """matmul_q8_0 at the recurrent models' projection widths
-    (RECURRENT_LINEARS) at the step's M = 64 — N tails off the 128-wide
-    tile (8,512, 50,280) and K 8,192 — against the plain version (2e-5
-    of the output's scale, bf16 output the f32 one rounded), timed beside
-    the plain version and cuBLAS f32 with the bound. Returns {shape:
-    numbers} and each model's per-step totals of these shapes."""
+def time_matmul_recurrent(torch, dev, linears=RECURRENT_LINEARS):
+    """matmul_q8_0 at other models' projection widths at the step's M = 64
+    — ``linears``: the recurrent models' (RECURRENT_LINEARS: N tails off
+    the 128-wide tile (8,512, 50,280) and K 8,192) or the dense configs'
+    (DENSE_LINEARS: K 16,384, 29,568 and 53,248, lm_heads of 128,256 and
+    152,064 rows) — against the plain version (2e-5 of the output's
+    scale, bf16 output the f32 one rounded), timed beside the plain
+    version and cuBLAS f32 with the bound. Returns {shape: numbers} and
+    each model's per-step totals of these shapes."""
     from repro_torch.core.quant import dequant, pack
     from repro_torch.kernels.ops import MATMUL_KERNELS
     from repro_torch.kernels.ref import matmul_ref
@@ -477,7 +551,7 @@ def time_matmul_recurrent(torch, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
     out, steps = {}, {}
-    for shape, n, k, count in RECURRENT_LINEARS:
+    for shape, n, k, count in linears:
         m = M_STEP
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         planes = pack.quantize(
@@ -517,7 +591,7 @@ def time_matmul_recurrent(torch, dev):
     for model, tot in steps.items():
         b_ms, b_by = bound(tot.pop("bytes"), tot.pop("flops"))
         tot.update(bound_ms=b_ms, bound_by=b_by)
-        print(f"kernel matmul_q8_0 {model}'s recurrent projections and "
+        print(f"kernel matmul_q8_0 {model}'s timed projections and "
               f"lm_head per step: kernel {tot['ms']:.4f} ms | plain "
               f"{tot['plain_ms']:.4f} ms | library {tot['library_ms']:.4f} "
               f"ms | bound {b_ms:.4f} ms ({b_by})", flush=True)
@@ -774,6 +848,9 @@ def check_paged_attention(torch, np, dev):
                                           12, Hkv=12),
                 qwen2_vl=time_paged_widths(torch, np, dev, "qwen2-vl", 12,
                                            128, 28, Hkv=2),
+                dense={label: time_paged_widths(torch, np, dev, label, h,
+                                                128, n, Hkv=hkv)
+                       for label, h, hkv, n in DENSE_HEADS},
                 long_table=check_paged_long_table(torch, np, dev))
 
 
@@ -849,55 +926,78 @@ def check_paged_long_table(torch, np, dev):
     return dict(max_abs_err=errs, ms_per_call=t_k, splits=depth)
 
 
-def time_paged_widths(torch, np, dev, label, H, D, per_step, Hkv=8):
+def time_paged_widths(torch, np, dev, label, H, D, per_step, Hkv=8,
+                      kv="bf16"):
     """The GQA form at another model's decode widths (Hkv = 8: H = 24,
     D = 64 is granite-moe's G = 3 in two 16-row tiles; H = 32, D = 128
     is jamba's G = 4; whisper's H = Hkv = 12, D = 64 is G = 1; qwen2-vl's
-    H = 12 over Hkv = 2, D = 128 is G = 6), bf16, against the plain
-    version, timed per call and per step (``per_step`` attention layers)
-    beside the plain version and SDPA on the gathered view, with the
-    bound."""
+    H = 12 over Hkv = 2, D = 128 is G = 6; the dense configs' H = 24, 64
+    and 128 over Hkv = 8, D = 128 are G = 3, 8 and 16), bf16 q on bf16
+    pages, or on int8 code pages with fp16 scales (``kv="int8"``, B8),
+    against the plain version, timed per call and per step
+    (``per_step`` attention layers) beside the plain version and SDPA on
+    the gathered (dequantized) view, with the bound."""
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import paged_decode_attention
     from repro_torch.kernels.ref import paged_attention_ref
-    c = _paged_case(torch, np, dev, torch.bfloat16, H=H, D=D, Hkv=Hkv)
-    args = (c["q"], c["kp"], c["vp"], c["tables"], c["pos"])
-    out = paged_decode_attention(*args, sm_scale=c["sm"], lengths=c["lens"])
-    ref = paged_attention_ref(*args, sm_scale=c["sm"])
+    from repro_torch.models.attention import quantize_kv
+    c = _paged_case(torch, np, dev, torch.float32 if kv == "int8"
+                    else torch.bfloat16, H=H, D=D, Hkv=Hkv)
+    q = c["q"].to(torch.bfloat16)
+    kw = {}
+    kp, vp = c["kp"], c["vp"]
+    if kv == "int8":
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+        kw = dict(k_scales=ks, v_scales=vs)
+    args = (q, kp, vp, c["tables"], c["pos"])
+    counter = "int8_launches" if kv == "int8" else "launches"
+    out = paged_decode_attention(*args, sm_scale=c["sm"], lengths=c["lens"],
+                                 **kw)
+    ref = paged_attention_ref(q.float(), *args[1:], sm_scale=c["sm"], **kw)
     torch.cuda.synchronize()
     err = 0.0
     for b in range(out.shape[0]):
         n = int(c["np_lens"][b])
-        o, r = out[b, :n].float(), ref[b, :n].float()
-        if not torch.allclose(o, r, rtol=2 ** -7, atol=1e-3):
-            fail(f"paged_decode_attention {label} widths slot {b}: "
-                 f"max_abs_err {float((o - r).abs().max()):.3e}")
-        err = max(err, float((o - r).abs().max()))
-    launches0 = paged_decode_attention.launches
+        o, r = out[b, :n], ref[b, :n]
+        # bf16 pages: the bf16 check of check_paged_attention; int8:
+        # check_paged_int8's (f32 tolerance + one bf16 ulp).
+        ok = torch.allclose(o.float(), r, rtol=2 ** -7, atol=1e-3) \
+            if kv == "bf16" else within_one_ulp(torch, o, r, 2e-5, 2e-6)
+        if not bool(torch.isfinite(o.float()).all()) or not ok:
+            fail(f"paged_decode_attention {kv} pages {label} widths slot "
+                 f"{b}: max_abs_err {float((o.float() - r).abs().max()):.3e}")
+        err = max(err, float((o.float() - r).abs().max()))
+    launches0 = getattr(paged_decode_attention, counter)
     t_k = time_ms(torch, [lambda: paged_decode_attention(
-        *args, sm_scale=c["sm"], lengths=c["lens"])], 200)
-    paged_decode_attention.launches = launches0
+        *args, sm_scale=c["sm"], lengths=c["lens"], **kw)], 200)
+    setattr(paged_decode_attention, counter, launches0)
     t_p = time_ms(torch, [lambda: paged_attention_ref(
-        *args, sm_scale=c["sm"])], 50)
-    B, C, H, D = c["q"].shape
+        *args, sm_scale=c["sm"], **kw)], 50)
+    B, C, H, D = q.shape
     G = H // Hkv
-    kv = [x[c["tables"].long()].flatten(1, 2).repeat_interleave(G, dim=2)
-          .transpose(1, 2).contiguous() for x in (c["kp"], c["vp"])]
+    tb = c["tables"].long()
+    kv_view = [(x[tb].float() * sc[tb].float()[..., None]).to(torch.bfloat16)
+               if kv == "int8" else x[tb]
+               for x, sc in ((kp, kw.get("k_scales")),
+                             (vp, kw.get("v_scales")))]
+    kv_view = [x.flatten(1, 2).repeat_interleave(G, dim=2).transpose(1, 2)
+               .contiguous() for x in kv_view]
     depth = c["pos"].long()[:, None] + torch.arange(C, device=dev) + 1
-    mask = (torch.arange(kv[0].shape[2], device=dev)[None, None, :]
+    mask = (torch.arange(kv_view[0].shape[2], device=dev)[None, None, :]
             < depth[:, :, None])[:, None]             # (B, 1, C, S)
-    qh = c["q"].transpose(1, 2).contiguous()
+    qh = q.transpose(1, 2).contiguous()
     t_l = time_ms(torch, [lambda: F.scaled_dot_product_attention(
-        qh, kv[0], kv[1], attn_mask=mask, scale=c["sm"])], 200)
+        qh, kv_view[0], kv_view[1], attn_mask=mask, scale=c["sm"])], 200)
     _, keys = _live_pages(c)
-    nbytes = keys * Hkv * D * 2 * 2 + 2 * c["q"].numel() * 2 \
+    per_key = D * (1 if kv == "int8" else 2) + (2 if kv == "int8" else 0)
+    nbytes = keys * Hkv * per_key * 2 + 2 * q.numel() * 2 \
         + c["tables"].numel() * 4 + 2 * B * 4
     b_ms, b_by = bound(nbytes, keys * Hkv * (C * G) * 4 * D)
-    print(f"kernel paged_decode_attention bf16 {label} widths B={B} "
-          f"C={C} H={H} Hkv={Hkv} D={D} (G={G}): max_abs_err {err:.3e} (rtol "
-          f"2^-7 atol 1e-3) | kernel {t_k:.4f} ms | plain {t_p:.4f} ms | "
-          f"library(SDPA on gathered view) {t_l:.4f} ms | bound "
-          f"{b_ms:.5f} ms ({b_by}) | per step x{per_step}: kernel "
+    print(f"kernel paged_decode_attention {kv} pages {label} widths B={B} "
+          f"C={C} H={H} Hkv={Hkv} D={D} (G={G}): max_abs_err {err:.3e} "
+          f"({'rtol 2^-7 atol 1e-3' if kv == 'bf16' else 'rtol 2e-5 atol 2e-6 + one bf16 ulp'}) | kernel {t_k:.4f} ms | plain "
+          f"{t_p:.4f} ms | library(SDPA on gathered view) {t_l:.4f} ms | "
+          f"bound {b_ms:.5f} ms ({b_by}) | per step x{per_step}: kernel "
           f"{per_step * t_k:.4f} ms", flush=True)
     return dict(ms_per_call=t_k, plain_ms=t_p, library_ms=t_l,
                 bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
@@ -1015,7 +1115,9 @@ def check_paged_int8(torch, np, dev):
                 replaces="src/repro/kernels/paged_attention.py:156",
                 max_abs_err=worst, ms=28 * t_k, plain_ms=28 * t_p,
                 bound_ms=28 * b_ms, bound_by=b_by, library_ms=28 * t_l,
-                ms_per_call=t_k)
+                ms_per_call=t_k,
+                llama3_405b=time_paged_widths(torch, np, dev, "llama3-405b",
+                                              128, 128, 4, kv="int8"))
 
 
 def _mla_case(torch, np, dev, shape, seed, entries=None, deep=False):
@@ -1411,7 +1513,9 @@ def check_flash(torch, dev):
                 ms_per_call=t_k,
                 deepseek_prefill=check_flash_mla(torch, dev),
                 jamba_prefill=time_flash_jamba(torch, dev),
-                conditioned=time_flash_conditioned(torch, dev))
+                conditioned=time_flash_conditioned(torch, dev),
+                dense=time_flash_dense(torch, dev),
+                backward=check_flash_backward(torch, dev))
 
 
 def check_flash_mla(torch, dev):
@@ -1475,14 +1579,15 @@ def _to(tree, d):
     return tree.to(d)
 
 
-def _cut_to_two(params, model):
-    """The weights of ``model`` (a 2-layer cut whose layers all sit in
-    group layers0) taken from the full model's ``params``: the first two
-    layers of layers0, no other layer group."""
+def _cut_to(params, model):
+    """The weights of ``model`` (a depth cut whose layers all sit in group
+    layers0) taken from the full model's ``params``: the first
+    ``model.cfg.num_layers`` layers of layers0, no other layer group."""
     from repro_torch.models.lm import layer_groups
-    assert [(n, c) for n, c, _ in layer_groups(model.cfg)] == \
-        [("layers0", 2)]
-    return {k: (v[:2] if k == "layers0" else v) for k, v in params.items()
+    n = model.cfg.num_layers
+    assert [(g, c) for g, c, _ in layer_groups(model.cfg)] == \
+        [("layers0", n)]
+    return {k: (v[:n] if k == "layers0" else v) for k, v in params.items()
             if not k.startswith("layers") or k == "layers0"}
 
 
@@ -1493,7 +1598,7 @@ def check_prefill_vs_cpu(torch, dev, params, cfg, quant):
     import dataclasses
     from repro_torch.models.api import build_model
     model = build_model(dataclasses.replace(cfg, num_layers=2))
-    cut = _cut_to_two(params, model)
+    cut = _cut_to(params, model)
     rng = torch.Generator().manual_seed(5)
     tokens = torch.randint(0, cfg.vocab_size, (2, 100), generator=rng,
                            dtype=torch.int32)
@@ -1526,15 +1631,17 @@ def check_prefill_vs_cpu(torch, dev, params, cfg, quant):
           f"{1e-2 * scale:.3e}); caches {', '.join(parts)}", flush=True)
 
 
-def check_step_vs_cpu(torch, dev, params, cfg, quant, kv_quant="none"):
-    """One full-width decode step with depth cut to 2 layers under recipe
-    ``quant`` (on int8 KV pages with ``kv_quant="int8"``): the kernels on
-    the card against the plain path on the CPU, same weights."""
+def check_step_vs_cpu(torch, dev, params, cfg, quant, kv_quant="none",
+                      layers=2):
+    """One full-width decode step with depth cut to ``layers`` (2) under
+    recipe ``quant`` (on int8 KV pages with ``kv_quant="int8"``): the
+    kernels on the card against the plain path on the CPU, same weights.
+    Returns (max_abs_err, bound)."""
     import dataclasses
     from repro_torch.models.api import build_model
-    small = dataclasses.replace(cfg, num_layers=2)
+    small = dataclasses.replace(cfg, num_layers=layers)
     model = build_model(small)
-    cut = _cut_to_two(params, model)
+    cut = _cut_to(params, model)
     dtypes = {"q": torch.int8, "s": torch.float16}
 
     rng = torch.Generator().manual_seed(3)
@@ -1577,11 +1684,12 @@ def check_step_vs_cpu(torch, dev, params, cfg, quant, kv_quant="none"):
             or worst > rel * scale:
         fail(f"full-width {quant} kv={kv_quant} step (2 layers) card vs "
              f"CPU: max_abs_err {worst:.3e} vs max|logit| {scale:.3e}")
-    print(f"step check: full-width {cfg.name} {quant} kv={kv_quant}, 2 "
-          f"layers, card kernels "
+    print(f"step check: full-width {cfg.name} {quant} kv={kv_quant}, "
+          f"{layers} layers, card kernels "
           f"vs CPU plain: logits {tuple(a.shape)} finite, max_abs_err "
           f"{worst:.3e} (bound {rel:g} x max|logit| = {rel * scale:.3e})",
           flush=True)
+    return worst, rel * scale
 
 
 def _device_events(torch, prof):
@@ -1793,18 +1901,24 @@ def serve_recipe(torch, dev, serve, quant, extra=(), per_step=None,
 
 
 def serve_batch(torch, dev, serve, arch="qwen3-0.6b", layers=None,
-                per_step=BATCH_LAUNCHES, tag="serve batch", per_admit=None):
+                per_step=BATCH_LAUNCHES, tag="serve batch", per_admit=None,
+                dense=None):
     """``serve --mode batch --prompt-len 128 --gen 32 --batch 8`` at full
     width (q8_0; the lockstep Engine quantizes the dense weights; depth
     cut to ``layers`` if given): every token in vocab, exact launches per
     step (and ``per_admit`` for each of the 8 admissions), no paged
     attention kernel (the contiguous arena attends in plain PyTorch, as
-    the JAX package's XLA does)."""
+    the JAX package's XLA does). ``dense``: the (cfg, model, dense
+    params) to serve, else they are made (and dropped after)."""
     argv = ["--arch", arch, "--mode", "batch", "--prompt-len", "128",
             "--gen", "32", "--batch", "8"]
-    args, cfg, model, dense = recipe_setup(torch, dev, serve, "q8_0",
-                                           argv=argv, quantize=False,
-                                           layers=layers)
+    if dense is None:
+        args, cfg, model, dense = recipe_setup(torch, dev, serve, "q8_0",
+                                               argv=argv, quantize=False,
+                                               layers=layers)
+    else:
+        cfg, model, dense = dense
+        args = serve.build_parser().parse_args(argv + ["--quant", "q8_0"])
     serve.reset_launches()
     t0 = time.perf_counter()
     out, stats = serve.run_batch(cfg, model, dense, args, dev)
@@ -2706,7 +2820,7 @@ def check_mamba_steps_vs_cpu(torch, dev, params, cfg) -> None:
     import dataclasses
     from repro_torch.models.api import build_model
     model = build_model(dataclasses.replace(cfg, num_layers=2))
-    cut = _cut_to_two(params, model)
+    cut = _cut_to(params, model)
     rng = torch.Generator().manual_seed(14)
     i32 = torch.int32
     steps = [(torch.randint(0, cfg.vocab_size, (2, 8), generator=rng,
@@ -2964,7 +3078,7 @@ def _cut_conditioned(params, cfg):
         return dataclasses.replace(cfg, num_layers=2, encoder_layers=2), cut
     from repro_torch.models.api import build_model
     small = dataclasses.replace(cfg, num_layers=2)
-    return small, _cut_to_two(params, build_model(small))
+    return small, _cut_to(params, build_model(small))
 
 
 def check_conditioned_step_vs_cpu(torch, dev, params, cfg) -> None:
@@ -3039,6 +3153,398 @@ def check_conditioned(torch, dev, serve) -> None:
         torch.cuda.empty_cache()
     print(f"chip_smoke: conditioned checks took "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _event_ms(torch, fn, iters: int) -> float:
+    """Device ms per call of ``fn`` (which allocates, so it is not
+    captured in a graph): CUDA events around ``iters`` calls after one
+    warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_flash_backward(torch, dev):
+    """B7 under autograd (``FlashAttention``: the kernel's forward, counted
+    once; the plain f32 backward) at qwen3-0.6b's G = 2 and llama3-405b's
+    G = 16, 8 x 512 causal, bf16: dq, dk and dv against torch.autograd of
+    the plain version on the same inputs, within 1e-2 of each gradient's
+    max |value| plus 1e-4 (both are f32 sums in other orders, rounded once
+    to bf16: a one-ulp flip is 2^-8 of an element). Times the plain
+    backward per call (CUDA events) beside SDPA's forward + backward, with
+    the bound of a backward (read q, k, v, dO, write dq, dk, dv; 10
+    products of D per visible (i, j) pair and head, at the bf16 peak).
+    Returns {label: numbers}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.ref import attention_ref
+    out = {}
+    b, s, d = 8, 512, 128
+    for label, h, hkv, per_step in (("qwen3-0.6b", 16, 8, 28),
+                                    ("llama3-405b", 128, 8, 4)):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(h)
+        mk = lambda *shape: torch.randn(  # noqa: E731
+            shape, generator=gen, device=dev).to(torch.bfloat16)
+        q, k, v = (x.requires_grad_(True) for x in
+                   (mk(b, s, h, d), mk(b, s, hkv, d), mk(b, s, hkv, d)))
+        do = mk(b, s, h, d)
+        launches0 = fa.flash_attention.launches
+        o = fa.flash_attention(q, k, v, causal=True)
+        got = torch.autograd.grad(o, (q, k, v), do)
+        if fa.flash_attention.launches != launches0 + 1:
+            fail(f"flash_attention backward {label}: the forward launched "
+                 f"{fa.flash_attention.launches - launches0} kernels, not 1")
+        fa.flash_attention.launches = launches0   # check launches do not count
+        want = torch.autograd.grad(attention_ref(q, k, v, causal=True),
+                                   (q, k, v), do)
+        torch.cuda.synchronize()
+        errs = []
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            err = float((g.float() - w.float()).abs().max())
+            lim = 1e-4 + 1e-2 * float(w.float().abs().max())
+            if g.dtype != torch.bfloat16 or not bool(
+                    torch.isfinite(g.float()).all()) or err > lim:
+                fail(f"flash_attention backward {label} {name}: max_abs_err "
+                     f"{err:.3e} > {lim:.3e}")
+            errs.append(f"{name} {err:.3e} (bound {lim:.3e})")
+        del got, want, o
+        qd, kd, vd = q.detach(), k.detach(), v.detach()
+        t_b = _event_ms(torch, lambda: fa.attention_backward(
+            qd, kd, vd, do, causal=True, sm_scale=d ** -0.5), 3)
+        qh, kh, vh = (x.detach().transpose(1, 2).contiguous().requires_grad_(
+            True) for x in (q, k, v))
+        doh = do.transpose(1, 2).contiguous()
+        t_l = _event_ms(torch, lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                           enable_gqa=True),
+            (qh, kh, vh), doh), 3)
+        pairs = s * (s + 1) // 2
+        b_ms, b_by = bound(2 * (2 * q.numel() + 2 * k.numel()
+                                + 2 * v.numel() + do.numel()),
+                           10.0 * b * h * d * pairs)
+        print(f"kernel flash_attention backward {label} bf16 B={b} S={s} "
+              f"H={h} Hkv={hkv} D={d} causal: vs autograd of the plain "
+              f"version {', '.join(errs)} | plain backward {t_b:.3f} ms | "
+              f"library(SDPA forward + backward) {t_l:.3f} ms | bound "
+              f"{b_ms:.4f} ms ({b_by}) | per step x{per_step}: plain "
+              f"backward {per_step * t_b:.2f} ms", flush=True)
+        out[label] = dict(plain_backward_ms=t_b, library_ms=t_l,
+                          bound_ms=b_ms, bound_by=b_by, per_step=per_step)
+        del q, k, v, do, qd, kd, vd, qh, kh, vh, doh
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_flash_dense(torch, dev):
+    """flash_attention at the dense configs' 8 x 512 causal prefills (G =
+    3, 8, 16; D 128): {label: numbers}."""
+    return {label: time_flash_at(torch, dev, f"{label} prefill", 8, 512,
+                                 512, h, hkv, 128, True, n, seed=h)
+            for label, h, hkv, n in DENSE_HEADS}
+
+
+def _dense_argv(label):
+    return ["--arch", label] + SERVE_ARGS[2:]
+
+
+def serve_dense(torch, dev, serve):
+    """The dense phase's timed runs, before any profiler session: for
+    llama3.2-3b (28 layers), qwen2-72b (8) and llama3-405b (4), the dense
+    weights made once on the card serve ``--mode batch`` (the lockstep
+    Engine quantizes them), then their q8_0 planes serve the stream (and
+    llama3-405b's on int8 pages) and the 8 x 512 prefill, each with its
+    exact launches; the peak device memory of each. Returns {run:
+    launches}."""
+    from repro_torch.core.convert import quantize_params
+    t0 = time.perf_counter()
+    runs = {}
+    for label, layers, _, per_step, per_prefill, per_int8 in DENSE:
+        argv = _dense_argv(label)
+        args, cfg, model, dense = recipe_setup(
+            torch, dev, serve, "q8_0", argv=argv, quantize=False,
+            layers=layers)
+        peak_made = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        runs[f"{label} batch"] = serve_batch(
+            torch, dev, serve, per_step={"matmul_q8_0":
+                                         per_step["matmul_q8_0"]},
+            tag=f"serve {label} batch", dense=(cfg, model, dense))
+        peak_batch = torch.cuda.max_memory_allocated()
+        params = quantize_params(dense, "q8_0")
+        del dense
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        setup = (args, cfg, model, params)
+        runs[label] = serve_recipe(torch, dev, serve, "q8_0",
+                                   per_step=per_step,
+                                   tag=f"serve {label} q8_0", argv=argv,
+                                   setup=setup)
+        if per_int8:
+            runs[f"{label} kv-int8"] = serve_recipe(
+                torch, dev, serve, "q8_0", extra=["--kv-quant", "int8"],
+                per_step=per_int8, tag=f"serve {label} q8_0 kv-int8",
+                argv=argv, setup=setup)
+        runs[f"{label} prefill"] = run_prefill(
+            torch, dev, serve, repeats=2, setup=setup,
+            per_prefill=per_prefill, profile=False)
+        qbytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+        print(f"memory {label} ({cfg.num_layers} layers): q8_0 planes "
+              f"{qbytes / 1e9:.2f} GB; peak device memory: making the bf16 "
+              f"weights {peak_made / 1e9:.1f} GB, --mode batch (bf16 + the "
+              f"Engine's q8_0) {peak_batch / 1e9:.1f} GB, the serves and "
+              f"the prefill on q8_0 {torch.cuda.max_memory_allocated() / 1e9:.1f}"
+              f" GB", flush=True)
+        del setup, params
+        torch.cuda.empty_cache()
+    print(f"chip_smoke: dense serves took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return runs
+
+
+def check_dense(torch, dev, serve) -> None:
+    """The dense phase's checks, after every timed serve, on the same
+    seeded weights made again: each config's full-width step cut to 2
+    layers (llama3-405b: 1; its lm_head whole, 128,256 rows: the host's
+    f32 dequantization of it is 8.4 GB) against the CPU path, and a
+    profiled serve of each."""
+    t0 = time.perf_counter()
+    for label, layers, check_layers, _, _, _ in DENSE:
+        argv = _dense_argv(label)
+        _, cfg, model, params = recipe_setup(torch, dev, serve, "q8_0",
+                                             argv=argv, layers=layers)
+        check_step_vs_cpu(torch, dev, params, cfg, "q8_0",
+                          layers=check_layers)
+        profile_serve(torch, serve, cfg, model, params, dev, "q8_0",
+                      arena=argv[:-8],
+                      label=f"{label} ({cfg.num_layers} layers) q8_0")
+        del params, model
+        torch.cuda.empty_cache()
+    print(f"chip_smoke: dense checks took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def train_phase(torch, dev, serve, card):
+    """The paper's train -> quantize -> serve flow on the card: the port's
+    trainer on full-width, full-depth qwen3-0.6b (bf16, copy task over a
+    pool of 2 batches of 8 x 512, lr 3e-3) for TRAIN_STEPS steps through
+    ``ElasticRunner`` (the last loss below 0.9x the first; step ms, train
+    tokens/s, peak memory), exactly 28 B7 a step and no matmul or paged
+    kernel; --remat full and --microbatches 2 at 56, --grad-compression
+    int8 at 28, --remat dots_saveable printed (two steps each, the second
+    timed); a 2-layer cut's step on the card against the CPU path (loss within 1e-3 of its value, grad norm
+    within 1 %, every parameter within 2 lr (1 + weight decay) plus one
+    bf16 ulp of the CPU's, at most 2 % of them beyond that ulp: a first
+    AdamW step moves an element by about ±lr, so an element whose
+    gradient is within rounding of 0 may move the other way); a failure
+    injected at step 5 of the 2-layer cut restored from the step-4
+    checkpoint (restarts == 1); then the trained weights quantized to q8_0 serve the stream with
+    197 B2 + 28 B1 a step and a 2-layer step checked against the CPU path.
+    Returns {run: launches}."""
+    import dataclasses
+    import shutil
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core.convert import quantize_params
+    from repro_torch.models.api import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.elastic import ElasticRunner
+    from repro_torch.train.trainer import make_train_step
+    t_phase = time.perf_counter()
+    cfg = serve.get_config("qwen3-0.6b")
+    model = build_model(cfg)
+    b, s = TRAIN_SHAPE
+    data = SyntheticDataset(cfg.vocab_size, s, b, task="copy", pool=2,
+                            device=dev)
+    ckdir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    def init_fn():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = model.init(gen)
+        return params, opt.adamw_init(params)
+
+    tc = TrainConfig(learning_rate=3e-3, total_steps=TRAIN_STEPS,
+                     warmup_steps=1, checkpoint_every=1000,
+                     checkpoint_dir=str(ckdir / "run"))
+    raw = make_train_step(model, tc)
+    last = {}
+
+    def step_fn(params, opt_state, batch):
+        out = raw(params, opt_state, batch)
+        last["params"], last["opt"] = out[0], out[1]
+        return out
+    losses, secs = [], []
+    runner = ElasticRunner(tc, step_fn, init_fn, data, on_step=lambda
+                           step, m, dt: (losses.append(float(m["loss"])),
+                                         secs.append(dt)))
+    serve.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    result = runner.run()
+    wall = time.perf_counter() - t0
+    runs = {"train": check_launches("train qwen3-0.6b", serve.launch_counts(),
+                                    TRAIN_LAUNCHES, result["step"])}
+    med = sorted(secs[1:])[len(secs[1:]) // 2]
+    print(f"train qwen3-0.6b ({cfg.num_layers} layers, bf16) {b} x {s} "
+          f"copy task on {card}: {result['step']} steps in {wall:.1f} s (checkpoint "
+          f"included), loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"({[round(x, 3) for x in losses]}), step ms first "
+          f"{1e3 * secs[0]:.1f}, median {1e3 * med:.1f}, train tokens/s "
+          f"{b * s / med:.0f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB; stragglers "
+          f"{result['stragglers']}, restarts {result['restarts']}",
+          flush=True)
+    if result["step"] != TRAIN_STEPS or result["restarts"] or \
+            not losses[-1] < 0.9 * losses[0] or \
+            not all(math.isfinite(x) for x in losses):
+        fail(f"train: the loss did not fall below 0.9x its first value "
+             f"over {TRAIN_STEPS} steps: {losses}")
+    params, state = last["params"], last["opt"]
+    # The other step forms, a step or two each, with their launches.
+    # Two steps each, the second timed (a remat policy's first step also
+    # pays torch.utils.checkpoint's one-time set-up).
+    b7 = TRAIN_LAUNCHES["flash_attention"]
+    for label, kw, per in (
+            ("--remat full", dict(remat_policy="full"), 2 * b7),
+            ("--microbatches 2", dict(microbatches=2), 2 * b7),
+            ("--grad-compression int8", dict(grad_compression="int8"), b7),
+            ("--remat dots_saveable", dict(remat_policy="dots_saveable"),
+             None)):
+        step = make_train_step(model, dataclasses.replace(tc, **kw))
+        serve.reset_launches()
+        p, o = params, state
+        steps = 2
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p, o, m = step(p, o, data.batch_at(i))
+            loss = float(m["loss"])
+            ms = 1e3 * (time.perf_counter() - t0)
+        launches = serve.launch_counts()
+        if not math.isfinite(loss):
+            fail(f"train {label}: loss {loss}")
+        if per is None:
+            got = launches["flash_attention"]
+            if got < b7 * steps or any(n for k, n in launches.items()
+                                       if k != "flash_attention"):
+                fail(f"train {label}: launches {launches}")
+            print(f"train {label}: {got // steps} B7 a step (the remat "
+                  f"recomputes the forward's attention), no other kernel; "
+                  f"{ms:.1f} ms a step, loss {loss:.4f}", flush=True)
+            runs[f"train {label}"] = {"flash_attention": got}
+        else:
+            runs[f"train {label}"] = check_launches(
+                f"train {label}", launches, {"flash_attention": per}, steps)
+            print(f"train {label}: {ms:.1f} ms a step, loss {loss:.4f}",
+                  flush=True)
+        del p, o
+    check_train_step_vs_cpu(torch, dev, model, cfg, init_fn)
+    # Failure and restore: a node failure at step 5, after the step-4
+    # checkpoint; full width cut to 2 layers (the full depth's 6 GB of
+    # parameters and moments would take ~10 s a checkpoint).
+    small = build_model(dataclasses.replace(cfg, num_layers=2))
+
+    def init_small():
+        p = _cut_to(init_fn()[0], small)
+        return p, opt.adamw_init(p)
+    tcf = dataclasses.replace(tc, total_steps=6, checkpoint_every=4,
+                              checkpoint_dir=str(ckdir / "fail"),
+                              async_checkpoint=False)
+    rawf = make_train_step(small, tcf)
+    failed = []
+
+    def flaky(params, opt_state, batch):
+        if not failed and int(opt_state["step"]) + 1 == 5:
+            failed.append(True)
+            raise RuntimeError("injected node failure")
+        return rawf(params, opt_state, batch)
+    t0 = time.perf_counter()
+    res = ElasticRunner(tcf, flaky, init_small, data).run(6)
+    latest = ckpt.latest_checkpoint(tcf.checkpoint_dir)
+    if res["step"] != 6 or res["restarts"] != 1 or not failed or \
+            not latest.endswith("ckpt_00000006.pt"):
+        fail(f"train failure injection: {res}, latest {latest}")
+    nbytes = Path(latest).stat().st_size
+    print(f"train failure at step 5 (full width, 2 layers): restored from "
+          f"the step-4 checkpoint and finished 6 steps (restarts "
+          f"{res['restarts']}, latest {Path(latest).name}, "
+          f"{time.perf_counter() - t0:.1f} s with checkpoints of "
+          f"{nbytes / 1e9:.2f} GB)", flush=True)
+    shutil.rmtree(ckdir, ignore_errors=True)
+    # Train -> quantize -> serve.
+    del state, last
+    qparams = quantize_params(params, "q8_0")
+    del params
+    torch.cuda.empty_cache()
+    setup = (None, cfg, model, qparams)
+    runs["trained q8_0"] = serve_recipe(
+        torch, dev, serve, "q8_0", tag="serve trained qwen3-0.6b q8_0",
+        setup=setup)
+    check_step_vs_cpu(torch, dev, qparams, cfg, "q8_0")
+    del setup, qparams
+    torch.cuda.empty_cache()
+    print(f"chip_smoke: train phase took {time.perf_counter() - t_phase:.1f}"
+          " s", flush=True)
+    return runs
+
+
+def check_train_step_vs_cpu(torch, dev, model, cfg, init_fn) -> None:
+    """One train step of the full-width model cut to 2 layers, on the card
+    (B7 forward, bf16 products) and on the CPU (the plain path), same
+    weights and batch (2 x 128 tokens): loss, grad norm and the
+    parameters after the step (the bounds of ``train_phase``)."""
+    import dataclasses
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.models.api import build_model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.data import SyntheticDataset
+    from repro_torch.train.trainer import make_train_step
+    small = build_model(dataclasses.replace(cfg, num_layers=2))
+    cut = _to(_cut_to(init_fn()[0], small), "cpu")
+    batch = SyntheticDataset(cfg.vocab_size, 128, 2, seed=1).batch_at(0)
+    tc = TrainConfig(learning_rate=3e-3, total_steps=TRAIN_STEPS,
+                     warmup_steps=1)
+    out = {}
+    for d in ("cpu", dev):
+        p = _to(cut, d)
+        p1, _, m = make_train_step(small, tc)(
+            p, opt.adamw_init(p), {k: v.to(d) for k, v in batch.items()})
+        out[str(d)] = (float(m["loss"]), float(m["grad_norm"]),
+                       float(m["lr"]), _to(p1, "cpu"))
+        del p, p1
+    (lc, gc, lr, pc), (lg, gg, _, pg) = out["cpu"], out[str(dev)]
+    flips = total = 0
+    worst = 0.0
+    wd = tc.weight_decay
+    for a, w in zip(opt.tree_leaves(pg), opt.tree_leaves(pc)):
+        w = w.double()
+        ulp = torch.ldexp(torch.ones_like(w), torch.frexp(w).exponent - 8)
+        d = (a.double() - w).abs()
+        worst = max(worst, float((d - ulp).max()))
+        flips += int((d > ulp).sum())
+        total += d.numel()
+    if abs(lg - lc) > 1e-3 * abs(lc) or abs(gg / gc - 1) > 1e-2 or \
+            worst > 2 * lr * (1 + wd) or flips > 2e-2 * total:
+        fail(f"train step (2 layers) card vs CPU: loss {lg:.6f} / {lc:.6f}, "
+             f"grad norm {gg:.6f} / {gc:.6f}, parameters {flips} of {total} "
+             f"beyond one ulp, worst {worst:.3e} past it")
+    print(f"train step check: full-width qwen3-0.6b cut to 2 layers, 2 x 128 "
+          f"tokens, card vs CPU: loss {lg:.6f} vs {lc:.6f} (bound 1e-3 of "
+          f"it), grad norm {gg:.6f} vs {gc:.6f} (1 %), parameters after the "
+          f"step: {flips} of {total} ({100 * flips / total:.3f} %, bound 2 %)"
+          f" beyond one bf16 ulp, the farthest {worst:.3e} past it (bound "
+          f"2 lr (1 + wd) = {2 * lr * (1 + wd):.3e})", flush=True)
 
 
 def record_routes(torch, mla_only=False):
@@ -3121,8 +3627,9 @@ def main() -> None:
           f" -> {', '.join(p.name for p in libs.values())}", flush=True)
 
     kernels = [check_matmul(torch, dev, name) for name in MATMULS]
-    kernels[list(MATMULS).index("matmul_q8_0")]["recurrent"] = \
-        time_matmul_recurrent(torch, dev)
+    q8 = kernels[list(MATMULS).index("matmul_q8_0")]
+    q8["recurrent"] = time_matmul_recurrent(torch, dev)
+    q8["dense"] = time_matmul_recurrent(torch, dev, DENSE_LINEARS)
     kernels.append(check_paged_attention(torch, np, dev))
     kernels.append(check_paged_int8(torch, np, dev))
     kernels.append(check_flash(torch, dev))
@@ -3141,6 +3648,10 @@ def main() -> None:
     t_cond = time.perf_counter()
     by_serve.update(serve_conditioned(torch, dev, serve))
     t_cond = time.perf_counter() - t_cond
+    t_dense = time.perf_counter()
+    by_serve.update(serve_dense(torch, dev, serve))
+    t_dense = time.perf_counter() - t_dense
+    by_serve.update(train_phase(torch, dev, serve, card))
     for quant in RECIPE_LAUNCHES:
         by_serve[quant] = serve_recipe(torch, dev, serve, quant)
     by_serve["q8_0 kv-int8"] = serve_recipe(
@@ -3206,6 +3717,11 @@ def main() -> None:
     check_conditioned(torch, dev, serve)
     print(f"chip_smoke: conditioned phase took "
           f"{t_cond + time.perf_counter() - t0:.1f} s (serves and checks)",
+          flush=True)
+    t0 = time.perf_counter()
+    check_dense(torch, dev, serve)
+    print(f"chip_smoke: dense phase took "
+          f"{t_dense + time.perf_counter() - t0:.1f} s (serves and checks)",
           flush=True)
 
     check_routes({k: v for k, v in routes.items() if "matmul" not in k},

@@ -1,12 +1,13 @@
 """Architecture registry for the port: ``--arch <id>`` resolution.
 
-The dense qwen3 family (the paper's own evaluation models), the two
-MoE models, deepseek-v3 (MLA + MoE) and granite-moe (GQA + MoE), the
-recurrent families, mamba2 (SSD, attention-free) and jamba (Mamba +
-attention + MoE), and the conditioned ones, whisper (encoder-decoder)
-and qwen2-vl (M-RoPE, vision-embed merge), are ported. The remaining
-dense configs of ``repro`` wait for ROADMAP A20; asking for one names
-that item.
+Every architecture of ``repro`` is ported: the dense qwen3 family (the
+paper's own evaluation models) and the other dense configs, llama3.2-3b
+(tied embeddings), qwen2-72b (qkv bias) and llama3-405b (128 heads over
+8 kv-heads); the two MoE models, deepseek-v3 (MLA + MoE) and
+granite-moe (GQA + MoE); the recurrent families, mamba2 (SSD,
+attention-free) and jamba (Mamba + attention + MoE); and the
+conditioned ones, whisper (encoder-decoder) and qwen2-vl (M-RoPE,
+vision-embed merge).
 """
 from __future__ import annotations
 
@@ -16,7 +17,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.deepseek_v3_671b import CONFIG as _deepseek_v3
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite_moe
 from repro_torch.configs.jamba_v0_1_52b import CONFIG as _jamba
+from repro_torch.configs.llama3_2_3b import CONFIG as _llama3_2_3b
+from repro_torch.configs.llama3_405b import CONFIG as _llama3_405b
 from repro_torch.configs.mamba2_1_3b import CONFIG as _mamba2
+from repro_torch.configs.qwen2_72b import CONFIG as _qwen2_72b
 from repro_torch.configs.qwen2_vl_2b import CONFIG as _qwen2_vl
 from repro_torch.configs.qwen3_0_6b import CONFIG as _qwen3_0_6b
 from repro_torch.configs.qwen3_1_7b import CONFIG as _qwen3_1_7b
@@ -24,32 +28,20 @@ from repro_torch.configs.qwen3_8b import CONFIG as _qwen3_8b
 from repro_torch.configs.whisper_small import CONFIG as _whisper
 
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in [_qwen3_0_6b, _qwen3_1_7b, _qwen3_8b, _deepseek_v3,
+    c.name: c for c in [_qwen3_0_6b, _qwen3_1_7b, _qwen3_8b, _llama3_2_3b,
+                        _qwen2_72b, _llama3_405b, _deepseek_v3,
                         _granite_moe, _mamba2, _jamba, _whisper, _qwen2_vl]
 }
 
 # Architectures of the JAX package not ported yet -> the ROADMAP item
-# that ports them.
-PENDING: Dict[str, str] = {
-    "llama3.2-3b": "ROADMAP A20 (remaining dense configs)",
-    "qwen2-72b": "ROADMAP A20 (remaining dense configs: qkv bias)",
-    "llama3-405b": "ROADMAP A20 (remaining dense configs)",
-}
-
-
-# Families of the architectures not ported yet (for the launcher's flag
-# checks, which refuse some combinations by family).
-PENDING_FAMILY: Dict[str, str] = {
-    "llama3.2-3b": "dense", "qwen2-72b": "dense", "llama3-405b": "dense",
-}
+# that ports them: none since the last dense configs (A20).
+PENDING: Dict[str, str] = {}
 
 
 def family_of(name: str) -> str:
-    """The model family of architecture ``name``, ported or not."""
+    """The model family of architecture ``name``."""
     if name in ARCHS:
         return ARCHS[name].family
-    if name in PENDING_FAMILY:
-        return PENDING_FAMILY[name]
     raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
 
 

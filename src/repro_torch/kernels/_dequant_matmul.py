@@ -10,7 +10,8 @@ over the tile loop of ``csrc/dequant_matmul.cuh``:
 x's dtype picks the kernel: bf16 (every model layer) the tensor-core
 one, f32 the CUDA-core one. This module builds the ctypes signature,
 plans the output tiles and the split of K (``plan``), checks the
-operands of a CUDA call, allocates the output and the split-K
+operands of a CUDA call (and refuses one that requires grad while grad
+mode is on: the kernels have no backward), allocates the output and the split-K
 workspace, launches, and counts the launch on the wrapper.
 """
 from __future__ import annotations
@@ -114,6 +115,11 @@ def launch(wrapper: Callable, name: str, x: torch.Tensor,
         raise ValueError(
             f"{wrapper.__name__} needs x and its planes on one CUDA device; "
             f"got {x.device}, {[str(p.device) for p in planes]}")
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            p.requires_grad for p in planes)):
+        raise RuntimeError(f"{wrapper.__name__} has no backward: an input "
+                           "that requires grad would lose its gradient at "
+                           "the kernel launch")
     if not (x.is_contiguous() and all(p.is_contiguous() for p in planes)):
         raise ValueError(f"{wrapper.__name__} needs contiguous operands")
     for i in vector_planes:

@@ -14,13 +14,22 @@ Key j < Skv is visible to query i iff, when ``causal``,
 j <= ``q_offset`` + i; a row that sees no key is 0.
 
 On a CPU tensor the wrapper computes the plain version
-(``ref.attention_ref``); on a CUDA tensor it launches a hand-written
-kernel or raises. The dtype alone picks the kernel: bf16 q, k, v (every
-prefill and forward path of the models) run the tensor-core kernel
-(``wgmma`` products on TMA-staged tiles; D and Dv multiples of 16), f32
-the CUDA-core kernel (D and Dv multiples of 4), whose f32 products meet
-the f32 tolerance that tensor cores cannot. It has no backward: a CUDA
-tensor that requires grad is refused (training is ROADMAP A18).
+(``ref.attention_ref``, differentiable under ordinary autograd); on a
+CUDA tensor it launches a hand-written kernel or raises. The dtype alone
+picks the kernel: bf16 q, k, v (every prefill and forward path of the
+models) run the tensor-core kernel (``wgmma`` products on TMA-staged
+tiles; D and Dv multiples of 16), f32 the CUDA-core kernel (D and Dv
+multiples of 4), whose f32 products meet the f32 tolerance that tensor
+cores cannot.
+
+Training: with grad mode on and an input that requires grad, a CUDA
+call goes through ``FlashAttention`` (a ``torch.autograd.Function``):
+its forward is the same kernel launch, counted the same way; its
+backward is plain PyTorch in f32 (``attention_backward``), the port of
+XLA's autodiff of the JAX package's ``chunked_attention`` (the JAX
+trainer reaches no Pallas kernel; a hand-written backward kernel is
+later work). The raw launch refuses an input that requires grad while
+grad mode is on, so no gradient can vanish at the ctypes call.
 """
 from __future__ import annotations
 
@@ -30,7 +39,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import NEG_INF, attention_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 256
@@ -79,8 +88,77 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
                              q_offset=q_offset)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttention.apply(q, k, v, bool(causal), float(sm_scale),
+                                    int(q_offset))
     return _launch(q, k, v, causal=causal, sm_scale=sm_scale,
                    q_offset=q_offset)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The kernel's forward with a plain-PyTorch f32 backward that
+    recomputes the scores from the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, sm_scale, q_offset)
+        return _launch(q.detach(), k.detach(), v.detach(), causal=causal,
+                       sm_scale=sm_scale, q_offset=q_offset)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        causal, sm_scale, q_offset = ctx.args
+        dq, dk, dv = attention_backward(q, k, v, dout, causal=causal,
+                                        sm_scale=sm_scale, q_offset=q_offset)
+        return dq, dk, dv, None, None, None
+
+
+# Score elements (B x H x query rows x Skv, f32) the backward holds at a
+# time; it walks the queries in blocks of that many rows.
+BACKWARD_BLOCK_ELEMS = 1 << 25
+
+
+def attention_backward(q, k, v, dout, *, causal: bool, sm_scale: float,
+                       q_offset: int = 0):
+    """(dq, dk, dv) of ``ref.attention_ref`` at (q, k, v) for the output
+    gradient ``dout`` (B, Sq, H, Dv), each in its input's dtype: the
+    softmax recomputed in f32 a block of query rows at a time (the
+    scores of one block, ``BACKWARD_BLOCK_ELEMS`` elements at most, are
+    never all kept), dk and dv summed over the blocks and over each
+    kv-head's G = H / Hkv query heads. Masked keys and rows that see no
+    key get zero gradient, as autograd of the plain version gives."""
+    b, sq, h, d = q.shape
+    skv, hkv, dv_ = k.shape[1], k.shape[2], v.shape[-1]
+    g = h // hkv
+    kf, vf = k.float(), v.float()
+    dq = torch.empty((b, sq, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.zeros((b, skv, hkv, d), dtype=torch.float32, device=q.device)
+    dvf = torch.zeros((b, skv, hkv, dv_), dtype=torch.float32,
+                      device=q.device)
+    rows = max(1, BACKWARD_BLOCK_ELEMS // max(1, b * h * skv))
+    ki = torch.arange(skv, device=q.device)[None, :]
+    for i0 in range(0, sq, rows):
+        i1 = min(sq, i0 + rows)
+        qb = q[:, i0:i1].float().reshape(b, i1 - i0, hkv, g, d)
+        ob = dout[:, i0:i1].float().reshape(b, i1 - i0, hkv, g, dv_)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kf) * sm_scale
+        qi = torch.arange(i0, i1, device=q.device)[:, None]
+        vis = (ki <= q_offset + qi) if causal else (ki >= 0).expand(
+            i1 - i0, skv)
+        s = torch.where(vis, s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1) * vis.any(-1, keepdim=True)
+        del s
+        dp = torch.einsum("bqhgd,bkhd->bhgqk", ob, vf)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+        del dp
+        dq[:, i0:i1] = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(
+            b, i1 - i0, h, d) * sm_scale
+        dk += torch.einsum("bhgqk,bqhgd->bkhd", ds, qb) * sm_scale
+        dvf += torch.einsum("bhgqk,bqhgd->bkhd", p, ob)
+        del p, ds
+    return dq.to(q.dtype), dk.to(k.dtype), dvf.to(v.dtype)
 
 
 def _launch(q, k, v, *, causal, sm_scale, q_offset):
@@ -91,9 +169,10 @@ def _launch(q, k, v, *, causal, sm_scale, q_offset):
     tensors = (q, k, v)
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("flash_attention needs q, k, v on one CUDA device")
-    if any(t.requires_grad for t in tensors):
-        raise NotImplementedError("flash_attention has no backward "
-                                  "(training is ROADMAP A18)")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("flash_attention's raw launch does not record a "
+                           "gradient: inputs that require grad go "
+                           "through FlashAttention")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q {q.dtype}, k {k.dtype}, v {v.dtype}: one dtype, "
                         "f32 or bf16, expected")

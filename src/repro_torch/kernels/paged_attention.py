@@ -38,7 +38,8 @@ split and merges it; ``rank`` 32 or 512, the ported configurations'
 (deepseek-v3 reduced and at full width), ``rope`` a multiple of 16 up
 to 256; its shared memory does not grow with the table's width); f32
 pages, on no serving path, keep the CUDA-core kernel. There is no
-fallback from one to the other. Rows past a slot's
+fallback from one to the other, and no backward: a CUDA input that
+requires grad while grad mode is on is refused. Rows past a slot's
 valid length are garbage by contract on every path; the MLA kernels
 write a row tile (``mla_row_tile``: 64 rows on bf16 or int8 pages, 32
 on f32 pages) whose rows all belong to chunk entries at or past
@@ -220,6 +221,10 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                  for t in tensors + list(index)):
         raise ValueError("paged_decode_attention needs every operand on one "
                          "CUDA device")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError("paged_decode_attention has no backward: an "
+                           "input that requires grad would lose its "
+                           "gradient at the kernel launch")
     if not all(t.is_contiguous() for t in tensors + list(index)):
         raise ValueError("paged_decode_attention needs contiguous operands")
     if q.dtype not in _DTYPES or k_pages.dtype not in _KV_DTYPES \

@@ -1,10 +1,13 @@
 """Unified model API subset: ``build_model(cfg) -> ModelAPI``, every
 family of the JAX package: dense, moe, ssm, hybrid, vlm and encdec.
 
-Ported from ``repro.models.api``: ``init`` / ``forward`` / ``prefill`` /
-``decode_step`` / ``cache_shapes`` / ``paged_cache_shapes``, and for the
-encdec family ``encode_cross`` (the serving engine's admission-time
-encoder pass). The train entry (``loss``) waits for ROADMAP A18.
+Ported from ``repro.models.api``: ``init`` / ``loss`` / ``forward`` /
+``prefill`` / ``decode_step`` / ``cache_shapes`` /
+``paged_cache_shapes``, and for the encdec family ``encode_cross`` (the
+serving engine's admission-time encoder pass). ``loss`` is the train
+entry (``train/trainer.py``): the families' cross entropy, with the
+``remat`` policies of the JAX package; its ``act_sharding`` needs a mesh
+(ROADMAP A17) and only None is taken.
 
 Frontend inputs (stubs, as in the JAX package): the vlm family's
 ``batch["vision_embeds"]`` (B, min(vision_tokens, S), d) and a decode
@@ -27,6 +30,7 @@ from repro_torch.models import encdec, lm
 class ModelAPI:
     cfg: ModelConfig
     init: Callable                    # (gen, quant) -> params
+    loss: Callable                    # (params, batch, **o) -> scalar
     forward: Callable                 # (params, batch, **o) -> (logits, aux)
     prefill: Callable                 # (params, batch, **o) -> (logits, cache)
     decode_step: Callable             # (params, token, position, cache, **o)
@@ -95,6 +99,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
             cfg=cfg,
             init=lambda gen, quant="none": encdec.encdec_init(gen, cfg,
                                                               quant),
+            loss=functools.partial(_encdec_loss_kw, cfg),
             forward=lambda params, batch, **kw: encdec.encdec_forward(
                 params, cfg, batch, **kw),
             prefill=lambda params, batch, **kw: encdec.encdec_prefill(
@@ -109,6 +114,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
     return ModelAPI(
         cfg=cfg,
         init=functools.partial(_lm_init_kw, cfg),
+        loss=functools.partial(_lm_loss_kw, cfg),
         forward=functools.partial(_lm_forward_kw, cfg),
         prefill=functools.partial(_lm_prefill_kw, cfg),
         decode_step=functools.partial(_lm_decode_kw, cfg),
@@ -118,6 +124,17 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
 
 def _lm_init_kw(cfg, gen: torch.Generator, quant="none"):
     return lm.lm_init(gen, cfg, quant)
+
+
+def _lm_loss_kw(cfg, params, batch, **kw):
+    return lm.lm_loss(params, cfg, batch, **kw)
+
+
+def _encdec_loss_kw(cfg, params, batch, act_sharding=None, **kw):
+    if act_sharding is not None:
+        raise NotImplementedError("act_sharding needs a serving/training "
+                                  "mesh: ROADMAP A17")
+    return encdec.encdec_loss(params, cfg, batch, **kw)
 
 
 def _lm_forward_kw(cfg, params, batch, **kw):

@@ -139,9 +139,27 @@ def encode(params, cfg: ModelConfig, frames: torch.Tensor, *,
     return layers.layernorm_apply(params["enc_norm"], h)
 
 
-def _decoder_pass(params, cfg: ModelConfig, batch: Dict, quant: str):
+def _decoder_layer(lp, cfg: ModelConfig, h: torch.Tensor,
+                   enc_out: torch.Tensor, fmt: str):
+    """One decoder layer over the full sequence: (h, its self and cross
+    K/V)."""
+    hn = layers.layernorm_apply(lp["self_norm"], h)
+    mix, self_cache = attn.gqa_prefill(lp["self_attn"], cfg, hn, None,
+                                       fmt=fmt)
+    h = h + mix
+    hn = layers.layernorm_apply(lp["cross_norm"], h)
+    kv = _cross_kv(lp["cross_attn"], cfg, enc_out, fmt)
+    h = h + _cross_attend(lp["cross_attn"], cfg, hn, kv, fmt)
+    hn = layers.layernorm_apply(lp["ffn_norm"], h)
+    h = h + _mlp_apply(lp["mlp"], hn, fmt)
+    return h, self_cache, kv
+
+
+def _decoder_pass(params, cfg: ModelConfig, batch: Dict, quant: str,
+                  remat: str = "none"):
     """Encode, then the decoder over ``batch["tokens"]``: (h after the
-    final norm, per-layer caches {"self", "cross"})."""
+    final norm, per-layer caches {"self", "cross"}; none under a
+    ``remat`` policy, whose layers keep only what the backward needs)."""
     recipe = layers.recipe_for(quant)
     fmt = recipe["linear"]
     enc_out = encode(params, cfg, batch["frames"], quant=quant)
@@ -151,16 +169,16 @@ def _decoder_pass(params, cfg: ModelConfig, batch: Dict, quant: str):
     h = h + sinusoid_positions(tokens.shape[1], cfg.d_model,
                                tokens.device).to(h.dtype)
     caches = []
+    if remat != "none":
+        # The JAX package checkpoints the whole decoder layer body, with
+        # no saving policy, whichever remat it is given.
+        body = layers.remat(lambda lp, h: _decoder_layer(
+            lp, cfg, h, enc_out, fmt)[0], "full")
+        for lp in params["dec_layers"]:
+            h = body(lp, h)
+        return layers.layernorm_apply(params["dec_norm"], h), caches
     for lp in params["dec_layers"]:
-        hn = layers.layernorm_apply(lp["self_norm"], h)
-        mix, self_cache = attn.gqa_prefill(lp["self_attn"], cfg, hn, None,
-                                           fmt=fmt)
-        h = h + mix
-        hn = layers.layernorm_apply(lp["cross_norm"], h)
-        kv = _cross_kv(lp["cross_attn"], cfg, enc_out, fmt)
-        h = h + _cross_attend(lp["cross_attn"], cfg, hn, kv, fmt)
-        hn = layers.layernorm_apply(lp["ffn_norm"], h)
-        h = h + _mlp_apply(lp["mlp"], hn, fmt)
+        h, self_cache, kv = _decoder_layer(lp, cfg, h, enc_out, fmt)
         caches.append({"self": self_cache,
                        "cross": {"k": kv[0], "v": kv[1]}})
     return layers.layernorm_apply(params["dec_norm"], h), caches
@@ -173,13 +191,24 @@ def _stack(caches) -> Dict:
                    for leaf in ("k", "v")} for part in ("self", "cross")}
 
 
-def encdec_forward(params, cfg: ModelConfig, batch: Dict, *, quant="none"):
+def encdec_forward(params, cfg: ModelConfig, batch: Dict, *, quant="none",
+                   remat: str = "none"):
     """batch: {"tokens": (B, S_dec), "frames": (B, S_enc, d)}. Returns
-    (logits (B, S_dec, V), aux loss 0)."""
-    h, _ = _decoder_pass(params, cfg, batch, quant)
+    (logits (B, S_dec, V), aux loss 0). ``remat`` (training): any policy
+    but "none" checkpoints each decoder layer whole, as the JAX
+    package's ``jax.checkpoint(body)`` does; the encoder keeps its
+    activations."""
+    h, _ = _decoder_pass(params, cfg, batch, quant, remat)
     logits = layers.embedding_logits(params["embed"], h,
                                      layers.recipe_for(quant)["embed"])
     return logits, torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def encdec_loss(params, cfg: ModelConfig, batch: Dict, *, quant="none",
+                remat: str = "none") -> torch.Tensor:
+    """Next-token cross entropy of the decoder over ``labels >= 0``."""
+    logits, _ = encdec_forward(params, cfg, batch, quant=quant, remat=remat)
+    return layers.cross_entropy(logits, batch["labels"])
 
 
 def encdec_prefill(params, cfg: ModelConfig, batch: Dict, *, quant="none"):

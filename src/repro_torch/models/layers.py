@@ -10,10 +10,12 @@ stay high precision, §III.B). Linear projections route through
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.core.quant import dequant, pack
 from repro_torch.core.quant.formats import RECIPES
@@ -219,3 +221,48 @@ def swiglu_apply(p: Params, x: torch.Tensor, fmt: str = "none") -> torch.Tensor:
 def recipe_for(quant: str) -> Dict[str, str]:
     return RECIPES.get(quant, RECIPES["fp16"]) if quant != "none" else {
         "linear": "none", "embed": "none", "norm": "fp16"}
+
+
+# ----------------------------------------------------------------------
+# Rematerialization (training)
+# ----------------------------------------------------------------------
+# The products whose outputs ``"dots_saveable"`` keeps (JAX's
+# ``checkpoint_policies.dots_saveable``: dot_general outputs).
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under the remat policy of the JAX package's scanned layer
+    body (``jax.checkpoint``): "none" keeps every activation; "full"
+    keeps only the inputs and recomputes the body in the backward
+    (``torch.utils.checkpoint``); "dots_saveable" keeps the products'
+    outputs and recomputes the rest (selective checkpointing). The
+    function is the same under each; only memory and recompute move."""
+    if policy == "none":
+        return fn
+    if policy == "full":
+        return functools.partial(ckpt.checkpoint, fn, use_reentrant=False)
+    if policy == "dots_saveable":
+        return functools.partial(
+            ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat policy {policy!r}: none, full or "
+                     "dots_saveable")
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy over the positions with ``labels >=
+    0`` (f32 log-sum-exp minus the gold logit; the JAX loss's masked
+    mean, which divides by at least 1)."""
+    lf = logits.to(torch.float32)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)

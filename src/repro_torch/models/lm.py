@@ -275,21 +275,48 @@ def _embed_inputs(params, cfg: ModelConfig, batch: Dict, quant: str):
     return h, attn.rope_tables(cfg, positions)
 
 
-def lm_forward(params, cfg: ModelConfig, batch: Dict, *, quant="none"):
+def lm_forward(params, cfg: ModelConfig, batch: Dict, *, quant="none",
+               remat: str = "none", act_sharding=None):
     """Full-sequence forward over ``batch["tokens"]`` (B, S). Returns
     (logits (B, S, V), aux_loss): the MoE layers' load-balance losses
-    summed (0 for the dense family)."""
+    summed (0 for the dense family).
+
+    ``remat`` (training): each entry of a layer group — one layer, or
+    one jamba block of 8 sub-layers, the JAX package's scanned body —
+    runs under ``layers.remat``. ``act_sharding`` (sequence-parallel
+    activation constraints) needs a mesh: only None (ROADMAP A17)."""
+    if act_sharding is not None:
+        raise NotImplementedError("act_sharding needs a serving/training "
+                                  "mesh: ROADMAP A17")
     fmt = layers.recipe_for(quant)["linear"]
     h, rope = _embed_inputs(params, cfg, batch, quant)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for name, _, subs in layer_groups(cfg):
-        for lp, mixer, ffn, _ in _group_layers(params[name], subs):
-            h, aux = layer_apply(lp, cfg, h, rope, mixer=mixer, ffn=ffn,
-                                 fmt=fmt)
-            if aux is not None:
-                aux_total = aux_total + aux
+        def body(h, lp, subs=subs):
+            aux_g = torch.zeros((), dtype=torch.float32, device=h.device)
+            for j, (mixer, ffn) in enumerate(subs):
+                sub = lp if len(subs) == 1 else lp[f"sub{j}"]
+                h, aux = layer_apply(sub, cfg, h, rope, mixer=mixer, ffn=ffn,
+                                     fmt=fmt)
+                if aux is not None:
+                    aux_g = aux_g + aux
+            return h, aux_g
+        body = layers.remat(body, remat)
+        for lp in params[name]:
+            h, aux = body(h, lp)
+            aux_total = aux_total + aux
     h = layers.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
     return _lm_head(params, cfg, h, quant), aux_total
+
+
+def lm_loss(params, cfg: ModelConfig, batch: Dict, *, quant="none",
+            remat: str = "none", act_sharding=None) -> torch.Tensor:
+    """Next-token cross entropy over ``labels >= 0`` plus, for the MoE
+    families, ``router_aux_coef`` x the load-balance loss."""
+    logits, aux = lm_forward(params, cfg, batch, quant=quant, remat=remat,
+                             act_sharding=act_sharding)
+    coef = cfg.moe.router_aux_coef if cfg.moe is not None else 0.0
+    return layers.cross_entropy(logits, batch["labels"]) + coef * aux
 
 
 def lm_prefill(params, cfg: ModelConfig, batch: Dict, *, quant="none"):

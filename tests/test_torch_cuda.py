@@ -185,11 +185,18 @@ def test_flash_attention_value_width_and_unseen_keys(cuda):
 
 
 def test_flash_attention_refuses_grad(cuda):
-    from repro_torch.kernels.flash_attention import flash_attention
+    """The raw launch refuses an input that requires grad while grad mode
+    is on (no gradient may vanish at the ctypes call); the wrapper takes
+    such inputs through FlashAttention, whose launch is counted."""
+    from repro_torch.kernels import flash_attention as fa
     q = torch.randn((1, 8, 2, 16), device=cuda, requires_grad=True)
     k = torch.randn((1, 8, 2, 16), device=cuda)
-    with pytest.raises(NotImplementedError, match="backward"):
-        flash_attention(q, k, k)
+    with pytest.raises(RuntimeError, match="FlashAttention"):
+        fa._launch(q, k, k, causal=True, sm_scale=0.25, q_offset=0)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, k)
+    assert out.requires_grad and out.grad_fn is not None
+    assert fa.flash_attention.launches == before + 1
 
 
 def _int8_pages(cuda, b, chunk, h, hkv, d, bs):
@@ -972,3 +979,127 @@ def test_conditioned_full_width_step_matches_cpu(cuda, arch):
     for b, n in enumerate(lens):
         assert float((a[b, :n] - r[b, :n]).abs().max()) <= \
             1e-2 * float(r.abs().max())
+
+
+# ----------------------------------------------------------------------
+# llama3-405b's G = 16 (and the other dense configs' G = 3, 8), B7's
+# backward, and the matmul and paged wrappers' grad refusal
+# ----------------------------------------------------------------------
+@pytest.mark.parametrize("chunk", [1, 8])
+@pytest.mark.parametrize("heads", [(128, 8), (24, 8), (64, 8)],
+                         ids=["llama3-405b-g16", "llama3.2-3b-g3",
+                              "qwen2-72b-g8"])
+def test_paged_attention_dense_config_groups(cuda, heads, chunk):
+    """bf16 q and pages at D = 128, block 16: G = 16 (C x 16 = 128 query
+    rows a (slot, kv-head) at chunk 8), G = 3 and G = 8, twice."""
+    h, hkv = heads
+    _check_paged(cuda, chunk, "bfloat16", h=h, hkv=hkv, d=128, bs=16,
+                 launches=2)
+
+
+@pytest.mark.parametrize("chunk", [1, 8])
+def test_paged_attention_int8_group_16(cuda, chunk):
+    """B8 at llama3-405b's G = 16, D = 128, bs = 16, bf16 q: within the f32
+    tolerance of the plain version plus one bf16 ulp of the output."""
+    c = _int8_pages(cuda, 3, chunk, 128, 8, 128, 16)
+    q = c["q"].to(torch.bfloat16)
+    args = (q, c["kq"], c["vq"], c["tables"], c["pos"])
+    kw = dict(sm_scale=128 ** -0.5, k_scales=c["ks"], v_scales=c["vs"])
+    before = paged_decode_attention.int8_launches
+    out = paged_decode_attention(*args, lengths=c["lens"], **kw)
+    ref = paged_attention_ref(q.float(), *args[1:], **kw)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.int8_launches == before + 1
+    for i, n in enumerate(c["np_lens"]):
+        o, r = out[i, :n].float(), ref[i, :n]
+        ulp = torch.ldexp(torch.ones_like(r), torch.frexp(r).exponent - 8)
+        ulp = torch.where(r == 0, torch.zeros_like(r), ulp)
+        assert bool(((o - r).abs() <= ulp + 2e-6 + 2e-5 * r.abs()).all())
+
+
+@pytest.mark.parametrize("heads", [(128, 8), (24, 8), (64, 8)],
+                         ids=["g16", "g3", "g8"])
+def test_flash_attention_dense_config_groups(cuda, heads):
+    """bf16 causal prefill shapes at G = 16 (one head an item), 3 and 8:
+    1e-4 of the f32 plain version plus one bf16 ulp."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    h, hkv = heads
+    gen = torch.Generator(device=cuda).manual_seed(h)
+    q = torch.randn((2, 300, h, 128), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn((2, 300, hkv, 128), generator=gen,
+                        device=cuda).to(torch.bfloat16) for _ in range(2))
+    out = flash_attention(q, k, v, causal=True)
+    ref = attention_ref(q.float(), k.float(), v.float(), causal=True)
+    torch.cuda.synchronize()
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref).exponent - 8)
+    ulp = torch.where(ref == 0, torch.zeros_like(ref), ulp)
+    assert bool(((out.float() - ref).abs()
+                 <= ulp + 1e-4 + 1e-4 * ref.abs()).all())
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 64, 16, 8, 128, 128, True, 0),
+                                   (2, 40, 72, 128, 8, 128, 128, True, 32),
+                                   (1, 50, 50, 8, 2, 192, 128, True, 0),
+                                   (2, 33, 47, 4, 4, 64, 64, False, 0)])
+def test_flash_attention_backward_matches_autograd(cuda, shape):
+    """B7 under autograd: the forward is the kernel (one counted launch),
+    dq, dk and dv are autograd of the plain version on the same bf16
+    inputs: equal within 1e-4 + 1e-2 of each gradient's max (both sum
+    f32 products, in other orders, over up to Skv keys; rounded once to
+    bf16), at qwen3's G = 2, llama3-405b's G = 16 with a query offset,
+    Dv != D, and non-causal."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    b, sq, skv, h, hkv, d, dv, causal, off = shape
+    gen = torch.Generator(device=cuda).manual_seed(sq + h)
+    mk = lambda *s: torch.randn(s, generator=gen, device=cuda).to(  # noqa
+        torch.bfloat16).requires_grad_(True)
+    q, k, v = mk(b, sq, h, d), mk(b, skv, hkv, d), mk(b, skv, hkv, dv)
+    do = torch.randn((b, sq, h, dv), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, q_offset=off)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    assert flash_attention.launches == before + 1
+    ref = attention_ref(q, k, v, causal=causal, q_offset=off)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= 1e-4 + 1e-2 * float(w.float().abs().max()), err
+
+
+def test_matmul_refuses_grad(cuda):
+    """A matmul wrapper refuses an input that requires grad while grad
+    mode is on (the kernels have no backward); under no_grad it
+    launches."""
+    wrapper, layout = MATMUL_KERNELS["q8_0"]
+    x = torch.randn((4, 64), device=cuda, requires_grad=True)
+    planes = pack.quantize(torch.randn((32, 64), device=cuda), "q8_0")
+    args = [planes[name] for name in layout]
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        wrapper(x, *args)
+    assert wrapper.launches == before
+    with torch.no_grad():
+        wrapper(x, *args)
+    assert wrapper.launches == before + 1
+
+
+def test_paged_attention_refuses_grad(cuda):
+    """The paged wrapper refuses a query that requires grad while grad
+    mode is on; under no_grad it launches."""
+    c = _int8_pages(cuda, 3, 4, 8, 2, 64, 4)
+    q = c["q"].clone().requires_grad_(True)
+    args = (q, c["kq"], c["vq"], c["tables"], c["pos"])
+    kw = dict(sm_scale=0.125, k_scales=c["ks"], v_scales=c["vs"],
+              lengths=c["lens"])
+    before = paged_decode_attention.int8_launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        paged_decode_attention(*args, **kw)
+    with torch.no_grad():
+        paged_decode_attention(*args, **kw)
+    assert paged_decode_attention.int8_launches == before + 1

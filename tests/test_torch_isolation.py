@@ -61,7 +61,11 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert int(out.stdout.split()[-1]) >= 20      # the whole package
     names = out.stdout.split()
     for mod in ("repro_torch.core.imax_model", "repro_torch.runtime.telemetry",
-                "repro_torch.runtime.kvcache", "repro_torch.launch.serve"):
+                "repro_torch.runtime.kvcache", "repro_torch.launch.serve",
+                "repro_torch.launch.train", "repro_torch.train.data",
+                "repro_torch.train.optimizer", "repro_torch.train.trainer",
+                "repro_torch.train.checkpoint", "repro_torch.train.elastic",
+                "repro_torch.configs.llama3_405b"):
         assert mod in names
 
 
@@ -194,6 +198,20 @@ def test_cpu_prefill_never_builds_kernels(monkeypatch):
     assert bool(torch.isfinite(logits.float()).all())
 
 
+def test_cpu_train_step_never_builds_kernels(monkeypatch):
+    """A train step (loss, gradient through the attention's plain version,
+    AdamW) on the CPU reaches no kernel build."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.trainer import make_train_step
+    cfg, model, params = _refuse_builds(monkeypatch)
+    tok = torch.arange(12, dtype=torch.int32).reshape(2, 6)
+    batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+    _, _, m = make_train_step(model, TrainConfig(remat_policy="full"))(
+        params, adamw_init(params), batch)
+    assert bool(torch.isfinite(m["loss"]))
+
+
 def test_every_kernel_wrapper_has_a_source():
     """Each wrapper loads a library built from ``csrc/<name>.cu``; the
     build step compiles every source, flash_attention.cu included."""
@@ -243,11 +261,14 @@ def test_serve_accepts_ported_features(argv, capsys, tmp_path):
 
 
 def test_engine_and_registry_refusals_name_the_roadmap():
-    """The dense configs still to port (A20) and serving meshes (A17);
-    every family builds (``PENDING_FAMILIES`` is empty)."""
+    """Serving meshes (A17) are refused naming their item; every
+    architecture resolves (``PENDING`` is empty since the dense configs,
+    A20) and every family builds (``PENDING_FAMILIES`` is empty); an
+    unknown name is a KeyError."""
     from repro_torch.models.api import PENDING_FAMILIES
-    with pytest.raises(NotImplementedError, match="ROADMAP A20"):
-        get_config("llama3.2-3b")
+    assert PENDING == {} and get_config("llama3.2-3b").name == "llama3.2-3b"
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("llama3.2-3b-instruct")
     assert PENDING_FAMILIES == {}
     from repro_torch.runtime.engine import ServingEngine
     for arch in ("qwen3-0.6b", "whisper-small", "qwen2-vl-2b"):
@@ -257,13 +278,13 @@ def test_engine_and_registry_refusals_name_the_roadmap():
                           mesh=object())
 
 
-@pytest.mark.parametrize("arch", sorted(PENDING))
+@pytest.mark.parametrize("arch", ["llama3-405b", "llama3.2-3b", "qwen2-72b"])
 def test_pending_archs_are_refused(arch):
-    """Every architecture still to port names its ROADMAP item (the dense
-    ones, A20, only miss their config: their family builds)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
-    assert family_of(arch) == "dense"
+    """The architectures that were pending (the dense configs, A20) are
+    ported: nothing is refused any more, each resolves to its dense config
+    and builds at full width."""
+    assert arch not in PENDING and family_of(arch) == "dense"
+    assert build_model(get_config(arch)).cfg.name == arch
 
 
 @pytest.mark.parametrize("arch,family", [("mamba2-1.3b", "ssm"),
