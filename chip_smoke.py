@@ -31,7 +31,10 @@ Phases, one line each (every failure exits non-zero):
             K 16,384 / 29,568 / 53,248 and lm_heads of 128,256 and
             152,064 rows, B1 at G = 3, 8, 16 and B8 at G = 16, B7 at
             their 8 x 512 prefills; B7's backward (autograd) against
-            autograd of the plain version at G = 2 and 16, timed;
+            autograd of the plain version at G = 2 and 16, timed; the
+            matmuls and B1/B8 on column, row, kv-head and slot blocks
+            launched with ``plan_parts``, bit-equal to their whole calls
+            (``check_shard_plans``);
 4. serve  — ``repro_torch.launch.serve`` at the full width of
             qwen3-0.6b (seeded random weights made on the card): the
             paged stream once for each of the paper's weight recipes
@@ -119,7 +122,8 @@ Phases, one line each (every failure exits non-zero):
             granite-moe cut to 2 MoE layers against the CPU path, the
             deepseek-v3 MoE layer's device time and transient memory,
             and a profiled serve of each; the recurrent models'
-            profiled prefills (the SSD's device ms), mamba2's two 2-layer
+            profiled prefills (the SSD's device ms; mamba2 cut to 16
+            layers), mamba2's two 2-layer
             steps on per-slot state against the CPU path and its padded
             chunk
             bit-exact on the card, jamba's block-0 mamba, attention (B1
@@ -133,6 +137,17 @@ Phases, one line each (every failure exits non-zero):
             serve of each; the dense configs' steps (2 layers;
             llama3-405b 1) against the CPU path and a profiled serve of
             each;
+   mesh   — (after the MoE checks, their weights freed) the serving
+            meshes: the launcher's refusals (``--tp 3``, a mesh larger
+            than the card x ``--ranks-per-device``), then 4 ranks on
+            cuda:0 over gloo (``serve_mesh``): qwen3-0.6b at 1x2, 2x1
+            and 2x2, on int8 pages at 1x2, with the prefix cache at
+            2x1 and n-gram speculation at 1x2, deepseek-v3 (4 layers)
+            at 1x2 and granite-moe at 2x1, each beside a 1x1 run of the
+            same flags: tokens equal (deepseek-v3 by the near-tie
+            rule), every step's logits bit-equal (qwen3; compared and
+            printed for the others), one device's launches a step and
+            the layer structure's collectives a step on every rank;
 6. the ``kernels`` JSON line, then the device JSON line, last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -284,6 +299,11 @@ RECURRENT = (("mamba2", MAMBA_ARGS, None, MAMBA_LAUNCHES,
               MAMBA_PREFILL_LAUNCHES),
              ("jamba", JAMBA_ARGS, JAMBA_LAYERS, JAMBA_LAUNCHES,
               JAMBA_PREFILL_LAUNCHES))
+# The recurrent checks' depth (their timed serves and prefill above run
+# at full depth): mamba2's profiled prefill and serve run 16 of its 48
+# layers, which keeps the whole script inside its time limit now that
+# the serving meshes' phase runs too; its step checks cut to 2 layers.
+RECURRENT_CHECK_LAYERS = {"mamba2": 16}
 
 # The conditioned phase, at full width and depth (q8_0, bf16 pages, the
 # launcher's zero stub frames / vision embeddings): whisper-small (12
@@ -3014,12 +3034,13 @@ def check_jamba_layers_vs_cpu(torch, dev, cfg, params) -> None:
 
 def check_recurrent(torch, dev, serve) -> None:
     """The recurrent phase's checks, after every timed serve, on the same
-    seeded weights made again: the profiled prefill of each model (the
-    SSD's device ms), mamba2's 2-layer steps against the CPU path and its
-    padded chunk on the card, jamba's layers against the CPU path, and a
-    profiled serve of each."""
+    seeded weights made again (mamba2 at ``RECURRENT_CHECK_LAYERS``): the
+    profiled prefill of each model (the SSD's device ms), mamba2's
+    2-layer steps against the CPU path and its padded chunk on the card,
+    jamba's layers against the CPU path, and a profiled serve of each."""
     t0 = time.perf_counter()
     for label, argv, layers, _, _ in RECURRENT:
+        layers = RECURRENT_CHECK_LAYERS.get(label, layers)
         _, cfg, model, params = recipe_setup(torch, dev, serve, "q8_0",
                                              argv=argv, layers=layers)
         profile_prefill(torch, model, params,
@@ -3589,6 +3610,394 @@ def check_routes(routes, label, kinds):
     print(f"routes of {label}: {routes}", flush=True)
 
 
+def check_shard_plans(torch, dev) -> None:
+    """B2 (q8_0, and fp16/q6_k/q3_k through the shared ``plan``) on
+    column blocks of 2 and 4 and row blocks of 2, B1/B8 on kv-head and
+    slot blocks, and B9 on head blocks, each launched with
+    ``plan_parts``: bit for bit the whole call's rows, columns, heads
+    and slots (the card tests' helpers, tests/test_torch_cuda.py)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_cuda as tc
+    n = 0
+    for fmt in ("q8_0", "fp16", "q6_k", "q3_k"):
+        for mnk in tc.SHARD_MNK:
+            whole, shards = tc._matmul_shards(dev, fmt, *mnk)
+            torch.cuda.synchronize()
+            for rows, cols, y in shards:
+                if not torch.equal(y, whole[rows, cols]):
+                    fail(f"{fmt} shard of {mnk} differs from the whole call")
+                n += 1
+    for dtype, kv in ((torch.bfloat16, "bfloat16"), (torch.bfloat16, "int8"),
+                      (torch.float32, "bfloat16")):
+        whole, shards = tc._paged_shards(dev, dtype, kv)
+        torch.cuda.synchronize()
+        for rows, heads, y in shards:
+            if not torch.equal(y, whole[rows][:, :, heads]):
+                fail(f"paged attention {dtype} q on {kv} pages: a shard "
+                     "differs from the whole call")
+            n += 1
+    for pages in ("bfloat16", "int8"):
+        for slots, chunk, parts in tc.MLA_SHARD_CASES:
+            whole, shards = tc._mla_shards(dev, pages, slots, chunk, parts)
+            torch.cuda.synchronize()
+            for lens, heads, y in shards:
+                if not all(torch.equal(y[b, :m], whole[b, :m, heads])
+                           for b, m in enumerate(lens)):
+                    fail(f"MLA paged attention on {pages} pages, chunk "
+                         f"{chunk}: a shard of {parts} differs from the "
+                         "whole call")
+                n += 1
+    print(f"shard plans: {n} matmul and paged-attention shards bit-equal to "
+          "their whole calls (plan_parts)", flush=True)
+
+
+# --- serve_mesh: serving meshes over torch.distributed ------------------
+# Ranks that share cuda:0 over gloo (--ranks-per-device), one world for
+# the whole phase; every mesh run is held against a 1x1 run of its flags.
+MESH_RANKS = 4
+MESH_QWEN = ((1, 2), (2, 1), (2, 2))
+# Collectives a step a rank, from the layer structure: over 'model' four
+# all-gathers a qwen3 layer (attention's output: q/k/v keep their heads;
+# o; the SwiGLU's h: gate and up stay columnwise; down; qwen3-0.6b's
+# lm_head is the tied embedding, replicated), over 'data' the sampled
+# tokens, the page-pool sync and one per MoE layer (its tokens).
+QWEN_LAYERS = 28
+GRANITE_MOE_LAYERS = 32
+
+
+def mesh_collectives(dp, tp, layers=None, moe_layers=0):
+    layers = QWEN_LAYERS if layers is None else layers
+    return (4 * layers if tp > 1 else 0) + (2 + moe_layers if dp > 1 else 0)
+
+
+def _mesh_args(serve, argv, dp, tp):
+    ap = serve.build_parser()
+    args = ap.parse_args(list(argv) + ["--quant", "q8_0", "--dp", str(dp),
+                                       "--tp", str(tp), "--ranks-per-device",
+                                       str(MESH_RANKS)])
+    serve.validate_args(ap, args)
+    return args
+
+
+def _mesh_run(torch, serve, ctx, tag, argv, setup, mesh, per_step,
+              collectives=None, record=True):
+    """One serve of ``argv`` on ``mesh`` (None: this rank alone, 1x1)
+    with its logit rows recorded: launches exactly ``per_step`` a step,
+    ``collectives`` a step (when given), every request complete.
+    Returns the rank's summary and (report, rows, index)."""
+    cfg, model, params = setup
+    dp, tp = (1, 1) if mesh is None else (mesh.shape["data"],
+                                          mesh.shape["model"])
+    args = _mesh_args(serve, argv, dp, tp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    serve.reset_launches()
+    ctxm = recorded_logits(torch, serve) if record else \
+        contextlib.nullcontext(([], {}))
+    with ctxm as (rows, index):
+        engine, report, _ = serve.run_stream(cfg, model, params, args,
+                                             ctx.device, mesh=mesh)
+    launches = serve.launch_counts()
+    st = report.stats
+    vocab = cfg.vocab_size
+    if len(report.sequences) != args.requests or any(
+            len(q.generated) != args.gen
+            or not all(0 <= t < vocab for t in q.generated)
+            for q in report.sequences):
+        fail(f"{tag}: not every request completed with in-vocab tokens")
+    check_launches(f"{tag} rank {ctx.rank}", launches, per_step, st.steps)
+    col = report.collectives or {"collectives": 0, "bytes": 0, "staged": 0}
+    if collectives is not None and col["collectives"] != \
+            collectives * st.steps:
+        fail(f"{tag} rank {ctx.rank}: {col['collectives']} collectives in "
+             f"{st.steps} steps, the layer structure gives {collectives} a "
+             "step")
+    summary = {
+        "tag": tag, "rank": ctx.rank, "mesh": f"{dp}x{tp}",
+        "backend": mesh.describe() if mesh is not None else "1x1",
+        "steps": st.steps, "tok_s": report.throughput_tok_s,
+        "p50_ms": report.step_ms_percentile(50),
+        "peak_gb": torch.cuda.max_memory_allocated(ctx.device) / 1e9,
+        "collectives_per_step": col["collectives"] / max(st.steps, 1),
+        "mb_per_step": col["bytes"] / max(st.steps, 1) / 1e6,
+        "staged": col["staged"], "launches": launches,
+        "tokens": [list(q.generated) for q in report.sequences],
+        "prefix_hits": st.prefix_hits,
+        "spec": (st.spec_proposed, st.spec_accepted, st.spec_rolled_back),
+        "steps_per_token": st.steps_per_token,
+        "plan_note": engine.plan_note}
+    del engine
+    return summary, (report, rows, index)
+
+
+def _hold_mesh(torch, tag, ref, got, rows_ref, rows_got, lo, hi,
+               bitwise=True):
+    """A mesh run against its 1x1 run on one rank: tokens (every slot's,
+    gathered) equal; every step's logit rows of this rank's slots
+    [lo, hi) compared with the 1x1 run's bit for bit — required with
+    ``bitwise``, else recorded (``got["logits_equal"]``)."""
+    if got["tokens"] != ref["tokens"]:
+        fail(f"{tag}: tokens differ from the 1x1 run")
+    if got["steps"] != ref["steps"] or len(rows_got) != len(rows_ref):
+        fail(f"{tag}: {got['steps']} steps vs the 1x1 run's "
+             f"{ref['steps']}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(rows_ref, rows_got)):
+        if not torch.equal(a[lo:hi], b):
+            d = float((a[lo:hi] - b).abs().max())
+            worst = max(worst, d)
+            if bitwise:
+                fail(f"{tag}: step {i}'s logits differ from the 1x1 run's "
+                     f"(max |diff| {d:.3e})")
+    got["logits_equal"] = worst == 0.0
+    got["logit_diff"] = worst
+
+
+def _mesh_world(ctx, card):
+    """The ranks of ``serve_mesh``: every run, each rank's summaries."""
+    import dataclasses
+    import torch
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.launch import serve
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    m11 = meshes.make_host_mesh(1, 1, [0], device=ctx.device,
+                                ranks_per_device=MESH_RANKS)
+    m12 = meshes.make_host_mesh(1, 2, [0, 1], device=ctx.device,
+                                ranks_per_device=MESH_RANKS)
+    # 2x1 over ranks 0 and 2: the ranks whose 1x1 runs hold the logit
+    # rows of the two 'data' replicas (slots 0-3 and 4-7) of the 2x2 mesh.
+    m21 = meshes.make_host_mesh(2, 1, [0, 2], device=ctx.device,
+                                ranks_per_device=MESH_RANKS)
+    m22 = meshes.make_host_mesh(2, 2, device=ctx.device,
+                                ranks_per_device=MESH_RANKS)
+    by_shape = {(1, 2): m12, (2, 1): m21, (2, 2): m22}
+
+    def build(argv, turns, layers=None, mesh=None):
+        """Weights on the ranks of ``turns`` (whole, or this rank's
+        shards of ``mesh``), built in turn: one build's transient on the
+        card at a time."""
+        args = _mesh_args(serve, argv, 1, 1)
+        cfg = serve.get_config(args.arch)
+        if layers:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        model = serve.build_model(cfg)
+
+        def make():
+            p = serve.build_params(model, args, ctx.device, mesh=mesh)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            return p
+        return cfg, model, turns.serialized(make) if turns.member else None
+
+    def rows_of(mesh):
+        rep = int(SERVE_ARGS[SERVE_ARGS.index("--slots") + 1]) \
+            // mesh.shape["data"]
+        lo = mesh.coords["data"] * rep
+        return lo, lo + rep
+
+    # qwen3-0.6b, full width and depth: 1x1 on ranks 0 and 2 (in turn),
+    # then 1x2, 2x1 and 2x2, each bit for bit on ranks 0 and 2 (a rank
+    # of 'model' coordinate 1 holds the same gathered rows as its
+    # coordinate-0 peer, and compares the tokens of the peer's 1x1 run).
+    cfg, model, params = build(SERVE_ARGS, m22)
+    q = (cfg, model, params)
+    ref = rrows = None
+    if m21.member:
+        ref, (_, rrows, _) = m21.serialized(
+            _mesh_run, torch, serve, ctx, "mesh qwen3 1x1", SERVE_ARGS, q,
+            None, RECIPE_LAUNCHES["q8_0"])
+        out.append(ref)
+    torch.distributed.barrier()
+    for dp, tp in MESH_QWEN:
+        mesh = by_shape[(dp, tp)]
+        if mesh.member:
+            tag = f"mesh qwen3 {dp}x{tp}"
+            peer = mesh.all_gather_objects(ref, "model")[0]
+            got, (_, grows, _) = _mesh_run(
+                torch, serve, ctx, tag, SERVE_ARGS, q, mesh,
+                RECIPE_LAUNCHES["q8_0"], mesh_collectives(dp, tp))
+            if rrows is not None:
+                _hold_mesh(torch, tag, ref, got, rrows, grows,
+                           *rows_of(mesh))
+            elif got["tokens"] != peer["tokens"]:
+                fail(f"{tag}: tokens differ from the 1x1 run")
+            out.append(got)
+            del grows
+        torch.distributed.barrier()
+    del rrows
+    # int8 pages at 1x2, the prefix cache at 2x1, n-gram speculation at
+    # 1x2: each against its 1x1 run on rank 0 (a 1x2 rank's logit rows
+    # are every slot's, so rank 0 compares them all; rank 1 compares the
+    # tokens, prefix hits and speculation counts rank 0's run sends).
+    for name, flags, shape, per_step, bitwise in (
+            ("int8", ["--kv-quant", "int8"], (1, 2), INT8_LAUNCHES, True),
+            ("prefix", PREFIX_FLAGS + ["--prefix-cache"], (2, 1),
+             RECIPE_LAUNCHES["q8_0"], False),
+            ("ngram", SPEC_FLAGS, (1, 2), RECIPE_LAUNCHES["q8_0"], False)):
+        mesh = by_shape[shape]
+        axis = "model" if shape[1] > 1 else "data"
+        argv = SERVE_ARGS + flags
+        if mesh.member:
+            ref = rrows = None
+            if ctx.rank == 0:
+                ref, (_, rrows, _) = _mesh_run(
+                    torch, serve, ctx, f"mesh qwen3 {name} 1x1", argv, q,
+                    None, per_step)
+                out.append(ref)
+            ref = mesh.all_gather_objects(ref, axis)[0]
+            tag = f"mesh qwen3 {name} {shape[0]}x{shape[1]}"
+            got, (_, grows, _) = _mesh_run(
+                torch, serve, ctx, tag, argv, q, mesh, per_step,
+                mesh_collectives(*shape))
+            if ctx.rank == 0:
+                _hold_mesh(torch, tag, ref, got, rrows, grows,
+                           *rows_of(mesh), bitwise=bitwise)
+            elif got["tokens"] != ref["tokens"]:
+                fail(f"{tag}: tokens differ from the 1x1 run")
+            if got["prefix_hits"] != ref["prefix_hits"] \
+                    or got["spec"] != ref["spec"]:
+                fail(f"{tag}: prefix hits {got['prefix_hits']} / spec "
+                     f"{got['spec']} vs the 1x1 run's {ref['prefix_hits']}"
+                     f" / {ref['spec']}")
+            if name == "prefix" and not got["prefix_hits"]:
+                fail(f"{tag}: no prefix hit")
+            if name == "ngram" and not got["spec"][0]:
+                fail(f"{tag}: nothing proposed")
+            out.append(got)
+            del rrows, grows
+        torch.distributed.barrier()
+    del q, params
+    torch.cuda.empty_cache()
+
+    # deepseek-v3, full width cut to 4 layers (MLA + MoE): 1x1 on rank 0,
+    # then 1x2, tokens under the near-tie rule.
+    ds = build(DEEPSEEK_ARGS, m11, DEEPSEEK_LAYERS)
+    if ctx.rank == 0:
+        dref, dref_rec = _mesh_run(torch, serve, ctx, "mesh deepseek-v3 "
+                                   "1x1", DEEPSEEK_ARGS, ds, None,
+                                   DEEPSEEK_LAUNCHES)
+        out.append(dref)
+    ds = None
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    ds = build(DEEPSEEK_ARGS, m12, DEEPSEEK_LAYERS, mesh=m12)
+    if m12.member:
+        tag = "mesh deepseek-v3 1x2"
+        got, rec = _mesh_run(torch, serve, ctx, tag, DEEPSEEK_ARGS, ds, m12,
+                             DEEPSEEK_LAUNCHES)
+        if got["plan_note"] is not None:
+            fail(f"{tag}: B9's split is not the whole call's: "
+                 f"{got['plan_note']}")
+        if ctx.rank == 0:
+            got["near_tie_exempt"] = check_near_ties(
+                torch, tag, dref_rec, rec, strict=False)
+            d = max(float((a - b).abs().max())
+                    for a, b in zip(dref_rec[1], rec[1]))
+            scale = max(float(a.abs().max()) for a in dref_rec[1])
+            got["logit_gap"] = d / scale
+            print(f"{tag}: logit rows differ from the 1x1 run's by at most "
+                  f"{d:.4g} ({d / scale:.3e} of max|logit|); held by the "
+                  "near-tie rule: the MoE expert products (cuBLAS bmm on "
+                  "a column block of the bank) have no plan of ours to "
+                  "keep invariant", flush=True)
+            del dref_rec
+        out.append(got)
+        del rec
+    ds = None
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+
+    # granite-moe, full width and depth (its vocab 49,155 refuses any
+    # tp): 1x1 on rank 0, then 2x1 -- the MoE 'data' gather.
+    gr = build(GRANITE_ARGS, m21)
+    if m21.member:
+        if ctx.rank == 0:
+            gref, (_, grrows, _) = _mesh_run(
+                torch, serve, ctx, "mesh granite-moe 1x1", GRANITE_ARGS, gr,
+                None, GRANITE_LAUNCHES)
+            out.append(gref)
+        gref = m21.all_gather_objects(gref if ctx.rank == 0 else None,
+                                      "data")[0]
+        tag = "mesh granite-moe 2x1"
+        got, (_, grows, _) = _mesh_run(
+            torch, serve, ctx, tag, GRANITE_ARGS, gr, m21, GRANITE_LAUNCHES,
+            mesh_collectives(2, 1, layers=0, moe_layers=GRANITE_MOE_LAYERS))
+        if ctx.rank == 0:
+            # Tokens exactly; the logits are compared and reported (the
+            # expert products are cuBLAS bmm, at the same shapes as 1x1).
+            _hold_mesh(torch, tag, gref, got, grrows, grows, *rows_of(m21),
+                       bitwise=False)
+        elif got["tokens"] != gref["tokens"]:
+            fail(f"{tag}: tokens differ from the 1x1 run")
+        out.append(got)
+    gr = None
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    return out
+
+
+def _mesh_refusal(serve, extra, want) -> None:
+    """The launcher refuses ``SERVE_ARGS + extra`` naming ``want``."""
+    import io
+    ap = serve.build_parser()
+    args = ap.parse_args(SERVE_ARGS + ["--quant", "q8_0"] + extra)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        try:
+            serve.validate_args(ap, args)
+        except SystemExit:
+            pass
+        else:
+            fail(f"serve_mesh: {extra} was not refused")
+    if want not in err.getvalue():
+        fail(f"serve_mesh: {extra} refused without {want!r}: "
+             f"{err.getvalue()}")
+    print(f"serve_mesh: {' '.join(extra)} refused: "
+          f"{err.getvalue().strip().splitlines()[-1]}", flush=True)
+
+
+def serve_mesh(torch, dev, serve, card):
+    """The serving meshes on the one card: the refusals, then a world of
+    MESH_RANKS ranks sharing cuda:0 over gloo (``_mesh_world``); each
+    run's tokens/s, p50 step, peak memory a rank, collectives a step
+    and bytes a rank, and backend. Returns {run: {kernel: launches}} of
+    every rank's mesh runs (the kernel JSON's launch totals)."""
+    from repro_torch.launch import mesh as meshes
+    t0 = time.perf_counter()
+    _mesh_refusal(serve, ["--tp", "3", "--ranks-per-device",
+                          str(MESH_RANKS)], "does not divide")
+    _mesh_refusal(serve, ["--dp", "2", "--tp", "4", "--ranks-per-device",
+                          str(MESH_RANKS)],
+                  f"needs 8 devices but only {MESH_RANKS}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ranks = meshes.spawn(_mesh_world, MESH_RANKS, (card,),
+                         device_type="cuda", ranks_per_device=MESH_RANKS)
+    out = {}
+    for summaries in ranks:
+        for r in summaries:
+            name = f"{r['tag']} rank {r['rank']}"
+            print(f"{name} on {card}: {r['backend']}: {r['tok_s']:.1f} "
+                  f"tokens/s, p50 step {r['p50_ms']:.2f} ms, {r['steps']} "
+                  f"steps, peak memory {r['peak_gb']:.2f} GB, collectives "
+                  f"{r['collectives_per_step']:.1f}/step "
+                  f"({r['mb_per_step']:.4f} MB/step sent, {r['staged']} "
+                  f"staged through host), launches/step "
+                  f"{sum(r['launches'].values()) / max(r['steps'], 1):.1f}"
+                  + (f", logits bitwise equal to 1x1: "
+                     f"{r['logits_equal']} (max |diff| {r['logit_diff']:.3e})"
+                     if "logits_equal" in r else "")
+                  + (f", near-tie exemptions {r['near_tie_exempt']}, logit "
+                     f"gap {r['logit_gap']:.3e} of max|logit|"
+                     if "logit_gap" in r else ""), flush=True)
+            if r["mesh"] != "1x1":
+                out[name] = {k: n for k, n in r["launches"].items() if n}
+    print(f"chip_smoke: serve_mesh took {time.perf_counter() - t0:.1f} s "
+          f"({MESH_RANKS} ranks on {card})", flush=True)
+    return out
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -3634,6 +4043,7 @@ def main() -> None:
     kernels.append(check_paged_int8(torch, np, dev))
     kernels.append(check_flash(torch, dev))
     kernels += check_paged_mla(torch, np, dev)
+    check_shard_plans(torch, dev)
     print(f"chip_smoke: kernel phase done at {time.perf_counter() - T0:.1f} "
           "s", flush=True)
 
@@ -3708,6 +4118,9 @@ def main() -> None:
         check_recipe(torch, dev, serve, quant)
     check_moe_models(torch, dev, serve, ds, gr)
     del ds, gr
+    # The mesh ranks are processes of their own (no profiler session in
+    # them); the card is handed to them without this process's weights.
+    by_serve.update(serve_mesh(torch, dev, serve, card))
     t0 = time.perf_counter()
     check_recurrent(torch, dev, serve)
     print(f"chip_smoke: recurrent phase took "

@@ -10,6 +10,10 @@ in/out projections are quantized), and an MoE expert bank (E, out, in) is quanti
 packed) planes. Rows are quantized ``_ROW_ELEMS`` elements at a time, so
 a bank or an embedding never needs an f32 copy of itself.
 
+``shard_params`` is the serving mesh's counterpart of the JAX package's
+``serving_param_shardings``: each rank keeps the block of every
+linear's and expert bank's planes that ``serving_weight_spec`` names.
+
 ``params_from_jax`` takes the JAX package's parameter tree *as numpy
 arrays* (the caller does the ``np.asarray``; this module never imports
 JAX) and returns the port's tree on ``device``: each ``jax.vmap``-stacked
@@ -29,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import pack
 from repro_torch.core.quant.formats import RECIPES
 from repro_torch.models.lm import layer_groups
+from repro_torch.parallel import sharding
 
 _NORM_KEYS = {"mixer_norm", "ffn_norm", "final_norm", "q_norm", "k_norm",
               "norm", "norm1", "norm2", "self_norm", "cross_norm",
@@ -89,6 +94,42 @@ def quantize_params(params: Dict, quant: str) -> Dict:
         if isinstance(node, dict):
             return {k: v if k in _NORM_KEYS else walk(v, path + (k,))
                     for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v, path) for v in node]
+        return node
+
+    return walk(params, ())
+
+
+def shard_params(params: Dict, mesh) -> Dict:
+    """This rank's parameters on a serving ``mesh``: every plane dict of
+    a linear or an MoE expert bank (a dict of tensors) whose planes the
+    rule (``sharding.serving_weight_spec``) cuts over 'model' keeps its
+    rank's block of their out-feature axis, as a ``sharding.ModelShard``
+    (a bias, 1-D, stays whole). Everything else stays whole: the
+    embedding and routers (replicated by the rule), norms, and the
+    tensors that sit directly in a mixer's dict (the SSM's conv taps,
+    A_log, D, dt_bias: the rule would cut the conv taps' axis -2, which
+    the causal conv sums over, so they are kept whole instead of
+    gathered back every step). A dict that is already a ModelShard is
+    kept as it is."""
+    tp = sharding.serving_degrees(mesh)[1]
+
+    def walk(node, path):
+        if isinstance(node, sharding.ModelShard):
+            return node
+        if isinstance(node, dict) and node and all(
+                isinstance(v, torch.Tensor) for v in node.values()):
+            specs = {k: sharding.serving_weight_spec(path + (k,),
+                                                     tuple(v.shape), mesh)
+                     for k, v in node.items()}
+            if not any("model" in sp for sp in specs.values()):
+                return node
+            return sharding.ModelShard(
+                {k: sharding.apply_spec(v, specs[k], mesh)
+                 for k, v in node.items()}, tp, mesh.coords["model"])
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v, path) for v in node]
         return node

@@ -9,7 +9,9 @@ over the tile loop of ``csrc/dequant_matmul.cuh``:
 
 x's dtype picks the kernel: bf16 (every model layer) the tensor-core
 one, f32 the CUDA-core one. This module builds the ctypes signature,
-plans the output tiles and the split of K (``plan``), checks the
+plans the output tiles and the split of K (``plan``; a sharded call
+plans from the unsharded shape, so a shard of the rows or columns
+splits K exactly as the whole call does), checks the
 operands of a CUDA call (and refuses one that requires grad while grad
 mode is on: the kernels have no backward), allocates the output and the split-K
 workspace, launches, and counts the launch on the wrapper.
@@ -106,11 +108,17 @@ def _sm_count(device: torch.device) -> int:
 def launch(wrapper: Callable, name: str, x: torch.Tensor,
            planes: Sequence[torch.Tensor], n: int,
            out_dtype: torch.dtype, *, vector_planes: Sequence[int] = (),
-           entry: Optional[str] = None) -> torch.Tensor:
+           entry: Optional[str] = None,
+           plan_parts: Tuple[int, int] = (1, 1)) -> torch.Tensor:
     """Launch ``csrc/<name>.cu`` on CUDA operands and count it on
     ``wrapper.launches``. ``vector_planes``: positions in ``planes`` of
     the planes the kernel reads as 16-byte vectors (they must be 16-byte
-    aligned). ``entry``: the C entry point, if not ``name``."""
+    aligned). ``entry``: the C entry point, if not ``name``.
+    ``plan_parts``: (row blocks, column blocks) of an unsharded call
+    this one is one block of; the tiles and the split of K are planned
+    for the unsharded (M, N), so every output element is summed in the
+    same order as there (the rows and columns of a tile are
+    independent)."""
     if x.device.type != "cuda" or any(p.device != x.device for p in planes):
         raise ValueError(
             f"{wrapper.__name__} needs x and its planes on one CUDA device; "
@@ -130,7 +138,8 @@ def launch(wrapper: Callable, name: str, x: torch.Tensor,
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return y
-    tile, k_split, count = plan(m, n, k, _sm_count(x.device), x.dtype)
+    tile, k_split, count = plan(m * plan_parts[0], n * plan_parts[1], k,
+                                _sm_count(x.device), x.dtype)
     # The CUDA-core kernel's split-K partials (the tensor-core kernel sums
     # its splits inside their cluster).
     ws = torch.empty((count, m, n), dtype=torch.float32, device=x.device) \

@@ -20,7 +20,8 @@ LAYOUT = {"w": (1, torch.float16)}
 
 
 def matmul_fp16(x: torch.Tensor, w: torch.Tensor, *,
-                out_dtype=torch.float32) -> torch.Tensor:
+                out_dtype=torch.float32,
+                plan_parts=(1, 1)) -> torch.Tensor:
     """x: (M, K) f32|bf16; w: (N, K) f16. Returns (M, N) in
     ``out_dtype`` (f32, or bf16 rounded from the f32 result)."""
     planes = {"w": w}
@@ -28,7 +29,8 @@ def matmul_fp16(x: torch.Tensor, w: torch.Tensor, *,
     if x.device.type == "cpu":
         return matmul_ref(x, planes, "fp16").to(out_dtype)
     return _dm.launch(matmul_fp16, "fp16_matmul", x, (w,), w.shape[0],
-                      out_dtype)
+                      out_dtype,
+                      plan_parts=plan_parts)
 
 
 matmul_fp16.launches = 0

@@ -32,9 +32,12 @@ MATMUL_KERNELS = {
 
 def quantized_matmul(x: torch.Tensor, planes: Planes, fmt: str, *,
                      out_dtype: Optional[torch.dtype] = None,
-                     approx_cvt53: bool = False) -> torch.Tensor:
+                     approx_cvt53: bool = False,
+                     plan_parts=(1, 1)) -> torch.Tensor:
     """y[..., N] = x[..., K] @ dequant(planes)[N, K]^T (f32, or out_dtype).
-    ``approx_cvt53`` (q3_k only): the paper's CVT53 scales, ``sc & ~1``."""
+    ``approx_cvt53`` (q3_k only): the paper's CVT53 scales, ``sc & ~1``.
+    ``plan_parts``: (row, column) blocks of the unsharded call this one
+    is a shard of (``parallel.sharding.plan_parts``)."""
     if fmt not in MATMUL_KERNELS:
         raise ValueError(f"unknown format {fmt!r}")
     if approx_cvt53 and fmt != "q3_k":
@@ -52,5 +55,6 @@ def quantized_matmul(x: torch.Tensor, planes: Planes, fmt: str, *,
         x2 = F.pad(x2, (0, kp - k))
     # The wrapper rounds its f32 result to out_dtype itself.
     y = wrapper(x2.contiguous(), *(planes[n] for n in layout),
-                out_dtype=out_dtype or torch.float32, **kw)
+                out_dtype=out_dtype or torch.float32, plan_parts=plan_parts,
+                **kw)
     return y.reshape(*lead, y.shape[-1])

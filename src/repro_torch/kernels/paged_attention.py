@@ -196,12 +196,23 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            positions: torch.Tensor, *, sm_scale: float,
                            lengths=None, k_scales=None, v_scales=None,
                            q2=None, k2_pages=None,
-                           k2_scales=None) -> torch.Tensor:
+                           k2_scales=None, plan_parts=(1, 1)) -> torch.Tensor:
     """Fused paged decode attention over a chunk of C queries per slot.
 
     Returns (B, C, H, D) in q's dtype. ``v_pages=None`` is the MLA form
     (the K pages are V), which takes the RoPE side ``q2``/``k2_pages``
-    (and ``k2_scales`` on int8 pages); its launches are counted apart."""
+    (and ``k2_scales`` on int8 pages); its launches are counted apart.
+
+    ``plan_parts``: (slot blocks, head blocks) of the unsharded call this
+    one is a shard of, so the launch splits each page walk as that call
+    does. The tensor-core GQA plan depends on C, G = H / Hkv, D, the
+    table width and the block size only, so a kv-head or slot shard
+    keeps it as is; the CUDA-core GQA split is planned for the unsharded
+    B * Hkv; the tensor-core MLA kernel picks its split on the card from
+    the step's work over the SMs it is given, so a head shard of
+    ``parts`` is given 1 / parts of them (its work is exactly 1 / parts
+    of the whole call's). A slot shard of the MLA form has no such
+    invariant: its split follows its own slots' depths."""
     b, c = q.shape[:2]
     if lengths is None:
         lengths = torch.full((b,), c, dtype=torch.int32, device=q.device)
@@ -240,14 +251,14 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     tables = (block_tables, positions, lengths)
     if v_pages is None:
         out = _launch_mla(q, q2, k_pages, k2_pages, k_scales, k2_scales,
-                          *tables, sm_scale)
+                          *tables, sm_scale, plan_parts)
         if k_scales is None:
             paged_decode_attention.mla_launches += 1
         else:
             paged_decode_attention.mla_int8_launches += 1
         return out
     out = _launch_gqa(q, k_pages, v_pages, k_scales, v_scales, *tables,
-                      sm_scale)
+                      sm_scale, plan_parts)
     if k_scales is None:
         paged_decode_attention.launches += 1
     else:
@@ -256,7 +267,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def _launch_gqa(q, k_pages, v_pages, k_scales, v_scales, block_tables,
-                positions, lengths, sm_scale):
+                positions, lengths, sm_scale, plan_parts=(1, 1)):
     """One launch of the GQA form, the kernel picked by q's dtype: bf16 q
     (on bf16 or int8 pages) the tensor-core kernel, f32 q the CUDA-core
     kernel. Counts nothing."""
@@ -276,7 +287,8 @@ def _launch_gqa(q, k_pages, v_pages, k_scales, v_scales, block_tables,
                          f"{_smem_limit(dev)}")
     out = torch.empty_like(q)
     mb = block_tables.shape[1]
-    per, splits = _splits(b * hkv, mb, _sm_count(dev))
+    per, splits = _splits(b * hkv * plan_parts[0] * plan_parts[1], mb,
+                          _sm_count(dev))
     rows = c * (h // hkv)
     part_acc = part_ml = out
     if splits > 1:      # per-split partials for the merge pass
@@ -359,7 +371,7 @@ def _launch_gqa_tc(q, k_pages, v_pages, k_scales, v_scales, block_tables,
 
 
 def _launch_mla(q, q2, k_pages, k2_pages, k_scales, k2_scales, block_tables,
-                positions, lengths, sm_scale):
+                positions, lengths, sm_scale, plan_parts=(1, 1)):
     """One launch of the MLA form: f32 q_eff/q_rope in (what
     ``mla_decode`` passes), f32 out. bf16 or int8 pages (every serving
     path) run the tensor-core kernel; f32 pages, on no serving path, the
@@ -367,10 +379,12 @@ def _launch_mla(q, q2, k_pages, k2_pages, k_scales, k2_scales, block_tables,
     if q.dtype != torch.float32:
         raise TypeError(f"the MLA form takes float32 q (and q2); got "
                         f"{q.dtype}")
-    launch = _launch_mla_cc if k_pages.dtype == torch.float32 \
-        else _launch_mla_tc
-    return launch(q, q2, k_pages, k2_pages, k_scales, k2_scales,
-                  block_tables, positions, lengths, sm_scale)
+    if k_pages.dtype == torch.float32:
+        return _launch_mla_cc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
+                              block_tables, positions, lengths, sm_scale)
+    return _launch_mla_tc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
+                          block_tables, positions, lengths, sm_scale,
+                          plan_parts[1])
 
 
 def mla_row_tile(pages_dtype: torch.dtype) -> int:
@@ -408,6 +422,51 @@ def mla_last_plan():
 
 
 @functools.lru_cache(maxsize=None)
+def mla_tc_row_tile() -> int:
+    """Query rows of the tensor-core MLA kernel's row tile (``mtc::RT``),
+    read from its source (its one definition), so the shard rules below
+    hold on the CPU too."""
+    src = (_build.CSRC / "paged_attention.cu").read_text()
+    return int(re.search(r"constexpr int RT = (\d+);", src).group(1))
+
+
+def mla_shard_sms(sms: int, c: int, g: int, head_parts: int,
+                  row_tile: int) -> int:
+    """SMs a shard of ``head_parts`` head blocks (``g`` query heads a kv
+    head of its own, ``c`` chunk entries) plans and launches the
+    tensor-core MLA kernel on. The card takes the fewest key tiles a
+    split whose (row tile, split) items fit the launch's SMs. Where every
+    row's tile walks as deep as in the whole call (``mla_split_exact``),
+    the shard's items are rs / rw of the whole call's at every split
+    (rs, rw: row tiles a slot of the shard and of the whole call), so on
+    floor(sms * rs / rw) SMs the shard's fit is the whole call's and it
+    takes the same split. The rest of the card idles for this launch."""
+    rw = -(-c * g * head_parts // row_tile)
+    rs = -(-c * g // row_tile)
+    return max(1, sms * rs // rw)
+
+
+def mla_split_exact(c: int, g: int, head_parts: int, data_parts: int,
+                    row_tile: int):
+    """None when a tensor-core MLA launch on a shard (``head_parts`` head
+    blocks of ``g`` heads each, ``data_parts`` slot blocks, ``c`` chunk
+    entries) splits every row's page walk as the whole call does, so its
+    rows are the whole call's bit for bit; else why not. A row's split
+    follows the depth its row tile walks (the deepest chunk entry in the
+    tile) and the step's split, which the card picks from every slot's
+    depth."""
+    if data_parts > 1:
+        return ("a 'data' replica picks the page-walk split from its own "
+                "slots' depths, not from the whole step's")
+    if head_parts == 1 or c == 1 or c * g * head_parts <= row_tile \
+            or g % row_tile == 0:
+        return None
+    return (f"a head shard's {row_tile}-row tiles group its {c} chunk "
+            f"entries of {g} heads otherwise than the whole call's of "
+            f"{g * head_parts} heads, so its rows walk to other depths")
+
+
+@functools.lru_cache(maxsize=None)
 def _mla_tc_scratch(b, c, h, hkv, d1, bs, mb):
     """(splits the launch has room for, floats of the partials, floats of
     their (max, sum), tickets) of the tensor-core MLA kernel."""
@@ -417,11 +476,15 @@ def _mla_tc_scratch(b, c, h, hkv, d1, bs, mb):
 
 
 def _launch_mla_tc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
-                   block_tables, positions, lengths, sm_scale):
+                   block_tables, positions, lengths, sm_scale,
+                   head_parts: int = 1):
     """The tensor-core kernel (bf16 or int8 pages): one cooperative
     launch of one block per SM walking the step's (64-row tile,
     page-walk split) items; the card picks the split from positions and
-    lengths, and the splits of a tile merge inside the launch."""
+    lengths, and the splits of a tile merge inside the launch. A shard
+    of ``head_parts`` head blocks launches on ``mla_shard_sms`` of the
+    SMs, so its split is the whole call's where ``mla_split_exact``
+    says it can be."""
     dev = q.device
     b, c, h, d1 = q.shape
     _, bs, hkv, _ = k_pages.shape
@@ -452,6 +515,8 @@ def _launch_mla_tc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
         # GQA form's tickets).
         tickets = torch.zeros((n_tickets,), dtype=torch.int32, device=dev)
     plan = torch.empty((3,), dtype=torch.int32, device=dev)
+    sms = mla_shard_sms(_sm_count(dev), c, h // hkv, head_parts,
+                        lib.paged_attention_mla_row_tile(kv))
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
@@ -460,8 +525,8 @@ def _launch_mla_tc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
             ptr(k_scales), ptr(k2_scales), block_tables.data_ptr(),
             positions.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
-            plan.data_ptr(), b, c, h, hkv, d1, d2, bs, mb, splits,
-            _sm_count(dev), float(sm_scale), stream)
+            plan.data_ptr(), b, c, h, hkv, d1, d2, bs, mb, splits, sms,
+            float(sm_scale), stream)
     if err:
         raise RuntimeError(f"paged_attention_mla_tc launch failed: "
                            f"cudaError {err}")

@@ -28,7 +28,8 @@ LAYOUT = {"ql": (16, torch.int32), "qh": (32, torch.int32),
 def matmul_q3_k(x: torch.Tensor, ql: torch.Tensor, qh: torch.Tensor,
                 sc: torch.Tensor, d: torch.Tensor, *,
                 out_dtype=torch.float32,
-                approx_cvt53: bool = False) -> torch.Tensor:
+                approx_cvt53: bool = False,
+                plan_parts=(1, 1)) -> torch.Tensor:
     """x: (M, K) f32|bf16 and the q3_k planes of an (N, K) weight.
     Returns (M, N) in ``out_dtype`` (f32, or bf16 rounded from the f32
     result)."""
@@ -39,7 +40,8 @@ def matmul_q3_k(x: torch.Tensor, ql: torch.Tensor, qh: torch.Tensor,
                           approx_cvt53=approx_cvt53).to(out_dtype)
     return _dm.launch(matmul_q3_k, "q3_k_matmul", x, (ql, qh, sc, d),
                       ql.shape[0], out_dtype,
-                      entry="q3_k_matmul_approx" if approx_cvt53 else None)
+                      entry="q3_k_matmul_approx" if approx_cvt53 else None,
+                      plan_parts=plan_parts)
 
 
 matmul_q3_k.launches = 0

@@ -22,7 +22,8 @@ LAYOUT = {"ql": (8, torch.int32), "qh": (16, torch.int32),
 
 def matmul_q6_k(x: torch.Tensor, ql: torch.Tensor, qh: torch.Tensor,
                 sc: torch.Tensor, d: torch.Tensor, *,
-                out_dtype=torch.float32) -> torch.Tensor:
+                out_dtype=torch.float32,
+                plan_parts=(1, 1)) -> torch.Tensor:
     """x: (M, K) f32|bf16 and the q6_k planes of an (N, K) weight.
     Returns (M, N) in ``out_dtype`` (f32, or bf16 rounded from the f32
     result)."""
@@ -31,7 +32,8 @@ def matmul_q6_k(x: torch.Tensor, ql: torch.Tensor, qh: torch.Tensor,
     if x.device.type == "cpu":
         return matmul_ref(x, planes, "q6_k").to(out_dtype)
     return _dm.launch(matmul_q6_k, "q6_k_matmul", x, (ql, qh, sc, d),
-                      ql.shape[0], out_dtype)
+                      ql.shape[0], out_dtype,
+                      plan_parts=plan_parts)
 
 
 matmul_q6_k.launches = 0

@@ -19,16 +19,19 @@ LAYOUT = {"qs": (1, torch.int8), "d": (32, torch.float16)}
 
 
 def matmul_q8_0(x: torch.Tensor, qs: torch.Tensor, d: torch.Tensor, *,
-                out_dtype=torch.float32) -> torch.Tensor:
+                out_dtype=torch.float32,
+                plan_parts=(1, 1)) -> torch.Tensor:
     """x: (M, K) f32|bf16; qs: (N, K) int8; d: (N, K//32) f16.
     Returns (M, N) in ``out_dtype`` (f32, or bf16 rounded from the f32
-    result)."""
+    result). ``plan_parts``: (row, column) blocks of the unsharded call
+    this one is a shard of; the launch is planned for that call."""
     planes = {"qs": qs, "d": d}
     _dm.check("matmul_q8_0", x, planes, LAYOUT, 32, out_dtype)
     if x.device.type == "cpu":
         return matmul_ref(x, planes, "q8_0").to(out_dtype)
     return _dm.launch(matmul_q8_0, "q8_0_matmul", x, (qs, d), qs.shape[0],
-                      out_dtype, vector_planes=(0,))
+                      out_dtype, vector_planes=(0,),
+                      plan_parts=plan_parts)
 
 
 matmul_q8_0.launches = 0

@@ -49,15 +49,27 @@ conditioned families whisper-small (encoder-decoder, zero stub frames)
 and qwen2-vl-2b (M-RoPE, zero stub vision embeddings), which refuse
 ``--prefix-cache`` (whisper also ``--kv-quant``).
 
+Serving meshes (``--dp D --tp T``, stream mode): the launcher spawns
+D*T ranks (``launch/mesh.py``; under ``torchrun`` it joins the ranks it
+is given instead), each serving the same stream over a ('data',
+'model') mesh — slots in contiguous blocks over 'data', heads, vocab and
+weight out-features over 'model' — with tokens identical to one device.
+Rank 0 prints the report (with the mesh line: backend, devices,
+collectives) and writes the exports. ``--ranks-per-device K`` lets K
+ranks share one device (the CPU counts as one), over gloo:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --reduced \
+      --device cpu --slots 4 --dp 2 --tp 2 --ranks-per-device 4 \
+      --block-size 8 --quant q8_0
+
 The card is the default device. Without one the launcher exits with an
 error unless ``--device cpu`` asks for the plain CPU path explicitly.
-Flags whose feature is not ported yet (``--dp/--tp``) are refused with
-the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 from pathlib import Path
 
@@ -71,6 +83,7 @@ from repro_torch.core.offload import OffloadPolicy, model_kernel_calls
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ops import MATMUL_KERNELS
 from repro_torch.kernels.paged_attention import paged_decode_attention
+from repro_torch.launch import mesh as meshes
 from repro_torch.models.api import build_model
 from repro_torch.runtime.engine import Engine, ServingEngine
 from repro_torch.runtime.request import Request, SamplingParams
@@ -162,36 +175,44 @@ def offload_decisions(cfg, quant: str, seq: int, n_out: int):
     return OffloadPolicy(asic_28nm()).decide_table(prefill, by_name)
 
 
-def build_params(model, args, device, quantize: bool = True):
+def build_params(model, args, device, quantize: bool = True, mesh=None):
     """Seeded random weights at the config's widths, made on ``device``
     as the JAX launcher does (bf16 init, then — unless ``quantize`` is
-    False — the quantization stage)."""
+    False — the quantization stage). ``mesh``: a serving mesh whose
+    rank keeps only its 'model' shard (``convert.shard_params``); the
+    full weights are freed before this returns."""
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = model.init(gen)
     if quantize and args.quant != "none":
         params = convert.quantize_params(params, args.quant)
+    if mesh is not None:
+        params = convert.shard_params(params, mesh)
+        if device.type == "cuda":
+            torch.cuda.empty_cache()    # hand the card back to its peers
     return params
 
 
-def build_draft(args, device):
+def build_draft(args, device, mesh=None):
     """Draft model + params for ``--spec draft``: ``--reduced`` follows
     the target's, the weights come from ``--seed`` + 17, are made on
     ``device`` and are quantized with the serve's recipe (so the draft's
-    ledger account charges the same recipe)."""
+    ledger account charges the same recipe); ``mesh``: as
+    ``build_params``."""
     dcfg = get_config(args.spec_draft_model)
     if args.reduced:
         dcfg = dcfg.reduced()
     dmodel = build_model(dcfg)
     draft_args = argparse.Namespace(seed=args.seed + 17, quant=args.quant)
-    return dmodel, build_params(dmodel, draft_args, device)
+    return dmodel, build_params(dmodel, draft_args, device, mesh=mesh)
 
 
-def run_stream(cfg, model, params, args, device, draft=None):
+def run_stream(cfg, model, params, args, device, draft=None, mesh=None):
     """Serve the stream with telemetry on and write the exports that
-    ``--metrics-out``/``--trace`` ask for; returns (engine, report,
-    requests). ``draft``: the (model, params) of ``--spec draft``'s
-    draft, else ``build_draft`` makes them."""
+    ``--metrics-out``/``--trace`` ask for (rank 0 of a mesh only);
+    returns (engine, report, requests). ``draft``: the (model, params)
+    of ``--spec draft``'s draft, else ``build_draft`` makes them.
+    ``mesh``: the rank's ``ServingMesh`` (params sharded or whole)."""
     rng = np.random.RandomState(args.seed)
     reqs = build_stream(cfg, args, rng, device)
     max_seq = args.max_seq or (args.shared_prefix + args.prompt_len
@@ -199,7 +220,7 @@ def run_stream(cfg, model, params, args, device, draft=None):
     decisions = offload_decisions(cfg, args.quant, args.prompt_len,
                                   args.gen) if args.offload_policy else None
     if args.spec == "draft" and draft is None:
-        draft = build_draft(args, device)
+        draft = build_draft(args, device, mesh)
     draft_model, draft_params = draft or (None, None)
     engine = ServingEngine(
         model, params, quant=args.quant, num_slots=args.slots,
@@ -211,9 +232,11 @@ def run_stream(cfg, model, params, args, device, draft=None):
         spec=args.spec, spec_k=args.spec_k or 4,
         spec_draft_model=draft_model, spec_draft_params=draft_params,
         prefix_cache=args.prefix_cache, kv_quant=args.kv_quant,
-        host_sampling=args.host_sampling, telemetry=True, device=device)
+        host_sampling=args.host_sampling, telemetry=True, device=device,
+        mesh=mesh)
     report = engine.serve(reqs, seed=args.seed)
-    write_exports(report.timeline, args)
+    if mesh is None or not any(mesh.coords.values()):
+        write_exports(report.timeline, args)
     return engine, report, reqs
 
 
@@ -258,11 +281,10 @@ def batch_lines(stats, args):
 
 
 def validate_args(ap, args) -> None:
-    """Fail fast on flags whose feature is not ported, or that do not
-    combine — never silently measure a different configuration. The
-    combination checks are the JAX launcher's."""
-    if args.dp * args.tp != 1:
-        ap.error("not ported to repro_torch: --dp/--tp are ROADMAP A17")
+    """Fail fast on flags that do not combine — never silently measure a
+    different configuration. The combination checks are the JAX
+    launcher's, message for message; the mesh's device check counts
+    ``--ranks-per-device`` ranks a device."""
     if args.num_blocks and not args.block_size:
         ap.error("--num-blocks requires --block-size (paged arena)")
     if args.prefix_cache:
@@ -346,6 +368,51 @@ def validate_args(ap, args) -> None:
         if args.chunk_size < 2:
             ap.error("--spec needs --chunk-size >= 2 (one committed-token "
                      "lane plus at least one proposal lane)")
+    rpd = getattr(args, "ranks_per_device", 1)
+    if rpd < 1:
+        ap.error(f"--ranks-per-device must be >= 1, got {rpd}")
+    if args.dp < 1 or args.tp < 1:
+        ap.error(f"--dp/--tp must be >= 1, got dp={args.dp} tp={args.tp}")
+    if args.dp * args.tp > 1:
+        if args.mode != "stream":
+            ap.error("--dp/--tp require --mode stream (the lockstep batch "
+                     "path builds unsharded engines)")
+        dev = getattr(args, "device", "cuda")
+        cap = meshes.device_capacity(dev, rpd)
+        if args.dp * args.tp > cap:
+            ap.error(f"mesh dp={args.dp} x tp={args.tp} needs "
+                     f"{args.dp * args.tp} devices but only {cap} "
+                     f"visible ({cap // rpd} {dev} device(s) x "
+                     f"--ranks-per-device {rpd}; pass --ranks-per-device N "
+                     "to let N ranks share a device)")
+        mcfg = get_config(args.arch)
+        if args.reduced:
+            mcfg = mcfg.reduced()
+        _check_mesh_divisibility(ap, mcfg, args.arch, args)
+        if args.dp > 1 and args.slots % args.dp:
+            ap.error(f"--slots {args.slots} not divisible by --dp "
+                     f"{args.dp}: each 'data' replica must own an equal "
+                     "contiguous slot block")
+        if args.spec == "draft" and args.tp > 1:
+            dcfg = get_config(args.spec_draft_model)
+            if args.reduced:
+                dcfg = dcfg.reduced()
+            _check_mesh_divisibility(ap, dcfg, args.spec_draft_model,
+                                     args, role="draft model ")
+
+
+def _check_mesh_divisibility(ap, cfg, arch: str, args,
+                             role: str = "") -> None:
+    """Refuse a tensor-parallel degree the architecture cannot shard
+    evenly — an uneven head split would need padded shards and break
+    token identity with the single-device run."""
+    for what, n in (("kv-heads", cfg.num_kv_heads),
+                    ("attention heads", cfg.num_heads),
+                    ("vocab", cfg.vocab_size)):
+        if n % args.tp:
+            ap.error(f"--tp {args.tp} does not divide {role}{arch}'s "
+                     f"{n} {what}; pick a tp that divides every "
+                     "sharded axis (heads, kv-heads, vocab)")
 
 
 def resolve_device(ap, args) -> torch.device:
@@ -382,8 +449,17 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--kv-quant", default="none", choices=["none", "int8"])
     ap.add_argument("--prefix-cache", action="store_true")
     ap.add_argument("--shared-prefix", type=int, default=0)
-    ap.add_argument("--dp", type=int, default=1)
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-parallel degree: slots (and the paged "
+                         "arena's pages) over the mesh 'data' axis; "
+                         "requires --slots divisible by dp")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel degree: heads, kv-heads, vocab "
+                         "and weight out-features over the mesh 'model' "
+                         "axis; requires each divisible by tp")
+    ap.add_argument("--ranks-per-device", type=int, default=1,
+                    help="mesh ranks that share one device (gloo); the "
+                         "CPU counts as one device")
     ap.add_argument("--arrival", default="poisson",
                     choices=["poisson", "back2back"])
     ap.add_argument("--rate", type=float, default=8.0)
@@ -402,6 +478,27 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     validate_args(ap, args)
     device = resolve_device(ap, args)
+    if args.dp * args.tp > 1:
+        if meshes.joined_from_env():
+            ctx = meshes.init_rank(
+                int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                device_type=device.type,
+                ranks_per_device=args.ranks_per_device,
+                init_method="env://")
+            try:
+                if device.type == "cuda":
+                    meshes.load_kernels(ctx)
+                serve_rank(ctx, args)
+            finally:
+                meshes.teardown()
+            return
+        world = args.dp * args.tp
+        threads = max(1, (os.cpu_count() or 1) // world) \
+            if device.type == "cpu" else 0
+        meshes.spawn(serve_rank, world, (args,), device_type=device.type,
+                     ranks_per_device=args.ranks_per_device,
+                     threads=threads)
+        return
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -418,6 +515,38 @@ def main(argv=None) -> None:
         return
     params = build_params(model, args, device)
     engine, report, _ = run_stream(cfg, model, params, args, device)
+    print_stream(cfg, engine, report, args, device, launch_counts())
+
+
+def serve_rank(ctx, args) -> None:
+    """One rank of a ``--dp/--tp`` serve: build the mesh, this rank's
+    weight shards (ranks sharing a card in turn) and serve; rank 0
+    prints the report with every rank's launch counts."""
+    mesh = meshes.make_host_mesh(args.dp, args.tp, device=ctx.device,
+                                 ranks_per_device=ctx.ranks_per_device)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build_model(cfg)
+    params = mesh.serialized(build_params, model, args, ctx.device, True,
+                             mesh)
+    draft = mesh.serialized(build_draft, args, ctx.device, mesh) \
+        if args.spec == "draft" else None
+    reset_launches()
+    engine, report, _ = run_stream(cfg, model, params, args, ctx.device,
+                                   draft=draft, mesh=mesh)
+    # Every rank's counts, in rank order (row-major over the mesh).
+    every = [c for row in mesh.all_gather_objects(
+        mesh.all_gather_objects(launch_counts(), "model"), "data")
+        for c in row]
+    if ctx.rank == 0:
+        print_stream(cfg, engine, report, args, ctx.device, every)
+
+
+def print_stream(cfg, engine, report, args, device, launches) -> None:
+    """The stream report: the header, ``serve_report_lines`` (with the
+    mesh line under a mesh; ``launches``: the launch counts, a list of
+    one dict per rank under a mesh) and the first request's tokens."""
     arena = engine.arena
     where = (f"paged[{arena.num_blocks}x{arena.block_size} "
              f"attn={engine.paged_attn} kv={arena.kv_quant}]"
@@ -427,7 +556,7 @@ def main(argv=None) -> None:
           f"stream={args.requests} reqs ({args.arrival}) slots={args.slots} "
           f"{where} prefill=chunked[{engine.chunk_size}] gen={args.gen}")
     for line in serve_report_lines(engine, report, args.requests,
-                                   launches=launch_counts()):
+                                   launches=launches):
         print(f"  {line}")
     print(f"  first request tokens: {report.sequences[0].generated[:8]}")
     if args.metrics_out:

@@ -8,8 +8,8 @@ It trains the config (``--reduced`` for the CPU) on the synthetic data
 pipeline through ``ElasticRunner``: checkpoints every ``--ckpt-every``
 steps under ``--ckpt-dir`` and resumes from the newest one there, so a
 restarted run continues where it stopped. The JAX launcher builds a host
-mesh over every device; the port trains on one device (meshes are
-ROADMAP A17). Parameters train unquantized: ``--quant`` other than none
+mesh over every device; the port trains on one device (the training
+mesh is ROADMAP A17b). Parameters train unquantized: ``--quant`` other than none
 is refused by the train step (``TypeError``), as in the JAX package.
 
 The card is the default device. Without one the launcher exits with an

@@ -6,8 +6,8 @@ Ported from ``repro.models.api``: ``init`` / ``loss`` / ``forward`` /
 ``paged_cache_shapes``, and for the encdec family ``encode_cross`` (the
 serving engine's admission-time encoder pass). ``loss`` is the train
 entry (``train/trainer.py``): the families' cross entropy, with the
-``remat`` policies of the JAX package; its ``act_sharding`` needs a mesh
-(ROADMAP A17) and only None is taken.
+``remat`` policies of the JAX package; its ``act_sharding`` needs a
+training mesh (ROADMAP A17b) and only None is taken.
 
 Frontend inputs (stubs, as in the JAX package): the vlm family's
 ``batch["vision_embeds"]`` (B, min(vision_tokens, S), d) and a decode
@@ -132,8 +132,8 @@ def _lm_loss_kw(cfg, params, batch, **kw):
 
 def _encdec_loss_kw(cfg, params, batch, act_sharding=None, **kw):
     if act_sharding is not None:
-        raise NotImplementedError("act_sharding needs a serving/training "
-                                  "mesh: ROADMAP A17")
+        raise NotImplementedError("act_sharding needs a training mesh: "
+                                  "ROADMAP A17b")
     return encdec.encdec_loss(params, cfg, batch, **kw)
 
 

@@ -57,6 +57,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_decode_attention
 from repro_torch.models import layers
 from repro_torch.models.layers import Params
+from repro_torch.parallel import sharding
 
 NEG_INF = -1e30
 
@@ -138,12 +139,14 @@ def rope_tables(cfg: ModelConfig, positions: torch.Tensor):
 def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, fmt: str,
                  rope):
     """q, k, v (B, S, heads, D); ``rope``: (cos, sin) tables for the
-    chunk's positions (``layers.rope_cos_sin``), None without RoPE."""
+    chunk's positions (``layers.rope_cos_sin``), None without RoPE.
+    Under a serving mesh the projections are 'model' shards and each
+    rank keeps its heads: kv-heads [m Hkv/T, (m+1) Hkv/T) and their
+    query heads (contiguous, since head h reads kv-head h // G)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim()
-    q = layers.linear_apply(p["q"], x, fmt).reshape(b, s, cfg.num_heads, hd)
-    k = layers.linear_apply(p["k"], x, fmt).reshape(b, s, cfg.num_kv_heads, hd)
-    v = layers.linear_apply(p["v"], x, fmt).reshape(b, s, cfg.num_kv_heads, hd)
+    q, k, v = (layers.linear_apply(p[n], x, fmt, gather=False).reshape(
+        b, s, -1, hd) for n in ("q", "k", "v"))
     if cfg.qk_norm:                             # qk_norm before rope
         q = layers.rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
         k = layers.rmsnorm_apply(p["k_norm"], k, cfg.norm_eps)
@@ -168,8 +171,15 @@ def gqa_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor, rope, *,
     hd = cfg.resolved_head_dim()
     q, k, v = _project_qkv(p, cfg, x, fmt, rope)
     o = chunked_attention(q, k, v, causal=causal, sm_scale=hd ** -0.5)
-    o = o.reshape(b, s, cfg.num_heads * hd)
+    o = _gather_heads(p["q"], o.reshape(b, s, -1))
     return layers.linear_apply(p["o"], o, fmt), {"k": k, "v": v}
+
+
+def _gather_heads(proj: Params, o: torch.Tensor) -> torch.Tensor:
+    """The attention output (..., heads * D) of every head: a rank's heads
+    all-gathered over 'model' when ``proj`` (the query projection) is a
+    'model' shard."""
+    return sharding.gather_model(o) if sharding.is_model_shard(proj) else o
 
 
 # ----------------------------------------------------------------------
@@ -378,6 +388,7 @@ def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                           cw)
     q, k, v = _project_qkv(p, cfg, x, fmt, step.rope)
     kv_quant = isinstance(cache["k"], dict)      # {"q", "s"} int8 leaves
+    parts = sharding.plan_parts(sharding.is_model_shard(p["q"]))
     if block_tables is None:                     # contiguous slot arena
         _insert_kv(cache["k"], k, position, lengths)
         _insert_kv(cache["v"], v, position, lengths)
@@ -390,7 +401,8 @@ def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
             o = paged_decode_attention(
                 q.contiguous(), cache["k"]["q"], cache["v"]["q"],
                 block_tables, position, sm_scale=sm, lengths=lengths,
-                k_scales=cache["k"]["s"], v_scales=cache["v"]["s"])
+                k_scales=cache["k"]["s"], v_scales=cache["v"]["s"],
+                plan_parts=parts)
         else:
             # The JAX ref path rounds the dequantized view to q's dtype;
             # the fused kernel does not.
@@ -404,12 +416,12 @@ def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
         if paged_impl == "fused":
             o = paged_decode_attention(q.contiguous(), cache["k"], cache["v"],
                                        block_tables, position, sm_scale=sm,
-                                       lengths=lengths)
+                                       lengths=lengths, plan_parts=parts)
         else:
             o = decode_attention(q, paged_view(cache["k"], block_tables),
                                  paged_view(cache["v"], block_tables),
                                  sm_scale=sm, kv_len=step.pos_mat + 1)
-    o = o.reshape(b, cw, cfg.num_heads * hd)
+    o = _gather_heads(p["q"], o.reshape(b, cw, -1))
     return layers.linear_apply(p["o"], o, fmt), cache
 
 
@@ -447,12 +459,12 @@ def _mla_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, fmt: str, rope):
     krope (B,S,rope)); ``rope``: ``rope_tables`` of the positions."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.num_heads
     qa = layers.rmsnorm_apply(p["q_a_norm"],
                               layers.linear_apply(p["q_a"], x, fmt),
                               cfg.norm_eps)
-    q = layers.linear_apply(p["q_b"], qa, fmt).reshape(
-        b, s, h, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    # This rank's heads under a serving mesh (q_b is a 'model' shard).
+    q = layers.linear_apply(p["q_b"], qa, fmt, gather=False).reshape(
+        b, s, -1, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], -1)
     q_rope = layers.rope_rotate(q_rope, *rope)
     kv = layers.linear_apply(p["kv_a"], x, fmt)
@@ -476,10 +488,10 @@ def mla_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor, rope, *,
     cache keeps only the compressed latents. The JAX package projects
     q/kv a second time for the cache; the values are the same."""
     m = cfg.mla
-    h = cfg.num_heads
     b, s, _ = x.shape
     q_nope, q_rope, ckv, krope = _mla_qkv(p, cfg, x, fmt, rope)
-    kvb = layers.linear_apply(p["kv_b"], ckv, fmt).reshape(
+    h = q_nope.shape[2]                 # this rank's heads under a mesh
+    kvb = layers.linear_apply(p["kv_b"], ckv, fmt, gather=False).reshape(
         b, s, h, m.qk_nope_head_dim + m.v_head_dim)
     k_nope, v = kvb.split([m.qk_nope_head_dim, m.v_head_dim], -1)
     k = torch.cat([k_nope, krope[:, :, None, :].expand(
@@ -487,7 +499,7 @@ def mla_prefill(p: Params, cfg: ModelConfig, x: torch.Tensor, rope, *,
     q = torch.cat([q_nope, q_rope], dim=-1)
     sm = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     o = chunked_attention(q, k, v, causal=True, sm_scale=sm)
-    o = o.reshape(b, s, h * m.v_head_dim)
+    o = _gather_heads(p["q_b"], o.reshape(b, s, -1))
     return layers.linear_apply(p["o"], o, fmt), {"ckv": ckv, "krope": krope}
 
 
@@ -511,12 +523,13 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if paged_impl not in ("fused", "ref"):
         raise ValueError(f"unknown paged_impl {paged_impl!r}")
     m = cfg.mla
-    h = cfg.num_heads
     b, cw = x.shape[:2]
     if step is None:
         step = paged_step(cfg, position, block_tables, lengths,
                           cache["ckv"], cw)
     q_nope, q_rope, ckv_new, krope_new = _mla_qkv(p, cfg, x, fmt, step.rope)
+    h = q_nope.shape[2]                 # this rank's heads under a mesh
+    parts = sharding.plan_parts(sharding.is_model_shard(p["q_b"]))
     kv_quant = isinstance(cache["ckv"], dict)
     fused = block_tables is not None and paged_impl == "fused"
     if block_tables is None:                     # contiguous slot arena
@@ -553,12 +566,13 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 block_tables, position, sm_scale=sm, lengths=lengths,
                 k_scales=ckv_p["s"][:, :, None], q2=q2.contiguous(),
                 k2_pages=krope_p["q"][:, :, None, :],
-                k2_scales=krope_p["s"][:, :, None])
+                k2_scales=krope_p["s"][:, :, None], plan_parts=parts)
         else:
             ctx = paged_decode_attention(
                 q_eff.contiguous(), ckv_p[:, :, None, :], None,
                 block_tables, position, sm_scale=sm, lengths=lengths,
-                q2=q2.contiguous(), k2_pages=krope_p[:, :, None, :])
+                q2=q2.contiguous(), k2_pages=krope_p[:, :, None, :],
+                plan_parts=parts)
     else:
         ckv_f = ckv.to(torch.float32)
         sc = (torch.einsum("bqhr,bsr->bhqs", q_eff, ckv_f)
@@ -570,7 +584,7 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
         ctx = torch.einsum("bhqs,bsr->bqhr", torch.softmax(sc, dim=-1),
                            ckv_f)
     o = torch.einsum("bqhr,hvr->bqhv", ctx, wv)
-    o = o.reshape(b, cw, h * m.v_head_dim).to(x.dtype)
+    o = _gather_heads(p["q_b"], o.reshape(b, cw, -1).to(x.dtype))
     return layers.linear_apply(p["o"], o, fmt), cache
 
 

@@ -33,6 +33,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models.layers import Params
+from repro_torch.parallel import sharding
 
 
 def sinusoid_rows(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -58,9 +59,12 @@ def _mlp_init(gen: torch.Generator, d: int, d_ff: int, fmt: str) -> Params:
 
 def _mlp_apply(p: Params, x: torch.Tensor, fmt: str) -> torch.Tensor:
     """fc2(gelu(fc1(x))): ``jax.nn.gelu``'s default is the tanh
-    approximation, in f32."""
-    h = layers.linear_apply(p["fc1"], x, fmt)
+    approximation, in f32. Under a serving mesh h is gathered once,
+    after the columnwise gelu (as ``layers.swiglu_apply``)."""
+    h = layers.linear_apply(p["fc1"], x, fmt, gather=False)
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(x.dtype)
+    if sharding.is_model_shard(p["fc1"]):
+        h = sharding.gather_model(h)
     return layers.linear_apply(p["fc2"], h, fmt)
 
 
@@ -233,7 +237,12 @@ def encdec_encode_cross(params, cfg: ModelConfig, frames: torch.Tensor, *,
     ks, vs = zip(*(_cross_kv(lp["cross_attn"], cfg, enc_out, fmt)
                    for lp in params["dec_layers"]))
     b = frames.shape[0]
-    zero_self = torch.zeros((cfg.num_layers, b, 1, cfg.num_kv_heads,
+    # The self K/V stub has the arena's kv-heads: a serving mesh's rank
+    # holds its block of them (the self-attention k projection's shard).
+    k_proj = params["dec_layers"][0]["self_attn"]["k"]
+    hkv = cfg.num_kv_heads // (k_proj.parts if sharding.is_model_shard(
+        k_proj) else 1)
+    zero_self = torch.zeros((cfg.num_layers, b, 1, hkv,
                              cfg.resolved_head_dim()), dtype=torch.bfloat16,
                             device=frames.device)
     return {"dec_layers": {"self": {"k": zero_self, "v": zero_self},

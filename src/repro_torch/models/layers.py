@@ -20,6 +20,7 @@ from torch.utils import checkpoint as ckpt
 from repro_torch.core.quant import dequant, pack
 from repro_torch.core.quant.formats import RECIPES
 from repro_torch.kernels import ops as kops
+from repro_torch.parallel import sharding
 
 Params = Dict[str, torch.Tensor]
 
@@ -47,14 +48,27 @@ def quantize_linear_weight(w: torch.Tensor, fmt: str,
     return dict(pack.quantize(w, fmt))
 
 
-def linear_apply(p: Params, x: torch.Tensor, fmt: str = "none") -> torch.Tensor:
+def linear_apply(p: Params, x: torch.Tensor, fmt: str = "none", *,
+                 gather: bool = True) -> torch.Tensor:
+    """y = x @ W^T (+ b). ``p`` a ``sharding.ModelShard`` (a serving
+    mesh's out-feature shard): the kernel computes this rank's output
+    block, planned as the unsharded call, and the blocks are all-gathered
+    over 'model' — or, with ``gather=False`` (attention's per-head
+    projections), kept, with the bias's matching block."""
+    shard = sharding.is_model_shard(p)
     if fmt == "none":
         y = x @ p["w"].to(x.dtype).T
     else:
         y = kops.quantized_matmul(x, {k: v for k, v in p.items() if k != "b"},
-                                  fmt, out_dtype=x.dtype)
+                                  fmt, out_dtype=x.dtype,
+                                  plan_parts=sharding.plan_parts(shard))
+    if shard and gather:
+        y = sharding.gather_model(y)
     if "b" in p:
-        y = y + p["b"].to(y.dtype)
+        b = p["b"]
+        if shard and not gather:
+            b = b.reshape(p.parts, -1)[p.index]
+        y = y + b.to(y.dtype)
     return y
 
 
@@ -62,7 +76,8 @@ def linear_dense_weight(p: Params, fmt: str,
                         dtype=torch.bfloat16) -> torch.Tensor:
     """The (out, in) dense weight, dequantized for a quantized format
     (K-quant padding columns included: the caller slices them off). The
-    MLA absorbed decode reads kv_b this way, in per-head block form."""
+    MLA absorbed decode reads kv_b this way, in per-head block form (a
+    ``sharding.ModelShard``'s rows: this rank's heads)."""
     if fmt == "none":
         return p["w"].to(dtype)
     return dequant.dequantize_as({k: v for k, v in p.items() if k != "b"},
@@ -212,9 +227,15 @@ def swiglu_init(gen: torch.Generator, d: int, d_ff: int,
 
 
 def swiglu_apply(p: Params, x: torch.Tensor, fmt: str = "none") -> torch.Tensor:
-    g = linear_apply(p["gate"], x, fmt)
-    u = linear_apply(p["up"], x, fmt)
+    """down(silu(gate(x)) * up(x)). Under a serving mesh a rank computes
+    its block of the d_ff axis (gate, up and the elementwise product are
+    columnwise) and gathers h once before down, whose contraction needs
+    all of it: one all-gather where gathering gate and up would be two."""
+    g = linear_apply(p["gate"], x, fmt, gather=False)
+    u = linear_apply(p["up"], x, fmt, gather=False)
     h = F.silu(g.to(torch.float32)).to(x.dtype) * u
+    if sharding.is_model_shard(p["gate"]):
+        h = sharding.gather_model(h)
     return linear_apply(p["down"], h, fmt)
 
 

@@ -284,10 +284,11 @@ def lm_forward(params, cfg: ModelConfig, batch: Dict, *, quant="none",
     ``remat`` (training): each entry of a layer group — one layer, or
     one jamba block of 8 sub-layers, the JAX package's scanned body —
     runs under ``layers.remat``. ``act_sharding`` (sequence-parallel
-    activation constraints) needs a mesh: only None (ROADMAP A17)."""
+    activation constraints) needs a training mesh: only None (ROADMAP
+    A17b)."""
     if act_sharding is not None:
-        raise NotImplementedError("act_sharding needs a serving/training "
-                                  "mesh: ROADMAP A17")
+        raise NotImplementedError("act_sharding needs a training mesh: "
+                                  "ROADMAP A17b")
     fmt = layers.recipe_for(quant)["linear"]
     h, rope = _embed_inputs(params, cfg, batch, quant)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)

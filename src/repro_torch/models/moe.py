@@ -24,10 +24,17 @@ Two things differ in how, not in what: the expert weights are dequantized
 7.5 GB in bf16), and an expert whose capacity rows are all the dummy
 zero row is skipped — the JAX package computes it, and its output is
 exactly 0 (SwiGLU of 0 is 0). Finding those experts reads the per-expert
-counts on the host: one device-to-host sync per MoE layer. The JAX
-package's ``constrain_replicated`` (serving-mesh sharding) is ROADMAP
-A17. The expert products stay ``torch.bmm``, as the JAX package leaves
-them to XLA: no TPU kernel computes them.
+counts on the host: one device-to-host sync per MoE layer. The expert
+products stay ``torch.bmm``, as the JAX package leaves them to XLA: no
+TPU kernel computes them.
+
+Under a serving mesh (``parallel/sharding.py``) the step's tokens are
+all-gathered over 'data' at entry (``constrain_replicated``, the JAX
+package's replication pin), so every replica routes the whole step and
+fills capacity as one device does, and keeps its own rows at the end
+(``data_rows``; the shared expert runs on those rows only). Expert
+banks cut over 'model' (out-features, axis -2) compute their block of
+gate/up and of down, each all-gathered before it is used whole.
 """
 from __future__ import annotations
 
@@ -40,6 +47,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.quant import dequant, pack
 from repro_torch.models import layers
 from repro_torch.models.layers import Params
+from repro_torch.parallel import sharding
 
 # Expert-weight elements dequantized (and randomly drawn at init) at a
 # time: 2^28 elements, 1 GiB as f32.
@@ -159,9 +167,10 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     """x: (B, S, d) -> ((B, S, d), load-balance aux loss)."""
     e = cfg.moe
     b, s, d = x.shape
-    t = b * s
     n_exp = e.num_experts
-    xt = x.reshape(t, d)
+    x_rows = x.reshape(b * s, d)
+    xt = sharding.constrain_replicated(x_rows)
+    t = xt.shape[0]
     dispatch, slot_gate, token_slots, group_sizes, aux, cap = route(
         p, cfg, xt)
     xt_pad = torch.cat([xt, torch.zeros((1, d), dtype=xt.dtype,
@@ -181,8 +190,9 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
         h = (F.silu(g.to(torch.float32)) * u.to(torch.float32)).to(
             torch.bfloat16)
         del g, u
-        ye[ids] = torch.bmm(h, _bank_dense(p["down"], fmt, e.moe_d_ff,
-                                           ids).transpose(1, 2))
+        h = _whole(p["gate"], h)
+        ye[ids] = _whole(p["down"], torch.bmm(
+            h, _bank_dense(p["down"], fmt, e.moe_d_ff, ids).transpose(1, 2)))
 
     # Combine: each token's k slot outputs times their gates, added in
     # ascending slot order (dropped assignments read the zero row).
@@ -194,7 +204,13 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     out = rows[:, 0]
     for j in range(1, rows.shape[1]):
         out = out + rows[:, j]
-    out = out.to(x.dtype)
+    out = sharding.data_rows(out).to(x.dtype)
     if "shared" in p:
-        out = out + layers.swiglu_apply(p["shared"], xt, fmt)
+        out = out + layers.swiglu_apply(p["shared"], x_rows, fmt)
     return out.reshape(b, s, d), aux
+
+
+def _whole(bank: Params, y: torch.Tensor) -> torch.Tensor:
+    """A bank product's output block all-gathered over 'model' when the
+    bank is a 'model' shard."""
+    return sharding.gather_model(y) if sharding.is_model_shard(bank) else y

@@ -50,8 +50,19 @@ embeddings (``_vision_override``, per prompt chunk). Both refuse the
 prefix cache, and encdec refuses int8 pages and the draft proposer, as
 the JAX engine does.
 
-Not ported yet, refused by the constructor with the ROADMAP item that
-ports them: serving meshes (A17).
+Serving meshes (``mesh=``, a ``launch/mesh.py`` ``ServingMesh``; one
+process per mesh device, every rank running this engine): the weights
+are cut over 'model' (``core/convert.shard_params``) and the slots over
+'data' in contiguous blocks — replica d steps slots [d ns/dp, (d+1)
+ns/dp) through the model, inside ``sharding.activation_mesh``. Every
+rank runs the same scheduler over all slots, so the sampled tokens (and
+accepted lanes) are all-gathered over 'data' before the read-back, and
+the rows a step wrote into the page pool are all-gathered and written
+into every replica's pool (``PagedKVArena.sync_writes``). The sampler
+draws its noise for the whole step and keeps the replica's rows, so a
+stochastic stream moves the generator as one device does. The draft
+model shards over the same mesh's 'model' axis and drafts every slot on
+every replica.
 """
 from __future__ import annotations
 
@@ -63,8 +74,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import convert
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, paged_attention
 from repro_torch.models.api import ModelAPI
+from repro_torch.parallel import sharding
 from repro_torch.runtime import sampling, speculative
 from repro_torch.runtime.kvcache import KV_QUANT_MODES, KVArena, PagedKVArena
 from repro_torch.runtime.request import (Request, SamplingParams, SeqState,
@@ -89,6 +101,7 @@ class GenStats:
     live_tokens_sum: int = 0            # per-step live-cache-token accumulator
     steps: int = 0                  # unified steps executed
     paged_kv_read_bytes: float = 0.0    # fused-kernel KV page reads
+    paged_kv_read_bytes_per_device: float = 0.0  # busiest replica's share
     prefix_hits: int = 0            # admissions that mapped a cached prefix
     prefix_hit_tokens: int = 0      # prompt positions served from shared pages
     cow_splits: int = 0             # copy-on-write block splits this run
@@ -141,6 +154,9 @@ class ServeReport:
     step_compiles: int = 0
     # Telemetry StepTimeline (engine telemetry=True).
     timeline: Optional[StepTimeline] = None
+    # This rank's collectives over the run under a serving mesh
+    # (``ServingMesh.stats``: count, bytes sent, staged through host).
+    collectives: Optional[Dict] = None
 
     def latency_percentiles(self, qs=(50, 90, 99)) -> Dict[int, float]:
         """Request-latency percentiles (seconds) over finished sequences."""
@@ -158,6 +174,25 @@ class ServeReport:
     def throughput_tok_s(self) -> float:
         """Generated tokens per second of serve() wall time."""
         return self.stats.decode_tokens / self.wall_s if self.wall_s else 0.0
+
+
+def mla_plan_note(model: ModelAPI, *, dp: int, tp: int, device, paged: bool,
+                  paged_attn: str, pages_dtype, chunk: int) -> Optional[str]:
+    """Why the paged MLA kernel (B9) on a rank of a ``dp`` x ``tp``
+    serving mesh may split a row's page walk otherwise than one device
+    does, so that the mesh's tokens are one device's only up to
+    near-ties; None where its rows are one device's bit for bit (every
+    other kernel's are: B1/B8 plan from G, B2's family from the
+    unsharded shape). Only the card's fused paged path runs B9."""
+    if (dp, tp) == (1, 1) or model.cfg.mla is None or not paged \
+            or paged_attn != "fused" or torch.device(device).type != "cuda":
+        return None
+    if pages_dtype == torch.float32:
+        return ("the CUDA-core MLA kernel (f32 pages) picks its split from "
+                "its shard's rows")
+    return paged_attention.mla_split_exact(
+        chunk, model.cfg.num_heads // tp, tp, dp,
+        paged_attention.mla_tc_row_tile())
 
 
 class ServingEngine:
@@ -251,9 +286,28 @@ class ServingEngine:
                     "cross-attention KV is written by the one-time "
                     "encoder pass (write_prefill), which bypasses the "
                     "quantize-on-insert path")
+        self.mesh = mesh
+        self.dp, self.tp = sharding.serving_degrees(mesh)
         if mesh is not None:
-            raise NotImplementedError("not ported to repro_torch: serving "
-                                      "meshes are ROADMAP A17")
+            sharding.validate_serving_mesh(
+                mesh, num_heads=model.cfg.num_heads,
+                num_kv_heads=model.cfg.num_kv_heads,
+                vocab_size=model.cfg.vocab_size, num_slots=num_slots)
+            if spec == "draft":
+                # The draft model shards over the *same* mesh, so it must
+                # satisfy the same divisibility.
+                sharding.validate_serving_mesh(
+                    mesh, num_heads=spec_draft_model.cfg.num_heads,
+                    num_kv_heads=spec_draft_model.cfg.num_kv_heads,
+                    vocab_size=spec_draft_model.cfg.vocab_size,
+                    num_slots=num_slots)
+                spec_draft_params = convert.shard_params(spec_draft_params,
+                                                         mesh)
+            params = convert.shard_params(params, mesh)
+        # This rank's 'data' replica: its slot block [lo, hi).
+        rep = num_slots // self.dp
+        lo = mesh.coords["data"] * rep if mesh is not None else 0
+        self._rows = (lo, lo + rep)
         self.model = model
         self.params = params
         self.quant = quant
@@ -270,19 +324,29 @@ class ServingEngine:
         self.spec = spec
         self.spec_k = min(spec_k, self.chunk_size - 1) if spec != "off" \
             else 0
+        pages_dtype = torch.int8 if kv_quant == "int8" else cache_dtype
+        self.plan_note = mla_plan_note(
+            model, dp=self.dp, tp=self.tp, device=self.device,
+            paged=self.paged, paged_attn=paged_attn,
+            pages_dtype=pages_dtype, chunk=self.chunk_size)
+        if spec == "draft" and self.plan_note is None:
+            self.plan_note = mla_plan_note(
+                spec_draft_model, dp=1, tp=self.tp, device=self.device,
+                paged=self.paged, paged_attn=paged_attn,
+                pages_dtype=pages_dtype, chunk=self.chunk_size)
         self._spec_ctrl = speculative.SpecController(k_max=self.spec_k) \
             if spec != "off" else None
         self._proposer = speculative.make_proposer(
             spec, draft_model=spec_draft_model,
             draft_params=spec_draft_params, num_slots=num_slots,
             max_seq=max_seq, chunk=self.chunk_size, quant=quant,
-            cache_dtype=cache_dtype, device=self.device) \
+            cache_dtype=cache_dtype, device=self.device, mesh=mesh) \
             if spec != "off" else None
         self._block_size, self._num_blocks = block_size, num_blocks
         self.prefix_cache = prefix_cache
         self._ledger_kw = dict(decisions=offload_decisions,
                                host_sampling=host_sampling,
-                               kv_quant=kv_quant)
+                               kv_quant=kv_quant, dp=self.dp, tp=self.tp)
         # Telemetry: when enabled, serve() builds a StepTimeline per run
         # (host-side only: no device sync, no kernel launch).
         self.telemetry = telemetry
@@ -303,11 +367,12 @@ class ServingEngine:
                                       dtype=self.cache_dtype,
                                       prefix_cache=self.prefix_cache,
                                       kv_quant=self.kv_quant,
-                                      device=self.device)
+                                      device=self.device, mesh=self.mesh)
         else:
             self.arena = KVArena(self.model, self.num_slots, self.max_seq,
-                                 dtype=self.cache_dtype, device=self.device)
-        self.sched = Scheduler(self.num_slots, self.max_seq)
+                                 dtype=self.cache_dtype, device=self.device,
+                                 mesh=self.mesh)
+        self.sched = Scheduler(self.num_slots, self.max_seq, dp=self.dp)
         # rid -> (hit_tokens, resident_growth_blocks) recorded by the
         # admission gate, consumed by _admit_chunked after seq.admit().
         self._pending_prefix: Dict[int, tuple] = {}
@@ -359,21 +424,29 @@ class ServingEngine:
             ledger.record_prefix_hit(hit)
         if self._encode_cross is not None and seq.req.extras \
                 and "frames" in seq.req.extras:
+            frames = torch.as_tensor(seq.req.extras["frames"])
             # The one-time encoder pass, timed to its end as the JAX
             # engine's (one sync per admission, none added to the step).
-            t0 = time.perf_counter()
-            frames = torch.as_tensor(seq.req.extras["frames"],
-                                     device=self.device)
-            cache = self._encode_cross(self.params, frames, quant=self.quant)
-            self.arena.write_prefill(cache, seq.slot)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            stats.prefill_s += time.perf_counter() - t0
+            # Under a mesh only the replica owning the slot runs it (the
+            # cross K/V is a per-slot state leaf); every rank charges it.
+            if self._rows[0] <= seq.slot < self._rows[1]:
+                t0 = time.perf_counter()
+                with sharding.activation_mesh(self.mesh):
+                    cache = self._encode_cross(
+                        self.params, frames.to(self.device),
+                        quant=self.quant)
+                self.arena.write_prefill(cache, seq.slot)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                stats.prefill_s += time.perf_counter() - t0
             ledger.charge("prefill", "acts", "h2d",
                           frames.numel() * frames.element_size())
+            # The cross K/V the encoder pass writes: bf16 (L, 1, frames,
+            # Hkv, D) per leaf, its bytes from the arena leaves' widths.
             ledger.charge_cache_growth("prefill", sum(
-                t.numel() * t.element_size()
-                for t in cache["dec_layers"]["cross"].values()))
+                t.numel() // (self.num_slots * t.shape[2]) * frames.shape[-2]
+                * torch.bfloat16.itemsize
+                for t in self.arena.buffers["dec_layers"]["cross"].values()))
 
     def _preempt(self, seq: Sequence) -> None:
         """Recompute-preemption: reclaim the victim's slot and blocks (a
@@ -474,7 +547,10 @@ class ServingEngine:
         grants = {s: feeds[s] - 1 for s in desires if feeds[s] > 1}
         proposals: Dict[int, np.ndarray] = {}
         if grants:
-            proposals = self._proposer.propose(self.sched.active, grants)
+            # The draft drafts every slot on every replica (its rows are
+            # not data-local), over the mesh's 'model' axis.
+            with sharding.activation_mesh(self.mesh):
+                proposals = self._proposer.propose(self.sched.active, grants)
             for slot, g in grants.items():
                 got = proposals.get(slot)
                 unfilled = g - (0 if got is None else int(got.size))
@@ -563,38 +639,52 @@ class ServingEngine:
         t_step = time.perf_counter()
         libs0 = _build.loaded()
         dev = self.device
+        lo, hi = self._rows                 # this replica's slots
         put = lambda a: torch.from_numpy(a).to(dev)     # noqa: E731
         dev_tables = None
         if self.paged:
             dev_tables, uploaded = self.arena.device_tables()
             if uploaded:        # dirty tables only: admission/growth/preempt
                 ledger.charge("decode", "tables", "h2d", uploaded)
-        lens_t, tokens_t = put(lens), put(tokens)
+            dev_tables = dev_tables[lo:hi]
+        lens_t, tokens_t = put(lens[lo:hi]), put(tokens[lo:hi])
         extra = {}
         vision = self._vision_override(feeds) if self._vlm else None
         if vision is not None:
-            extra = {"embeds": vision[0], "embeds_mask": vision[1]}
+            extra = {"embeds": vision[0][lo:hi],
+                     "embeds_mask": vision[1][lo:hi]}
             ledger.charge("prefill", "acts", "h2d", vision[2])
-        logits, _ = self.model.decode_step(
-            self.params, tokens_t, put(pos0), self.arena.buffers,
-            quant=self.quant, block_tables=dev_tables, lengths=lens_t,
-            paged_impl=self.paged_attn, **extra)
-        head = dict(top_k=put(top_ks), top_p=put(top_ps),
-                    stochastic=bool(np.any(temps > 0)))
+        buffers = self.arena.buffers if self.mesh is None \
+            else self.arena.local_buffers(lo, hi)
+        with sharding.activation_mesh(self.mesh, data_local=True):
+            logits, _ = self.model.decode_step(
+                self.params, tokens_t, put(pos0[lo:hi]), buffers,
+                quant=self.quant, block_tables=dev_tables, lengths=lens_t,
+                paged_impl=self.paged_attn, **extra)
+        if self.dp > 1 and self.paged:
+            self.arena.sync_writes(self._step_writes(pos0, lens), self.mesh)
+        # Whole-step noise (every replica draws all ns rows and keeps its
+        # own), so the generator moves as on one device.
+        head = dict(top_k=put(top_ks[lo:hi]), top_p=put(top_ps[lo:hi]),
+                    stochastic=bool(np.any(temps > 0)),
+                    step_rows=(lo, hi, ns))
         if spec_on:
             # The verify step IS the chunked step with the verification
             # head; zero proposals degenerate to plain sampling.
             nxt, acc = sampling.verify_slots(
-                logits, tokens_t, gen, put(temps), put(active),
-                prop_lens=put(prop_lens), lengths=lens_t, **head)
+                logits, tokens_t, gen, put(temps[lo:hi]),
+                put(active[lo:hi]), prop_lens=put(prop_lens[lo:hi]),
+                lengths=lens_t, **head)
             # One read-back: blocks until the step completes.
-            nxt_host, acc_host = torch.stack([nxt, acc]).cpu().numpy()
+            nxt_host, acc_host = self._gather_slots(
+                torch.stack([nxt, acc], dim=1)).T
         else:
             idx = torch.clamp(lens_t.to(torch.long) - 1, min=0)
-            last = logits[torch.arange(ns, device=dev), idx]       # (B, V)
-            nxt = sampling.sample_slots(last, gen, put(temps), put(active),
-                                        **head)
-            nxt_host = nxt.cpu().numpy()      # blocks until step completes
+            last = logits[torch.arange(hi - lo, device=dev), idx]   # (B, V)
+            nxt = sampling.sample_slots(last, gen, put(temps[lo:hi]),
+                                        put(active[lo:hi]), **head)
+            # blocks until the step completes
+            nxt_host = self._gather_slots(nxt)
         t_end = time.perf_counter()
         now = t_end - t0
         dcomp = _build.loaded() - libs0
@@ -618,8 +708,10 @@ class ServingEngine:
             s.position + feeds[slot]
             for slot, s in self.sched.active.items()))
         if self.paged and self.arena.has_paged:
-            stats.paged_kv_read_bytes += self._paged_reads(pos0, lens) \
-                * self.arena.block_bytes()
+            per_rep = self._paged_reads(pos0, lens)
+            bb = self.arena.block_bytes()
+            stats.paged_kv_read_bytes += float(per_rep.sum()) * bb
+            stats.paged_kv_read_bytes_per_device += float(per_rep.max()) * bb
         # The contiguous arena grows by token, the paged one by block (at
         # reservation).
         tok_bytes = 0.0 if self.paged else self.arena.token_bytes()
@@ -736,24 +828,53 @@ class ServingEngine:
                     "queue_len": float(len(self.sched.queue))},
             slots=slot_mix)
 
-    def _paged_reads(self, pos0: np.ndarray, lens: np.ndarray) -> int:
-        """Pages the step's attention reads, for the KV read counter."""
+    def _paged_reads(self, pos0: np.ndarray, lens: np.ndarray) -> np.ndarray:
+        """Pages the step's attention reads, per 'data' replica (the
+        busiest one's is the per-device figure, as in the JAX engine)."""
         ns = self.num_slots
         bsz, mb = self.arena.block_size, self.arena.max_blocks
+        rep_sz = ns // self.dp
+        per_rep = np.zeros((self.dp,))
         if self.paged_attn == "fused":
             # The kernel's page reads: a slot row walks blocks
             # 0..(pos0 + max(lengths,1) - 1)//bs, counted as distinct
             # consecutive pages as the JAX ledger does (an idle slot's
             # all-null row costs one null-page read).
             tb = self.arena.tables
-            reads = 0
             for s in range(ns):
                 depth = int(pos0[s]) + max(int(lens[s]), 1) - 1
                 walk = tb[s, :min(depth // bsz, mb - 1) + 1]
-                reads += 1 + int(np.sum(walk[1:] != walk[:-1]))
+                per_rep[s // rep_sz] += 1 + int(np.sum(walk[1:] != walk[:-1]))
         else:
-            reads = ns * mb             # dense gather of every table row
-        return reads
+            per_rep[:] = rep_sz * mb    # dense gather of every table row
+        return per_rep
+
+    def _step_writes(self, pos0: np.ndarray, lens: np.ndarray):
+        """Per 'data' replica, the (page, offset) pairs its slots' valid
+        chunk entries wrote this step, routed as ``attention._routing``
+        routes them (from the host tables the step ran with)."""
+        bs, mb = self.arena.block_size, self.arena.max_blocks
+        rep = self.num_slots // self.dp
+        out = []
+        for r in range(self.dp):
+            pages, offs = [np.zeros((0,), np.int64)], [np.zeros((0,),
+                                                                np.int64)]
+            for s in range(r * rep, (r + 1) * rep):
+                pos = int(pos0[s]) + np.arange(int(lens[s]))
+                pages.append(self.arena.tables[s, np.minimum(pos // bs,
+                                                             mb - 1)])
+                offs.append(pos % bs)
+            out.append((np.concatenate(pages), np.concatenate(offs)))
+        return out
+
+    def _gather_slots(self, x: torch.Tensor) -> np.ndarray:
+        """A per-slot result of this replica's slots as the host array of
+        every slot: all-gathered over 'data' under a mesh (every rank's
+        scheduler then advances the same way). The step's one read-back:
+        blocks until the step completes."""
+        if self.dp > 1:
+            x = self.mesh.all_gather(x, "data", 0)
+        return x.cpu().numpy()
 
     # ------------------------------------------------------------------
     def serve(self, requests: List[Request], *, seed: int = 0,
@@ -765,7 +886,7 @@ class ServingEngine:
         are empty between runs), so with ``prefix_cache`` the pages one
         run published are hit by the next. ``reset()`` drops them."""
         if self.sched.stats.steps or self.sched.finished:
-            self.sched = Scheduler(self.num_slots, self.max_seq)
+            self.sched = Scheduler(self.num_slots, self.max_seq, dp=self.dp)
             self._pending_prefix.clear()
         for r in requests if self.paged else ():
             # Last cache write lands at position prompt+gen-2 (the final
@@ -800,12 +921,14 @@ class ServingEngine:
                 draft_ledger=getattr(self._proposer, "ledger", None),
                 meta={"arch": self.model.cfg.name, "quant": self.quant,
                       "slots": self.num_slots, "chunk": self.chunk_size,
-                      "dp": 1, "tp": 1, "spec": self.spec,
+                      "dp": self.dp, "tp": self.tp, "spec": self.spec,
                       "kv_quant": self.kv_quant, "paged": self.paged})
             self._timeline = tl
             self.sched.telemetry = tl
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
+        if self.mesh is not None:
+            self.mesh.reset_stats()
         t0 = time.perf_counter()
 
         while self.sched.has_work:
@@ -846,7 +969,9 @@ class ServingEngine:
         return ServeReport(stats=stats, sequences=seqs,
                            sched=self.sched.stats, wall_s=wall,
                            ledger=ledger,
-                           step_compiles=self._step_compiles, timeline=tl)
+                           step_compiles=self._step_compiles, timeline=tl,
+                           collectives=None if self.mesh is None
+                           else dict(self.mesh.stats))
 
 
 class Engine:

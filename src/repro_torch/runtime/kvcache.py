@@ -44,6 +44,19 @@ its table tail back to the surviving prefix. It zeroes only the valid
 (page, offset) pairs, with one index-put per leaf (plain PyTorch; the
 JAX package pads the pairs to a static width with null-page lanes to
 keep one compilation, and jits an XLA scatter).
+
+Serving meshes (``mesh=``, ``parallel/sharding.py``): a GQA K/V leaf
+(its int8 scale plane too) holds this rank's block of the kv-heads, the
+axis ``serving_cache_spec`` names 'model'. Every 'data' replica keeps
+the whole page pool (the page axis the rule names 'data' is not cut
+here): after each step the engine all-gathers the rows every replica
+wrote and writes them into every pool (``sync_writes``, one collective
+a step), so each pool equals the single-device pool and the allocator,
+the prefix cache, copy-on-write and rollback run unchanged on every
+rank. A replica writes the per-slot state leaves of its own slots only
+(``local_buffers`` hands the step its slots' rows of them).
+``page_layout()`` keeps the JAX package's accounting keys
+(``local_pages``: num_pages / dp when the page axis divides).
 """
 from __future__ import annotations
 
@@ -56,6 +69,7 @@ import torch
 
 from repro_torch.models.api import ModelAPI
 from repro_torch.models.attention import KV_QUANT_SCALE_DTYPE
+from repro_torch.parallel import sharding
 
 #: Supported paged-KV storage quantization modes.
 KV_QUANT_MODES = ("none", "int8")
@@ -114,9 +128,35 @@ def step_leaf_dtypes(model: ModelAPI, batch: int, max_seq: int, dtype,
                  for n, const in zip(names, const_flags))
 
 
-def cache_nbytes(tree) -> int:
-    """Device bytes of a cache tree."""
-    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+def _cut_heads(shapes, state, mesh):
+    """``shapes`` (a cache shape tree) with the 'model'-named axes of its
+    seq-indexed leaves (``state`` False) cut to this rank's block, as
+    ``serving_cache_spec`` names them; state leaves stay whole."""
+    if mesh is None or sharding.serving_degrees(mesh)[1] == 1:
+        return shapes
+    tp = sharding.serving_degrees(mesh)[1]
+
+    def cut(path, shape):
+        spec = sharding.serving_cache_spec(path, shape, mesh)
+        return tuple(n // tp if i < len(spec) and spec[i] == "model" else n
+                     for i, n in enumerate(shape))
+
+    def walk(node, st, path):
+        if isinstance(st, dict):
+            return {k: walk(node[k], st[k], path + (k,)) for k in node}
+        if st:
+            return node
+        if isinstance(node, dict):          # int8 {"q", "s"} page shapes
+            return {k: cut(path + (k,), v) for k, v in node.items()}
+        return cut(path, node)
+    return walk(shapes, state, ())
+
+
+def _shape_bytes(shapes, dtypes) -> list:
+    """Bytes of each leaf of a shape tree (``_leaves`` order) in
+    ``dtypes``."""
+    return [int(np.prod(sh)) * torch.empty((), dtype=dt).element_size()
+            for sh, dt in zip(_leaves(shapes), dtypes)]
 
 
 class _FreeHeap:
@@ -323,26 +363,30 @@ class KVArena:
     positions and lengths, so slot turnover never changes a shape."""
 
     def __init__(self, model: ModelAPI, num_slots: int, max_seq: int,
-                 dtype=torch.bfloat16, device="cuda"):
+                 dtype=torch.bfloat16, device="cuda", mesh=None):
         self.model = model
         self.num_slots = num_slots
         self.max_seq = max_seq
         self.dtype = dtype
         self.device = torch.device(device)
+        self.dp, self.tp = sharding.serving_degrees(mesh)
         self._free = _FreeHeap(num_slots)
         # Leaves whose extent does not follow the sequence length (SSM
         # conv/recurrent state) carry state, not masked history —
         # admission must zero them (the JAX package's probe at two
         # lengths).
-        self._const_flags: Tuple[bool, ...] = tuple(
-            _leaves(model.state_leaves(num_slots)))
+        state = model.state_leaves(num_slots)
+        self._const_flags: Tuple[bool, ...] = tuple(_leaves(state))
         # Per-leaf storage dtypes: state leaves keep the dtype the decode
         # step emits (f32 SSM state).
-        self.buffers = _build(model.cache_shapes(num_slots, max_seq),
-                              step_leaf_dtypes(model, num_slots, max_seq,
-                                               dtype, self._const_flags),
+        shapes = model.cache_shapes(num_slots, max_seq)
+        dts = step_leaf_dtypes(model, num_slots, max_seq, dtype,
+                               self._const_flags)
+        self.buffers = _build(_cut_heads(shapes, state, mesh), dts,
                               self.device)
-        self._nbytes = cache_nbytes(self.buffers)
+        # Byte accounting is the mesh total (the JAX package's global
+        # arrays): a rank of a 'model' mesh holds 1 / tp of the K/V.
+        self._nbytes = sum(_shape_bytes(shapes, dts))
 
     # -- slot lifecycle -------------------------------------------------
     @property
@@ -369,6 +413,12 @@ class KVArena:
         """Insert a B=1 prefill cache (leaves (layers, 1, P, ...), P <=
         max_seq) into ``slot``, in place."""
         _arena_insert(self.buffers, prefill_cache, slot)
+
+    def local_buffers(self, lo: int, hi: int) -> Dict:
+        """The buffers as a step over slots [lo, hi) sees them: every
+        leaf's rows of those slots (views, written in place)."""
+        return _map_leaves(self.buffers, lambda t, _: t[:, lo:hi],
+                           self._const_flags)
 
     def reset_slot(self, slot: int) -> None:
         """Zero ``slot``'s constant-size state leaves for a fresh chunked
@@ -412,6 +462,18 @@ class KVArena:
         for leaf, const in zip(_leaves(self.buffers), self._const_flags):
             if not const:
                 leaf[:, slot, lo:hi] = 0
+
+
+def _map_leaves(tree: Dict, fn, flags) -> Dict:
+    """``fn(leaf, flag)`` over a cache tree's leaves (``_leaves`` order;
+    a flag per leaf), keeping the tree's shape."""
+    it = iter(flags)
+
+    def walk(node):
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        return fn(node, next(it))
+    return walk(tree)
 
 
 def _zero_const_leaves(buffers: Dict, slot: int, const_flags) -> None:
@@ -465,7 +527,7 @@ class PagedKVArena:
     def __init__(self, model: ModelAPI, num_slots: int, max_seq: int,
                  block_size: int, num_blocks: Optional[int] = None,
                  dtype=torch.bfloat16, prefix_cache: bool = False,
-                 kv_quant: str = "none", device="cuda"):
+                 kv_quant: str = "none", device="cuda", mesh=None):
         if not (1 <= block_size <= max_seq):
             raise ValueError(f"block_size {block_size} outside [1, {max_seq}]")
         if kv_quant not in KV_QUANT_MODES:
@@ -483,7 +545,9 @@ class PagedKVArena:
         self.dtype = dtype
         self.kv_quant = kv_quant
         self.device = torch.device(device)
-        state = _leaves(model.state_leaves(num_slots))
+        self.dp, self.tp = sharding.serving_degrees(mesh)
+        state_tree = model.state_leaves(num_slots)
+        state = _leaves(state_tree)
         if kv_quant == "int8" and all(state):
             raise ValueError(
                 "kv_quant requires paged (seq-indexed) KV leaves; "
@@ -506,14 +570,18 @@ class PagedKVArena:
                 dts.append(dt)
         self._paged_flags: Tuple[bool, ...] = tuple(flags)
         self.has_paged = any(flags)
-        self.buffers = _build(shapes, dts, self.device)
-        self._nbytes = cache_nbytes(self.buffers)
-        # Bytes of one physical block across every layer's paged leaves
-        # (codes and scales alike on an int8 arena), and of the per-slot
-        # state of all slots.
+        self.buffers = _build(_cut_heads(shapes, state_tree, mesh), dts,
+                              self.device)
+        # Bytes of the arena, and of one physical block across every
+        # layer's paged leaves (codes and scales alike on an int8 arena),
+        # and of the per-slot state of all slots — the mesh totals (the
+        # JAX package's global arrays), whatever block of the kv-heads
+        # this rank holds.
+        nbytes = _shape_bytes(shapes, dts)
+        self._nbytes = sum(nbytes)
         self._block_bytes = float(sum(
-            t.numel() // t.shape[1] * t.element_size()
-            for t in self._paged_leaves()))
+            b // sh[1] for b, sh, f in zip(nbytes, _leaves(shapes),
+                                           self._paged_flags) if f))
         self._const_bytes = self._nbytes \
             - self._block_bytes * (num_blocks + 1)
         self.allocator = BlockAllocator(num_blocks, block_size)
@@ -553,10 +621,22 @@ class PagedKVArena:
         leaf is a dict ``{"q", "s"}`` — int8 code pages in the page shape
         plus fp16 scale pages shaped like the pages minus the feature axis
         — sharing the block table; zeroed pages dequantize to exactly
-        zero. See docs/kernel-contracts.md."""
+        zero. See docs/kernel-contracts.md.
+
+        Under a data-parallel serving mesh ``num_pages`` stays the global
+        page count and ``local_pages`` is the JAX package's per-shard
+        accounting (``num_pages / dp`` when the page axis divides, else
+        the full count; ``data_shards`` = dp). What a rank of the port
+        really holds is the whole pool: ``num_pages`` pages of its
+        kv-head block (``sync_writes``)."""
+        pages = self.num_blocks + 1
+        local = pages // self.dp if self.dp > 1 and pages % self.dp == 0 \
+            else pages
         return {"block_size": self.block_size,
                 "max_blocks": self.max_blocks,
-                "num_pages": self.num_blocks + 1,
+                "num_pages": pages,
+                "local_pages": local,
+                "data_shards": self.dp,
                 "null_block": self.null_block,
                 "kv_quant": self.kv_quant}
 
@@ -768,6 +848,55 @@ class PagedKVArena:
                            tuple(not f for f in self._paged_flags))
 
     # -- storage ---------------------------------------------------------
+    def local_buffers(self, lo: int, hi: int) -> Dict:
+        """The buffers as a step over slots [lo, hi) sees them: the whole
+        page pool, and the per-slot state leaves' rows of those slots
+        (views, written in place)."""
+        return _map_leaves(self.buffers,
+                           lambda t, paged: t if paged else t[:, lo:hi],
+                           self._paged_flags)
+
+    def sync_writes(self, writes: List[Tuple[np.ndarray, np.ndarray]],
+                    mesh) -> None:
+        """Make every 'data' replica's pool equal after a step: replica
+        r wrote the (page, offset) pairs ``writes[r]`` (the step's valid
+        entries of its slots, routed as the step routed them); each
+        replica packs its rows of every paged leaf into one byte buffer
+        (padded to the longest), ONE all-gather over 'data' moves them,
+        and each replica writes the others' rows into its pages. The
+        pairs are distinct (copy-on-write keeps a step's writes on
+        exclusively owned pages), so no put has a duplicate target."""
+        most = max(len(p) for p, _ in writes)
+        if most == 0 or not self.has_paged:
+            return
+        me = mesh.coords["data"]
+        leaves = self._paged_leaves()
+        per = [t.numel() // (t.shape[1] * t.shape[2]) * t.element_size()
+               for t in leaves]
+        entry = sum(per)
+        put = lambda a: torch.from_numpy(  # noqa: E731
+            np.asarray(a, np.int64)).to(self.device)
+        pages, offs = (put(a) for a in writes[me])
+        buf = torch.zeros((most * entry,), dtype=torch.uint8,
+                          device=self.device)
+        at = 0
+        for t, b in zip(leaves, per):
+            n = len(writes[me][0]) * b
+            buf[at:at + n] = t[:, pages, offs].reshape(-1).view(torch.uint8)
+            at += n
+        got = mesh.all_gather(buf, "data", 0).reshape(len(writes), -1)
+        for r, (pg, of) in enumerate(writes):
+            if r == me or not len(pg):
+                continue
+            pages, offs = put(pg), put(of)
+            at = 0
+            for t, b in zip(leaves, per):
+                n = len(pg) * b
+                rows = got[r, at:at + n].view(t.dtype).reshape(
+                    (t.shape[0], len(pg)) + tuple(t.shape[3:]))
+                t[:, pages, offs] = rows
+                at += n
+
     def write_prefill(self, prefill_cache: Dict, slot: int) -> None:
         """Scatter a B=1 prefill cache into ``slot``'s reserved blocks
         (serving uses this only for the enc-dec admission-time encoder

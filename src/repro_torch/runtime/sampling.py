@@ -19,6 +19,12 @@ exact argmax match (equal to the JAX head's on the same logits);
 stochastic slots accept a point-mass proposal x̂ with probability q(x̂)
 and otherwise draw from q with x̂ masked out, which keeps the emitted
 token's law exactly q — again equal to the JAX head in distribution.
+
+Both take ``step_rows=(lo, hi, n)`` when their (B, ...) operands are rows
+[lo, hi) of an n-slot step (a serving mesh's 'data' replica): every
+random draw is then made for all n slots and sliced to the replica's
+rows, so the generator advances exactly as on one device and each
+slot's draws are the ones it would get there.
 """
 from __future__ import annotations
 
@@ -47,9 +53,21 @@ def _filter_top_k_top_p_slots(lf: torch.Tensor, top_k: torch.Tensor,
     return torch.where((top_p < 1.0)[:, None] & (lf < cutoff), neg, lf)
 
 
-def _gumbel_draw(lf: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+def _rand(shape, gen: torch.Generator, device,
+          step_rows=None) -> torch.Tensor:
+    """Uniform draws of ``shape`` — with ``step_rows=(lo, hi, n)``, drawn
+    for n leading rows and sliced to [lo, hi)."""
+    if step_rows is None:
+        return torch.rand(shape, generator=gen, device=device)
+    lo, hi, n = step_rows
+    return torch.rand((n,) + tuple(shape[1:]), generator=gen,
+                      device=device)[lo:hi]
+
+
+def _gumbel_draw(lf: torch.Tensor, gen: torch.Generator,
+                 step_rows=None) -> torch.Tensor:
     """A categorical draw per row of the (N, V) logits (Gumbel-max)."""
-    u = torch.rand(lf.shape, generator=gen, device=lf.device)
+    u = _rand(lf.shape, gen, lf.device, step_rows)
     gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-20)))
     return torch.argmax(lf + gumbel, dim=-1).to(torch.int32)
 
@@ -57,7 +75,7 @@ def _gumbel_draw(lf: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
 def sample_slots(logits: torch.Tensor, gen: torch.Generator,
                  temperature: torch.Tensor, active: torch.Tensor, *,
                  top_k: torch.Tensor, top_p: torch.Tensor,
-                 stochastic: bool = True) -> torch.Tensor:
+                 stochastic: bool = True, step_rows=None) -> torch.Tensor:
     """Fused per-slot sampling for the serving step.
 
     logits: (B, V); temperature: (B,) — 0 selects greedy per slot;
@@ -69,7 +87,8 @@ def sample_slots(logits: torch.Tensor, gen: torch.Generator,
         t = torch.clamp(temperature, min=1e-6)[:, None]
         lf = _filter_top_k_top_p_slots(logits.to(torch.float32) / t,
                                        top_k, top_p)
-        tok = torch.where(temperature > 0.0, _gumbel_draw(lf, gen), tok)
+        draw = _gumbel_draw(lf, gen, step_rows)
+        tok = torch.where(temperature > 0.0, draw, tok)
     return torch.where(active, tok, torch.zeros_like(tok))
 
 
@@ -77,7 +96,8 @@ def verify_slots(logits: torch.Tensor, tokens: torch.Tensor,
                  gen: torch.Generator, temperature: torch.Tensor,
                  active: torch.Tensor, *, prop_lens: torch.Tensor,
                  lengths: torch.Tensor, top_k: torch.Tensor,
-                 top_p: torch.Tensor, stochastic: bool = True):
+                 top_p: torch.Tensor, stochastic: bool = True,
+                 step_rows=None):
     """Speculative verification over a unified chunked step's logits.
 
     logits: (B, C, V) — row j is the target distribution for the token
@@ -111,7 +131,7 @@ def verify_slots(logits: torch.Tensor, tokens: torch.Tensor,
         ).reshape(b, c, v)
         q_prop = torch.gather(torch.softmax(lf, dim=-1), 2,
                               prop.to(torch.long)[..., None])[..., 0]
-        u = torch.rand((b, c), generator=gen, device=dev)
+        u = _rand((b, c), gen, dev, step_rows)
         accept = torch.where((temperature > 0.0)[:, None], u < q_prop,
                              accept)
     valid = torch.arange(c, device=dev)[None, :] < prop_lens[:, None]
@@ -128,7 +148,7 @@ def verify_slots(logits: torch.Tensor, tokens: torch.Tensor,
             == prop[rows, row].to(torch.long)[:, None])
         lf_r = lf[rows, row]
         draw = _gumbel_draw(torch.where(drop, torch.full_like(lf_r, NEG_INF),
-                                        lf_r), gen)
+                                        lf_r), gen, step_rows)
         nxt = torch.where(temperature > 0.0, draw, nxt)
     zero = torch.zeros_like(nxt)
     return (torch.where(active, nxt, zero),

@@ -32,6 +32,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from repro_torch.parallel import sharding
 from repro_torch.runtime.kvcache import KVArena
 from repro_torch.runtime.request import Sequence
 from repro_torch.runtime.transfers import TransferLedger
@@ -138,11 +139,16 @@ class DraftModelProposer:
     the greedy tokens stay on the device between passes and the proposal
     matrix is read back once per round. ``steps`` counts rounds (the JAX
     dispatches), ``passes`` the model passes. All draft transfers are
-    charged to ``self.ledger``, exactly as the JAX proposer charges them."""
+    charged to ``self.ledger``, exactly as the JAX proposer charges them.
+    With ``mesh`` set, the draft's parameters arrive sharded over the
+    serving mesh's 'model' axis (the engine cuts them) and its arena
+    holds this rank's kv-heads; every 'data' replica drafts every slot
+    (the rounds run under the mesh's activation scope, not data-local),
+    so the proposals agree on every rank without a collective."""
 
     def __init__(self, model, params, *, num_slots: int, max_seq: int,
                  chunk: int, quant: str = "none",
-                 cache_dtype=torch.bfloat16, device="cuda"):
+                 cache_dtype=torch.bfloat16, device="cuda", mesh=None):
         if model.cfg.family in RECURRENT_FAMILIES:
             raise ValueError(
                 f"draft model family {model.cfg.family!r} is recurrent — "
@@ -159,8 +165,9 @@ class DraftModelProposer:
         self.chunk = max(2, chunk)
         self.quant = quant
         self.device = torch.device(device)
+        self.dp, self.tp = sharding.serving_degrees(mesh)
         self.arena = KVArena(model, num_slots, max_seq, dtype=cache_dtype,
-                             device=self.device)
+                             device=self.device, mesh=mesh)
         self.reset_run()
 
     # -- lifecycle hooks -------------------------------------------------
@@ -170,7 +177,8 @@ class DraftModelProposer:
         telemetry ``StepTimeline``, which then taps this fresh ledger —
         so the timeline's per-step draft deltas close against this
         account's ``breakdown()``."""
-        self.ledger = TransferLedger(self.model.cfg, self.quant)
+        self.ledger = TransferLedger(self.model.cfg, self.quant, dp=self.dp,
+                                     tp=self.tp)
         self.steps = 0
         self.passes = 0
         # Committed context length the draft has verified-and-ingested,
@@ -323,7 +331,7 @@ class DraftModelProposer:
 def make_proposer(mode: str, *, draft_model=None, draft_params=None,
                   num_slots: int = 0, max_seq: int = 0, chunk: int = 0,
                   quant: str = "none", cache_dtype=torch.bfloat16,
-                  device="cuda"):
+                  device="cuda", mesh=None):
     """Build the proposer for ``mode`` ("ngram" or "draft")."""
     if mode == "ngram":
         return NGramProposer()
@@ -334,6 +342,7 @@ def make_proposer(mode: str, *, draft_model=None, draft_params=None,
         return DraftModelProposer(draft_model, draft_params,
                                   num_slots=num_slots, max_seq=max_seq,
                                   chunk=chunk, quant=quant,
-                                  cache_dtype=cache_dtype, device=device)
+                                  cache_dtype=cache_dtype, device=device,
+                                  mesh=mesh)
     raise ValueError(f"unknown spec mode {mode!r} (choose from "
                      f"{SPEC_MODES})")

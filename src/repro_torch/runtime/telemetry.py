@@ -765,9 +765,13 @@ def serve_report_lines(engine, report,
     finished-sequence lists otherwise), ledger LOAD-vs-EXEC and
     bottleneck attribution — plus the port's step-time percentiles, its
     paged KV read counter and, when ``launches`` ({kernel: launches} of
-    the run) is given, the kernels' launch counts. The serving-mesh line
-    comes with serving meshes (ROADMAP A17). ``total_requests`` defaults
-    to the finished-sequence count (a serve run drains its stream)."""
+    the run) is given, the kernels' launch counts — under a serving mesh
+    a list of one such dict per rank, a line each. Under a mesh the JAX
+    package's mesh line (per-device bytes/token, weight stream and paged
+    reads) follows, headed by the mesh (backend, devices) and ending in
+    its collectives a step and bytes a rank. ``total_requests``
+    defaults to the finished-sequence count (a serve run drains its
+    stream)."""
     st = report.stats
     sched = report.sched
     total = total_requests if total_requests is not None \
@@ -837,15 +841,38 @@ def serve_report_lines(engine, report,
         lines.append(
             f"latency p50 {pct[50] * 1e3:.0f} ms | p90 "
             f"{pct[90] * 1e3:.0f} ms | p99 {pct[99] * 1e3:.0f} ms")
+    mesh = getattr(engine, "mesh", None)
+    if mesh is not None:
+        tr = st.transfers
+        col = report.collectives or {}
+        steps = max(st.steps, 1)
+        line = (f"{mesh.describe()}: per-device bytes/token "
+                f"{tr.per_device_bytes_per_token / 1e6:.3f} MB | "
+                f"per-device weight-stream/token "
+                f"{tr.per_device_weight_stream_bytes_per_token / 1e6:.3f}"
+                " MB")
+        if engine.paged:
+            line += (f" | per-device paged-read/token "
+                     f"{st.paged_kv_read_bytes_per_device / max(st.decode_tokens, 1) / 1e6:.3f} MB")
+        line += (f" | collectives {col.get('collectives', 0) / steps:.1f}"
+                 f"/step ({col.get('bytes', 0) / steps / 1e6:.3f} MB/step "
+                 f"a rank, {col.get('staged', 0)} staged through host)")
+        if getattr(engine, "plan_note", None):
+            line += (f" | B9 not shard-invariant: {engine.plan_note} "
+                     "(tokens one device's up to near-ties)")
+        lines.append(line)
     lines.append("transfer ledger (host<->device):")
     exec_s = {"prefill": st.prefill_s, "decode": st.decode_s}
     lines.extend(f"  {ln}"
                  for ln in report.ledger.summary_lines(exec_s))
     if tl is not None:
         lines.extend(tl.bottleneck_report().lines())
-    if launches is not None:
-        lines.append("kernels: " + " | ".join(
-            f"{name} launches {n}" for name, n in launches.items()))
+    if isinstance(launches, dict):
+        launches = [launches]
+    for r, counts in enumerate(launches or ()):
+        head = "kernels" if len(launches) == 1 else f"kernels (rank {r})"
+        lines.append(f"{head}: " + " | ".join(
+            f"{name} launches {n}" for name, n in counts.items()))
     return lines
 
 

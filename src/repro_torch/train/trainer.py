@@ -11,7 +11,8 @@ optimizer: what a cross-replica reduction would move). The gradient is
 ``jax.value_and_grad``); on the card the attention's forward is the
 flash kernel and its backward ``kernels.flash_attention``'s plain f32
 backward; every linear of an unquantized model is a bf16 product, as in
-JAX. Sequence-parallel ``act_sharding`` needs a mesh (ROADMAP A17).
+JAX. Sequence-parallel ``act_sharding`` needs a training mesh (ROADMAP
+A17b).
 
 Only float parameters train: with quantized parameters (integer code
 planes) the step raises ``TypeError`` naming those leaves before any

@@ -1103,3 +1103,164 @@ def test_paged_attention_refuses_grad(cuda):
     with torch.no_grad():
         paged_decode_attention(*args, **kw)
     assert paged_decode_attention.int8_launches == before + 1
+
+
+# ----------------------------------------------------------------------
+# Shard-invariant launch plans (serving meshes)
+# ----------------------------------------------------------------------
+# (M, N, K): decode rows of qwen3-0.6b's q projection, and shapes at
+# which a half shard would plan another tile (M = 128 cut to 64) or
+# another split of K (N = 3072 at M = 512, 96 tiles of 132 SMs) than
+# the whole call if it planned from its own shape.
+SHARD_MNK = [(64, 2048, 1024), (128, 3072, 1024), (512, 3072, 1024)]
+
+
+def _matmul_shards(dev, fmt, m, n, k):
+    """(whole (M, N) bf16, [(rows, cols, shard output)]): one call and
+    its column blocks of 2 and 4 and row blocks of 2, each planned from
+    the whole call's shape (``plan_parts``)."""
+    wrapper, layout = MATMUL_KERNELS[fmt]
+    gen = torch.Generator(device=dev).manual_seed(m + n + k)
+    x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
+    planes = pack.quantize(torch.randn((n, k), generator=gen, device=dev)
+                           * 0.05, fmt)
+    full = [planes[p] for p in layout]
+    whole = wrapper(x, *full, out_dtype=torch.bfloat16)
+    out = []
+    for parts in (2, 4):
+        w = n // parts
+        for i in range(parts):
+            cut = [p[i * w:(i + 1) * w].contiguous() for p in full]
+            out.append((slice(None), slice(i * w, (i + 1) * w), wrapper(
+                x, *cut, out_dtype=torch.bfloat16, plan_parts=(1, parts))))
+    h = m // 2
+    for i in range(2):
+        out.append((slice(i * h, (i + 1) * h), slice(None), wrapper(
+            x[i * h:(i + 1) * h].contiguous(), *full,
+            out_dtype=torch.bfloat16, plan_parts=(2, 1))))
+    return whole, out
+
+
+@pytest.mark.parametrize("mnk", SHARD_MNK)
+@pytest.mark.parametrize("fmt", ["q8_0", "fp16", "q6_k", "q3_k"])
+def test_matmul_shards_match_whole_call(cuda, fmt, mnk):
+    """B2 (and B4/B5/B6, which share ``plan``) on a column block of 2 or
+    4 and a row block of 2, planned from the unsharded shape: bit for bit
+    the whole call's rows and columns."""
+    whole, shards = _matmul_shards(cuda, fmt, *mnk)
+    torch.cuda.synchronize()
+    for rows, cols, y in shards:
+        assert torch.equal(y, whole[rows, cols])
+
+
+def test_matmul_shard_plan_differs_without_parts():
+    """The shapes above are ones where a shard planned from its own shape
+    would tile or split K differently: what ``plan_parts`` prevents."""
+    from repro_torch.kernels import _dequant_matmul as dm
+    bf = torch.bfloat16
+    assert dm.plan(64, 3072, 1024, 132, bf) != dm.plan(128, 3072, 1024, 132,
+                                                       bf)
+    assert dm.plan(512, 1536, 1024, 132, bf) != dm.plan(512, 3072, 1024,
+                                                        132, bf)
+
+
+def _paged_shards(dev, dtype, kv, parts=2):
+    """(whole, [(slot rows, heads, shard output)]) of the GQA form at the
+    serving shape (B 8, C 8, H 16, Hkv 8, D 128, bs 16): kv-head blocks
+    of ``parts`` (their query heads, pages and scales) and slot blocks
+    of 2, each launched with ``plan_parts``."""
+    c = _int8_pages(dev, 8, 8, 16, 8, 128, 16)
+    q = c["q"].to(dtype)
+    if kv == "int8":
+        k, v, ks, vs = c["kq"], c["vq"], c["ks"], c["vs"]
+    else:
+        from repro_torch.models.attention import dequantize_kv
+        k = dequantize_kv(c["kq"], c["ks"]).to(torch.bfloat16)
+        v = dequantize_kv(c["vq"], c["vs"]).to(torch.bfloat16)
+        ks = vs = None
+
+    def run(qq, kk, vv, kss, vss, tb, pos, ln, plan_parts=(1, 1)):
+        return paged_decode_attention(qq, kk, vv, tb, pos, sm_scale=0.0884,
+                                      lengths=ln, k_scales=kss,
+                                      v_scales=vss, plan_parts=plan_parts)
+    tb, pos, ln = c["tables"], c["pos"], c["lens"]
+    whole = run(q, k, v, ks, vs, tb, pos, ln)
+    out = []
+    g, hk = 16 // parts, 8 // parts
+    cut = lambda t, i, ax: None if t is None else t.narrow(  # noqa: E731
+        ax, i * (t.shape[ax] // parts), t.shape[ax] // parts).contiguous()
+    for i in range(parts):
+        out.append((slice(None), slice(i * g, (i + 1) * g), run(
+            cut(q, i, 2), cut(k, i, 2), cut(v, i, 2), cut(ks, i, 2),
+            cut(vs, i, 2), tb, pos, ln, (1, parts))))
+    for i in range(2):
+        s = slice(i * 4, (i + 1) * 4)
+        out.append((s, slice(None), run(
+            q[s].contiguous(), k, v, ks, vs, tb[s].contiguous(),
+            pos[s].contiguous(), ln[s].contiguous(), (2, 1))))
+    return whole, out
+
+
+@pytest.mark.parametrize("dtype,kv", [("bfloat16", "bfloat16"),
+                                      ("bfloat16", "int8"),
+                                      ("float32", "bfloat16")])
+def test_paged_attention_shards_match_whole_call(cuda, dtype, kv):
+    """B1/B8 on a kv-head shard (its query heads) and on a slot shard:
+    bit for bit the whole call's heads and slots (bf16 q: the
+    tensor-core plan depends on G, not on H; f32 q: the CUDA-core split
+    is planned for the whole B * Hkv)."""
+    whole, shards = _paged_shards(cuda, getattr(torch, dtype), kv)
+    torch.cuda.synchronize()
+    for rows, heads, y in shards:
+        assert torch.equal(y, whole[rows][:, :, heads])
+
+
+# (slots, chunk entries, head blocks) of deepseek-v3's 128 heads whose
+# B9 split is the whole call's (``mla_split_exact``), every slot walking
+# 2,048 keys, so the SM count sets the split: decode cut in 8 (132 SMs do
+# not divide by 8; each shard plans on ``mla_shard_sms`` of them, 66, and
+# takes the whole call's 16 key tiles a split where all 132 would give
+# 8) and 2 slots of chunks of 8 cut in 2 (64-head shards fill whole row
+# tiles; 4 splits a tile).
+MLA_SHARD_CASES = [(8, 1, 8), (2, 8, 2)]
+
+
+def _mla_shards(dev, pages, slots, chunk, parts):
+    """(whole, [(valid rows, heads, shard output)]) of the MLA form at
+    deepseek-v3's widths, every slot owning 128 pages of 16 and its
+    chunk ending at the last, cut into ``parts`` head blocks over the
+    same latent pages, each launched with ``plan_parts``."""
+    c = _mla_case(dev, slots, chunk, 128, 512, 64, 16, 128, pages=pages,
+                  seed=7)
+    c["tables"] = torch.arange(slots * 128, dtype=torch.int32,
+                               device=dev).reshape(slots, 128)
+    c["pos"] = (2048 - c["lens"]).to(torch.int32)
+    whole = _mla_run(c)
+    g = 128 // parts
+    out = []
+    for i in range(parts):
+        heads = slice(i * g, (i + 1) * g)
+        y = paged_decode_attention(
+            c["q"][:, :, heads].contiguous(), c["k"], None, c["tables"],
+            c["pos"], sm_scale=c["sm"], lengths=c["lens"],
+            q2=c["q2"][:, :, heads].contiguous(), k2_pages=c["k2"],
+            plan_parts=(1, parts), **c["scales"])
+        out.append((c["np_lens"], heads, y))
+    return whole, out
+
+
+@pytest.mark.parametrize("pages", ["bfloat16", "int8"])
+@pytest.mark.parametrize("slots,chunk,parts", MLA_SHARD_CASES)
+def test_paged_attention_mla_shards_match_whole_call(cuda, pages, slots,
+                                                     chunk, parts):
+    """B9 on a head shard (its query heads over the replicated latent
+    pages), launched with ``plan_parts``: its valid rows bit for bit the
+    whole call's."""
+    from repro_torch.kernels import paged_attention as pa
+    assert pa.mla_split_exact(chunk, 128 // parts, parts, 1,
+                              pa.mla_tc_row_tile()) is None
+    whole, shards = _mla_shards(cuda, pages, slots, chunk, parts)
+    torch.cuda.synchronize()
+    for lens, heads, y in shards:
+        for b, n in enumerate(lens):
+            assert torch.equal(y[b, :n], whole[b, :n, heads])

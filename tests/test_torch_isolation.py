@@ -14,7 +14,8 @@ fallback, no kernel build on the CPU path.
 * Architectures, families and serve flags not ported yet are refused,
   naming their ROADMAP item; the flags ported since (the prefix cache,
   the offload policy, the telemetry exports, speculative decoding) serve
-  on the CPU.
+  on the CPU; ``--dp/--tp`` (serving meshes) take a device per rank
+  unless ``--ranks-per-device`` lets ranks share one.
 * Without a card and without ``--device cpu``, the serve launcher exits
   with an error instead of running on the CPU.
 """
@@ -65,7 +66,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                 "repro_torch.launch.train", "repro_torch.train.data",
                 "repro_torch.train.optimizer", "repro_torch.train.trainer",
                 "repro_torch.train.checkpoint", "repro_torch.train.elastic",
-                "repro_torch.configs.llama3_405b"):
+                "repro_torch.configs.llama3_405b",
+                "repro_torch.parallel.sharding", "repro_torch.launch.mesh"):
         assert mod in names
 
 
@@ -232,10 +234,16 @@ def test_serve_refuses_to_fall_back_to_cpu(capsys):
 
 @pytest.mark.parametrize("argv", [["--dp", "2"]])
 def test_serve_refuses_unported_features(argv, capsys):
+    """No serve flag is refused as unported since serving meshes (A17)
+    were ported; ``--dp 2`` on the CPU (one device) without
+    ``--ranks-per-device`` is refused naming that flag, never run on a
+    device it does not have."""
     with pytest.raises(SystemExit):
         serve.main(["--reduced", "--device", "cpu", "--block-size", "4"]
                    + argv)
-    assert "ROADMAP" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "needs 2 devices but only 1 visible" in err
+    assert "--ranks-per-device" in err
 
 
 @pytest.mark.parametrize("argv", [
@@ -261,21 +269,26 @@ def test_serve_accepts_ported_features(argv, capsys, tmp_path):
 
 
 def test_engine_and_registry_refusals_name_the_roadmap():
-    """Serving meshes (A17) are refused naming their item; every
-    architecture resolves (``PENDING`` is empty since the dense configs,
-    A20) and every family builds (``PENDING_FAMILIES`` is empty); an
-    unknown name is a KeyError."""
+    """Serving meshes (A17) are ported: the engine takes a mesh and
+    refuses one the model cannot honor with the JAX package's message;
+    every architecture resolves (``PENDING`` is empty since the dense
+    configs, A20) and every family builds (``PENDING_FAMILIES`` is
+    empty); an unknown name is a KeyError."""
     from repro_torch.models.api import PENDING_FAMILIES
     assert PENDING == {} and get_config("llama3.2-3b").name == "llama3.2-3b"
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("llama3.2-3b-instruct")
     assert PENDING_FAMILIES == {}
     from repro_torch.runtime.engine import ServingEngine
+    class Mesh:                       # a 1x3 mesh, shapes only
+        shape = {"data": 1, "model": 3}
+        axis_names = ("data", "model")
+        devices = 3
     for arch in ("qwen3-0.6b", "whisper-small", "qwen2-vl-2b"):
         model = build_model(get_config(arch).reduced())
-        with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+        with pytest.raises(ValueError, match="not divisible by tp=3"):
             ServingEngine(model, {}, device="cpu", block_size=4,
-                          mesh=object())
+                          mesh=Mesh())
 
 
 @pytest.mark.parametrize("arch", ["llama3-405b", "llama3.2-3b", "qwen2-72b"])
