@@ -33,8 +33,11 @@ Phases, one line each (every failure exits non-zero):
             their 8 x 512 prefills; B7's backward (autograd) against
             autograd of the plain version at G = 2 and 16, timed; the
             matmuls and B1/B8 on column, row, kv-head and slot blocks
-            launched with ``plan_parts``, bit-equal to their whole calls
-            (``check_shard_plans``);
+            launched with ``plan_parts``, and B9 on head blocks (of 8
+            at decode, of 2, 4 and 8 with chunks of 8 and 4) and on two
+            'data' halves of 8 slots at unequal depths, launched with
+            the whole call's plan inputs (``MlaPlan``), bit-equal to
+            their whole calls (``check_shard_plans``);
 4. serve  — ``repro_torch.launch.serve`` at the full width of
             qwen3-0.6b (seeded random weights made on the card): the
             paged stream once for each of the paper's weight recipes
@@ -122,7 +125,7 @@ Phases, one line each (every failure exits non-zero):
             granite-moe cut to 2 MoE layers against the CPU path, the
             deepseek-v3 MoE layer's device time and transient memory,
             and a profiled serve of each; the recurrent models'
-            profiled prefills (the SSD's device ms; mamba2 cut to 16
+            profiled prefills (the SSD's device ms; mamba2 cut to 8
             layers), mamba2's two 2-layer
             steps on per-slot state against the CPU path and its padded
             chunk
@@ -143,11 +146,19 @@ Phases, one line each (every failure exits non-zero):
             cuda:0 over gloo (``serve_mesh``): qwen3-0.6b at 1x2, 2x1
             and 2x2, on int8 pages at 1x2, with the prefix cache at
             2x1 and n-gram speculation at 1x2, deepseek-v3 (4 layers)
-            at 1x2 and granite-moe at 2x1, each beside a 1x1 run of the
-            same flags: tokens equal (deepseek-v3 by the near-tie
-            rule), every step's logits bit-equal (qwen3; compared and
-            printed for the others), one device's launches a step and
-            the layer structure's collectives a step on every rank;
+            at 1x2 and 2x1 and granite-moe at 2x1, each beside a 1x1
+            run of the same flags: tokens equal (deepseek-v3 at 1x2 by
+            the near-tie rule), every step's logits bit-equal (qwen3,
+            and deepseek-v3 at 2x1 on both replicas, whose B9 plans
+            from the whole step; compared and printed for the others),
+            one device's launches a step and the layer structure's
+            collectives a step on every rank;
+   dryrun — the port's dry-run (``repro_torch.launch.dryrun``) of
+            qwen3-0.6b's train_4k and decode_32k cells on 16x16 fake
+            ranks, counted on the CPU by a child process that sees no
+            card, started after the build and read after the checks:
+            per-device flops, bytes and collectives and the three
+            roofline terms at the H100's published peaks;
 6. the ``kernels`` JSON line, then the device JSON line, last.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -157,6 +168,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -300,10 +312,11 @@ RECURRENT = (("mamba2", MAMBA_ARGS, None, MAMBA_LAUNCHES,
              ("jamba", JAMBA_ARGS, JAMBA_LAYERS, JAMBA_LAUNCHES,
               JAMBA_PREFILL_LAUNCHES))
 # The recurrent checks' depth (their timed serves and prefill above run
-# at full depth): mamba2's profiled prefill and serve run 16 of its 48
-# layers, which keeps the whole script inside its time limit now that
-# the serving meshes' phase runs too; its step checks cut to 2 layers.
-RECURRENT_CHECK_LAYERS = {"mamba2": 16}
+# at full depth): mamba2's profiled prefill and serve run 8 of its 48
+# layers, which keeps the whole script inside its time limit beside the
+# serving meshes' and the dry-run's phases; its step checks cut to 2
+# layers.
+RECURRENT_CHECK_LAYERS = {"mamba2": 8}
 
 # The conditioned phase, at full width and depth (q8_0, bf16 pages, the
 # launcher's zero stub frames / vision embeddings): whisper-small (12
@@ -3613,9 +3626,10 @@ def check_routes(routes, label, kinds):
 def check_shard_plans(torch, dev) -> None:
     """B2 (q8_0, and fp16/q6_k/q3_k through the shared ``plan``) on
     column blocks of 2 and 4 and row blocks of 2, B1/B8 on kv-head and
-    slot blocks, and B9 on head blocks, each launched with
-    ``plan_parts``: bit for bit the whole call's rows, columns, heads
-    and slots (the card tests' helpers, tests/test_torch_cuda.py)."""
+    slot blocks, each launched with ``plan_parts``, and B9 on head
+    blocks and 'data' slot blocks, each launched with the whole call's
+    ``MlaPlan``: bit for bit the whole call's rows, columns, heads and
+    slots (the card tests' helpers, tests/test_torch_cuda.py)."""
     sys.path.insert(0, str(ROOT / "tests"))
     import test_torch_cuda as tc
     n = 0
@@ -3637,18 +3651,23 @@ def check_shard_plans(torch, dev) -> None:
                      "differs from the whole call")
             n += 1
     for pages in ("bfloat16", "int8"):
-        for slots, chunk, parts in tc.MLA_SHARD_CASES:
-            whole, shards = tc._mla_shards(dev, pages, slots, chunk, parts)
+        for slots, chunk, parts, data in tc.MLA_SHARD_CASES:
+            whole, lens, shards = tc._mla_shards(dev, pages, slots, chunk,
+                                                 parts, data)
             torch.cuda.synchronize()
-            for lens, heads, y in shards:
-                if not all(torch.equal(y[b, :m], whole[b, :m, heads])
-                           for b, m in enumerate(lens)):
-                    fail(f"MLA paged attention on {pages} pages, chunk "
-                         f"{chunk}: a shard of {parts} differs from the "
-                         "whole call")
+            for rows, heads, y in shards:
+                if not all(torch.equal(y[b, :m], whole[rows][b, :m, heads])
+                           for b, m in enumerate(lens[rows])):
+                    fail(f"MLA paged attention on {pages} pages, {slots} "
+                         f"slots of chunk {chunk}: a shard of {data} slot "
+                         f"x {parts} head blocks differs from the whole "
+                         "call")
                 n += 1
+            print(f"B9 shards on {pages} pages: {slots} slots x chunk "
+                  f"{chunk} in {data} slot x {parts} head blocks bit-equal "
+                  "to the whole call", flush=True)
     print(f"shard plans: {n} matmul and paged-attention shards bit-equal to "
-          "their whole calls (plan_parts)", flush=True)
+          "their whole calls (plan_parts, MlaPlan)", flush=True)
 
 
 # --- serve_mesh: serving meshes over torch.distributed ------------------
@@ -3656,6 +3675,11 @@ def check_shard_plans(torch, dev) -> None:
 # the whole phase; every mesh run is held against a 1x1 run of its flags.
 MESH_RANKS = 4
 MESH_QWEN = ((1, 2), (2, 1), (2, 2))
+# The mesh cells' stream: the serve's with 8 requests (one admission
+# wave, ~48 steps: every step's logits are still held), but for the
+# prefix cache and n-gram cells, which need the 16-request stream's
+# later admissions and repeats; keeps the script inside its time.
+MESH_REQUESTS = ["--requests", "8"]
 # Collectives a step a rank, from the layer structure: over 'model' four
 # all-gathers a qwen3 layer (attention's output: q/k/v keep their heads;
 # o; the SwiGLU's h: gate and up stay columnwise; down; qwen3-0.6b's
@@ -3769,6 +3793,10 @@ def _mesh_world(ctx, card):
     # rows of the two 'data' replicas (slots 0-3 and 4-7) of the 2x2 mesh.
     m21 = meshes.make_host_mesh(2, 1, [0, 2], device=ctx.device,
                                 ranks_per_device=MESH_RANKS)
+    # Rank 2 alone: it builds its copy of deepseek-v3 while rank 0 keeps
+    # the 1x1 run's.
+    m2 = meshes.make_host_mesh(1, 1, [2], device=ctx.device,
+                               ranks_per_device=MESH_RANKS)
     m22 = meshes.make_host_mesh(2, 2, device=ctx.device,
                                 ranks_per_device=MESH_RANKS)
     by_shape = {(1, 2): m12, (2, 1): m21, (2, 2): m22}
@@ -3802,10 +3830,11 @@ def _mesh_world(ctx, card):
     # coordinate-0 peer, and compares the tokens of the peer's 1x1 run).
     cfg, model, params = build(SERVE_ARGS, m22)
     q = (cfg, model, params)
+    qargs = SERVE_ARGS + MESH_REQUESTS
     ref = rrows = None
     if m21.member:
         ref, (_, rrows, _) = m21.serialized(
-            _mesh_run, torch, serve, ctx, "mesh qwen3 1x1", SERVE_ARGS, q,
+            _mesh_run, torch, serve, ctx, "mesh qwen3 1x1", qargs, q,
             None, RECIPE_LAUNCHES["q8_0"])
         out.append(ref)
     torch.distributed.barrier()
@@ -3815,7 +3844,7 @@ def _mesh_world(ctx, card):
             tag = f"mesh qwen3 {dp}x{tp}"
             peer = mesh.all_gather_objects(ref, "model")[0]
             got, (_, grows, _) = _mesh_run(
-                torch, serve, ctx, tag, SERVE_ARGS, q, mesh,
+                torch, serve, ctx, tag, qargs, q, mesh,
                 RECIPE_LAUNCHES["q8_0"], mesh_collectives(dp, tp))
             if rrows is not None:
                 _hold_mesh(torch, tag, ref, got, rrows, grows,
@@ -3831,7 +3860,8 @@ def _mesh_world(ctx, card):
     # are every slot's, so rank 0 compares them all; rank 1 compares the
     # tokens, prefix hits and speculation counts rank 0's run sends).
     for name, flags, shape, per_step, bitwise in (
-            ("int8", ["--kv-quant", "int8"], (1, 2), INT8_LAUNCHES, True),
+            ("int8", ["--kv-quant", "int8"] + MESH_REQUESTS, (1, 2),
+             INT8_LAUNCHES, True),
             ("prefix", PREFIX_FLAGS + ["--prefix-cache"], (2, 1),
              RECIPE_LAUNCHES["q8_0"], False),
             ("ngram", SPEC_FLAGS, (1, 2), RECIPE_LAUNCHES["q8_0"], False)):
@@ -3870,21 +3900,51 @@ def _mesh_world(ctx, card):
     del q, params
     torch.cuda.empty_cache()
 
-    # deepseek-v3, full width cut to 4 layers (MLA + MoE): 1x1 on rank 0,
-    # then 1x2, tokens under the near-tie rule.
+    # deepseek-v3, full width cut to 4 layers (MLA + MoE): 1x1 on rank 0;
+    # then 2x1 ('data' replicas: rank 0 keeps its whole weights, rank 2
+    # builds its own), bit for bit -- B9 plans from the whole step
+    # (MlaPlan) and the MoE layer routes the whole step's tokens, so every
+    # step's logit rows of both replicas are the 1x1 run's (rank 2 sends
+    # its rows to rank 0); then 1x2, tokens under the near-tie rule (the
+    # MoE expert products of a column block).
+    dargs = DEEPSEEK_ARGS + MESH_REQUESTS
     ds = build(DEEPSEEK_ARGS, m11, DEEPSEEK_LAYERS)
     if ctx.rank == 0:
         dref, dref_rec = _mesh_run(torch, serve, ctx, "mesh deepseek-v3 "
-                                   "1x1", DEEPSEEK_ARGS, ds, None,
-                                   DEEPSEEK_LAUNCHES)
+                                   "1x1", dargs, ds, None, DEEPSEEK_LAUNCHES)
         out.append(dref)
-    ds = None
+    torch.distributed.barrier()
+    ds2 = build(DEEPSEEK_ARGS, m2, DEEPSEEK_LAYERS)
+    if m21.member:
+        tag = "mesh deepseek-v3 2x1"
+        got, (_, grows, _) = _mesh_run(torch, serve, ctx, tag, dargs,
+                                       ds if ctx.rank == 0 else ds2, m21,
+                                       DEEPSEEK_LAUNCHES)
+        if got["plan_note"] is not None:
+            fail(f"{tag}: a plan is not the whole call's: "
+                 f"{got['plan_note']}")
+        peer = m21.all_gather_objects(
+            [r.cpu() for r in grows] if ctx.rank else None, "data")[1]
+        dref_all = m21.all_gather_objects(dref if ctx.rank == 0 else None,
+                                          "data")[0]
+        if got["tokens"] != dref_all["tokens"]:
+            fail(f"{tag}: tokens differ from the 1x1 run")
+        if ctx.rank == 0:
+            rep = len(grows[0]) if grows else 0
+            _hold_mesh(torch, tag, dref, got, dref_rec[1], grows, 0, rep)
+            _hold_mesh(torch, tag, dref, got,
+                       [r.cpu() for r in dref_rec[1]], peer, rep, 2 * rep)
+            print(f"{tag}: every step's logit rows of both replicas "
+                  "bit-equal to the 1x1 run's", flush=True)
+        out.append(got)
+        del grows, peer
+    ds = ds2 = None
     torch.cuda.empty_cache()
     torch.distributed.barrier()
     ds = build(DEEPSEEK_ARGS, m12, DEEPSEEK_LAYERS, mesh=m12)
     if m12.member:
         tag = "mesh deepseek-v3 1x2"
-        got, rec = _mesh_run(torch, serve, ctx, tag, DEEPSEEK_ARGS, ds, m12,
+        got, rec = _mesh_run(torch, serve, ctx, tag, dargs, ds, m12,
                              DEEPSEEK_LAUNCHES)
         if got["plan_note"] is not None:
             fail(f"{tag}: B9's split is not the whole call's: "
@@ -3914,14 +3974,15 @@ def _mesh_world(ctx, card):
     if m21.member:
         if ctx.rank == 0:
             gref, (_, grrows, _) = _mesh_run(
-                torch, serve, ctx, "mesh granite-moe 1x1", GRANITE_ARGS, gr,
-                None, GRANITE_LAUNCHES)
+                torch, serve, ctx, "mesh granite-moe 1x1",
+                GRANITE_ARGS + MESH_REQUESTS, gr, None, GRANITE_LAUNCHES)
             out.append(gref)
         gref = m21.all_gather_objects(gref if ctx.rank == 0 else None,
                                       "data")[0]
         tag = "mesh granite-moe 2x1"
         got, (_, grows, _) = _mesh_run(
-            torch, serve, ctx, tag, GRANITE_ARGS, gr, m21, GRANITE_LAUNCHES,
+            torch, serve, ctx, tag, GRANITE_ARGS + MESH_REQUESTS, gr, m21,
+            GRANITE_LAUNCHES,
             mesh_collectives(2, 1, layers=0, moe_layers=GRANITE_MOE_LAYERS))
         if ctx.rank == 0:
             # Tokens exactly; the logits are compared and reported (the
@@ -3998,6 +4059,83 @@ def serve_mesh(torch, dev, serve, card):
     return out
 
 
+# --- dryrun: the port's dry-run of the production meshes ---------------
+# qwen3-0.6b's train and decode cells on 16x16 fake ranks, counted on
+# the CPU by a child process that sees no card (CUDA_VISIBLE_DEVICES is
+# empty) while the card phases run; its JSON comes back on stdout.
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"), ("qwen3-0.6b", "decode_32k"))
+DRYRUN_TIMEOUT = 900
+
+
+def start_dryrun():
+    """The dry-run child, started (see ``dryrun_child``)."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.dryrun_child()"],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+
+
+def dryrun_child() -> None:
+    """Run ``DRYRUN_CELLS`` through ``launch.dryrun.run_cell`` (16x16,
+    per-group extrapolation) and print one JSON line: the cells, the
+    torch version, whether CUDA was ever initialized, and the ops that
+    ran on whole inputs."""
+    import logging
+    import torch
+    logging.getLogger("torch._subclasses.fake_tensor").setLevel(
+        logging.CRITICAL)
+    from repro_torch.launch import dryrun
+    out = {"torch": torch.__version__, "cells": []}
+    for arch, shape in DRYRUN_CELLS:
+        t = time.perf_counter()
+        cell = dryrun.run_cell(arch, shape, verbose=False)
+        cell["wall_s"] = time.perf_counter() - t
+        out["cells"].append(cell)
+    out["cuda_initialized"] = torch.cuda.is_initialized()
+    print(json.dumps(out), flush=True)
+
+
+def finish_dryrun(proc, card) -> None:
+    """Wait for the dry-run child and print its cells' per-device counts
+    and roofline terms (H100 peaks) beside the card; fail if it failed,
+    or touched a device."""
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"dryrun: no result in {DRYRUN_TIMEOUT} s")
+    if proc.returncode != 0:
+        fail(f"dryrun: the child exited {proc.returncode}: "
+             f"{stderr.strip()[-2000:]}")
+    res = json.loads(stdout.strip().splitlines()[-1])
+    if res["cuda_initialized"]:
+        fail("dryrun: the child initialized CUDA (the dry-run allocates "
+             "nothing on any device)")
+    for c in res["cells"]:
+        print(f"dryrun {c['arch']} x {c['shape']} on 16x16 fake ranks "
+              f"(torch {res['torch']}, counted on the CPU in "
+              f"{c['wall_s']:.1f} s; roofline terms at one {card}'s "
+              f"published peaks): flops/device "
+              f"{c['flops_per_device']:.4g}, bytes/device "
+              f"{c['bytes_per_device']:.4g}, collectives/device "
+              f"{json.dumps(c['collectives'])} "
+              f"({c['collective_bytes_per_device']:.4g} B) | compute "
+              f"{c['compute_s'] * 1e3:.4f} ms, memory "
+              f"{c['memory_s'] * 1e3:.4f} ms, collective "
+              f"{c['collective_s'] * 1e3:.4f} ms -> {c['bottleneck']} | "
+              f"argument {c['argument_bytes']} B, output "
+              f"{c['output_bytes']} B, temp {c['temp_bytes']} B | "
+              f"model flops {c['model_flops']:.4g}, mfu {c['mfu']:.4g}",
+              flush=True)
+        if not c["flops_per_device"] > 0 or not c["collectives"].get(
+                "all-gather"):
+            fail(f"dryrun {c['arch']} x {c['shape']}: no work or no FSDP "
+                 "all-gather counted")
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -4034,6 +4172,18 @@ def main() -> None:
     print(f"build: {len(libs)} kernel libraries ready in "
           f"{time.perf_counter() - t0:.1f} s (nvcc, one process per source)"
           f" -> {', '.join(p.name for p in libs.values())}", flush=True)
+    child = start_dryrun()
+    try:
+        _phases(torch, np, dev, card, child)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.communicate()
+
+
+def _phases(torch, np, dev, card, child) -> None:
+    """Every card phase, then the dry-run child's cells, the kernel JSON
+    line and the device line."""
 
     kernels = [check_matmul(torch, dev, name) for name in MATMULS]
     q8 = kernels[list(MATMULS).index("matmul_q8_0")]
@@ -4140,6 +4290,7 @@ def main() -> None:
     check_routes({k: v for k, v in routes.items() if "matmul" not in k},
                  "the model paths' attention (serves, prefills, checks)",
                  ("flash", "paged GQA", "paged MLA"))
+    finish_dryrun(child, card)
     for k in kernels:
         k["launches"] = sum(c.get(k["name"], 0) for c in by_serve.values())
         k["launches_by_run"] = {q: c[k["name"]] for q, c in by_serve.items()

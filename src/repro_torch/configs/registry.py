@@ -33,6 +33,14 @@ ARCHS: Dict[str, ModelConfig] = {
                         _granite_moe, _mamba2, _jamba, _whisper, _qwen2_vl]
 }
 
+# The 10 assigned architectures (40 dry-run cells), in the JAX package's
+# order.
+ASSIGNED: Dict[str, ModelConfig] = {
+    c.name: c for c in [_llama3_2_3b, _qwen2_72b, _llama3_405b,
+                        _qwen3_0_6b, _qwen2_vl, _jamba, _deepseek_v3,
+                        _granite_moe, _whisper, _mamba2]
+}
+
 # Architectures of the JAX package not ported yet -> the ROADMAP item
 # that ports them: none since the last dense configs (A20).
 PENDING: Dict[str, str] = {}

@@ -1406,10 +1406,17 @@ constexpr int WSTR = MAX_SPLITS + 1;   // merge weights row: [split] den
 constexpr int MAX_D2 = 256;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// A call may be one shard of a whole call: its B slots are slots
+// [slot0, slot0 + B) of the whole call's Bw, and its G = H / Hkv query
+// heads of a kv head are heads [g0, g0 + G) of the whole call's Gw. The
+// step is planned, and every row's page walk split, as the whole call's;
+// the shard walks only the row tiles that hold its rows. A whole call is
+// the shard with Bw = B, slot0 = 0, Gw = G, g0 = 0.
 struct Shape {
   int B, C, H, Hkv, D1, D2, bs, MB;
   int splits;                          // the most a step takes (partials)
-  int row_tiles, units;                // units = B * Hkv * row_tiles
+  int row_tiles, units;                // the whole call's: Bw * Hkv * row_tiles
+  int Bw, slot0, Gw, g0;
 };
 
 // Staged feature width: [ckv | krope] rounded up to 64 (zero columns).
@@ -1453,6 +1460,25 @@ __device__ __forceinline__ int walk_keys(int tile, int pos0, int len, int C,
   return keys < MB * bs ? keys : MB * bs;
 }
 
+// The shard's rows in row tile `tile` of the whole call (of one slot and
+// kv head): a run [x, x + y) of the shard's C * G rows (y = 0: none).
+// The run is contiguous: the entries the tile meets hold the shard's
+// heads [g0, g0 + G) each, and only the first and last entry can be cut.
+__device__ __forceinline__ int2 shard_rows(int tile, int C, int G, int Gw,
+                                           int g0) {
+  const int w0 = tile * RT, w1 = min(w0 + RT, C * Gw);
+  if (G == Gw) return make_int2(w0, w1 - w0);
+  int first = 0, count = 0;
+  for (int i = w0 / Gw; i * Gw < w1; ++i) {
+    const int lo = max(w0, i * Gw + g0), hi = min(w1, i * Gw + g0 + G);
+    if (lo < hi) {
+      if (count == 0) first = i * G + lo - i * Gw - g0;
+      count += hi - lo;
+    }
+  }
+  return make_int2(first, count);
+}
+
 // A step's split: `per` key tiles a split. The launch holds one block
 // per SM (`sms`), and every split of a tile merges the tile's partials
 // after all of them are written, so all items of a step must run at
@@ -1489,15 +1515,16 @@ __device__ __forceinline__ void split_into(float x0, float x1,
   }
 }
 
-// The launch: one block per SM. Each block plans the step (block 0
-// writes the plan it took to plan_out: key tiles a split, the step's
-// items, the most splits of a row tile), then walks the items
+// The launch: one block per SM. Each block plans the step from the whole
+// call's row tiles and depths (block 0 writes the plan it took to
+// plan_out: key tiles a split, the shard's items, the most splits of a
+// row tile), then walks the items
 // i = blockIdx.x, i + gridDim.x, ... of the step's list (split z of live
 // row tile u, in (u, z) order), then writes the row tiles u = blockIdx.x,
 // ... whose rows are all garbage as 0. Warp w of a block: rows 16 (w % 4)
 // .. + 15 of the tile, output columns D1 / 4 * (w / 4) .. + D1 / 4, and
 // a quarter of the score's features.
-template <typename TKV, int D1>
+template <typename TKV, int D1, bool kShard>
 __global__ void __launch_bounds__(THREADS, 1)
 paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
                     const TKV* __restrict__ k_pages,
@@ -1520,27 +1547,42 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
   extern __shared__ __align__(128) unsigned char sm[];
   const int D2 = s.D2, bs = s.bs, U = s.units;
   const int FT = feat_width(D1, D2), QS = FT + 8, RB = FT * ES;
-  const Layout lay = layout(FT, ES, U, s.B);
+  const Layout lay = layout(FT, ES, U, s.Bw);
   float* q_sh = reinterpret_cast<float*>(sm + lay.q);
   unsigned char* ring = sm + lay.ring;
   float* xch = reinterpret_cast<float*>(sm + lay.xch);
   int* off = reinterpret_cast<int*>(sm + lay.off);
   int* red = reinterpret_cast<int*>(sm + lay.red);  // [2][WARPS], flag
-  const int G = s.H / s.Hkv, R = s.C * G;
+  const int G = s.H / s.Hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int rg = warp & 3, cq = warp >> 2;
-  int* pos_sh = reinterpret_cast<int*>(sm + lay.pl);  // [B], then [B]
-  for (int i = tid; i < s.B; i += THREADS) {
+  // A whole call (kShard false) compiles to the unsharded walk: every
+  // unit is its own, a tile's rows its own 64.
+  const int Bw = kShard ? s.Bw : s.B, Gw = kShard ? s.Gw : G;
+  const int slot0 = kShard ? s.slot0 : 0;
+  // The whole call's positions and lengths: [Bw], then [Bw].
+  int* pos_sh = reinterpret_cast<int*>(sm + lay.pl);
+  for (int i = tid; i < Bw; i += THREADS) {
     pos_sh[i] = positions[i];
-    pos_sh[s.B + i] = lengths[i];
+    pos_sh[Bw + i] = lengths[i];
   }
   __syncthreads();
+  // Whole-call unit u: (slot, kv head, row tile); the shard's own are
+  // those of its slots that hold some of its rows.
+  const int u_lo = slot0 * s.Hkv * s.row_tiles;
+  const int u_hi = kShard ? (slot0 + s.B) * s.Hkv * s.row_tiles : U;
+  auto rows_of = [&](int u) -> int2 {
+    const int tile = u % s.row_tiles;
+    if constexpr (kShard) return shard_rows(tile, s.C, G, Gw, s.g0);
+    return make_int2(tile * RT, min(RT, s.C * G - tile * RT));
+  };
 
   // The step's plan and item list, the same in every block, made by warp
-  // 0: unit u's splits are items off[u] .. off[u + 1] - 1. Lane l owns
-  // units [l * cpl, (l + 1) * cpl) and keeps their walk tiles in off[]
-  // first.
+  // 0: unit u's splits are items off[u] .. off[u + 1] - 1 (none for a
+  // unit that is not the shard's). Lane l owns units [l * cpl, (l + 1) *
+  // cpl) and keeps their walk tiles in off[] first; `per` follows every
+  // whole-call unit's walk, the items only the shard's.
   if (warp == 0) {
     auto warp_sum = [&](int v) -> int {
 #pragma unroll
@@ -1552,8 +1594,8 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
     int work = 0;
     for (int u = ub; u < ue; ++u) {
       const int b = u / s.row_tiles / s.Hkv;
-      off[u] = (walk_keys(u % s.row_tiles, pos_sh[b], pos_sh[s.B + b], s.C,
-                          G, s.MB, bs) + KT - 1) / KT;
+      off[u] = (walk_keys(u % s.row_tiles, pos_sh[b], pos_sh[Bw + b], s.C,
+                          Gw, s.MB, bs) + KT - 1) / KT;
       work += off[u];
     }
     const int maxt = (s.MB * bs + KT - 1) / KT;
@@ -1564,9 +1606,14 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
       for (int u = ub; u < ue; ++u) n += (off[u] + mid - 1) / mid;
       if (warp_sum(n) <= (int)gridDim.x) hi = mid; else per = mid + 1;
     }
+    auto splits_of = [&](int u) -> int {
+      if constexpr (kShard)
+        if (u < u_lo || u >= u_hi || rows_of(u).y == 0) return 0;
+      return (off[u] + per - 1) / per;
+    };
     int items = 0, most = 0;           // this lane's units' splits
     for (int u = ub; u < ue; ++u) {
-      const int n = (off[u] + per - 1) / per;
+      const int n = splits_of(u);
       items += n;
       most = max(most, n);
     }
@@ -1581,7 +1628,7 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
     }
     int first = incl - items;
     for (int u = ub; u < ue; ++u) {
-      const int n = (off[u] + per - 1) / per;
+      const int n = splits_of(u);
       off[u] = first;
       first += n;
     }
@@ -1606,14 +1653,16 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
       const int mid = (lo + hi + 1) >> 1;
       if (off[mid] <= item) lo = mid; else hi = mid - 1;
     }
-    const int unit = lo, z = item - off[lo];
+    const int z = item - off[lo];
     const int nlive = off[lo + 1] - off[lo];
-    const int tile = unit % s.row_tiles, bh = unit / s.row_tiles;
-    const int b = bh / s.Hkv, hkv = bh % s.Hkv;
-    const int r0 = tile * RT;
-    const int rows = min(RT, R - r0);  // rows of the tile that exist
-    const int pos0 = pos_sh[b];
-    const int wk = walk_keys(tile, pos0, pos_sh[s.B + b], s.C, G, s.MB, bs);
+    const int tile = lo % s.row_tiles, bh = lo / s.row_tiles;
+    const int bw = bh / s.Hkv, hkv = bh % s.Hkv, b = bw - slot0;
+    const int unit = lo - u_lo;        // the shard's partials and tickets
+    // The shard's rows of the tile: [r0, r0 + rows) of its C * G.
+    const int2 run = rows_of(lo);
+    const int r0 = run.x, rows = run.y;
+    const int pos0 = pos_sh[bw];
+    const int wk = walk_keys(tile, pos0, pos_sh[Bw + bw], s.C, Gw, s.MB, bs);
     const int ntile = (wk + KT - 1) / KT;
     // Flat (slot, chunk entry, head) index of row r of the tile.
     auto head = [&](int r) -> size_t {
@@ -1683,8 +1732,8 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
     int lim[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int rr = r0 + rg * 16 + g + 8 * h;
-      lim[h] = rr < R ? pos0 + rr / G : -1;
+      const int r = rg * 16 + g + 8 * h;
+      lim[h] = r < rows ? pos0 + (r0 + r) / G : -1;
     }
     // The 16-feature steps of the score this warp sums: a quarter of
     // [ckv | krope] (9 of 36 at rank 512, rope 64); ckv steps before K1.
@@ -1701,7 +1750,7 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
     // NS - 1 tiles in flight ahead of the one computed; the tile's
-    // [q | q2] rows (f32; rows past R and columns past D1 + D2 zero; warp
+    // [q | q2] rows (f32; rows past the run and columns past D1 + D2 zero; warp
     // w stages rows w, w + 16, ...) and the first one are one group. The
     // first NS tiles' page ids (this warp's key's; int8: also lane
     // l % 16's key's, for the scales) load while the q rows are issued.
@@ -2025,13 +2074,14 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
     __syncthreads();                   // shared memory is the next item's
   }
 
-  // Row tiles whose rows all lie past max(len, 1): written as 0, no page
-  // read.
-  for (int u = blockIdx.x; u < U; u += gridDim.x) {
+  // The shard's rows of row tiles whose rows all lie past max(len, 1)
+  // (its units without items): written as 0, no page read.
+  for (int u = u_lo + blockIdx.x; u < u_hi; u += gridDim.x) {
     if (off[u + 1] != off[u]) continue;
-    const int tile = u % s.row_tiles, bh = u / s.row_tiles;
-    const int b = bh / s.Hkv, hkv = bh % s.Hkv;
-    const int r0 = tile * RT, rows = min(RT, R - r0);
+    const int2 run = rows_of(u);
+    const int bh = u / s.row_tiles;
+    const int b = bh / s.Hkv - slot0, hkv = bh % s.Hkv;
+    const int r0 = run.x, rows = run.y;
     for (int idx = tid; idx < rows * D4; idx += THREADS) {
       const int rr = r0 + idx / D4, i = rr / G;
       *reinterpret_cast<float4*>(
@@ -2041,14 +2091,14 @@ paged_mla_tc_kernel(const float* __restrict__ q, const float* __restrict__ q2,
   }
 }
 
-template <typename TKV, int D1>
+template <typename TKV, int D1, bool kShard>
 int launch(const float* q, const float* q2, const void* kp, const void* k2p,
            const __half* ks, const __half* k2s, const int* tables,
            const int* positions, const int* lengths, float* out,
            float* part_acc, float* part_ml, int* tickets, int* plan_out,
            Shape sh, int blocks, float sm_scale, cudaStream_t st) {
   const Layout lay =
-      layout(feat_width(D1, sh.D2), (int)sizeof(TKV), sh.units, sh.B);
+      layout(feat_width(D1, sh.D2), (int)sizeof(TKV), sh.units, sh.Bw);
   // Opt in to the card's whole per-block limit once per instantiation;
   // the wrapper has checked lay.total against that limit.
   static const cudaError_t opt_in = [] {
@@ -2058,7 +2108,7 @@ int launch(const float* q, const float* q2, const void* kp, const void* k2p,
       e = cudaDeviceGetAttribute(&limit,
                                  cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(paged_mla_tc_kernel<TKV, D1>,
+      e = cudaFuncSetAttribute(paged_mla_tc_kernel<TKV, D1, kShard>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                limit);
     return e;
@@ -2077,7 +2127,7 @@ int launch(const float* q, const float* q2, const void* kp, const void* k2p,
   cfg.attrs = &coop;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, paged_mla_tc_kernel<TKV, D1>, q, q2,
+      &cfg, paged_mla_tc_kernel<TKV, D1, kShard>, q, q2,
       static_cast<const TKV*>(kp), static_cast<const TKV*>(k2p), ks, k2s,
       tables, positions, lengths, out, part_acc, part_ml, tickets, plan_out,
       sh, sm_scale);
@@ -2091,13 +2141,17 @@ int dispatch(const float* q, const float* q2, const void* kp,
              float* out, float* part_acc, float* part_ml, int* tickets,
              int* plan_out, Shape sh, int blocks, float sm_scale,
              cudaStream_t st) {
-#define REPRO_MLA_TC(RANK)                                                  \
-  if (sh.D1 == RANK)                                                        \
-  return launch<TKV, RANK>(q, q2, kp, k2p, ks, k2s, tables, positions,      \
-                           lengths, out, part_acc, part_ml, tickets,        \
-                           plan_out, sh, blocks, sm_scale, st)
-  REPRO_MLA_TC(32);
-  REPRO_MLA_TC(512);
+  const bool shard = sh.Bw != sh.B || sh.Gw != sh.H / sh.Hkv;
+#define REPRO_MLA_TC(RANK, SHARD)                                           \
+  if (sh.D1 == RANK && shard == SHARD)                                      \
+  return launch<TKV, RANK, SHARD>(q, q2, kp, k2p, ks, k2s, tables,          \
+                                  positions, lengths, out, part_acc,        \
+                                  part_ml, tickets, plan_out, sh, blocks,   \
+                                  sm_scale, st)
+  REPRO_MLA_TC(32, false);
+  REPRO_MLA_TC(512, false);
+  REPRO_MLA_TC(32, true);
+  REPRO_MLA_TC(512, true);
 #undef REPRO_MLA_TC
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -2268,7 +2322,8 @@ extern "C" int paged_attention_mla(const void* q, const void* q2,
 
 // MLA form on bf16 or int8 pages: the tensor-core kernel (mtc). Shared
 // bytes of one block (the wrapper checks them against the card's limit);
-// they do not depend on the table's width.
+// they do not depend on the table's width. B and H are the whole call's
+// (a shard plans from them).
 extern "C" long long paged_attention_mla_tc_smem(int B, int C, int H, int Hkv,
                                                  int D1, int D2,
                                                  int kv_dtype) {
@@ -2280,7 +2335,9 @@ extern "C" long long paged_attention_mla_tc_smem(int B, int C, int H, int Hkv,
 
 // The scratch of a call: n[0] the most splits a step can take for a
 // table of MB pages of bs keys, n[1] floats of part_acc, n[2] floats of
-// part_ml, n[3] ints of tickets (all 0 when a step takes one split).
+// part_ml, n[3] ints of tickets (all 0 when a step takes one split). B
+// is the call's slots, H the whole call's heads (a shard's units are the
+// whole call's row tiles of its slots).
 extern "C" void paged_attention_mla_tc_scratch(int B, int C, int H, int Hkv,
                                                int D1, int bs, int MB,
                                                long long* n) {
@@ -2301,9 +2358,14 @@ extern "C" void paged_attention_mla_tc_scratch(int B, int C, int H, int Hkv,
 // k_scales/k2_scales fp16 (NP, bs, Hkv) scale pages; all 16-byte aligned.
 // out is float32 (B, C, H, D1). `splits`, part_acc, part_ml and tickets
 // as paged_attention_mla_tc_scratch gives them (tickets zero when the
-// launch starts). The launch is one block per SM (`sms`); each step's
-// split is chosen on the card from positions and lengths, and written to
-// plan_out (3 ints: key tiles of 16 keys a split, the step's (row tile,
+// launch starts). The call may be a shard of a whole call of Bw slots
+// and Hw heads: its slots are [slot0, slot0 + B) of the whole call's, its
+// query heads [g0, g0 + H / Hkv) of each kv head's Hw / Hkv; positions
+// and lengths are the whole call's (Bw each), and its rows are the whole
+// call's bit for bit (a whole call: Bw = B, slot0 = 0, Hw = H, g0 = 0).
+// The launch is one block per SM (`sms`); each step's split is chosen on
+// the card from the whole call's positions and lengths, and written to
+// plan_out (3 ints: key tiles of 16 keys a split, the shard's (row tile,
 // split) items, the most splits of a row tile). Returns the cudaError_t
 // of the launch.
 extern "C" int paged_attention_mla_tc(
@@ -2312,12 +2374,15 @@ extern "C" int paged_attention_mla_tc(
     const void* tables, const void* positions, const void* lengths,
     void* out, void* part_acc, void* part_ml, void* tickets, void* plan_out,
     int B, int C, int H, int Hkv, int D1, int D2, int bs, int MB, int splits,
-    int sms, float sm_scale, void* stream) {
-  if (D2 % 16 || D2 > mtc::MAX_D2)
+    int sms, int Bw, int slot0, int Hw, int g0, float sm_scale,
+    void* stream) {
+  if (D2 % 16 || D2 > mtc::MAX_D2 || H % Hkv || Hw % Hkv || g0 < 0 ||
+      g0 + H / Hkv > Hw / Hkv || slot0 < 0 || slot0 + B > Bw)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int row_tiles = (C * (H / Hkv) + mtc::RT - 1) / mtc::RT;
-  const mtc::Shape sh{B, C, H, Hkv, D1, D2, bs, MB, splits, row_tiles,
-                      B * Hkv * row_tiles};
+  const int row_tiles = (C * (Hw / Hkv) + mtc::RT - 1) / mtc::RT;
+  const mtc::Shape sh{B,         C,      H,         Hkv,    D1,
+                      D2,        bs,     MB,        splits, row_tiles,
+                      Bw * Hkv * row_tiles, Bw, slot0, Hw / Hkv, g0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* qf = static_cast<const float*>(q);
   const float* q2f = static_cast<const float*>(q2);

@@ -51,6 +51,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import re
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -97,7 +98,7 @@ def _lib():
     lib.paged_attention_mla_tc.restype = ctypes.c_int
     lib.paged_attention_mla_tc.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 10
-        + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+        + [ctypes.c_int] * 14 + [ctypes.c_float, ctypes.c_void_p])
     lib.paged_attention_mla_tc_smem.restype = ctypes.c_longlong
     lib.paged_attention_mla_tc_smem.argtypes = [ctypes.c_int] * 7
     lib.paged_attention_mla_tc_scratch.restype = None
@@ -191,28 +192,47 @@ def _check(q, k_pages, v_pages, block_tables, positions, lengths, k_scales,
     _pages_and_scales("k2_pages", k2_pages, k2_scales, "k2_scales", shape3)
 
 
+class MlaPlan(NamedTuple):
+    """The whole call a tensor-core MLA call is a shard of: its
+    ``positions`` and ``lengths`` (int32, one per slot of the whole call,
+    on the call's device), the shard's first slot ``slot0`` in them, the
+    whole call's query ``heads`` and the shard's first head ``head0``
+    (within each kv head's group). The kernel plans the step, and splits
+    every row's page walk, as that call does, so the shard's rows are
+    its rows bit for bit."""
+    positions: torch.Tensor
+    lengths: torch.Tensor
+    slot0: int
+    heads: int
+    head0: int
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages, block_tables: torch.Tensor,
                            positions: torch.Tensor, *, sm_scale: float,
                            lengths=None, k_scales=None, v_scales=None,
                            q2=None, k2_pages=None,
-                           k2_scales=None, plan_parts=(1, 1)) -> torch.Tensor:
+                           k2_scales=None, plan_parts=(1, 1),
+                           mla_plan: Optional[MlaPlan] = None
+                           ) -> torch.Tensor:
     """Fused paged decode attention over a chunk of C queries per slot.
 
     Returns (B, C, H, D) in q's dtype. ``v_pages=None`` is the MLA form
     (the K pages are V), which takes the RoPE side ``q2``/``k2_pages``
     (and ``k2_scales`` on int8 pages); its launches are counted apart.
 
-    ``plan_parts``: (slot blocks, head blocks) of the unsharded call this
-    one is a shard of, so the launch splits each page walk as that call
-    does. The tensor-core GQA plan depends on C, G = H / Hkv, D, the
-    table width and the block size only, so a kv-head or slot shard
-    keeps it as is; the CUDA-core GQA split is planned for the unsharded
-    B * Hkv; the tensor-core MLA kernel picks its split on the card from
-    the step's work over the SMs it is given, so a head shard of
-    ``parts`` is given 1 / parts of them (its work is exactly 1 / parts
-    of the whole call's). A slot shard of the MLA form has no such
-    invariant: its split follows its own slots' depths."""
+    ``plan_parts`` (the GQA form): (slot blocks, head blocks) of the
+    unsharded call this one is a shard of, so the launch splits each
+    page walk as that call does. The tensor-core GQA plan depends on C,
+    G = H / Hkv, D, the table width and the block size only, so a
+    kv-head or slot shard keeps it as is; the CUDA-core GQA split is
+    planned for the unsharded B * Hkv. ``mla_plan`` (the MLA form): the
+    whole call this one is a shard of (``MlaPlan``; None: the call is
+    whole). The tensor-core MLA kernel picks its split on the card from
+    the whole call's row tiles and depths and walks only the tiles that
+    hold the shard's rows, so a slot or head shard's rows are the whole
+    call's bit for bit; the CUDA-core MLA kernel (f32 pages, on no
+    serving path) plans from its own rows and refuses a plan."""
     b, c = q.shape[:2]
     if lengths is None:
         lengths = torch.full((b,), c, dtype=torch.int32, device=q.device)
@@ -251,7 +271,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     tables = (block_tables, positions, lengths)
     if v_pages is None:
         out = _launch_mla(q, q2, k_pages, k2_pages, k_scales, k2_scales,
-                          *tables, sm_scale, plan_parts)
+                          *tables, sm_scale, mla_plan)
         if k_scales is None:
             paged_decode_attention.mla_launches += 1
         else:
@@ -371,7 +391,7 @@ def _launch_gqa_tc(q, k_pages, v_pages, k_scales, v_scales, block_tables,
 
 
 def _launch_mla(q, q2, k_pages, k2_pages, k_scales, k2_scales, block_tables,
-                positions, lengths, sm_scale, plan_parts=(1, 1)):
+                positions, lengths, sm_scale, mla_plan=None):
     """One launch of the MLA form: f32 q_eff/q_rope in (what
     ``mla_decode`` passes), f32 out. bf16 or int8 pages (every serving
     path) run the tensor-core kernel; f32 pages, on no serving path, the
@@ -380,11 +400,15 @@ def _launch_mla(q, q2, k_pages, k2_pages, k_scales, k2_scales, block_tables,
         raise TypeError(f"the MLA form takes float32 q (and q2); got "
                         f"{q.dtype}")
     if k_pages.dtype == torch.float32:
+        if mla_plan is not None:
+            raise ValueError("the CUDA-core MLA kernel (f32 pages) plans "
+                             "from its own rows: it takes no whole-call "
+                             "plan")
         return _launch_mla_cc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
                               block_tables, positions, lengths, sm_scale)
     return _launch_mla_tc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
                           block_tables, positions, lengths, sm_scale,
-                          plan_parts[1])
+                          mla_plan)
 
 
 def mla_row_tile(pages_dtype: torch.dtype) -> int:
@@ -430,42 +454,6 @@ def mla_tc_row_tile() -> int:
     return int(re.search(r"constexpr int RT = (\d+);", src).group(1))
 
 
-def mla_shard_sms(sms: int, c: int, g: int, head_parts: int,
-                  row_tile: int) -> int:
-    """SMs a shard of ``head_parts`` head blocks (``g`` query heads a kv
-    head of its own, ``c`` chunk entries) plans and launches the
-    tensor-core MLA kernel on. The card takes the fewest key tiles a
-    split whose (row tile, split) items fit the launch's SMs. Where every
-    row's tile walks as deep as in the whole call (``mla_split_exact``),
-    the shard's items are rs / rw of the whole call's at every split
-    (rs, rw: row tiles a slot of the shard and of the whole call), so on
-    floor(sms * rs / rw) SMs the shard's fit is the whole call's and it
-    takes the same split. The rest of the card idles for this launch."""
-    rw = -(-c * g * head_parts // row_tile)
-    rs = -(-c * g // row_tile)
-    return max(1, sms * rs // rw)
-
-
-def mla_split_exact(c: int, g: int, head_parts: int, data_parts: int,
-                    row_tile: int):
-    """None when a tensor-core MLA launch on a shard (``head_parts`` head
-    blocks of ``g`` heads each, ``data_parts`` slot blocks, ``c`` chunk
-    entries) splits every row's page walk as the whole call does, so its
-    rows are the whole call's bit for bit; else why not. A row's split
-    follows the depth its row tile walks (the deepest chunk entry in the
-    tile) and the step's split, which the card picks from every slot's
-    depth."""
-    if data_parts > 1:
-        return ("a 'data' replica picks the page-walk split from its own "
-                "slots' depths, not from the whole step's")
-    if head_parts == 1 or c == 1 or c * g * head_parts <= row_tile \
-            or g % row_tile == 0:
-        return None
-    return (f"a head shard's {row_tile}-row tiles group its {c} chunk "
-            f"entries of {g} heads otherwise than the whole call's of "
-            f"{g * head_parts} heads, so its rows walk to other depths")
-
-
 @functools.lru_cache(maxsize=None)
 def _mla_tc_scratch(b, c, h, hkv, d1, bs, mb):
     """(splits the launch has room for, floats of the partials, floats of
@@ -477,17 +465,29 @@ def _mla_tc_scratch(b, c, h, hkv, d1, bs, mb):
 
 def _launch_mla_tc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
                    block_tables, positions, lengths, sm_scale,
-                   head_parts: int = 1):
+                   plan: Optional[MlaPlan] = None):
     """The tensor-core kernel (bf16 or int8 pages): one cooperative
     launch of one block per SM walking the step's (64-row tile,
-    page-walk split) items; the card picks the split from positions and
-    lengths, and the splits of a tile merge inside the launch. A shard
-    of ``head_parts`` head blocks launches on ``mla_shard_sms`` of the
-    SMs, so its split is the whole call's where ``mla_split_exact``
-    says it can be."""
+    page-walk split) items; the card picks the split from the whole
+    call's positions and lengths (``plan``; the call's own when None),
+    and the splits of a tile merge inside the launch."""
     dev = q.device
     b, c, h, d1 = q.shape
     _, bs, hkv, _ = k_pages.shape
+    if plan is None:
+        plan = MlaPlan(positions, lengths, 0, h, 0)
+    bw = plan.positions.shape[0]
+    if plan.heads % hkv or plan.head0 < 0 \
+            or plan.head0 + h // hkv > plan.heads // hkv \
+            or plan.slot0 < 0 or plan.slot0 + b > bw \
+            or tuple(plan.lengths.shape) != (bw,) \
+            or any(t.dtype != torch.int32 or t.device != dev
+                   or not t.is_contiguous()
+                   for t in (plan.positions, plan.lengths)):
+        raise ValueError(f"plan {plan.slot0}+{b} of {bw} slots, heads "
+                         f"{plan.head0}+{h // hkv} of {plan.heads // hkv}: "
+                         "not a shard of it (int32 positions and lengths "
+                         "on the call's device)")
     d2 = 0 if q2 is None else q2.shape[3]
     if d1 not in MLA_TC_RANKS or d2 % 16 or d2 > 256:
         raise ValueError(f"MLA widths D={d1}, D2={d2}: the tensor-core "
@@ -499,13 +499,14 @@ def _launch_mla_tc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
     lib = _lib()
     kv = _KV_DTYPES[k_pages.dtype]
     mb = block_tables.shape[1]
-    smem = lib.paged_attention_mla_tc_smem(b, c, h, hkv, d1, d2, kv)
+    smem = lib.paged_attention_mla_tc_smem(bw, c, plan.heads, hkv, d1, d2,
+                                           kv)
     if smem > _smem_limit(dev):
         raise ValueError(f"D={d1} + D2={d2} for {b} x {c} x {h} rows needs "
                          f"{smem} B of shared memory; the card allows "
                          f"{_smem_limit(dev)}")
-    splits, n_acc, n_ml, n_tickets = _mla_tc_scratch(b, c, h, hkv, d1, bs,
-                                                     mb)
+    splits, n_acc, n_ml, n_tickets = _mla_tc_scratch(b, c, plan.heads,
+                                                     hkv, d1, bs, mb)
     out = torch.empty_like(q)
     part_acc = part_ml = tickets = out
     if splits > 1:      # per-split partials, merged inside the launch
@@ -514,24 +515,23 @@ def _launch_mla_tc(q, q2, k_pages, k2_pages, k_scales, k2_scales,
         # Zeroed on this launch's stream for this launch alone (as the
         # GQA form's tickets).
         tickets = torch.zeros((n_tickets,), dtype=torch.int32, device=dev)
-    plan = torch.empty((3,), dtype=torch.int32, device=dev)
-    sms = mla_shard_sms(_sm_count(dev), c, h // hkv, head_parts,
-                        lib.paged_attention_mla_row_tile(kv))
+    took = torch.empty((3,), dtype=torch.int32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.paged_attention_mla_tc(
             q.data_ptr(), ptr(q2), k_pages.data_ptr(), ptr(k2_pages), kv,
             ptr(k_scales), ptr(k2_scales), block_tables.data_ptr(),
-            positions.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            part_acc.data_ptr(), part_ml.data_ptr(), tickets.data_ptr(),
-            plan.data_ptr(), b, c, h, hkv, d1, d2, bs, mb, splits, sms,
-            float(sm_scale), stream)
+            plan.positions.data_ptr(), plan.lengths.data_ptr(),
+            out.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            tickets.data_ptr(), took.data_ptr(), b, c, h, hkv, d1, d2, bs,
+            mb, splits, _sm_count(dev), bw, plan.slot0, plan.heads,
+            plan.head0, float(sm_scale), stream)
     if err:
         raise RuntimeError(f"paged_attention_mla_tc launch failed: "
                            f"cudaError {err}")
     global _last_plan
-    _last_plan = plan
+    _last_plan = took
     return out
 
 

@@ -11,6 +11,7 @@ import torch
 
 from repro_torch.core.quant import dequant
 from repro_torch.core.quant.pack import Planes
+from repro_torch.models import flags
 
 NEG_INF = -1e30
 
@@ -35,22 +36,41 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     h // (H / Hkv). Every key j < Skv exists (the JAX kernel pads K/V to
     its block and masks the padding; here there is none), and when
     ``causal`` key j is visible to query i iff j <= ``q_offset`` + i. A
-    row that sees no key is 0 (the kernel's l == 0 reads as 1)."""
+    row that sees no key is 0 (the kernel's l == 0 reads as 1). Under
+    ``flags.mixed_intermediates()`` the products take bf16 operands (f32
+    accumulation) as the JAX package's plain chunked attention does; the
+    B7 kernel does not read the flag."""
     b, sq, h, d = q.shape
     hkv = k.shape[2]
     g = h // hkv
     if sm_scale is None:
         sm_scale = d ** -0.5
-    qg = q.to(torch.float32).reshape(b, sq, hkv, g, d)
-    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32)) \
+    mixed = flags.mixed_intermediates()
+    lo = _bf16_round if mixed else (lambda t: t)
+    qg = lo(q.to(torch.float32)).reshape(b, sq, hkv, g, d)
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, lo(k.to(torch.float32))) \
         * sm_scale
     ki = torch.arange(k.shape[1], device=q.device)[None, :]
     qi = torch.arange(sq, device=q.device)[:, None]
     vis = (ki <= q_offset + qi) if causal else (ki >= 0)
     sc = torch.where(vis, sc, torch.full_like(sc, NEG_INF))
-    p = torch.softmax(sc, dim=-1) * vis.any(-1, keepdim=True)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+    live = vis.any(-1, keepdim=True)
+    if mixed:
+        # The JAX package's online softmax over one KV block: p = exp(s -
+        # max) taken to bf16 for the P.V product, normalized after it.
+        e = torch.exp(sc - sc.amax(-1, keepdim=True))
+        o = torch.einsum("bhgqk,bkhd->bhgqd", lo(e),
+                         lo(v.to(torch.float32)))
+        o = (o / e.sum(-1, keepdim=True) * live).permute(0, 3, 1, 2, 4)
+    else:
+        p = torch.softmax(sc, dim=-1) * live
+        o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
     return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
+
+
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 and held in f32 (an exact bf16 operand)."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pages: torch.Tensor, v_pages,

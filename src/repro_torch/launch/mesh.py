@@ -1,4 +1,6 @@
-"""Serving meshes over ``torch.distributed``: one process per mesh device.
+"""Meshes over ``torch.distributed``: the serving meshes (one process per
+mesh device) and the dry-run's production meshes (``make_production_mesh``,
+256 or 512 fake ranks in one process).
 
 The port's counterpart of ``repro.launch.mesh.make_host_mesh`` and of
 the JAX package's SPMD partitioning. A ``--dp D --tp T`` serve runs D*T
@@ -27,6 +29,7 @@ groups are created collectively over the world.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import queue
@@ -39,6 +42,66 @@ import torch.multiprocessing as mp
 
 # A collective that waits this long has lost a peer: fail, never hang.
 TIMEOUT = datetime.timedelta(seconds=600)
+
+
+class ProductionMesh:
+    """A production mesh for the dry-run: ``device_mesh`` a
+    ``torch.distributed`` ``DeviceMesh`` of fake ranks, with the axis
+    names and sizes the sharding rules read (``shape`` a dict, as the
+    JAX package's ``Mesh.shape``) and ``devices`` its rank count."""
+
+    def __init__(self, device_mesh, axis_names: Sequence[str],
+                 sizes: Sequence[int]):
+        self.device_mesh = device_mesh
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, sizes))
+        self.devices = 1
+        for n in sizes:
+            self.devices *= n
+
+    def __repr__(self) -> str:
+        dims = "x".join(str(n) for n in self.shape.values())
+        return f"ProductionMesh({dims} {self.axis_names})"
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16x16 ('data', 'model') = 256 ranks single-pod, or 2x16x16 ('pod',
+    'data', 'model') = 512 ranks across two pods, as a ``ProductionMesh``
+    over a *fake* process group in which this process is rank 0
+    (``make_fake_mesh``): the counterpart of the JAX dry-run's 512 forced
+    host devices. A context manager."""
+    if multi_pod:
+        return make_fake_mesh((2, 16, 16), ("pod", "data", "model"))
+    return make_fake_mesh((16, 16), ("data", "model"))
+
+
+@contextlib.contextmanager
+def make_fake_mesh(sizes: Sequence[int], axes: Sequence[str]):
+    """A ``ProductionMesh`` of ``sizes`` over a fake process group of as
+    many ranks, this process rank 0. Its collectives move nothing and
+    return at once; with ``FakeTensorMode`` tensors nothing is allocated
+    either. The fake group is the process's default group only inside
+    the context (it refuses to start in a process that already has one,
+    and destroys its own on exit), so it never outlives the dry-run."""
+    from torch.distributed.device_mesh import init_device_mesh
+    # Importing the module registers the "fake" backend.
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    sizes, axes = tuple(sizes), tuple(axes)
+    if dist.is_initialized():
+        raise RuntimeError("make_production_mesh needs a process without a "
+                           "process group: its fake group of "
+                           f"{sizes} ranks would replace the default one")
+    world = 1
+    for n in sizes:
+        world *= n
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield ProductionMesh(init_device_mesh("cpu", sizes,
+                                              mesh_dim_names=axes),
+                             axes, sizes)
+    finally:
+        dist.destroy_process_group()
 
 
 def backend_for(device_type: str, ranks_per_device: int) -> str:

@@ -6,8 +6,14 @@ Ported from ``repro.models.api``: ``init`` / ``loss`` / ``forward`` /
 ``paged_cache_shapes``, and for the encdec family ``encode_cross`` (the
 serving engine's admission-time encoder pass). ``loss`` is the train
 entry (``train/trainer.py``): the families' cross entropy, with the
-``remat`` policies of the JAX package; its ``act_sharding`` needs a
-training mesh (ROADMAP A17b) and only None is taken.
+``remat`` policies of the JAX package; ``act_sharding`` (a training
+mesh's residual placements) reaches ``lm_forward``/``lm_prefill`` and
+is dropped by the encdec family, as in the JAX package.
+
+The dry-run's abstract entry points (``launch/dryrun.py``):
+``abstract_params`` (the parameter tree as meta tensors, no
+allocation), ``cache_specs`` and ``input_specs`` (meta tensors of the
+JAX package's ``ShapeDtypeStruct`` shapes and dtypes).
 
 Frontend inputs (stubs, as in the JAX package): the vlm family's
 ``batch["vision_embeds"]`` (B, min(vision_tokens, S), d) and a decode
@@ -22,7 +28,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.models import encdec, lm
 
 
@@ -76,6 +82,89 @@ class ModelAPI:
         return _map2(pick, self.cache_shapes(num_slots, s_a),
                      self.cache_shapes(num_slots, s_b))
 
+    def abstract_params(self, quant: str = "none"):
+        """The parameter tree as meta tensors, without allocating: the
+        init run under ``FakeTensorMode``, each quantization of a weight
+        replaced by planes of the shapes and dtypes it gives (one real
+        quantization per distinct (shape, format) on the meta device),
+        and each MoE expert bank drawn as one group."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from repro_torch.core.quant import pack
+        from repro_torch.models import moe
+        quantize, seen = pack.quantize, {}
+        group = moe.EXPERT_GROUP_ELEMS
+
+        def shaped(w, fmt):
+            key = (tuple(w.shape), w.dtype, fmt)
+            if key not in seen:
+                seen[key] = {k: (tuple(v.shape), v.dtype) for k, v in
+                             quantize(torch.empty(key[0], dtype=w.dtype,
+                                                  device="meta"),
+                                      fmt).items()}
+            return {k: torch.empty(sh, dtype=dt)
+                    for k, (sh, dt) in seen[key].items()}
+        pack.quantize, moe.EXPERT_GROUP_ELEMS = shaped, 1 << 62
+        try:
+            with FakeTensorMode():
+                gen = torch.Generator()
+                gen.manual_seed(0)
+                tree = self.init(gen, quant=quant)
+        finally:
+            pack.quantize, moe.EXPERT_GROUP_ELEMS = quantize, group
+        return _map1(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                           device="meta"), tree)
+
+    def cache_specs(self, batch: int, seq: int,
+                    dtype=torch.bfloat16) -> Dict:
+        """``cache_shapes`` as meta tensors of ``dtype``."""
+        return _map1(lambda sh: torch.empty(sh, dtype=dtype, device="meta"),
+                     self.cache_shapes(batch, seq))
+
+    def input_specs(self, shape: ShapeSpec, dtype=torch.bfloat16) -> Dict:
+        """Meta-tensor stand-ins for the entry point of this cell: the
+        train batch (tokens, labels), the prefill batch (tokens), or a
+        decode step's token (B, 1), position () and cache of
+        ``seq_len``; plus the family's frontend inputs."""
+        b, s = shape.global_batch, shape.seq_len
+        i32 = torch.int32
+
+        def meta(sh, dt):
+            return torch.empty(sh, dtype=dt, device="meta")
+        if shape.kind == "train":
+            specs = {"tokens": meta((b, s), i32),
+                     "labels": meta((b, s), i32)}
+            specs.update(self._frontend_specs(b, s, dtype))
+            return {"batch": specs}
+        if shape.kind == "prefill":
+            specs = {"tokens": meta((b, s), i32)}
+            specs.update(self._frontend_specs(b, s, dtype))
+            return {"batch": specs}
+        return {"token": meta((b, 1), i32), "position": meta((), i32),
+                "cache": self.cache_specs(b, s, dtype)}
+
+    def _frontend_specs(self, b: int, s: int, dtype) -> Dict:
+        cfg = self.cfg
+        out = {}
+        if cfg.family == "vlm":
+            out["vision_embeds"] = torch.empty(
+                (b, min(cfg.vision_tokens, s), cfg.d_model), dtype=dtype,
+                device="meta")
+        if cfg.family == "encdec":
+            out["frames"] = torch.empty(
+                (b, cfg.encoder_seq_len, cfg.d_model), dtype=dtype,
+                device="meta")
+        return out
+
+
+def _map1(fn, tree):
+    """``fn`` over the leaves of a tree of dicts and lists (a shape tuple
+    is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: _map1(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map1(fn, v) for v in tree]
+    return fn(tree)
+
 
 def _map2(fn, ta, tb):
     """``fn`` over the paired leaves (shape tuples) of two nested dicts."""
@@ -101,9 +190,9 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
                                                               quant),
             loss=functools.partial(_encdec_loss_kw, cfg),
             forward=lambda params, batch, **kw: encdec.encdec_forward(
-                params, cfg, batch, **kw),
+                params, cfg, batch, **_strip(kw)),
             prefill=lambda params, batch, **kw: encdec.encdec_prefill(
-                params, cfg, batch, **kw),
+                params, cfg, batch, **_strip(kw)),
             decode_step=lambda params, token, position, cache, **kw:
                 encdec.encdec_decode_step(params, cfg, token, position,
                                           cache, **kw),
@@ -122,6 +211,11 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
     )
 
 
+def _strip(kw: Dict) -> Dict:
+    """``kw`` without act_sharding (the encdec functions take none)."""
+    return {k: v for k, v in kw.items() if k != "act_sharding"}
+
+
 def _lm_init_kw(cfg, gen: torch.Generator, quant="none"):
     return lm.lm_init(gen, cfg, quant)
 
@@ -131,9 +225,8 @@ def _lm_loss_kw(cfg, params, batch, **kw):
 
 
 def _encdec_loss_kw(cfg, params, batch, act_sharding=None, **kw):
-    if act_sharding is not None:
-        raise NotImplementedError("act_sharding needs a training mesh: "
-                                  "ROADMAP A17b")
+    # The encdec functions take no act_sharding: dropped, as the JAX
+    # package drops it (whisper is small).
     return encdec.encdec_loss(params, cfg, batch, **kw)
 
 

@@ -54,8 +54,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.paged_attention import paged_decode_attention
-from repro_torch.models import layers
+from repro_torch.kernels.paged_attention import (MlaPlan,
+                                                 paged_decode_attention)
+from repro_torch.models import flags, layers
 from repro_torch.models.layers import Params
 from repro_torch.parallel import sharding
 
@@ -72,7 +73,26 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     The JAX package's online softmax over ``kv_chunk``-key blocks; here
     the block walk is the flash-attention kernel's (the block size does
-    not change the function, so there is no ``kv_chunk``)."""
+    not change the function, so there is no ``kv_chunk``).
+
+    On a training mesh (DTensor q) each rank attends its own (batch,
+    head) block, K/V first repeated over each kv head's query heads so
+    that they cut as q does (the same products)."""
+    if sharding.is_dtensor(q):
+        from torch.distributed.tensor.experimental import local_map
+        q = sharding.evenly(q)
+        b, s, h, _ = q.shape
+        g = h // k.shape[2]
+        if g > 1:
+            k, v = (x[:, :, :, None].expand(*x.shape[:3], g, x.shape[-1])
+                    .reshape(b, x.shape[1], h, x.shape[-1]) for x in (k, v))
+        pl = list(q.placements)
+        return local_map(
+            lambda q, k, v: chunked_attention(q, k, v, causal=causal,
+                                              sm_scale=sm_scale,
+                                              q_offset=q_offset),
+            out_placements=pl, in_placements=(pl, pl, pl),
+            redistribute_inputs=True)(q, k, v)
     return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                            causal=causal, sm_scale=sm_scale,
                            q_offset=q_offset)
@@ -82,17 +102,29 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      sm_scale: float, kv_len=None) -> torch.Tensor:
     """Decode-side attention: q (B, C, H, D) vs cache k/v (B, S, Hkv, D)
     in f32. ``kv_len``: None, or (B, C) valid length per query — a chunk
-    passes the per-query causal depth ``pos0 + i + 1``."""
+    passes the per-query causal depth ``pos0 + i + 1``. Under
+    ``flags.mixed_intermediates()`` the cache is contracted in its
+    stored dtype (q taken to it, p to V's), f32 accumulation, as the JAX
+    package's."""
     b, c, h, d = q.shape
     _, s, hkv, _ = k.shape
     group = h // hkv
-    qg = q.to(torch.float32).reshape(b, c, hkv, group, d)
+    # A training mesh's q (DTensor): every head on each rank of a
+    # replica, which attends its own sequence block of the cache.
+    q = sharding.batch_only(q)
+    mixed = flags.mixed_intermediates()
+    # Mixed: q taken to the cache's dtype and p to V's (f32 accumulation),
+    # as the JAX package contracts the stored cache.
+    qg = (q.to(k.dtype) if mixed else q).to(torch.float32).reshape(
+        b, c, hkv, group, d)
     sc = torch.einsum("bqhgd,bshd->bhgqs", qg, k.to(torch.float32)) * sm_scale
     if kv_len is not None:                      # (B, C) -> (B,1,1,C,1)
         mask = torch.arange(s, device=q.device)[None, None, None, None, :] \
             < kv_len[:, None, None, :, None]
         sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
     p = torch.softmax(sc, dim=-1)
+    if mixed:
+        p = p.to(v.dtype).to(torch.float32)
     o = torch.einsum("bhgqs,bshd->bqhgd", p, v.to(torch.float32))
     return o.reshape(b, c, h, d).to(q.dtype)
 
@@ -145,8 +177,8 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, fmt: str,
     query heads (contiguous, since head h reads kv-head h // G)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim()
-    q, k, v = (layers.linear_apply(p[n], x, fmt, gather=False).reshape(
-        b, s, -1, hd) for n in ("q", "k", "v"))
+    q, k, v = (_heads(layers.linear_apply(p[n], x, fmt, gather=False), hd)
+               for n in ("q", "k", "v"))
     if cfg.qk_norm:                             # qk_norm before rope
         q = layers.rmsnorm_apply(p["q_norm"], q, cfg.norm_eps)
         k = layers.rmsnorm_apply(p["k_norm"], k, cfg.norm_eps)
@@ -154,6 +186,13 @@ def _project_qkv(p: Params, cfg: ModelConfig, x: torch.Tensor, fmt: str,
         q = layers.rope_rotate(q, *rope)
         k = layers.rope_rotate(k, *rope)
     return q, k, v
+
+
+def _heads(y: torch.Tensor, hd: int) -> torch.Tensor:
+    """(B, S, heads * hd) -> (B, S, heads, hd); on a training mesh the
+    projection is made whole first where its cut would split a head."""
+    y = sharding.heads_whole(y, y.shape[-1] // hd)
+    return y.reshape(*y.shape[:2], -1, hd)
 
 
 def gqa_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, rope, *,
@@ -211,6 +250,8 @@ def _insert_kv(cache: torch.Tensor, new: torch.Tensor, position: torch.Tensor,
     b, c = new.shape[:2]
     s = cache.shape[1]
     pos = decode_positions(position, b, c)                   # (B, C)
+    if sharding.is_dtensor(cache):
+        return _insert_kv_sharded(cache, new, pos, lengths)
     rows = torch.arange(b, device=cache.device)[:, None].expand(b, c)
     valid = pos < s
     if lengths is not None:
@@ -220,6 +261,22 @@ def _insert_kv(cache: torch.Tensor, new: torch.Tensor, position: torch.Tensor,
     src = torch.where(valid.reshape(b, c, *([1] * (new.ndim - 2))),
                       new.to(cache.dtype), cache[rows, idx])
     cache.index_put_((rows, idx), src)
+    return cache
+
+
+def _insert_kv_sharded(cache, new, pos, lengths):
+    """``_insert_kv`` on a training mesh's cache (batch over the DP axes,
+    sequence over 'model'): entry i of row b replaces the cache row whose
+    sequence index is ``pos[b, i]`` by a masked select over each rank's
+    own sequence block (an index write would gather the cut axis)."""
+    seq = sharding.iota_like(cache, 1)                       # (S,)
+    tail = [1] * (cache.ndim - 2)
+    for i in range(new.shape[1]):
+        hit = seq[None, :] == pos[:, i:i + 1]                # (B, S)
+        if lengths is not None:
+            hit = hit & (lengths.to(torch.long)[:, None] > i)
+        cache.copy_(torch.where(hit.reshape(*hit.shape, *tail),
+                                new[:, i:i + 1].to(cache.dtype), cache))
     return cache
 
 
@@ -529,7 +586,6 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                           cache["ckv"], cw)
     q_nope, q_rope, ckv_new, krope_new = _mla_qkv(p, cfg, x, fmt, step.rope)
     h = q_nope.shape[2]                 # this rank's heads under a mesh
-    parts = sharding.plan_parts(sharding.is_model_shard(p["q_b"]))
     kv_quant = isinstance(cache["ckv"], dict)
     fused = block_tables is not None and paged_impl == "fused"
     if block_tables is None:                     # contiguous slot arena
@@ -560,32 +616,61 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     sm = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
     if fused:
         ckv_p, krope_p = cache["ckv"], cache["krope"]
+        plan = _mla_plan(p["q_b"], position, lengths, b, cw, h)
         if kv_quant:
             ctx = paged_decode_attention(
                 q_eff.contiguous(), ckv_p["q"][:, :, None, :], None,
                 block_tables, position, sm_scale=sm, lengths=lengths,
                 k_scales=ckv_p["s"][:, :, None], q2=q2.contiguous(),
                 k2_pages=krope_p["q"][:, :, None, :],
-                k2_scales=krope_p["s"][:, :, None], plan_parts=parts)
+                k2_scales=krope_p["s"][:, :, None], mla_plan=plan)
         else:
             ctx = paged_decode_attention(
                 q_eff.contiguous(), ckv_p[:, :, None, :], None,
                 block_tables, position, sm_scale=sm, lengths=lengths,
                 q2=q2.contiguous(), k2_pages=krope_p[:, :, None, :],
-                plan_parts=parts)
+                mla_plan=plan)
     else:
+        # Mixed: the queries taken to the latents' dtype and p to ckv's
+        # (f32 accumulation), as the JAX package contracts the cache.
+        mixed = flags.mixed_intermediates()
         ckv_f = ckv.to(torch.float32)
-        sc = (torch.einsum("bqhr,bsr->bhqs", q_eff, ckv_f)
-              + torch.einsum("bqhe,bse->bhqs", q2,
+        qe, qr = (q_eff.to(ckv.dtype).to(torch.float32),
+                  q2.to(krope.dtype).to(torch.float32)) if mixed \
+            else (q_eff, q2)
+        sc = (torch.einsum("bqhr,bsr->bhqs", qe, ckv_f)
+              + torch.einsum("bqhe,bse->bhqs", qr,
                              krope.to(torch.float32))) * sm
         mask = torch.arange(ckv.shape[1], device=x.device)[None, None, None] \
             < (step.pos_mat + 1)[:, None, :, None]
         sc = torch.where(mask, sc, torch.full_like(sc, NEG_INF))
-        ctx = torch.einsum("bhqs,bsr->bqhr", torch.softmax(sc, dim=-1),
-                           ckv_f)
+        pr = torch.softmax(sc, dim=-1)
+        if mixed:
+            pr = pr.to(ckv.dtype).to(torch.float32)
+        ctx = torch.einsum("bhqs,bsr->bqhr", pr, ckv_f)
     o = torch.einsum("bqhr,hvr->bqhv", ctx, wv)
     o = _gather_heads(p["q_b"], o.reshape(b, cw, -1).to(x.dtype))
     return layers.linear_apply(p["o"], o, fmt), cache
+
+
+def _mla_plan(q_b: Params, position: torch.Tensor, lengths, b: int,
+              cw: int, h: int) -> Optional[MlaPlan]:
+    """The whole call a paged MLA call on a serving mesh is a shard of:
+    the whole step's positions and lengths on a 'data' replica
+    (``sharding.whole_step``), every head on a 'model' shard (``q_b``
+    cut: this rank's ``h`` heads are block ``q_b.index``); None on one
+    device, where the call is whole."""
+    whole = sharding.whole_step(b)
+    cut = sharding.is_model_shard(q_b)
+    if whole is None and not cut:
+        return None
+    if whole is None:
+        pos = position.to(torch.int32).reshape(-1).expand(b).contiguous()
+        lens = lengths if lengths is not None else torch.full(
+            (b,), cw, dtype=torch.int32, device=position.device)
+        whole = (pos, lens, 0)
+    parts, index = (q_b.parts, q_b.index) if cut else (1, 0)
+    return MlaPlan(whole[0], whole[1], whole[2], h * parts, h * index)
 
 
 def mla_cache_shape(cfg: ModelConfig, batch: int, seq: int):

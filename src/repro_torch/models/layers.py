@@ -57,6 +57,16 @@ def linear_apply(p: Params, x: torch.Tensor, fmt: str = "none", *,
     projections), kept, with the bias's matching block."""
     shard = sharding.is_model_shard(p)
     if fmt == "none":
+        if sharding.is_dtensor(x):
+            # A training mesh: the weight's in-features gathered (FSDP),
+            # a batched product over x's leading dim (so that its cut
+            # batch and sequence dims are never merged into one) and its
+            # pending sums reduced, so the rows stay cut as x's are.
+            wt = sharding.feature_whole(p["w"]).to(x.dtype).T
+            y = torch.bmm(x, wt.expand(x.shape[0], *wt.shape)) \
+                if x.ndim == 3 else x @ wt
+            y = sharding.reduced(y)
+            return y + p["b"].to(y.dtype) if "b" in p else y
         y = x @ p["w"].to(x.dtype).T
     else:
         y = kops.quantized_matmul(x, {k: v for k, v in p.items() if k != "b"},
@@ -130,6 +140,10 @@ def embedding_lookup(p: Params, tokens: torch.Tensor, fmt: str = "none",
     """Gather rows, dequantizing just the gathered rows for quant formats.
     ``width``: original embedding width (dequant may return K-quant padded
     rows; sliced back here)."""
+    if sharding.is_dtensor(tokens):
+        # On a training mesh the table's feature axis is gathered first
+        # (FSDP), so the rows come out cut as the tokens are.
+        p = {k: sharding.feature_whole(v) for k, v in p.items()}
     if fmt == "none" or fmt == "fp16":
         # Gather, then cast: the same values as casting the whole table
         # first, without converting every row of it on every step.
@@ -177,9 +191,8 @@ def mrope_cos_sin(positions_3d: torch.Tensor, head_dim: int, theta: float,
     assert sum(sections) == head_dim // 2, (sections, head_dim)
     dev = positions_3d.device
     freqs = rope_freqs(head_dim, theta, dev)                 # (D/2,)
-    sec_id = torch.repeat_interleave(
-        torch.arange(len(sections), device=dev),
-        torch.tensor(sections, device=dev))                  # (D/2,)
+    sec_id = torch.tensor([i for i, n in enumerate(sections)
+                           for _ in range(n)], device=dev)   # (D/2,)
     pos = positions_3d.to(torch.float32)[..., sec_id]        # (B, S, D/2)
     return _cos_sin(pos * freqs)
 
@@ -283,7 +296,20 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     0`` (f32 log-sum-exp minus the gold logit; the JAX loss's masked
     mean, which divides by at least 1)."""
     lf = logits.to(torch.float32)
-    logz = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    idx = labels.clamp(min=0).long()[..., None]
+    if sharding.is_dtensor(lf):
+        # A training mesh's vocab-sharded logits: the log-sum-exp from
+        # per-block maxima and sums, the gold logit as a masked sum over
+        # each rank's vocab block (a whole-vocab row, or a gather and its
+        # whole-vocab scatter, would be gathered on every rank).
+        whole = sharding.reduced
+        m = whole(lf.detach().amax(dim=-1, keepdim=True))
+        logz = (m + torch.log(whole(torch.exp(lf - m).sum(
+            -1, keepdim=True))))[..., 0]
+        hit = idx == sharding.iota_like(lf, -1)
+        gold = whole(torch.where(hit, lf, torch.zeros_like(lf)).sum(-1))
+    else:
+        logz = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, idx)[..., 0]
     mask = (labels >= 0).to(torch.float32)
     return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)

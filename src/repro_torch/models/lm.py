@@ -36,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
 from repro_torch.models.layers import Params
+from repro_torch.parallel import sharding
 
 
 def _mixer_kind(cfg: ModelConfig, li: int) -> str:
@@ -283,17 +284,22 @@ def lm_forward(params, cfg: ModelConfig, batch: Dict, *, quant="none",
 
     ``remat`` (training): each entry of a layer group — one layer, or
     one jamba block of 8 sub-layers, the JAX package's scanned body —
-    runs under ``layers.remat``. ``act_sharding`` (sequence-parallel
-    activation constraints) needs a training mesh: only None (ROADMAP
-    A17b)."""
-    if act_sharding is not None:
-        raise NotImplementedError("act_sharding needs a training mesh: "
-                                  "ROADMAP A17b")
+    runs under ``layers.remat``. ``act_sharding``: the residual's DTensor
+    placements on a training mesh (``sharding.activation_sharding``);
+    the residual is redistributed to them after the embedding and after
+    each group entry, where the JAX package constrains it, and each
+    entry takes it with the sequence whole (``sharding.sequence_whole``:
+    an eager step has no partitioner to pick the layout inside a layer).
+    Off a mesh (plain tensors) it changes nothing, as
+    ``with_sharding_constraint`` changes no value."""
     fmt = layers.recipe_for(quant)["linear"]
     h, rope = _embed_inputs(params, cfg, batch, quant)
+    h = sharding.constrain(h, act_sharding)
+    whole = sharding.sequence_whole(act_sharding)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for name, _, subs in layer_groups(cfg):
         def body(h, lp, subs=subs):
+            h = sharding.constrain(h, whole)
             aux_g = torch.zeros((), dtype=torch.float32, device=h.device)
             for j, (mixer, ffn) in enumerate(subs):
                 sub = lp if len(subs) == 1 else lp[f"sub{j}"]
@@ -301,11 +307,12 @@ def lm_forward(params, cfg: ModelConfig, batch: Dict, *, quant="none",
                                      fmt=fmt)
                 if aux is not None:
                     aux_g = aux_g + aux
-            return h, aux_g
+            return sharding.constrain(h, act_sharding), aux_g
         body = layers.remat(body, remat)
         for lp in params[name]:
             h, aux = body(h, lp)
             aux_total = aux_total + aux
+    h = sharding.constrain(h, whole)
     h = layers.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
     return _lm_head(params, cfg, h, quant), aux_total
 
@@ -320,14 +327,19 @@ def lm_loss(params, cfg: ModelConfig, batch: Dict, *, quant="none",
     return layers.cross_entropy(logits, batch["labels"]) + coef * aux
 
 
-def lm_prefill(params, cfg: ModelConfig, batch: Dict, *, quant="none"):
+def lm_prefill(params, cfg: ModelConfig, batch: Dict, *, quant="none",
+               act_sharding=None):
     """Prefill: returns (last-token logits (B, 1, V), caches) with caches
     ``{group: {"k": (layers, B, S, Hkv, D), "v": ...}}`` (MLA:
     ``{"ckv": (layers, B, S, rank), "krope": ...}``; SSM: ``{"conv":
     (layers, B, K-1, conv_dim), "ssm": (layers, B, H, N, P)}``; jamba:
-    ``{"blocks": {"sub{i}": ...}}``), the JAX package's stacked layout."""
+    ``{"blocks": {"sub{i}": ...}}``), the JAX package's stacked layout.
+    ``act_sharding`` as ``lm_forward``'s: the embedded residual is
+    redistributed to it on a training mesh."""
     fmt = layers.recipe_for(quant)["linear"]
     h, rope = _embed_inputs(params, cfg, batch, quant)
+    h = sharding.constrain(h, act_sharding)
+    h = sharding.constrain(h, sharding.sequence_whole(act_sharding))
     caches = {}
     for name, _, subs in layer_groups(cfg):
         per_sub = [[] for _ in subs]

@@ -143,7 +143,8 @@ def route(p: Params, cfg: ModelConfig, xt: torch.Tensor):
     flat_gate = gate_w.reshape(-1)
     order = torch.argsort(flat_expert, stable=True)
     sorted_expert = flat_expert[order]
-    group_sizes = torch.bincount(sorted_expert, minlength=n_exp)
+    group_sizes = torch.zeros((n_exp,), dtype=torch.long, device=dev) \
+        .scatter_add_(0, sorted_expert, torch.ones_like(sorted_expert))
 
     cap = max(int(e.capacity_factor * t * k / n_exp + 0.999), 4)
     offsets = torch.cumsum(group_sizes, 0) - group_sizes  # (E,) exclusive
@@ -163,8 +164,14 @@ def route(p: Params, cfg: ModelConfig, xt: torch.Tensor):
 
 
 def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
-              fmt: str = "none"):
-    """x: (B, S, d) -> ((B, S, d), load-balance aux loss)."""
+              fmt: str = "none", every_expert: bool = False):
+    """x: (B, S, d) -> ((B, S, d), load-balance aux loss).
+    ``every_expert``: run every expert's product, not only those that got
+    a token (a training mesh's, whose counts have no values on the
+    dry-run's fake tensors; the JAX package's capacity dispatch computes
+    them all)."""
+    if sharding.is_dtensor(x):
+        return _moe_sharded(p, cfg, x, fmt)
     e = cfg.moe
     b, s, d = x.shape
     n_exp = e.num_experts
@@ -179,7 +186,8 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
 
     # Experts that received a token; every other expert's slots hold the
     # dummy zero row, whose output is exactly 0.
-    active = torch.nonzero(group_sizes).flatten()
+    active = torch.arange(n_exp, device=x.device) if every_expert \
+        else torch.nonzero(group_sizes).flatten()
     ye = torch.zeros((n_exp, cap, d), dtype=torch.bfloat16, device=x.device)
     step = _group(e.moe_d_ff, d)
     for a0 in range(0, active.numel(), step):
@@ -208,6 +216,53 @@ def moe_apply(p: Params, cfg: ModelConfig, x: torch.Tensor, *,
     if "shared" in p:
         out = out + layers.swiglu_apply(p["shared"], x_rows, fmt)
     return out.reshape(b, s, d), aux
+
+
+def _moe_sharded(p: Params, cfg: ModelConfig, x, fmt: str):
+    """``moe_apply`` on a training mesh (DTensors): each 'data' replica
+    routes its own rows, whole over 'model', against the expert banks
+    made whole over the DP axes (FSDP's all-gather) with the expert
+    hidden axis cut over 'model' (TP: gate/up column blocks, down row
+    blocks, whose partial sums are all-reduced); a quantized bank's
+    planes are gathered whole. The load-balance loss is the mean of the
+    replicas' own. The shared experts run on the DTensor rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    model = [n == "model" for n in names]
+    tp = fmt == "none"
+    dp = 1
+    for i, m in enumerate(model):
+        dp *= 1 if m else mesh.size(i)
+    cut = x.shape[0] % dp == 0          # a batch too small stays whole
+    rows = [Shard(0) if cut and not m else Replicate() for m in model]
+
+    # The planes as one flat argument list: (group, plane) keys in order.
+    keys = [(k, n) for k in ("router", "gate", "up", "down") for n in p[k]]
+    in_pl = [rows] + [
+        [Replicate()] * len(names) if k == "router" else
+        [Shard(1 if k != "down" else 2) if m and tp else Replicate()
+         for m in model] for k, _ in keys]
+
+    def local(xl, *planes):
+        pl: Dict[str, Params] = {}
+        for (k, n), t in zip(keys, planes):
+            pl.setdefault(k, {})[n] = t
+        return moe_apply(pl, cfg, xl, fmt=fmt, every_expert=True)
+    out_pl = [Partial() if m and tp else
+              (Shard(0) if cut and not m else Replicate()) for m in model]
+    aux_pl = [Partial("avg") if cut and not m else Replicate()
+              for m in model]
+    y, aux = local_map(
+        local, out_placements=(out_pl, aux_pl), in_placements=tuple(in_pl),
+        redistribute_inputs=True)(x, *(p[k][n] for k, n in keys))
+    y = sharding.reduced(y)
+    if "shared" in p:
+        b, s, d = x.shape
+        y = y + layers.swiglu_apply(p["shared"], x.reshape(b * s, d),
+                                    fmt).reshape(b, s, d)
+    return y, sharding.reduced(aux)
 
 
 def _whole(bank: Params, y: torch.Tensor) -> torch.Tensor:

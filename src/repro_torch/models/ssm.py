@@ -25,8 +25,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import layers
+from repro_torch.models import flags, layers
 from repro_torch.models.layers import Params
+from repro_torch.parallel import sharding
 
 
 def _dims(cfg: ModelConfig):
@@ -104,10 +105,42 @@ def _heads(t: torch.Tensor, groups: int, n: int, rep: int) -> torch.Tensor:
     return t.repeat_interleave(rep, dim=-2)
 
 
+def _bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 and held in f32 (an exact bf16 operand)."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _ssd_sharded(x, dt, a, bmat, cmat, chunk: int):
+    """``ssd_chunked`` on a training mesh (DTensor x): each rank runs its
+    own (batch, head) block, B and C first repeated over each group's
+    heads so that they cut as x does (the same products)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    x = sharding.evenly(x)
+    h, g = x.shape[2], bmat.shape[2]
+    bmat, cmat = (m[:, :, :, None].expand(*m.shape[:3], h // g, m.shape[-1])
+                  .reshape(*m.shape[:2], h, m.shape[-1])
+                  for m in (bmat, cmat))
+    xp = list(x.placements)
+    heads = [Shard(0) if isinstance(p, Shard) and p.dim == 2 else
+             Replicate() for p in xp]
+    state = [Shard(1) if isinstance(p, Shard) and p.dim == 2 else p
+             for p in xp]
+    return local_map(
+        lambda x, dt, a, bm, cm: ssd_chunked(x, dt, a, bm, cm, chunk),
+        out_placements=(xp, state),
+        in_placements=(xp, xp, heads, xp, xp),
+        redistribute_inputs=True)(x, dt, a, bmat, cmat)
+
+
 def ssd_chunked(x, dt, a, bmat, cmat, chunk: int):
     """SSD forward in f32. x: (B, L, H, P); dt: (B, L, H); a: (H,)
     (negative); bmat/cmat: (B, L, G, N) broadcast to heads. Returns
-    (y (B, L, H, P) f32, final state (B, H, N, P) f32)."""
+    (y (B, L, H, P) f32, final state (B, H, N, P) f32). Under
+    ``flags.mixed_intermediates()`` the products take bf16 operands (f32
+    accumulation), as the JAX package's."""
+    if sharding.is_dtensor(x):
+        return _ssd_sharded(x, dt, a, bmat, cmat, chunk)
     b, l, h, p = x.shape
     g, n = bmat.shape[2], bmat.shape[3]
     assert h % g == 0
@@ -122,25 +155,28 @@ def ssd_chunked(x, dt, a, bmat, cmat, chunk: int):
         bmat = F.pad(bmat, (0, 0, 0, 0, 0, pad))
         cmat = F.pad(cmat, (0, 0, 0, 0, 0, pad))
     f32 = torch.float32
-    xc = x.reshape(b, nc, chunk, h, p).to(f32)
+    # flags.mixed_intermediates(): the products' operands rounded to bf16
+    # where the JAX package casts them (f32 accumulation either way).
+    lo = _bf16_round if flags.mixed_intermediates() else (lambda t: t)
+    xc = lo(x.reshape(b, nc, chunk, h, p).to(f32))
     dtc = dt.reshape(b, nc, chunk, h).to(f32)
-    bc = bmat.reshape(b, nc, chunk, h, n).to(f32)
-    cc = cmat.reshape(b, nc, chunk, h, n).to(f32)
+    bc = lo(bmat.reshape(b, nc, chunk, h, n).to(f32))
+    cc = lo(cmat.reshape(b, nc, chunk, h, n).to(f32))
 
     cum = torch.cumsum(dtc * a, dim=2)                      # (B, C, c, H)
     # Intra-chunk quadratic term: decay(i, j) = exp(cum_i - cum_j), i >= j.
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (B,C,i,j,H)
     ii = torch.arange(chunk, device=x.device)
     causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
-    decay = torch.where(causal, torch.exp(seg), torch.zeros_like(seg))
-    scores = torch.einsum("bcihn,bcjhn->bcijh", cc, bc) * decay
+    decay = lo(torch.where(causal, torch.exp(seg), torch.zeros_like(seg)))
+    scores = lo(lo(torch.einsum("bcihn,bcjhn->bcijh", cc, bc)) * decay)
     y = torch.einsum("bcijh,bcjhp->bcihp",
-                     scores * dtc[:, :, None, :, :], xc)
+                     scores * lo(dtc)[:, :, None, :, :], xc)
 
     # Chunk-final states: S_c = sum_j exp(cum_last - cum_j) dt_j B_j x_j^T.
     decay_states = torch.exp(cum[:, :, -1:, :] - cum)       # (B,C,c,H)
     states = torch.einsum("bcjhn,bcjhp->bchnp",
-                          bc * (decay_states * dtc)[..., None], xc)
+                          bc * lo(decay_states * dtc)[..., None], xc)
 
     # Inter-chunk recurrence over chunks: the state entering each chunk.
     chunk_decay = torch.exp(cum[:, :, -1, :])               # (B, C, H)
@@ -153,7 +189,7 @@ def ssd_chunked(x, dt, a, bmat, cmat, chunk: int):
 
     # Contribution of the incoming state to each position.
     y_state = torch.einsum("bcihn,bchnp->bcihp",
-                           cc * torch.exp(cum)[..., None], s_prevs)
+                           cc * lo(torch.exp(cum))[..., None], lo(s_prevs))
     y = (y + y_state).reshape(b, nc * chunk, h, p)[:, :l]
     return y, s
 

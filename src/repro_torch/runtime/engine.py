@@ -177,22 +177,23 @@ class ServeReport:
 
 
 def mla_plan_note(model: ModelAPI, *, dp: int, tp: int, device, paged: bool,
-                  paged_attn: str, pages_dtype, chunk: int) -> Optional[str]:
-    """Why the paged MLA kernel (B9) on a rank of a ``dp`` x ``tp``
-    serving mesh may split a row's page walk otherwise than one device
-    does, so that the mesh's tokens are one device's only up to
-    near-ties; None where its rows are one device's bit for bit (every
-    other kernel's are: B1/B8 plan from G, B2's family from the
-    unsharded shape). Only the card's fused paged path runs B9."""
+                  paged_attn: str, pages_dtype) -> Optional[str]:
+    """Why the paged MLA kernel on a rank of a ``dp`` x ``tp`` serving
+    mesh may split a row's page walk otherwise than one device does, so
+    that the mesh's tokens are one device's only up to near-ties; None
+    where its rows are one device's bit for bit. The tensor-core MLA
+    kernel (B9, bf16 or int8 pages) plans from the whole step
+    (``paged_attention.MlaPlan``), as every other kernel plans from the
+    unsharded shape, so only the CUDA-core MLA kernel (f32 pages, on no
+    serving path) gets a note. Only the card's fused paged path runs
+    them."""
     if (dp, tp) == (1, 1) or model.cfg.mla is None or not paged \
             or paged_attn != "fused" or torch.device(device).type != "cuda":
         return None
     if pages_dtype == torch.float32:
         return ("the CUDA-core MLA kernel (f32 pages) picks its split from "
                 "its shard's rows")
-    return paged_attention.mla_split_exact(
-        chunk, model.cfg.num_heads // tp, tp, dp,
-        paged_attention.mla_tc_row_tile())
+    return None
 
 
 class ServingEngine:
@@ -328,12 +329,12 @@ class ServingEngine:
         self.plan_note = mla_plan_note(
             model, dp=self.dp, tp=self.tp, device=self.device,
             paged=self.paged, paged_attn=paged_attn,
-            pages_dtype=pages_dtype, chunk=self.chunk_size)
+            pages_dtype=pages_dtype)
         if spec == "draft" and self.plan_note is None:
             self.plan_note = mla_plan_note(
                 spec_draft_model, dp=1, tp=self.tp, device=self.device,
                 paged=self.paged, paged_attn=paged_attn,
-                pages_dtype=pages_dtype, chunk=self.chunk_size)
+                pages_dtype=pages_dtype)
         self._spec_ctrl = speculative.SpecController(k_max=self.spec_k) \
             if spec != "off" else None
         self._proposer = speculative.make_proposer(
@@ -656,7 +657,9 @@ class ServingEngine:
             ledger.charge("prefill", "acts", "h2d", vision[2])
         buffers = self.arena.buffers if self.mesh is None \
             else self.arena.local_buffers(lo, hi)
-        with sharding.activation_mesh(self.mesh, data_local=True):
+        whole = (put(pos0), put(lens)) if self.dp > 1 else None
+        with sharding.activation_mesh(self.mesh, data_local=True,
+                                      whole_step=whole):
             logits, _ = self.model.decode_step(
                 self.params, tokens_t, put(pos0[lo:hi]), buffers,
                 quant=self.quant, block_tables=dev_tables, lengths=lens_t,

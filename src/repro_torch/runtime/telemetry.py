@@ -858,7 +858,7 @@ def serve_report_lines(engine, report,
                  f"/step ({col.get('bytes', 0) / steps / 1e6:.3f} MB/step "
                  f"a rank, {col.get('staged', 0)} staged through host)")
         if getattr(engine, "plan_note", None):
-            line += (f" | B9 not shard-invariant: {engine.plan_note} "
+            line += (f" | MLA split not shard-invariant: {engine.plan_note} "
                      "(tokens one device's up to near-ties)")
         lines.append(line)
     lines.append("transfer ledger (host<->device):")

@@ -60,9 +60,13 @@ def _is_float(x: torch.Tensor) -> bool:
 
 
 def adamw_init(params) -> Dict:
+    """Zero f32 moments shaped (and, for DTensor parameters on a training
+    mesh, placed) as each float parameter; an f32 scalar for any other
+    leaf; the int32 step."""
     def zeros(p):
-        return torch.zeros(p.shape if _is_float(p) else (),
-                           dtype=torch.float32, device=p.device)
+        if _is_float(p):
+            return torch.zeros_like(p, dtype=torch.float32)
+        return torch.zeros((), dtype=torch.float32, device=p.device)
     device = tree_leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=device)}

@@ -11,8 +11,10 @@ optimizer: what a cross-replica reduction would move). The gradient is
 ``jax.value_and_grad``); on the card the attention's forward is the
 flash kernel and its backward ``kernels.flash_attention``'s plain f32
 backward; every linear of an unquantized model is a bf16 product, as in
-JAX. Sequence-parallel ``act_sharding`` needs a training mesh (ROADMAP
-A17b).
+JAX. On a training mesh (DTensor parameters placed per
+``sharding.param_specs``, ``act_sharding`` the residual's placements,
+the step run under ``sharding.ShardedRun``) each gradient is placed as
+its parameter before AdamW, whose moments are placed the same way.
 
 Only float parameters train: with quantized parameters (integer code
 planes) the step raises ``TypeError`` naming those leaves before any
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.models.api import ModelAPI
+from repro_torch.parallel import sharding
 from repro_torch.train import optimizer as opt
 
 
@@ -52,9 +55,19 @@ def _value_and_grad(loss_fn: Callable, params, batch):
     order = opt.tree_leaves(leaves)
     loss = loss_fn(leaves, batch)
     grads = torch.autograd.grad(loss, order, allow_unused=True)
-    it = iter(g if g is not None else torch.zeros_like(p)
+    it = iter(_placed(g, p) if g is not None else torch.zeros_like(p)
               for g, p in zip(grads, order))
     return loss.detach(), opt.tree_map(lambda _: next(it), params)
+
+
+def _placed(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor parameter's gradient placed as the parameter (its
+    pending sums reduce-scattered onto the parameter's shards: FSDP's
+    gradient reduction); any other gradient as it is."""
+    if not sharding.is_dtensor(p) or tuple(g.placements) == \
+            tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def make_train_step(model: ModelAPI, train_cfg: TrainConfig,

@@ -1215,52 +1215,64 @@ def test_paged_attention_shards_match_whole_call(cuda, dtype, kv):
         assert torch.equal(y, whole[rows][:, :, heads])
 
 
-# (slots, chunk entries, head blocks) of deepseek-v3's 128 heads whose
-# B9 split is the whole call's (``mla_split_exact``), every slot walking
-# 2,048 keys, so the SM count sets the split: decode cut in 8 (132 SMs do
-# not divide by 8; each shard plans on ``mla_shard_sms`` of them, 66, and
-# takes the whole call's 16 key tiles a split where all 132 would give
-# 8) and 2 slots of chunks of 8 cut in 2 (64-head shards fill whole row
-# tiles; 4 splits a tile).
-MLA_SHARD_CASES = [(8, 1, 8), (2, 8, 2)]
+# (slots, chunk entries, head blocks, 'data' blocks) of deepseek-v3's 128
+# heads, each shard launched with the whole call's plan inputs
+# (``MlaPlan``): decode cut in 8 head blocks, every slot walking 2,048
+# keys (the SM count sets the split); 2 slots of chunks of 8 cut in 2, 4
+# and of chunks of 4 in 8 (a shard's rows then share a 64-row tile of the
+# whole call with other shards' rows, or fill half or a quarter of one);
+# and two 'data' halves of 8 slots of chunks of 8 at unequal depths (the
+# split follows every slot's depth).
+MLA_SHARD_CASES = [(8, 1, 8, 1), (2, 8, 2, 1), (2, 8, 4, 1), (2, 4, 8, 1),
+                   (8, 8, 1, 2)]
 
 
-def _mla_shards(dev, pages, slots, chunk, parts):
-    """(whole, [(valid rows, heads, shard output)]) of the MLA form at
+def _mla_shards(dev, pages, slots, chunk, parts, data):
+    """(whole, [(slots, heads, shard output)]) of the MLA form at
     deepseek-v3's widths, every slot owning 128 pages of 16 and its
-    chunk ending at the last, cut into ``parts`` head blocks over the
-    same latent pages, each launched with ``plan_parts``."""
+    chunk ending at its depth (2,048 keys on one 'data' block, unequal
+    depths on more), cut into ``data`` slot blocks x ``parts`` head
+    blocks over the same latent pages, each launched with the whole
+    call's ``MlaPlan``."""
+    from repro_torch.kernels.paged_attention import MlaPlan
     c = _mla_case(dev, slots, chunk, 128, 512, 64, 16, 128, pages=pages,
                   seed=7)
     c["tables"] = torch.arange(slots * 128, dtype=torch.int32,
                                device=dev).reshape(slots, 128)
-    c["pos"] = (2048 - c["lens"]).to(torch.int32)
+    depth = np.full(slots, 2048) if data == 1 else \
+        np.random.RandomState(slots + chunk).randint(chunk, 2049, slots)
+    c["pos"] = torch.from_numpy((depth - c["np_lens"]).astype(
+        np.int32)).to(dev)
     whole = _mla_run(c)
-    g = 128 // parts
+    g, nb = 128 // parts, slots // data
     out = []
-    for i in range(parts):
-        heads = slice(i * g, (i + 1) * g)
-        y = paged_decode_attention(
-            c["q"][:, :, heads].contiguous(), c["k"], None, c["tables"],
-            c["pos"], sm_scale=c["sm"], lengths=c["lens"],
-            q2=c["q2"][:, :, heads].contiguous(), k2_pages=c["k2"],
-            plan_parts=(1, parts), **c["scales"])
-        out.append((c["np_lens"], heads, y))
-    return whole, out
+    for d in range(data):
+        rows = slice(d * nb, (d + 1) * nb)
+        part = lambda t: t[rows].contiguous()      # noqa: E731
+        for i in range(parts):
+            heads = slice(i * g, (i + 1) * g)
+            y = paged_decode_attention(
+                part(c["q"])[:, :, heads].contiguous(), c["k"], None,
+                part(c["tables"]), part(c["pos"]), sm_scale=c["sm"],
+                lengths=part(c["lens"]),
+                q2=part(c["q2"])[:, :, heads].contiguous(),
+                k2_pages=c["k2"],
+                mla_plan=MlaPlan(c["pos"], c["lens"], d * nb, 128, i * g),
+                **c["scales"])
+            out.append((rows, heads, y))
+    return whole, c["np_lens"], out
 
 
 @pytest.mark.parametrize("pages", ["bfloat16", "int8"])
-@pytest.mark.parametrize("slots,chunk,parts", MLA_SHARD_CASES)
+@pytest.mark.parametrize("slots,chunk,parts,data", MLA_SHARD_CASES)
 def test_paged_attention_mla_shards_match_whole_call(cuda, pages, slots,
-                                                     chunk, parts):
+                                                     chunk, parts, data):
     """B9 on a head shard (its query heads over the replicated latent
-    pages), launched with ``plan_parts``: its valid rows bit for bit the
-    whole call's."""
-    from repro_torch.kernels import paged_attention as pa
-    assert pa.mla_split_exact(chunk, 128 // parts, parts, 1,
-                              pa.mla_tc_row_tile()) is None
-    whole, shards = _mla_shards(cuda, pages, slots, chunk, parts)
+    pages) or a 'data' block of slots, launched with the whole call's
+    ``MlaPlan``: its valid rows bit for bit the whole call's."""
+    whole, lens, shards = _mla_shards(cuda, pages, slots, chunk, parts,
+                                      data)
     torch.cuda.synchronize()
-    for lens, heads, y in shards:
-        for b, n in enumerate(lens):
-            assert torch.equal(y[b, :n], whole[b, :n, heads])
+    for rows, heads, y in shards:
+        for b, n in enumerate(lens[rows]):
+            assert torch.equal(y[b, :n], whole[rows][b, :n, heads])

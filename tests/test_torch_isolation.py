@@ -2,7 +2,9 @@
 fallback, no kernel build on the CPU path.
 
 * Every module of ``repro_torch`` imports in a fresh interpreter in which
-  ``import jax`` and ``import repro`` fail.
+  ``import jax`` and ``import repro`` fail (the dry-run and analysis
+  modules included), and importing them leaves no process group (the
+  dry-run's fake group lives only inside ``make_production_mesh``).
 * A source scan finds no JAX import and no import of the ``repro``
   package in ``src/repro_torch`` or ``chip_smoke.py``.
 * The CPU path (a reduced model's decode step under every recipe and on
@@ -52,6 +54,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
         "for n in names:\n"
         "    importlib.import_module(n)\n"
         "assert 'jax' not in [k for k, v in sys.modules.items() if v]\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized()\n"
         "print(' '.join(names))\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -67,7 +71,12 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                 "repro_torch.train.optimizer", "repro_torch.train.trainer",
                 "repro_torch.train.checkpoint", "repro_torch.train.elastic",
                 "repro_torch.configs.llama3_405b",
-                "repro_torch.parallel.sharding", "repro_torch.launch.mesh"):
+                "repro_torch.parallel.sharding", "repro_torch.launch.mesh",
+                "repro_torch.launch.dryrun", "repro_torch.analysis.roofline",
+                "repro_torch.analysis.extrapolate",
+                "repro_torch.analysis.report", "repro_torch.analysis.power",
+                "repro_torch.configs.shapes", "repro_torch.models.flags",
+                "repro_torch.core.qlinear", "repro_torch.core.coalesce"):
         assert mod in names
 
 

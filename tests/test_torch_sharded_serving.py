@@ -8,7 +8,7 @@ the serve CLI's mesh flag matrix refuse with the JAX messages; the
 per-device transfer ledger closes as the JAX ledger's does; per-replica
 scheduler stats; ``page_layout()``'s accounting; every rank's
 parameter slices concatenate back to the whole leaf bit for bit; and the
-paged MLA kernel's shard rule (``mla_shard_sms``/``mla_split_exact``)
+paged MLA kernel's whole-call plan on every shard (``MlaPlan``)
 against a model of the kernel's split planner.
 """
 import argparse
@@ -345,21 +345,45 @@ def test_param_slices_concatenate_to_the_whole(arch, quant):
 # The paged MLA kernel's (B9's) page-walk split on a shard
 # ----------------------------------------------------------------------
 # A model of the tensor-core MLA kernel's planner (csrc/paged_attention.cu,
-# ``walk_keys``, ``per_floor`` and the binary search of
+# ``walk_keys``, ``shard_rows``, ``per_floor`` and the binary search of
 # ``paged_mla_tc_kernel``; KT keys a tile, at most MAX_SPLITS splits a
-# row tile): the (walk keys, key tiles a split, splits) every live row of
-# a call takes. A row's output is fixed by them.
+# row tile): the (walk keys, key tiles a split, splits) every row of a
+# call takes, keyed by its (slot, chunk entry, head) in the whole call. A
+# row's output is fixed by them. A shard of slots [slot0, slot0 + b) and
+# heads [g0, g0 + g) plans from the whole call's positions and lengths
+# (``MlaPlan``) and walks only the whole call's row tiles that hold its
+# rows.
 MLA_KT, MLA_MAX_SPLITS = 16, 16
 
 
-def _mla_row_splits(c, g, pos, lens, mb, bs, sms, rt, head0=0):
+def _mla_shard_rows(tile, c, g, gw, g0, rt):
+    """``shard_rows``: the shard's run [x, x + y) of its c * g rows in
+    whole-call row tile ``tile``."""
+    w0, w1 = tile * rt, min(tile * rt + rt, c * gw)
+    first, count = 0, 0
+    i = w0 // gw
+    while i * gw < w1:
+        lo, hi = max(w0, i * gw + g0), min(w1, i * gw + g0 + g)
+        if lo < hi:
+            if count == 0:
+                first = i * g + lo - i * gw - g0
+            count += hi - lo
+        i += 1
+    return first, count
+
+
+def _mla_row_splits(c, gw, pos, lens, mb, bs, sms, rt, slot0=0, b=None,
+                    g=None, g0=0):
+    b = len(lens) if b is None else b
+    g = gw if g is None else g
+
     def walk_keys(tile, pos0, n):
         n1 = max(n, 1)
-        if tile * rt // g >= n1:
+        if tile * rt // gw >= n1:
             return 0
-        end = min((tile * rt + rt - 1) // g + 1, c)
+        end = min((tile * rt + rt - 1) // gw + 1, c)
         return min(pos0 + min(end, n1), mb * bs)
-    tiles = -(-c * g // rt)
+    tiles = -(-c * gw // rt)
     walks = [[walk_keys(t, p, n) for t in range(tiles)]
              for p, n in zip(pos, lens)]
     off = [-(-w // MLA_KT) for ws in walks for w in ws]
@@ -375,69 +399,104 @@ def _mla_row_splits(c, g, pos, lens, mb, bs, sms, rt, head0=0):
         else:
             per = mid + 1
     out = {}
-    for b, n in enumerate(lens):
-        for t, w in enumerate(walks[b]):
+    items = 0
+    for bw in range(slot0, slot0 + b):
+        for t, w in enumerate(walks[bw]):
+            first, count = _mla_shard_rows(t, c, g, gw, g0, rt)
             nt = -(-w // MLA_KT)
             live = -(-nt // per)
-            for r in range(t * rt, min(t * rt + rt, c * g)):
-                if r // g < max(n, 1):
-                    out[(b, r // g, head0 + r % g)] = (
-                        w, -(-nt // live) if live else 0, live)
+            items += live if count else 0
+            for r in range(first, first + count):
+                key = (bw, r // g, g0 + r % g)
+                assert key not in out, key      # every row walked once
+                if r // g < max(lens[bw], 1):
+                    out[key] = (w, -(-nt // live) if live else 0, live)
+    assert items <= sms                 # the cooperative launch's bound
     return out
 
 
 def test_mla_shard_split_is_the_whole_calls():
-    """Random steps (chunks of 1-16 entries, 4-256 heads, 2-8 head
-    blocks, 7-132 SMs): wherever ``mla_split_exact`` says so, every head
-    shard launched on ``mla_shard_sms`` SMs splits each row's walk as the
-    whole call does; where it does not, some step tells them apart."""
+    """Random steps (chunks of 1-16 entries, 4-256 heads, 1-8 head
+    blocks, 1-4 'data' blocks, 7-132 SMs): every shard launched with the
+    whole call's plan inputs splits each of its rows' walk as the whole
+    call does, and its row runs cover each of its rows once."""
     from repro_torch.kernels import paged_attention as pa
     rt = pa.mla_tc_row_tile()
     rng = np.random.RandomState(0)
-    exact = differs = 0
-    for _ in range(400):
+    cases = 0
+    for _ in range(300):
         c = int(rng.choice([1, 2, 4, 5, 8, 16]))
         gw = int(rng.choice([4, 8, 20, 32, 64, 128, 256]))
-        parts = int(rng.choice([d for d in (2, 4, 8) if gw % d == 0]))
-        b, bs, mb = int(rng.randint(1, 9)), 16, int(rng.randint(1, 160))
-        lens = rng.randint(1, c + 1, b)
-        pos = [int(rng.randint(0, mb * bs - n + 1)) for n in lens]
+        parts = int(rng.choice([d for d in (1, 2, 4, 8) if gw % d == 0]))
+        data = int(rng.choice([1, 2, 4]))
+        b, bs = data * int(rng.randint(1, 5)), 16
+        mb = int(rng.randint(1, 160))
+        lens = rng.randint(0, c + 1, b)
+        pos = [int(rng.randint(0, mb * bs - max(n, 1) + 1)) for n in lens]
         sms = int(rng.choice([7, 114, 128, 132]))
-        whole = _mla_row_splits(c, gw, pos, lens, mb, bs, sms, rt)
-        g = gw // parts
+        try:
+            whole = _mla_row_splits(c, gw, pos, lens, mb, bs, sms, rt)
+        except AssertionError:
+            continue                    # more items than SMs: no launch
+        g, nb = gw // parts, b // data
         shards = {}
-        for m in range(parts):
-            shards.update(_mla_row_splits(
-                c, g, pos, lens, mb, bs,
-                pa.mla_shard_sms(sms, c, g, parts, rt), rt, m * g))
-        if pa.mla_split_exact(c, g, parts, 1, rt) is None:
-            assert shards == whole, (c, gw, parts, sms)
-            exact += 1
-        else:
-            differs += shards != whole
-    assert exact > 100 and differs > 0
-    assert pa.mla_split_exact(4, 64, 1, 2, rt) is not None   # 'data'
+        for d in range(data):
+            for m in range(parts):
+                shards.update(_mla_row_splits(c, gw, pos, lens, mb, bs, sms,
+                                              rt, d * nb, nb, g, m * g))
+        assert shards == whole, (c, gw, parts, data, sms)
+        cases += 1
+    assert cases > 200
 
 
 def test_mla_plan_note():
-    """deepseek-v3 (128 heads) on the card's fused path: no note at
-    tp 2 (64-head shards fill whole row tiles); a note at tp 8 with
-    chunks, at dp 2, and on f32 pages; none on the CPU, on the ref
-    path or for GQA models."""
+    """deepseek-v3 (128 heads) on the card's fused path: B9 plans from
+    the whole step, so no note on bf16 or int8 pages at any tp or dp
+    with chunks; a note on f32 pages (the CUDA-core kernel); none on the
+    CPU, on the ref path or for GQA models."""
     from repro_torch.runtime.engine import mla_plan_note
     ds = build_model(get_config("deepseek-v3-671b"))
     qw = build_model(get_config("qwen3-0.6b"))
     cuda = torch.device("cuda")
     kw = dict(device=cuda, paged=True, paged_attn="fused",
-              pages_dtype=torch.bfloat16, chunk=8)
-    assert mla_plan_note(ds, dp=1, tp=2, **kw) is None
-    assert mla_plan_note(ds, dp=1, tp=8, **dict(kw, chunk=1)) is None
-    assert mla_plan_note(ds, dp=1, tp=8, **kw) is not None
-    assert "'data' replica" in mla_plan_note(ds, dp=2, tp=1, **kw)
+              pages_dtype=torch.bfloat16)
+    for dp, tp in ((1, 2), (1, 4), (1, 8), (2, 1), (2, 2)):
+        assert mla_plan_note(ds, dp=dp, tp=tp, **kw) is None
+        assert mla_plan_note(ds, dp=dp, tp=tp, **dict(
+            kw, pages_dtype=torch.int8)) is None
     assert mla_plan_note(ds, dp=1, tp=2, **dict(
         kw, pages_dtype=torch.float32)) is not None
     assert mla_plan_note(ds, dp=2, tp=2, **dict(
-        kw, device=torch.device("cpu"))) is None
-    assert mla_plan_note(ds, dp=2, tp=1, **dict(kw, paged_attn="ref")) \
-        is None
+        kw, device=torch.device("cpu"), pages_dtype=torch.float32)) is None
+    assert mla_plan_note(ds, dp=2, tp=1, **dict(
+        kw, paged_attn="ref", pages_dtype=torch.float32)) is None
     assert mla_plan_note(qw, dp=2, tp=2, **kw) is None
+
+
+def test_mla_plan_of_a_shard():
+    """``attention._mla_plan``: None on one device; on a 'model' shard
+    the whole call's heads and this shard's first; on a 'data' replica
+    the whole step's positions and lengths and its first slot."""
+    from repro_torch.models.attention import _mla_plan
+
+    class Mesh:
+        shape = {"data": 2, "model": 2}
+        axis_names = ("data", "model")
+        coords = {"data": 1, "model": 1}
+    pos = torch.tensor([3, 5], dtype=torch.int32)
+    lens = torch.tensor([2, 1], dtype=torch.int32)
+    whole = (torch.arange(4, dtype=torch.int32),
+             torch.ones(4, dtype=torch.int32))
+    assert _mla_plan({"w": None}, pos, lens, 2, 4, 16) is None
+    cut = sharding.ModelShard({"w": None}, 2, 1)
+    plan = _mla_plan(cut, pos, lens, 2, 4, 16)
+    assert (plan.slot0, plan.heads, plan.head0) == (0, 32, 16)
+    assert torch.equal(plan.positions, pos)
+    with sharding.activation_mesh(Mesh(), data_local=True,
+                                  whole_step=whole):
+        plan = _mla_plan(cut, pos, lens, 2, 4, 16)
+    assert (plan.slot0, plan.heads, plan.head0) == (2, 32, 16)
+    assert plan.positions is whole[0] and plan.lengths is whole[1]
+    with sharding.activation_mesh(Mesh(), data_local=True):
+        with pytest.raises(RuntimeError, match="whole step"):
+            _mla_plan(cut, pos, lens, 2, 4, 16)

@@ -310,11 +310,20 @@ def test_remat_changes_nothing(remat):
 
 
 def test_loss_refuses_act_sharding_and_unknown_remat():
-    cfg, _, _, tcfg, tp = _pair("qwen3-0.6b")
-    tb = _tbatch(_jbatch(_batch(cfg)))
-    model = build_model(tcfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        model.loss(tp, tb, act_sharding=object())
+    """``act_sharding`` (a training mesh's residual placements) changes
+    no value off a mesh, as ``with_sharding_constraint`` changes none,
+    and the encoder-decoder loss drops it as the JAX package's does; an
+    unknown remat policy is refused."""
+    from torch.distributed.tensor import Replicate, Shard
+    act = (Shard(0), Shard(1))
+    for arch in ("whisper-small", "qwen3-0.6b"):
+        cfg, _, _, tcfg, tp = _pair(arch)
+        tb = _tbatch(_jbatch(_batch(cfg)))
+        model = build_model(tcfg)
+        assert torch.equal(model.loss(tp, tb, act_sharding=act),
+                           model.loss(tp, tb))
+    assert torch.equal(model.loss(tp, tb, act_sharding=(Replicate(),)),
+                       model.loss(tp, tb))
     with pytest.raises(ValueError, match="remat"):
         model.loss(tp, tb, remat="sometimes")
 
