@@ -23,7 +23,10 @@ Prefix sharing (``prefix_cache=True``, paged arena): admission maps the
 longest cached chain of full prompt blocks onto existing pages and
 fast-forwards the sequence past them; before every step a copy-on-write
 barrier splits any shared block the step would write. Telemetry
-(``telemetry=True``) records a ``StepTimeline`` per run, host-side only.
+(``telemetry=True``) records a ``StepTimeline`` per run, host-side only,
+with the serve loop's named spans (``engine.step`` and its phases, from
+block reservation to the commit of the sampled tokens; ``_Spans``) and
+each step's phase seconds (``TIMING_COUNTERS``).
 
 Speculative decoding (``spec={"ngram","draft"}``): the unified step
 doubles as the *verifier*. A decoding slot feeds its committed token plus
@@ -82,7 +85,7 @@ from repro_torch.runtime.kvcache import KV_QUANT_MODES, KVArena, PagedKVArena
 from repro_torch.runtime.request import (Request, SamplingParams, SeqState,
                                          Sequence)
 from repro_torch.runtime.scheduler import Scheduler, SchedulerStats
-from repro_torch.runtime.telemetry import StepTimeline
+from repro_torch.runtime.telemetry import TIMING_COUNTERS, StepTimeline
 from repro_torch.runtime.transfers import TransferLedger, TransferReport
 
 
@@ -194,6 +197,108 @@ def mla_plan_note(model: ModelAPI, *, dp: int, tp: int, device, paged: bool,
         return ("the CUDA-core MLA kernel (f32 pages) picks its split from "
                 "its shard's rows")
     return None
+
+
+_now = time.perf_counter_ns
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def _range(name: str):
+    """An open ``_RecordFunctionFast`` range (the profiler is on)."""
+    rng = torch._C._profiler._RecordFunctionFast(name)
+    rng.__enter__()
+    return rng
+
+
+class _Spans:
+    """The serve loop's named spans, with telemetry on: ``engine.step``
+    around an iteration that steps, its phases one after another inside
+    it (``phase`` ends the open phase and starts the next, so they tile
+    the step), and ``engine.reserve``/``engine.admit``/``engine.wait``
+    while no slot is active. A closed span lands on the timeline
+    (``StepTimeline.record_span``; ns from the serve's start,
+    ``time.perf_counter_ns``), and a phase inside a step adds its
+    seconds to its counter of ``TIMING_COUNTERS``.
+
+    While ``torch.profiler`` records, each span is also a
+    ``_RecordFunctionFast`` range: a plain host op on the profiler's
+    clock. Never ``record_function``: the profiler copies its ranges onto
+    the device's track, where a trace would count them as device work.
+    No name starts with ``cu``, which a trace reads as a CUDA call."""
+
+    def __init__(self, tl: StepTimeline, t0_ns: int):
+        self.t0_ns = t0_ns
+        self._events, self._record = tl.events, tl.record_span
+        self.totals = dict.fromkeys(TIMING_COUNTERS, 0.0)
+        self._step = None       # (step index, range, start ns)
+        self._phase = None      # (name, counter, range, start ns)
+
+    def open_step(self) -> None:
+        """Open ``engine.step`` (no-op while one is open)."""
+        if self._step is None:
+            self._step = (len(self._events),
+                          _range("engine.step") if _profiling() else None,
+                          _now())
+
+    def close_step(self) -> None:
+        """Close the open phase and ``engine.step`` (no-op without one)."""
+        if self._step is None:
+            return
+        self.close()
+        t = _now()
+        step, rng, t0 = self._step
+        self._step = None
+        if rng is not None:
+            rng.__exit__(None, None, None)
+        self._record("engine.step", step, None, t0 - self.t0_ns,
+                     t - self.t0_ns)
+
+    def phase(self, name: str, counter: Optional[str] = None) -> None:
+        """End the open phase and start ``name`` (timed into ``counter``
+        inside a step)."""
+        t = _now()
+        if self._phase is not None:
+            self._end(t, ())
+        self._phase = (name, counter,
+                       _range(name) if _profiling() else None, t)
+
+    def close(self, admitted=()) -> None:
+        """End the open phase; ``admitted``: the sequences it admitted."""
+        if self._phase is not None:
+            self._end(_now(), tuple([s.rid for s in admitted])
+                      if admitted else ())
+
+    def _end(self, t: int, rids) -> None:
+        name, counter, rng, t0 = self._phase
+        self._phase = None
+        if rng is not None:
+            rng.__exit__(None, None, None)
+        if self._step is None:
+            self._record(name, len(self._events), None, t0 - self.t0_ns,
+                         t - self.t0_ns, rids)
+            return
+        if counter is not None:
+            self.totals[counter] += (t - t0) / 1e9
+        self._record(name, self._step[0], "engine.step", t0 - self.t0_ns,
+                     t - self.t0_ns, rids)
+
+
+class _NoSpans:
+    """``_Spans``' calls with telemetry off: nothing is read or kept."""
+
+    def open_step(self) -> None:
+        pass
+
+    close_step = open_step
+
+    def phase(self, name: str, counter: Optional[str] = None) -> None:
+        pass
+
+    def close(self, admitted=()) -> None:
+        pass
+
+
+_NO_SPANS = _NoSpans()
 
 
 class ServingEngine:
@@ -352,6 +457,7 @@ class ServingEngine:
         # (host-side only: no device sync, no kernel launch).
         self.telemetry = telemetry
         self._timeline: Optional[StepTimeline] = None
+        self._spans = _NO_SPANS
         self._vlm = model.cfg.family == "vlm"
         self._encode_cross = model.encode_cross
         self._run_cow0 = 0
@@ -612,6 +718,8 @@ class ServingEngine:
         on the host after it too."""
         ns, C = self.num_slots, self.chunk_size
         spec_on = self.spec != "off"
+        sp = self._spans
+        sp.phase("engine.plan", "host_plan_s")
         feeds, proposals = self._plan_step()
         tokens = np.zeros((ns, C), np.int32)
         pos0 = np.zeros((ns,), np.int32)
@@ -637,6 +745,7 @@ class ServingEngine:
             active[slot] = True
         temps, top_ks, top_ps = self._sampling_vectors(self.sched.active)
 
+        sp.phase("engine.upload", "host_upload_s")
         t_step = time.perf_counter()
         libs0 = _build.loaded()
         dev = self.device
@@ -658,14 +767,17 @@ class ServingEngine:
         buffers = self.arena.buffers if self.mesh is None \
             else self.arena.local_buffers(lo, hi)
         whole = (put(pos0), put(lens)) if self.dp > 1 else None
+        pos0_t = put(pos0[lo:hi])
+        sp.phase("engine.model", "model_call_s")
         with sharding.activation_mesh(self.mesh, data_local=True,
                                       whole_step=whole):
             logits, _ = self.model.decode_step(
-                self.params, tokens_t, put(pos0[lo:hi]), buffers,
+                self.params, tokens_t, pos0_t, buffers,
                 quant=self.quant, block_tables=dev_tables, lengths=lens_t,
                 paged_impl=self.paged_attn, **extra)
         if self.dp > 1 and self.paged:
             self.arena.sync_writes(self._step_writes(pos0, lens), self.mesh)
+        sp.phase("engine.sample", "sample_s")
         # Whole-step noise (every replica draws all ns rows and keeps its
         # own), so the generator moves as on one device.
         head = dict(top_k=put(top_ks[lo:hi]), top_p=put(top_ps[lo:hi]),
@@ -678,16 +790,19 @@ class ServingEngine:
                 logits, tokens_t, gen, put(temps[lo:hi]),
                 put(active[lo:hi]), prop_lens=put(prop_lens[lo:hi]),
                 lengths=lens_t, **head)
+            both = torch.stack([nxt, acc], dim=1)
+            sp.phase("engine.readback", "readback_s")
             # One read-back: blocks until the step completes.
-            nxt_host, acc_host = self._gather_slots(
-                torch.stack([nxt, acc], dim=1)).T
+            nxt_host, acc_host = self._gather_slots(both).T
         else:
             idx = torch.clamp(lens_t.to(torch.long) - 1, min=0)
             last = logits[torch.arange(hi - lo, device=dev), idx]   # (B, V)
             nxt = sampling.sample_slots(last, gen, put(temps[lo:hi]),
                                         put(active[lo:hi]), **head)
+            sp.phase("engine.readback", "readback_s")
             # blocks until the step completes
             nxt_host = self._gather_slots(nxt)
+        sp.phase("engine.commit", "host_commit_s")
         t_end = time.perf_counter()
         now = t_end - t0
         dcomp = _build.loaded() - libs0
@@ -792,6 +907,7 @@ class ServingEngine:
                                      "verify" if kp else "decode", m, r))
         stats.steps += 1
         self.sched.record_step()
+        sp.close()
         if tl is not None:
             self._record_step(tl, stats, slot_mix, resident, dcomp,
                               t_step - t0, now)
@@ -803,7 +919,8 @@ class ServingEngine:
         """Close the step's telemetry event with the JAX engine's counter
         keys: cumulative run-relative values, which the timeline diffs
         into per-step deltas (``draft_steps``: the draft proposer's
-        rounds, with a proposer)."""
+        rounds, with a proposer), and the port's ``TIMING_COUNTERS``, the
+        phase seconds of every step so far (this one's commit included)."""
         counters = {
             "steps": float(stats.steps),
             "prefill_tokens": float(stats.prefill_tokens),
@@ -823,6 +940,7 @@ class ServingEngine:
         if self._proposer is not None:
             counters["draft_steps"] = float(
                 getattr(self._proposer, "steps", 0))
+        counters.update(self._spans.totals)
         tl.record_step(
             t_start=t_start, t_end=t_end,
             occupancy=len(self.sched.active), compiles=compiles,
@@ -932,33 +1050,53 @@ class ServingEngine:
         gen.manual_seed(seed)
         if self.mesh is not None:
             self.mesh.reset_stats()
-        t0 = time.perf_counter()
+        t0_ns = time.perf_counter_ns()
+        t0 = t0_ns / 1e9
+        sp = _NO_SPANS
+        if tl is not None:
+            # The serve's start on the profiler's clock (the Unix epoch).
+            tl.meta["t0_unix_ns"] = time.time_ns() \
+                - (time.perf_counter_ns() - t0_ns)
+            sp = _Spans(tl, t0_ns)
+        self._spans = sp
 
         while self.sched.has_work:
             now = time.perf_counter() - t0
+            if self.sched.active:
+                sp.open_step()
             if self.paged:
                 # Incumbents reserve their next-feed blocks BEFORE new
                 # admissions take them (may preempt-to-queue).
+                sp.phase("engine.reserve", "host_reserve_s")
                 self._reserve_blocks(ledger)
-            for seq in self.sched.admit(self._try_admit, now):
+            sp.phase("engine.admit", "host_admit_s")
+            admitted = self.sched.admit(self._try_admit, now)
+            for seq in admitted:
                 self._admit_chunked(seq, stats, ledger)
-            if not self.sched.active:
-                if self.sched.queue:
-                    continue    # preempted/starved: blocks freed, re-admit
-                nxt = self.sched.next_arrival()
-                if nxt is None:
-                    break
-                if realtime:
-                    time.sleep(min(max(nxt - now, 0.0), 0.05))
-                else:
-                    self.sched.poll_arrivals(float("inf"))
+            sp.close(admitted)
+            if self.sched.active:
+                sp.open_step()      # the first step after an idle spell
+                self._step_once(gen, stats, ledger, t0)
+                sp.close_step()
                 continue
-            self._step_once(gen, stats, ledger, t0)
+            sp.close_step()     # reservation preempted every active sequence
+            if self.sched.queue:
+                continue        # preempted/starved: blocks freed, re-admit
+            nxt = self.sched.next_arrival()
+            if nxt is None:
+                break
+            sp.phase("engine.wait")
+            if realtime:
+                time.sleep(min(max(nxt - now, 0.0), 0.05))
+            else:
+                self.sched.poll_arrivals(float("inf"))
+            sp.close()
 
         wall = time.perf_counter() - t0
         if tl is not None:
             tl.finalize(wall)
             self._timeline = None
+            self._spans = _NO_SPANS
             self.sched.telemetry = None
         stats.cache_bytes = self.arena.nbytes()
         if self.paged:

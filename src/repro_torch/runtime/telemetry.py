@@ -53,6 +53,13 @@ Pieces:
   live runs, with per-device figures under ``--dp``/``--tp``.
 * ``serve_report_lines`` — the ONE formatter behind serve.py's report
   and the ledger/prefix summary, so the two report paths cannot drift.
+* ``Span`` / ``TIMING_COUNTERS`` — the port's own: the engine's named
+  spans (``engine.step`` and its phases, ``engine.wait``; kept on the
+  timeline, ns from the serve's start) and the eight phase-seconds
+  counters every step event carries. The engine records them
+  (``runtime/engine.py``); the JSONL keeps the counters, the Chrome
+  trace the spans, and the meta's ``t0_unix_ns`` lays both over a
+  ``torch.profiler`` trace.
 
 JSONL event schema (one JSON object per line, ``"event"`` discriminates;
 see docs/observability.md for the full field glossary):
@@ -70,7 +77,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 from repro_torch.core.coalesce import TransferModel
 from repro_torch.runtime.transfers import (D2H, H2D, PHASES, TransferLedger)
@@ -89,6 +96,26 @@ METRICS_SCHEMA: Dict[str, Tuple[str, ...]] = {
     "summary": ("steps", "histograms", "percentiles", "bottleneck",
                 "ledger_total"),
 }
+
+
+#: Cumulative seconds of the engine step's phases, on every step event's
+#: ``counters`` (so each event holds its own step's phase times): the
+#: host's work between model calls (reserve, admit, plan, upload,
+#: commit), the model call's launches, sampling and the read-back.
+TIMING_COUNTERS: Tuple[str, ...] = (
+    "host_reserve_s", "host_admit_s", "host_plan_s", "host_upload_s",
+    "model_call_s", "sample_s", "readback_s", "host_commit_s")
+
+
+class Span(NamedTuple):
+    """One named interval of the serve loop (the engine's ``_Spans``)."""
+
+    name: str                       # engine.step, engine.plan, ...
+    step: int                       # the step it belongs to, or precedes
+    parent: Optional[str]           # "engine.step" for a step's phases
+    t_start_ns: int                 # ns since the serve's start
+    t_end_ns: int
+    rids: Tuple[int, ...] = ()      # requests admitted (engine.admit)
 
 
 def _cell_str(key: CellKey) -> str:
@@ -416,6 +443,7 @@ class StepTimeline:
         self.events: List[StepEvent] = []
         self.admissions: List[Tuple[int, float, float]] = []
         self.preemptions: List[Tuple[int, float]] = []
+        self._spans: List[tuple] = []      # Span fields, as closed
         self.hists: Dict[str, LogHistogram] = {
             n: LogHistogram() for n in self.HIST_NAMES}
         self._now = 0.0
@@ -473,6 +501,18 @@ class StepTimeline:
         """A request finished: record its end-to-end latency."""
         self.hists["request_latency_s"].record(latency_s)
         self._last_token_t.pop(rid, None)
+
+    def record_span(self, name: str, step: int, parent: Optional[str],
+                    t_start_ns: int, t_end_ns: int,
+                    rids: Tuple[int, ...] = ()) -> None:
+        """One closed engine span, the fields of ``Span`` (kept as a plain
+        tuple: the engine calls this ~10 times a step)."""
+        self._spans.append((name, step, parent, t_start_ns, t_end_ns, rids))
+
+    @property
+    def spans(self) -> List[Span]:
+        """The engine's spans, in the order they closed."""
+        return [Span._make(s) for s in self._spans]
 
     def record_step(self, *, t_start: float, t_end: float, occupancy: int,
                     compiles: int, counters: Dict[str, float],
@@ -577,9 +617,11 @@ class StepTimeline:
 
     def chrome_trace_events(self) -> List[Dict]:
         """The Chrome-trace ``traceEvents`` list: per-slot span tracks
-        (phase-named complete events), an engine step track, instant
-        events for admissions/preemptions, and ledger-byte counter
-        tracks (cumulative h2d/d2h MB per category), sorted by ts."""
+        (phase-named complete events), an engine step track (with the
+        engine's spans, where it recorded them: its phases inside each
+        step, its waits between), instant events for
+        admissions/preemptions, and ledger-byte counter tracks
+        (cumulative h2d/d2h MB per category), sorted by ts."""
         US = 1e6
         evs: List[Dict] = []
         pid = 1
@@ -595,10 +637,17 @@ class StepTimeline:
                         "args": {"name": f"slot {slot}"}})
         cum_h2d: Dict[str, float] = {}
         cum_d2h: Dict[str, float] = {}
+        # With the engine's spans, each step's event spans its whole
+        # engine.step, so that the phases nest inside it on the track.
+        spans = self.spans
+        outer = {sp.step: (sp.t_start_ns / 1e3,
+                           max((sp.t_end_ns - sp.t_start_ns) / 1e3, 1.0))
+                 for sp in spans if sp.name == "engine.step"}
         for ev in self.events:
             ts, dur = ev.t_start * US, max(ev.wall_s * US, 1.0)
+            step_ts, step_dur = outer.get(ev.step, (ts, dur))
             evs.append({"ph": "X", "name": f"step {ev.step}",
-                        "cat": "step", "ts": ts, "dur": dur,
+                        "cat": "step", "ts": step_ts, "dur": step_dur,
                         "pid": pid, "tid": 0,
                         "args": {"occupancy": ev.occupancy,
                                  "bound": ev.bound,
@@ -629,6 +678,17 @@ class StepTimeline:
                             "pid": pid, "tid": 0, "ts": te,
                             "args": {"resident":
                                      ev.gauges["resident_bytes"] / 1e6}})
+        for sp in spans:
+            if sp.name == "engine.step":
+                continue
+            args = {"step": sp.step}
+            if sp.rids:
+                args["rids"] = list(sp.rids)
+            evs.append({"ph": "X", "name": sp.name, "cat": "phase",
+                        "ts": sp.t_start_ns / 1e3,
+                        "dur": max((sp.t_end_ns - sp.t_start_ns) / 1e3,
+                                   1e-3),
+                        "pid": pid, "tid": 0, "args": args})
         for rid, t, wait in self.admissions:
             evs.append({"ph": "i", "name": f"admit rid={rid}", "s": "p",
                         "ts": t * US, "pid": pid, "tid": 0,
@@ -764,8 +824,10 @@ def serve_report_lines(engine, report,
     latency-percentile (telemetry histograms when available,
     finished-sequence lists otherwise), ledger LOAD-vs-EXEC and
     bottleneck attribution — plus the port's step-time percentiles, its
-    paged KV read counter and, when ``launches`` ({kernel: launches} of
-    the run) is given, the kernels' launch counts — under a serving mesh
+    paged KV read counter, the mean phase times of a step (where the
+    step events carry ``TIMING_COUNTERS``) and, when ``launches``
+    ({kernel: launches} of the run) is given, the kernels' launch
+    counts — under a serving mesh
     a list of one such dict per rank, a line each. Under a mesh the JAX
     package's mesh line (per-device bytes/token, weight stream and paged
     reads) follows, headed by the mesh (backend, devices) and ending in
@@ -828,6 +890,18 @@ def serve_report_lines(engine, report,
         f" p90 step {report.step_ms_percentile(90):.2f} ms | paged KV "
         f"reads {st.paged_kv_read_bytes / 1e6:.1f} MB")
     tl = report.timeline
+    if tl is not None and tl.events \
+            and TIMING_COUNTERS[0] in tl.events[0].counters:
+        ms = {k: sum(ev.counters[k] for ev in tl.events)
+              / max(st.steps, 1) * 1e3 for k in TIMING_COUNTERS}
+        between = sum(ms[k] for k in ("host_reserve_s", "host_admit_s",
+                                      "host_plan_s", "host_upload_s",
+                                      "host_commit_s"))
+        lines.append(
+            f"host phases a step: between steps {between:.2f} ms (reserve, "
+            f"admit, plan, upload, commit) | model call "
+            f"{ms['model_call_s']:.2f} ms | sample {ms['sample_s']:.2f} ms"
+            f" | read-back {ms['readback_s']:.2f} ms")
     if tl is not None and tl.hists["request_latency_s"].count:
         pct = tl.hists["request_latency_s"].percentiles((50, 90, 99))
         tp = tl.hists["ttft_s"].percentiles((50, 99))

@@ -43,6 +43,7 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.runtime import kvcache as tkv  # noqa: E402
 from repro_torch.runtime.engine import ServingEngine  # noqa: E402
+from repro_torch.runtime.telemetry import TIMING_COUNTERS  # noqa: E402
 from test_torch_serving import (ARGS, _trace,  # noqa: E402
                                 check_ledger_exact,
                                 check_tokens_up_to_near_ties,
@@ -276,7 +277,10 @@ def test_prefix_counters_equal(runs):
                                         j.stats.prefix_hit_tokens,
                                         j.stats.cow_splits)
         assert t.ledger.prefix_hit_tokens == t.stats.prefix_hit_tokens
-        assert [e.counters for e in t.timeline.events] == \
+        # The port's phase seconds (TIMING_COUNTERS) are wall clock.
+        assert [{k: v for k, v in e.counters.items()
+                 if k not in TIMING_COUNTERS}
+                for e in t.timeline.events] == \
             [e.counters for e in j.timeline.events]
         assert t.timeline.ledger_delta_totals() == t.ledger.breakdown()
     assert runs["twarm"].stats.cow_splits > 0

@@ -60,6 +60,7 @@ from repro_torch.runtime import speculative as tspec  # noqa: E402
 from repro_torch.runtime.engine import ServingEngine  # noqa: E402
 from repro_torch.runtime.request import (Request, SeqState,  # noqa: E402
                                          Sequence)
+from repro_torch.runtime.telemetry import TIMING_COUNTERS  # noqa: E402
 from test_torch_serving import (_trace,  # noqa: E402
                                 check_tokens_up_to_near_ties,
                                 check_traces_equal)
@@ -527,12 +528,14 @@ def _check_spec_run(runs, paged):
                                                      js.prefill_tokens)
     # The KV read counter follows the attention path (the fused kernel's
     # live pages, or the ref gather's whole table): compared where the
-    # two engines attend alike.
+    # two engines attend alike. The port's phase seconds
+    # (TIMING_COUNTERS) are wall clock, never compared.
     same_attn = runs["jeng"].paged_attn == runs["teng"].paged_attn
     assert same_attn <= (st.paged_kv_read_bytes == js.paged_kv_read_bytes)
     counters = lambda rep: [  # noqa: E731
         {k: v for k, v in e.counters.items()
-         if same_attn or k != "paged_kv_read_bytes"}
+         if (same_attn or k != "paged_kv_read_bytes")
+         and k not in TIMING_COUNTERS}
         for e in rep.timeline.events]
     assert counters(trep) == counters(jrep)
     assert [e.slots for e in trep.timeline.events] == \
