@@ -11,16 +11,18 @@ x's dtype picks the kernel: bf16 (every model layer) the tensor-core
 one, f32 the CUDA-core one. This module builds the ctypes signature,
 plans the output tiles and the split of K (``plan``; a sharded call
 plans from the unsharded shape, so a shard of the rows or columns
-splits K exactly as the whole call does), checks the
-operands of a CUDA call (and refuses one that requires grad while grad
+splits K exactly as the whole call does; a packed serving step plans
+its split from the rows it would carry unpacked, ``plan_rows``), checks
+the operands of a CUDA call (and refuses one that requires grad while grad
 mode is on: the kernels have no backward), allocates the output and the split-K
 workspace, launches, and counts the launch on the wrapper.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -39,6 +41,41 @@ SMALL_M = 64
 # and a tile's splits are one thread-block cluster, at most 8 blocks.
 MIN_TC_STEPS = 4
 MAX_TC_SPLITS = 8
+# The rows every launch inside ``plan_rows`` plans its split of K from.
+_PLAN_ROWS: List[int] = []
+
+
+@contextlib.contextmanager
+def plan_rows(rows: Optional[int]):
+    """Plan the split of K of every launch inside from ``rows`` rows (the
+    shard's row parts times that, under a mesh), not from the call's
+    own: a packed serving step's calls carry the R rows its slots feed
+    of the ``rows`` = slots x chunk it plans for, and a row's sum then
+    never depends on how many rows the step packs. The tile still
+    follows the call's own rows. None: no change."""
+    if rows is None:
+        yield
+        return
+    _PLAN_ROWS.append(rows)
+    try:
+        yield
+    finally:
+        _PLAN_ROWS.pop()
+
+
+def planned_rows(x2: torch.Tensor, product) -> torch.Tensor:
+    """``product(x2)`` of the (M, K) rows ``x2``; off the card, inside
+    ``plan_rows(n)`` with M < n, computed at n rows (zero rows appended,
+    their outputs dropped). The CPU's BLAS sums a row in an order that
+    follows the call's row count, so on the CPU a packed step's row reads
+    what the padded step gives it. On the card the hand-written kernels
+    fix the order by their plan; a cuBLAS ``product`` (the bf16
+    ``linear_apply`` and tied head) runs at the call's M and does not."""
+    m = x2.shape[0]
+    if x2.is_cuda or not _PLAN_ROWS or _PLAN_ROWS[-1] <= m:
+        return product(x2)
+    pad = torch.nn.functional.pad(x2, (0, 0, 0, _PLAN_ROWS[-1] - m))
+    return product(pad)[:m]
 
 
 def check(name: str, x: torch.Tensor, planes: Dict[str, torch.Tensor],
@@ -71,15 +108,23 @@ def check(name: str, x: torch.Tensor, planes: Dict[str, torch.Tensor],
                         "expected")
 
 
-def plan(m: int, n: int, k: int, sms: int, x_dtype: torch.dtype):
+def _tile(m: int, x_dtype: torch.dtype) -> int:
+    return 128 if x_dtype == torch.bfloat16 and m > SMALL_M else 64
+
+
+def plan(m: int, n: int, k: int, sms: int, x_dtype: torch.dtype,
+         plan_m: Optional[int] = None):
     """(tile, k_split, splits) of one call: output tiles of tile x tile,
     and K cut into ``splits`` ranges of ``k_split`` elements (a whole
     number of the kernel's K steps; the last range may hold a ragged tail
     or, at K = 0, nothing). K is split only when the output tiles alone
-    would leave most SMs idle: up to two blocks per SM."""
+    would leave most SMs idle: up to two blocks per SM. ``plan_m``: the
+    rows the split is planned from, if not the call's own ``m``."""
     step = K_STEP[x_dtype]
-    tile = 128 if x_dtype == torch.bfloat16 and m > SMALL_M else 64
-    tiles = -(-n // tile) * -(-m // tile)
+    tile = _tile(m, x_dtype)
+    pm = m if plan_m is None else plan_m
+    pt = _tile(pm, x_dtype)
+    tiles = -(-n // pt) * -(-pm // pt)
     steps = max(1, -(-k // step))     # K = 0: one empty step, y = 0
     most = steps if x_dtype == torch.float32 else \
         min(MAX_TC_SPLITS, max(1, steps // MIN_TC_STEPS))
@@ -138,8 +183,9 @@ def launch(wrapper: Callable, name: str, x: torch.Tensor,
     y = torch.empty((m, n), dtype=out_dtype, device=x.device)
     if m == 0 or n == 0:
         return y
-    tile, k_split, count = plan(m * plan_parts[0], n * plan_parts[1], k,
-                                _sm_count(x.device), x.dtype)
+    tile, k_split, count = plan(
+        m * plan_parts[0], n * plan_parts[1], k, _sm_count(x.device),
+        x.dtype, _PLAN_ROWS[-1] * plan_parts[0] if _PLAN_ROWS else None)
     # The CUDA-core kernel's split-K partials (the tensor-core kernel sums
     # its splits inside their cluster).
     ws = torch.empty((count, m, n), dtype=torch.float32, device=x.device) \

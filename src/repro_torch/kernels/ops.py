@@ -8,6 +8,9 @@ kernel for a CUDA tensor, or raises; nothing drops to the plain
 version on the card.
 
 x may carry arbitrary leading batch dims; they are flattened to M.
+``plan_rows`` scopes a packed serving step: every launch inside plans
+its split of K from the step's unpacked rows, and a CPU product inside
+is computed at those rows (``planned_rows``).
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ import torch.nn.functional as F
 from repro_torch.core.quant.pack import Planes
 from repro_torch.kernels import fp16_matmul, q3_k_matmul, q6_k_matmul
 from repro_torch.kernels import q8_0_matmul
+from repro_torch.kernels._dequant_matmul import plan_rows  # noqa: F401
+from repro_torch.kernels._dequant_matmul import planned_rows
 
 # format -> (wrapper, its planes' layout in argument order:
 #            {plane: (K elements per plane column, dtype)})
@@ -54,7 +59,7 @@ def quantized_matmul(x: torch.Tensor, planes: Planes, fmt: str, *,
     if kp != k:
         x2 = F.pad(x2, (0, kp - k))
     # The wrapper rounds its f32 result to out_dtype itself.
-    y = wrapper(x2.contiguous(), *(planes[n] for n in layout),
-                out_dtype=out_dtype or torch.float32, plan_parts=plan_parts,
-                **kw)
+    y = planned_rows(x2, lambda a: wrapper(
+        a.contiguous(), *(planes[n] for n in layout),
+        out_dtype=out_dtype or torch.float32, plan_parts=plan_parts, **kw))
     return y.reshape(*lead, y.shape[-1])

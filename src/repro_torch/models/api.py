@@ -42,6 +42,10 @@ class ModelAPI:
     decode_step: Callable             # (params, token, position, cache, **o)
     cache_shapes: Callable            # (batch, seq) -> shape tree
     encode_cross: Optional[Callable] = None   # encdec: (params, frames, **o)
+    # Whether decode_step(..., rows=(fed, heads)) runs its layers on the
+    # fed rows (``lm.packs_layers``; else only its head); None: it takes
+    # no rows (encdec).
+    packs_layers: Optional[bool] = None
 
     def state_leaves(self, num_slots: int):
         """The cache tree with True at each constant-size *state* leaf (SSM
@@ -208,6 +212,7 @@ def build_model(cfg: ModelConfig) -> ModelAPI:
         prefill=functools.partial(_lm_prefill_kw, cfg),
         decode_step=functools.partial(_lm_decode_kw, cfg),
         cache_shapes=functools.partial(lm.lm_cache_shapes, cfg),
+        packs_layers=lm.packs_layers(cfg),
     )
 
 

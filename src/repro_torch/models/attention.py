@@ -10,7 +10,7 @@ the KV cache (C == 1 is the classic one-token step; C > 1 is the unified
 chunked-prefill step, in-chunk causality a per-query mask). Two caches:
 
 * the contiguous slot arena, leaves (B, S, Hkv, D): the chunk is
-  inserted at each slot's depth (``_insert_kv``) and attended by
+  inserted at each slot's depth (``_slot_routing``) and attended by
   ``decode_attention`` (plain PyTorch, as the JAX package leaves it to
   XLA);
 * the paged arena: leaves are physical pages (NP, bs, Hkv, D) and
@@ -233,34 +233,45 @@ def decode_positions(position: torch.Tensor, batch: int,
     return base[:, None] + torch.arange(width, device=position.device)
 
 
-def _insert_kv(cache: torch.Tensor, new: torch.Tensor, position: torch.Tensor,
-               lengths=None) -> torch.Tensor:
-    """Write (B, C, ...) ``new`` into the (B, S, ...) ``cache`` **in
-    place**: row b's first ``lengths[b]`` entries (all C when ``lengths``
+def _slot_routing(position: torch.Tensor, lengths, batch: int, seq: int,
+                  width: int):
+    """(pos_mat (B, C), rows (B*C,), offs (B*C,), valid (B*C,)): the slot
+    and depth each chunk entry writes in the contiguous (B, S, ...)
+    arena. Row b's first ``lengths[b]`` entries (all C when ``lengths``
     is None) land at ``position[b] + i``; ``position`` is a scalar or
-    (B,). Returns ``cache``.
+    (B,).
 
     The JAX version drops the invalid entries (past a row's length, or
     past S) with a ``mode="drop"`` scatter. Torch has none, so each
-    invalid entry is aimed at ``(position[b] + i) % S`` and carries the
-    value already stored there: no slot changes for it, and no
-    device-to-host sync finds it. Those targets never meet a valid
-    entry's or each other, since a chunk is no wider than the cache
-    (C <= S)."""
-    b, c = new.shape[:2]
-    s = cache.shape[1]
-    pos = decode_positions(position, b, c)                   # (B, C)
-    if sharding.is_dtensor(cache):
-        return _insert_kv_sharded(cache, new, pos, lengths)
-    rows = torch.arange(b, device=cache.device)[:, None].expand(b, c)
-    valid = pos < s
+    invalid entry is aimed at ``(position[b] + i) % S`` and flagged:
+    ``_write`` has it carry the value already stored there, so no slot
+    changes for it and no device-to-host sync finds it. Those targets
+    never meet a valid entry's or each other, since a chunk is no wider
+    than the cache (C <= S)."""
+    pos = decode_positions(position, batch, width)           # (B, C)
+    valid = pos < seq
     if lengths is not None:
-        valid = valid & (torch.arange(c, device=cache.device)[None, :]
+        valid = valid & (torch.arange(width, device=pos.device)[None, :]
                          < lengths.to(torch.long)[:, None])
-    idx = torch.where(valid, pos, pos % s)
-    src = torch.where(valid.reshape(b, c, *([1] * (new.ndim - 2))),
-                      new.to(cache.dtype), cache[rows, idx])
-    cache.index_put_((rows, idx), src)
+    rows = torch.arange(batch, device=pos.device)[:, None].expand(batch,
+                                                                 width)
+    offs = torch.where(valid, pos, pos % seq)
+    return pos, rows.reshape(-1), offs.reshape(-1), valid.reshape(-1)
+
+
+def _insert_kv(cache: torch.Tensor, new: torch.Tensor, position: torch.Tensor,
+               lengths=None) -> torch.Tensor:
+    """Write (B, C, ...) ``new`` into the (B, S, ...) ``cache`` **in
+    place** through ``_slot_routing``: row b's first ``lengths[b]``
+    entries (all C when ``lengths`` is None) land at ``position[b] + i``,
+    the rest are dropped. Returns ``cache``."""
+    b, c = new.shape[:2]
+    if sharding.is_dtensor(cache):
+        return _insert_kv_sharded(cache, new, decode_positions(position, b, c),
+                                  lengths)
+    _, rows, offs, valid = _slot_routing(position, lengths, b,
+                                         cache.shape[1], c)
+    _write(cache, new, rows, offs, valid)
     return cache
 
 
@@ -387,16 +398,24 @@ def _paged_view_dequant(leaf: Dict, block_tables: torch.Tensor):
 @dataclasses.dataclass(frozen=True)
 class PagedStep:
     """What a decode step derives from (position, block_tables, lengths)
-    before any layer runs: the write routing (paged arena only; None for
-    the contiguous arena) and the RoPE tables. Every layer shares them,
-    so ``lm_decode_step`` builds one per step (``paged_step``) instead of
-    once per layer and leaf."""
+    before any layer runs: the write routing (the pages, or the slot
+    rows of the contiguous arena; None for a training mesh's sharded
+    cache, which ``_insert_kv`` writes) and the RoPE tables. Every layer
+    shares them, so ``lm_decode_step`` builds one per step
+    (``paged_step``) instead of once per layer and leaf.
+
+    ``fed``: for a packed step (``pack_step``), the (R,) flat indices
+    ``slot * C + i`` of the rows the step feeds, in slot order. Its
+    layers then take (1, R, ...) activations, its routing and RoPE
+    tables are those rows', and only the attention core sees the (B, C)
+    layout."""
 
     pos_mat: torch.Tensor
     rows: torch.Tensor
     offs: torch.Tensor
     valid: Optional[torch.Tensor]
     rope: Optional[tuple]
+    fed: Optional[torch.Tensor] = None
 
 
 def paged_step(cfg: ModelConfig, position: torch.Tensor,
@@ -408,9 +427,13 @@ def paged_step(cfg: ModelConfig, position: torch.Tensor,
     (B, S, ...) cache when ``block_tables`` is None. ``mrope``: for an
     M-RoPE model, ``fn(cfg, pos_mat)`` giving the chunk's (B, C, 3)
     position streams."""
-    if block_tables is None:
+    if block_tables is None and sharding.is_dtensor(pages):
         pos = decode_positions(position, pages.shape[0], width)
         rows = offs = valid = None
+    elif block_tables is None:                  # contiguous slot arena
+        pos, rows, offs, valid = _slot_routing(position, lengths,
+                                               pages.shape[0],
+                                               pages.shape[1], width)
     else:
         if isinstance(pages, dict):
             pages = pages["q"]
@@ -419,6 +442,37 @@ def paged_step(cfg: ModelConfig, position: torch.Tensor,
                                           width)
     rope = rope_tables(cfg, pos if mrope is None else mrope(cfg, pos))
     return PagedStep(pos, rows, offs, valid, rope)
+
+
+def pack_step(step: PagedStep, fed: torch.Tensor) -> PagedStep:
+    """``step`` on its fed rows alone: ``fed`` (R,) the flat indices
+    ``slot * C + i`` of the rows with ``i < lengths[slot]``, each of
+    which writes (so the packed routing needs no ``valid``). The indices
+    are taken once a step here."""
+    rope = None if step.rope is None else tuple(
+        t.reshape(-1, *t.shape[2:])[fed][None] for t in step.rope)
+    return PagedStep(step.pos_mat, step.rows[fed], step.offs[fed], None,
+                     rope, fed)
+
+
+def _padded(step: PagedStep, x: torch.Tensor) -> torch.Tensor:
+    """A packed step's (1, R, ...) rows scattered into the (B, C, ...)
+    layout the attention kernels read (zeros in the rows it does not
+    feed, whose outputs nothing reads); ``x`` itself unpacked."""
+    if step.fed is None:
+        return x
+    b, c = step.pos_mat.shape
+    out = x.new_zeros((b * c,) + x.shape[2:])
+    out[step.fed] = x[0]
+    return out.reshape(b, c, *x.shape[2:])
+
+
+def _packed(step: PagedStep, x: torch.Tensor) -> torch.Tensor:
+    """The fed rows (1, R, ...) of a packed step's (B, C, ...) ``x``;
+    ``x`` itself unpacked."""
+    if step.fed is None:
+        return x
+    return x.reshape(-1, *x.shape[2:])[step.fed][None]
 
 
 def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -434,26 +488,32 @@ def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     entries per row — writes past a row's length are dropped and its tail
     outputs are garbage the engine never reads. ``step``: the precomputed
     ``paged_step`` for these (position, block_tables, lengths), if the
-    caller shares one across layers. Returns (out, cache)."""
+    caller shares one across layers; a packed one (``pack_step``) takes
+    x (1, R, d) and gives its R fed rows' outputs. Returns (out,
+    cache)."""
     if paged_impl not in ("fused", "ref"):
         raise ValueError(f"unknown paged_impl {paged_impl!r}")
-    b, cw = x.shape[:2]
     hd = cfg.resolved_head_dim()
     sm = hd ** -0.5
     if step is None:
         step = paged_step(cfg, position, block_tables, lengths, cache["k"],
-                          cw)
+                          x.shape[1])
+    b, cw = step.pos_mat.shape
     q, k, v = _project_qkv(p, cfg, x, fmt, step.rope)
+    q = _padded(step, q)
     kv_quant = isinstance(cache["k"], dict)      # {"q", "s"} int8 leaves
     parts = sharding.plan_parts(sharding.is_model_shard(p["q"]))
-    if block_tables is None:                     # contiguous slot arena
+    if step.rows is None:                        # a sharded training cache
         _insert_kv(cache["k"], k, position, lengths)
         _insert_kv(cache["v"], v, position, lengths)
+    else:                                        # slot rows or pages
+        write = _paged_insert_quant if kv_quant else _write
+        write(cache["k"], k, step.rows, step.offs, step.valid)
+        write(cache["v"], v, step.rows, step.offs, step.valid)
+    if block_tables is None:                     # contiguous slot arena
         o = decode_attention(q, cache["k"], cache["v"], sm_scale=sm,
                              kv_len=step.pos_mat + 1)
     elif kv_quant:
-        _paged_insert_quant(cache["k"], k, step.rows, step.offs, step.valid)
-        _paged_insert_quant(cache["v"], v, step.rows, step.offs, step.valid)
         if paged_impl == "fused":
             o = paged_decode_attention(
                 q.contiguous(), cache["k"]["q"], cache["v"]["q"],
@@ -467,18 +527,15 @@ def gqa_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                 q, _paged_view_dequant(cache["k"], block_tables).to(q.dtype),
                 _paged_view_dequant(cache["v"], block_tables).to(q.dtype),
                 sm_scale=sm, kv_len=step.pos_mat + 1)
+    elif paged_impl == "fused":
+        o = paged_decode_attention(q.contiguous(), cache["k"], cache["v"],
+                                   block_tables, position, sm_scale=sm,
+                                   lengths=lengths, plan_parts=parts)
     else:
-        _write(cache["k"], k, step.rows, step.offs, step.valid)
-        _write(cache["v"], v, step.rows, step.offs, step.valid)
-        if paged_impl == "fused":
-            o = paged_decode_attention(q.contiguous(), cache["k"], cache["v"],
-                                       block_tables, position, sm_scale=sm,
-                                       lengths=lengths, plan_parts=parts)
-        else:
-            o = decode_attention(q, paged_view(cache["k"], block_tables),
-                                 paged_view(cache["v"], block_tables),
-                                 sm_scale=sm, kv_len=step.pos_mat + 1)
-    o = _gather_heads(p["q"], o.reshape(b, cw, -1))
+        o = decode_attention(q, paged_view(cache["k"], block_tables),
+                             paged_view(cache["v"], block_tables),
+                             sm_scale=sm, kv_len=step.pos_mat + 1)
+    o = _gather_heads(p["q"], _packed(step, o.reshape(b, cw, -1)))
     return layers.linear_apply(p["o"], o, fmt), cache
 
 

@@ -67,7 +67,9 @@ def linear_apply(p: Params, x: torch.Tensor, fmt: str = "none", *,
                 if x.ndim == 3 else x @ wt
             y = sharding.reduced(y)
             return y + p["b"].to(y.dtype) if "b" in p else y
-        y = x @ p["w"].to(x.dtype).T
+        w = p["w"].to(x.dtype).T
+        y = kops.planned_rows(x.reshape(-1, x.shape[-1]),
+                              lambda a: a @ w).reshape(*x.shape[:-1], -1)
     else:
         y = kops.quantized_matmul(x, {k: v for k, v in p.items() if k != "b"},
                                   fmt, out_dtype=x.dtype,
@@ -161,7 +163,9 @@ def embedding_logits(p: Params, x: torch.Tensor,
                      fmt: str = "none") -> torch.Tensor:
     """Tied lm_head: logits = x @ E^T (offloadable dot product)."""
     if fmt == "none" or fmt == "fp16":
-        return x @ p["w"].to(x.dtype).T
+        w = p["w"].to(x.dtype).T
+        return kops.planned_rows(x.reshape(-1, x.shape[-1]),
+                                 lambda a: a @ w).reshape(*x.shape[:-1], -1)
     return kops.quantized_matmul(x, p, fmt, out_dtype=x.dtype)
 
 

@@ -33,6 +33,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, ssm
 from repro_torch.models.layers import Params
@@ -204,6 +205,20 @@ def layer_decode(p: Params, cfg: ModelConfig, h: torch.Tensor,
     return _ffn(p, cfg, h + mix, ffn, fmt)[0]
 
 
+def packs_layers(cfg: ModelConfig) -> bool:
+    """Whether a packed decode step runs its layers on the fed rows: no
+    layer reads across rows. An SSM mixer walks its slot's chunk; an MoE
+    FFN routes every row of the step into expert capacity they share,
+    the rows no slot feeds included, so each of those must hold what the
+    padded step gives it in every layer before. MLA (``mla_decode``)
+    takes the padded layout alone; its one model is MoE. Where such a
+    layer exists, the layers run padded and only the final norm and the
+    head on the fed rows."""
+    return cfg.mla is None and not any(
+        mixer == "ssm" or ffn == "moe"
+        for _, _, subs in layer_groups(cfg) for mixer, ffn in subs)
+
+
 def _lm_head(params, cfg: ModelConfig, h, quant: str):
     recipe = layers.recipe_for(quant)
     if cfg.tie_embeddings:
@@ -366,7 +381,8 @@ def _layer_leaf(leaf, i: int):
 def lm_decode_step(params, cfg: ModelConfig, token: torch.Tensor,
                    position: torch.Tensor, cache: Dict, *, quant="none",
                    block_tables: Optional[torch.Tensor] = None, lengths=None,
-                   paged_impl="fused", embeds=None, embeds_mask=None):
+                   paged_impl="fused", embeds=None, embeds_mask=None,
+                   rows=None):
     """token: (B, C) int — a chunk of consecutive tokens per slot;
     position: (B,) int base positions (chunk entry i sits at base + i);
     cache: the arena's buffers (written in place) — pages read through
@@ -379,30 +395,59 @@ def lm_decode_step(params, cfg: ModelConfig, token: torch.Tensor,
 
     ``embeds``/``embeds_mask``: (B, C, d) / (B, C) — vlm chunked prefill:
     positions flagged in the mask take the provided embedding (the stub
-    vision patches) instead of the token embedding."""
+    vision patches) instead of the token embedding.
+
+    ``rows``: (fed, heads) to run the step packed. ``fed`` (R,) int64:
+    the flat indices ``slot * C + i`` (``i < lengths[slot]``) of the
+    rows the step feeds, in slot order; ``heads`` (L,) int64: positions
+    in ``fed`` of the rows whose logits to return. Where
+    ``packs_layers``, the embedding and the token-wise layers then run
+    on the R fed rows and only the attention core sees the (B, C)
+    layout; the final norm and the head run on the L rows. Every
+    hand-written matmul of the step (the quantized formats) plans its
+    split of K from B * C rows (``kops.plan_rows``), so its rows' values
+    do not follow R. On the card the bf16 products (``quant="none"``, a
+    tied head at "none" or "fp16") run in cuBLAS at R rows, whose sums
+    may round otherwise at another R: there a row's bits can follow R.
+    Returns (logits (L, V), cache)."""
     recipe = layers.recipe_for(quant)
     fmt = recipe["linear"]
-    h = layers.embedding_lookup(params["embed"], token, recipe["embed"],
-                                torch.bfloat16, width=cfg.d_model)
-    if embeds is not None:
-        h = torch.where(embeds_mask[..., None], embeds.to(h.dtype), h)
-    mrope = _mrope_decode_positions if cfg.mrope else None
-    step = None
-    for name, count, subs in layer_groups(cfg):
-        for lp, mixer, ffn, layer_cache in _group_layers(
-                params[name], subs, cache[name]):
-            if step is None and mixer != "ssm":
-                # One routing/RoPE plan for all attention layers, from the
-                # first one's K (or latent) leaf; SSM layers need none.
-                step = attn.paged_step(cfg, position, block_tables, lengths,
-                                       next(iter(layer_cache.values())),
-                                       token.shape[1], mrope=mrope)
-            h = layer_decode(lp, cfg, h, position, layer_cache, mixer=mixer,
-                             ffn=ffn, fmt=fmt, block_tables=block_tables,
-                             lengths=lengths, paged_impl=paged_impl,
-                             step=step)
-    h = layers.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
-    return _lm_head(params, cfg, h, quant), cache
+    b, c = token.shape
+    fed, heads = rows if rows is not None else (None, None)
+    packed = rows is not None and packs_layers(cfg)
+    if packed:
+        token = token.reshape(-1)[fed][None]
+        if embeds is not None:
+            embeds = embeds.reshape(-1, embeds.shape[-1])[fed][None]
+            embeds_mask = embeds_mask.reshape(-1)[fed][None]
+    with kops.plan_rows(None if rows is None else b * c):
+        h = layers.embedding_lookup(params["embed"], token, recipe["embed"],
+                                    torch.bfloat16, width=cfg.d_model)
+        if embeds is not None:
+            h = torch.where(embeds_mask[..., None], embeds.to(h.dtype), h)
+        mrope = _mrope_decode_positions if cfg.mrope else None
+        step = None
+        for name, count, subs in layer_groups(cfg):
+            for lp, mixer, ffn, layer_cache in _group_layers(
+                    params[name], subs, cache[name]):
+                if step is None and mixer != "ssm":
+                    # One routing/RoPE plan for all attention layers, from
+                    # the first one's K (or latent) leaf; SSM layers need
+                    # none.
+                    step = attn.paged_step(cfg, position, block_tables,
+                                           lengths,
+                                           next(iter(layer_cache.values())),
+                                           c, mrope=mrope)
+                    if packed:
+                        step = attn.pack_step(step, fed)
+                h = layer_decode(lp, cfg, h, position, layer_cache,
+                                 mixer=mixer, ffn=ffn, fmt=fmt,
+                                 block_tables=block_tables, lengths=lengths,
+                                 paged_impl=paged_impl, step=step)
+        if rows is not None:
+            h = (h[0] if packed else h.reshape(-1, h.shape[-1])[fed])[heads]
+        h = layers.rmsnorm_apply(params["final_norm"], h, cfg.norm_eps)
+        return _lm_head(params, cfg, h, quant), cache
 
 
 def lm_cache_shapes(cfg: ModelConfig, batch: int, seq: int) -> Dict:

@@ -111,6 +111,8 @@ class GenStats:
     spec_proposed: int = 0          # proposal lanes fed to the verifier
     spec_accepted: int = 0          # proposal lanes accepted
     spec_rolled_back: int = 0       # rejected KV positions rolled back
+    model_rows: int = 0             # rows the token-wise layers ran on
+    logit_rows: int = 0             # rows the lm_head ran on
     step_s: List[float] = dataclasses.field(default_factory=list)
     transfers: Optional[TransferReport] = None
     draft_transfers: Optional[TransferReport] = None  # spec="draft" account
@@ -665,6 +667,23 @@ class ServingEngine:
                     self._spec_ctrl.update(slot, unfilled, 0)
         return feeds, proposals
 
+    def _packed_rows(self, lens: np.ndarray, spec_on: bool):
+        """(fed, heads) int64 host arrays for a packed model call over
+        this replica's slots fed ``lens`` rows each: ``fed`` the flat
+        rows ``slot * C + i``, i < lens[slot], in slot order; ``heads``
+        the positions in ``fed`` of the rows the head runs on — every
+        fed row under speculation (the verification reads them all),
+        else each slot's last fed row (a slot that feeds nothing takes
+        the row before it, which the step then zeroes). None where the
+        model takes no rows or the replica feeds none."""
+        if self.model.packs_layers is None or not lens.any():
+            return None
+        C = self.chunk_size
+        fed = np.flatnonzero(np.arange(C)[None, :] < lens[:, None])
+        if spec_on:
+            return fed, np.arange(fed.size)
+        return fed, np.maximum(np.cumsum(lens, dtype=np.int64) - 1, 0)
+
     def _sampling_vectors(self, seqs: Dict[int, Sequence]):
         """Per-slot temperature/top_k/top_p arrays (engine defaults fill
         request-level unset values)."""
@@ -768,6 +787,17 @@ class ServingEngine:
             else self.arena.local_buffers(lo, hi)
         whole = (put(pos0), put(lens)) if self.dp > 1 else None
         pos0_t = put(pos0[lo:hi])
+        packed = self._packed_rows(lens[lo:hi], spec_on)
+        if packed is not None:
+            fed, heads = packed
+            both = put(np.concatenate([fed, heads]))
+            extra["rows"] = (both[:fed.size], both[fed.size:])
+            stats.model_rows += fed.size if self.model.packs_layers \
+                else (hi - lo) * C
+            stats.logit_rows += heads.size
+        else:
+            stats.model_rows += (hi - lo) * C
+            stats.logit_rows += (hi - lo) * C
         sp.phase("engine.model", "model_call_s")
         with sharding.activation_mesh(self.mesh, data_local=True,
                                       whole_step=whole):
@@ -784,6 +814,13 @@ class ServingEngine:
                     stochastic=bool(np.any(temps > 0)),
                     step_rows=(lo, hi, ns))
         if spec_on:
+            if packed is not None:
+                # The head's rows back in the (B, C, V) layout the
+                # verification reads (zeros where no slot fed: rows it
+                # never selects).
+                rows_bc = logits.new_zeros(((hi - lo) * C, logits.shape[-1]))
+                rows_bc[extra["rows"][0]] = logits
+                logits = rows_bc.reshape(hi - lo, C, -1)
             # The verify step IS the chunked step with the verification
             # head; zero proposals degenerate to plain sampling.
             nxt, acc = sampling.verify_slots(
@@ -795,10 +832,17 @@ class ServingEngine:
             # One read-back: blocks until the step completes.
             nxt_host, acc_host = self._gather_slots(both).T
         else:
-            idx = torch.clamp(lens_t.to(torch.long) - 1, min=0)
-            last = logits[torch.arange(hi - lo, device=dev), idx]   # (B, V)
+            last = logits                   # (B, V): a packed step's head
+            if packed is None:
+                idx = torch.clamp(lens_t.to(torch.long) - 1, min=0)
+                last = logits[torch.arange(hi - lo, device=dev), idx]
+            # A slot that feeds nothing reads zeros, not a row of its
+            # packed neighbour's, so each row is its own slot's on any
+            # replica.
+            active_t = put(active[lo:hi])
+            last = torch.where(active_t[:, None], last, 0.0)
             nxt = sampling.sample_slots(last, gen, put(temps[lo:hi]),
-                                        put(active[lo:hi]), **head)
+                                        active_t, **head)
             sp.phase("engine.readback", "readback_s")
             # blocks until the step completes
             nxt_host = self._gather_slots(nxt)
@@ -936,6 +980,8 @@ class ServingEngine:
             "deferred_feeds": float(self.sched.stats.deferred_feeds),
             "prefill_chunks": float(self.sched.stats.prefill_chunks),
             "paged_kv_read_bytes": stats.paged_kv_read_bytes,
+            "model_rows": float(stats.model_rows),
+            "logit_rows": float(stats.logit_rows),
         }
         if self._proposer is not None:
             counters["draft_steps"] = float(

@@ -105,6 +105,10 @@ METRICS_SCHEMA: Dict[str, Tuple[str, ...]] = {
 TIMING_COUNTERS: Tuple[str, ...] = (
     "host_reserve_s", "host_admit_s", "host_plan_s", "host_upload_s",
     "model_call_s", "sample_s", "readback_s", "host_commit_s")
+#: The port's row counters, per step event: the rows the model call's
+#: token-wise layers ran on (the fed rows of a packed step, else slots x
+#: chunk) and the rows its head ran on.
+ROW_COUNTERS: Tuple[str, ...] = ("model_rows", "logit_rows")
 
 
 class Span(NamedTuple):

@@ -1276,3 +1276,86 @@ def test_paged_attention_mla_shards_match_whole_call(cuda, pages, slots,
     for rows, heads, y in shards:
         for b, n in enumerate(lens[rows]):
             assert torch.equal(y[b, :n], whole[rows][b, :n, heads])
+
+
+# qwen2-72b's B2 shapes (N, K): k/v, q/o, gate/up, lm_head, down.
+QWEN2_72B_NK = [(1024, 8192), (8192, 8192), (29568, 8192), (152064, 8192),
+                (8192, 29568)]
+
+
+@pytest.mark.parametrize("nk", QWEN2_72B_NK,
+                         ids=[f"{n}x{k}" for n, k in QWEN2_72B_NK])
+def test_matmul_q8_0_rows_do_not_follow_the_row_count(cuda, nk):
+    """B2 inside ``plan_rows(256)`` (a packed serving step of 32 slots x
+    chunk 8): each row's output bit for bit the 256-row call's, whether
+    the call carries 1, 45, 64, 100 or 256 of the rows, in any order."""
+    from repro_torch.kernels import ops as kops
+    n, k = nk
+    gen = torch.Generator(device=cuda).manual_seed(n + k)
+    x = torch.randn((256, k), generator=gen, device=cuda).to(torch.bfloat16)
+    planes = pack.quantize(torch.randn((n, k), generator=gen, device=cuda)
+                           * 0.05, "q8_0")
+    with kops.plan_rows(256):
+        full = kops.quantized_matmul(x, planes, "q8_0")
+        for m in (1, 45, 64, 100, 256):
+            idx = torch.randperm(256, generator=gen, device=cuda)[:m]
+            y = kops.quantized_matmul(x[idx], planes, "q8_0")
+            assert torch.equal(y, full[idx]), m
+
+
+def test_packed_qwen2_step_gives_the_padded_tokens(cuda):
+    """qwen2-72b at full width cut to 2 layers (q8_0, bf16 pages of 16):
+    a mixed step of 32 slots x chunk 8 (prompt chunks of 8, decodes of 1,
+    idle slots) run on its fed rows (``rows``) against the same step
+    padded: each active slot's greedy token and logits, and every page,
+    bit for bit."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.convert import quantize_params
+    from repro_torch.models.api import build_model
+    model = build_model(dataclasses.replace(get_config("qwen2-72b"),
+                                            num_layers=2))
+    assert model.packs_layers
+    params = quantize_params(model.init(
+        torch.Generator(device=cuda).manual_seed(0)), "q8_0")
+    slots, chunk, bs, mb = 32, 8, 16, 16
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    i32 = torch.int32
+    lens = torch.tensor([8] * 4 + [1] * 24 + [0] * 4, dtype=i32, device=cuda)
+    pos0 = torch.randint(0, 120, (slots,), generator=gen, device=cuda,
+                         dtype=i32)
+    token = torch.randint(0, model.cfg.vocab_size, (slots, chunk),
+                          generator=gen, device=cuda, dtype=i32)
+    tables = torch.arange(slots * mb, dtype=i32, device=cuda).reshape(
+        slots, mb)
+    tables[lens == 0] = slots * mb                        # the null page
+    shapes = model.paged_cache_shapes(slots, slots * mb + 1, bs)
+
+    def leaf(sh):
+        if isinstance(sh, dict):
+            return {k: leaf(v) for k, v in sh.items()}
+        return torch.randn(sh, generator=gen, device=cuda).to(torch.bfloat16)
+    cache = leaf(shapes)
+    copy = lambda t: {k: copy(v) for k, v in t.items()} \
+        if isinstance(t, dict) else t.clone()              # noqa: E731
+    c_pad, c_pack = copy(cache), copy(cache)
+    kw = dict(quant="q8_0", block_tables=tables, lengths=lens)
+    want, _ = model.decode_step(params, token, pos0, c_pad, **kw)
+    fed = torch.nonzero((torch.arange(chunk, device=cuda)[None, :]
+                         < lens[:, None]).reshape(-1)).flatten()
+    heads = torch.clamp(torch.cumsum(lens.long(), 0) - 1, min=0)
+    got, _ = model.decode_step(params, token, pos0, c_pack,
+                               rows=(fed, heads), **kw)
+    torch.cuda.synchronize()
+    active = lens > 0
+    last = want[torch.arange(slots, device=cuda),
+                torch.clamp(lens.long() - 1, min=0)]
+    assert torch.equal(got[active].argmax(-1), last[active].argmax(-1))
+    assert torch.equal(got[active], last[active]), \
+        float((got[active].float() - last[active].float()).abs().max())
+
+    def leaves(t):
+        return [x for k in sorted(t) for x in leaves(t[k])] \
+            if isinstance(t, dict) else [t]
+    for a, b in zip(leaves(c_pad), leaves(c_pack)):
+        assert torch.equal(a, b)

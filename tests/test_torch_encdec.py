@@ -59,6 +59,7 @@ from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.runtime import kvcache as tkv  # noqa: E402
 from repro_torch.runtime.engine import Engine  # noqa: E402
 from repro_torch.runtime.engine import ServingEngine  # noqa: E402
+from repro_torch.runtime.telemetry import ROW_COUNTERS  # noqa: E402
 from repro_torch.runtime.telemetry import TIMING_COUNTERS  # noqa: E402
 from test_torch_serving import (ARGS, ENGINE, LOGIT_TOL,  # noqa: E402
                                 _trace, check_tokens_up_to_near_ties,
@@ -432,10 +433,12 @@ def check_serve_exact(runs):
         assert getattr(trep.sched, f) == getattr(jrep.sched, f), f
     # The KV read counter follows the attention path (the port's fused
     # walk, the JAX gather): the other counters are compared, but the
-    # port's phase seconds (TIMING_COUNTERS, wall clock).
+    # port's phase seconds (TIMING_COUNTERS, wall clock) and row counters
+    # (ROW_COUNTERS, which the JAX engine does not keep).
     counters = lambda rep: [  # noqa: E731
         {k: v for k, v in e.counters.items()
-         if k != "paged_kv_read_bytes" and k not in TIMING_COUNTERS}
+         if k != "paged_kv_read_bytes"
+         and k not in TIMING_COUNTERS + ROW_COUNTERS}
         for e in rep.timeline.events]
     assert counters(trep) == counters(jrep)
     assert [e.slots for e in trep.timeline.events] == \

@@ -43,6 +43,7 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models.api import build_model  # noqa: E402
 from repro_torch.runtime import kvcache as tkv  # noqa: E402
 from repro_torch.runtime.engine import ServingEngine  # noqa: E402
+from repro_torch.runtime.telemetry import ROW_COUNTERS  # noqa: E402
 from repro_torch.runtime.telemetry import TIMING_COUNTERS  # noqa: E402
 from test_torch_serving import (ARGS, _trace,  # noqa: E402
                                 check_ledger_exact,
@@ -277,9 +278,10 @@ def test_prefix_counters_equal(runs):
                                         j.stats.prefix_hit_tokens,
                                         j.stats.cow_splits)
         assert t.ledger.prefix_hit_tokens == t.stats.prefix_hit_tokens
-        # The port's phase seconds (TIMING_COUNTERS) are wall clock.
+        # The port's phase seconds (TIMING_COUNTERS) are wall clock; its
+        # row counters (ROW_COUNTERS) the JAX engine does not keep.
         assert [{k: v for k, v in e.counters.items()
-                 if k not in TIMING_COUNTERS}
+                 if k not in TIMING_COUNTERS + ROW_COUNTERS}
                 for e in t.timeline.events] == \
             [e.counters for e in j.timeline.events]
         assert t.timeline.ledger_delta_totals() == t.ledger.breakdown()

@@ -60,6 +60,7 @@ from repro_torch.runtime import speculative as tspec  # noqa: E402
 from repro_torch.runtime.engine import ServingEngine  # noqa: E402
 from repro_torch.runtime.request import (Request, SeqState,  # noqa: E402
                                          Sequence)
+from repro_torch.runtime.telemetry import ROW_COUNTERS  # noqa: E402
 from repro_torch.runtime.telemetry import TIMING_COUNTERS  # noqa: E402
 from test_torch_serving import (_trace,  # noqa: E402
                                 check_tokens_up_to_near_ties,
@@ -529,13 +530,14 @@ def _check_spec_run(runs, paged):
     # The KV read counter follows the attention path (the fused kernel's
     # live pages, or the ref gather's whole table): compared where the
     # two engines attend alike. The port's phase seconds
-    # (TIMING_COUNTERS) are wall clock, never compared.
+    # (TIMING_COUNTERS) are wall clock, never compared, and its row
+    # counters (ROW_COUNTERS) the JAX engine does not keep.
     same_attn = runs["jeng"].paged_attn == runs["teng"].paged_attn
     assert same_attn <= (st.paged_kv_read_bytes == js.paged_kv_read_bytes)
     counters = lambda rep: [  # noqa: E731
         {k: v for k, v in e.counters.items()
          if (same_attn or k != "paged_kv_read_bytes")
-         and k not in TIMING_COUNTERS}
+         and k not in TIMING_COUNTERS + ROW_COUNTERS}
         for e in rep.timeline.events]
     assert counters(trep) == counters(jrep)
     assert [e.slots for e in trep.timeline.events] == \

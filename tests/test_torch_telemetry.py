@@ -152,10 +152,11 @@ def test_step_events_equal_jax(runs):
         assert t.step == j.step
         assert t.occupancy == j.occupancy
         # Every counter the JAX engine keeps, exactly; the port's phase
-        # seconds are its own (wall clock, not compared).
-        assert set(ttel.TIMING_COUNTERS) <= set(t.counters)
+        # seconds (wall clock) and row counters are its own, not compared.
+        own = ttel.TIMING_COUNTERS + ttel.ROW_COUNTERS
+        assert set(own) <= set(t.counters)
         assert {k: v for k, v in t.counters.items()
-                if k not in ttel.TIMING_COUNTERS} == j.counters, t.step
+                if k not in own} == j.counters, t.step
         assert t.slots == j.slots, t.step
         assert t.ledger_delta == j.ledger_delta, t.step
         assert t.gauges == j.gauges, t.step
